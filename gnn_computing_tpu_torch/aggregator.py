@@ -2,8 +2,9 @@
 
 Port of the hybrid part of ``gnn_computing_tpu/aggregator.py``: dense int8
 count tiles (schedule.tiles) plus a neighbor-grouping plan for the residual
-edges, run by ops.bcsr.hybrid_spmm.  This slice is forward only: transposed
-plans (backward) and 1-bit tiles are not ported yet.
+edges, run by ops.bcsr.hybrid_spmm (``run``) and ops.bcsr_gat.hybrid_gat
+(``run_gat``).  Forward only: transposed plans (backward), 1-bit tiles and
+the gather-only schedule are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.graph.csr import CSRGraph
 from gnn_computing_tpu_torch.ops.bcsr import hybrid_spmm
+from gnn_computing_tpu_torch.ops.bcsr_gat import hybrid_gat
+from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify
@@ -92,3 +95,26 @@ class Aggregator:
         if not tps:
             raise ValueError("aggregator has no tiles (schedule_hybrid always makes some)")
         return hybrid_spmm(tps, plan, h, residual_gather_dtype, tile_h_mode)
+
+    def run_gat(
+        self,
+        h: torch.Tensor,
+        att: torch.Tensor,
+        relu_slope: float = DEFAULT_SLOPE,
+        stabilize=False,
+        att_gather_dtype=None,
+        h_gather_dtype=None,
+        dot_mode: str = "exact",
+    ) -> torch.Tensor:
+        """Fused GAT attention aggregation (softmax over each row's in-edges
+        of exp(leaky_relu(att[dst, 0] + att[src, 1])), weighting h) over the
+        tiles + residual; see ops.bcsr_gat.hybrid_gat."""
+        tps = self.tile_parts()
+        if not tps:
+            raise NotImplementedError("the gather-only GAT path (Aggregator.schedule) is not ported yet")
+        plan = self.plan if self.plan.num_edges else None
+        return hybrid_gat(
+            tps, plan, h, att, relu_slope=relu_slope,
+            att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype,
+            stabilize=stabilize, dot_mode=dot_mode,
+        )

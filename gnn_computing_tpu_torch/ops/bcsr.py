@@ -13,6 +13,10 @@ and 'native' keep float32 as it is.  Integer count tiles times a split
 operand are exact products, so only the float32 sums round.  Factored
 plans scale h by ``scale_src`` before the tiles and the result by
 ``scale_dst`` after them.
+
+``bcsr_rowmax`` is the per-row max over the same tiles (the GAT softmax
+stabilizer's dense part): the B5 kernel (ops.cuda_rowmax) on a CUDA
+tensor, ``bcsr_rowmax_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from gnn_computing_tpu_torch.ops import cuda_bcsr
+from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_rowmax
 from gnn_computing_tpu_torch.ops.spmm import spmm_plain
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
@@ -104,6 +108,36 @@ def bcsr_spmm(tp, h: torch.Tensor, h_mode: str = "auto") -> torch.Tensor:
     else:
         raise ValueError(f"no tile product for device {x.device}")
     return _post_scale(tp, out)
+
+
+def bcsr_rowmax_plain(tp: TilePlan, col_vals: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Plain PyTorch per-row max, the counterpart of the JAX package's
+    ``_bcsr_rowmax_xla``: out[i] = max of col_vals[j] over tile cells (i, j)
+    with count > 0; -inf where the tiles give row i no edge."""
+    tr, tc = tp.tile_rows, tp.tile_cols
+    nct, nrt = tp.num_col_tiles, tp.num_row_tiles
+    v = torch.full((nct * tc,), float("-inf"), dtype=torch.float32, device=col_vals.device)
+    v[: col_vals.shape[0]] = col_vals
+    v = v.reshape(nct, 1, tc)
+    out_t = torch.full((nrt, tr), float("-inf"), dtype=torch.float32, device=col_vals.device)
+    for s in range(0, tp.num_tiles, chunk):
+        vc = v.index_select(0, tp.tile_col[s : s + chunk].long())
+        tmax = torch.where(tp.a[s : s + chunk] > 0, vc, float("-inf")).amax(dim=2)
+        rows = tp.tile_row[s : s + chunk].long()[:, None].expand(-1, tr)
+        out_t.scatter_reduce_(0, rows, tmax, "amax")
+    return out_t.reshape(nrt * tr)[: tp.num_nodes]
+
+
+def bcsr_rowmax(tp: TilePlan, col_vals: torch.Tensor) -> torch.Tensor:
+    """Per-destination-row max of ``col_vals`` [n_src] over the tile cells
+    with count > 0 (-inf for rows without one).  CUDA tensors go through the
+    B5 kernel, CPU tensors through the plain version."""
+    v = col_vals.float().contiguous()
+    if v.device.type == "cuda":
+        return cuda_rowmax.rowmax_bcsr_cuda(tp, v)
+    if v.device.type == "cpu":
+        return bcsr_rowmax_plain(tp, v)
+    raise ValueError(f"no tile row max for device {v.device}")
 
 
 def hybrid_spmm(

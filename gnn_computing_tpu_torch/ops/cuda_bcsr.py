@@ -1,10 +1,8 @@
-"""Build, load and launch the B1 CUDA kernel (``csrc/bcsr_spmm.cu``).
+"""Launch the B1 CUDA kernel (``csrc/bcsr_spmm.cu``).
 
 The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:bcsr_spmm_pallas``
-for int8 count tiles and a float32 operand.  It is compiled with ``nvcc``
-for ``sm_90a`` at first use into ``build/kernels/`` beside the package,
-keyed by a hash of the source and flags, and bound with ctypes through a
-plain C interface (no PyTorch headers, so the build takes seconds).
+for int8 count tiles and a float32 operand.  ops.cuda_build compiles it at
+first use and binds it with ctypes.
 
 ``launches`` counts kernel launches; it rises only where the kernel is
 launched, so a run can show that its main path went through the kernel.
@@ -13,74 +11,15 @@ launched, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bcsr_spmm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+from gnn_computing_tpu_torch.ops.cuda_build import check_tensor, load, stream_args
+
+NAME = "bcsr_spmm"
+SIGNATURES = {"bcsr_spmm_i8_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
 
 launches = 0
-_lib = None
-
-
-def nvcc_path() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        cuda_home and os.path.join(cuda_home, "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> Path:
-    """Compile the kernel library unless a build of this exact source exists;
-    the compiler's report (registers, spills) is kept beside it as .log."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libbcsr_spmm_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.bcsr_spmm_i8_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.bcsr_spmm_i8_f32.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _check(x: torch.Tensor, name: str, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
-            f"got {'contiguous' if x.is_contiguous() else 'strided'} {x.dtype} "
-            f"{tuple(x.shape)} on {x.device}"
-        )
 
 
 def bcsr_spmm_cuda(tp, h: torch.Tensor) -> torch.Tensor:
@@ -95,19 +34,17 @@ def bcsr_spmm_cuda(tp, h: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"h must be [n_src, f], got {tuple(h.shape)}")
     f = h.shape[1]
     nrt, r, c = tp.num_row_tiles, tp.tile_rows, tp.tile_cols
-    _check(h, "h", torch.float32, (tp.n_src, f), dev)
-    _check(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
-    _check(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
-    _check(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
+    check_tensor(h, "h", torch.float32, (tp.n_src, f), dev)
+    check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
+    check_tensor(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
+    check_tensor(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
     out = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = load()
-    err = lib.bcsr_spmm_i8_f32(
+    err = load(NAME, SIGNATURES).bcsr_spmm_i8_f32(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
         h.data_ptr(), out.data_ptr(), nrt, r, c, tp.num_nodes, tp.n_src, f,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"bcsr_spmm kernel launch failed: cudaError {err}")

@@ -1,0 +1,56 @@
+"""Launch the B2 CUDA kernel (``csrc/gat_bcsr.cu``).
+
+The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bcsr_pallas``
+in mode 'maxdot' for int8 count tiles.  ops.cuda_build compiles it at first
+use and binds it with ctypes.
+
+``launches`` counts kernel launches; it rises only where the kernel is
+launched, so a run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gnn_computing_tpu_torch.ops.cuda_build import check_tensor, load, stream_args
+
+NAME = "gat_bcsr"
+SIGNATURES = {"gat_bcsr_i8_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
+
+launches = 0
+
+
+def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
+    """(num [num_nodes, f], den [num_nodes]) over the plan's tiles, from the
+    per-node exponentials ``u12`` [num_nodes, 2] and ``v12`` [n_src, 2] (see
+    ops.bcsr_gat._branch_factors).  Launches the kernel or raises; it never
+    falls back."""
+    global launches
+    dev = h.device
+    if dev.type != "cuda":
+        raise ValueError(f"gat_bcsr_cuda takes CUDA tensors, got {dev}")
+    if h.dim() != 2:
+        raise ValueError(f"h must be [n_src, f], got {tuple(h.shape)}")
+    f = h.shape[1]
+    nrt, r, c = tp.num_row_tiles, tp.tile_rows, tp.tile_cols
+    check_tensor(h, "h", torch.float32, (tp.n_src, f), dev)
+    check_tensor(u12, "u12", torch.float32, (tp.num_nodes, 2), dev)
+    check_tensor(v12, "v12", torch.float32, (tp.n_src, 2), dev)
+    check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
+    check_tensor(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
+    check_tensor(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
+    num = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
+    den = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
+    if tp.num_nodes == 0:
+        return num, den
+    err = load(NAME, SIGNATURES).gat_bcsr_i8_f32(
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
+        h.data_ptr(), u12.data_ptr(), v12.data_ptr(), num.data_ptr(), den.data_ptr(),
+        nrt, r, c, tp.num_nodes, tp.n_src, f, *stream_args(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"gat_bcsr kernel launch failed: cudaError {err}")
+    launches += 1
+    return num, den

@@ -1,5 +1,5 @@
-"""Dense float64 numpy oracles (small graphs only), a copy of
-``spmm_dense`` from ``gnn_computing_tpu/ops/reference.py``."""
+"""Dense float64 numpy oracles (small graphs only), copies of ``spmm_dense``
+and ``gat_aggregate_dense`` from ``gnn_computing_tpu/ops/reference.py``."""
 
 from __future__ import annotations
 
@@ -19,3 +19,21 @@ def dense_adjacency(g: CSRGraph, val=None) -> np.ndarray:
 
 def spmm_dense(g: CSRGraph, h: np.ndarray, val=None) -> np.ndarray:
     return dense_adjacency(g, val) @ np.asarray(h, np.float64)
+
+
+def gat_aggregate_dense(
+    g: CSRGraph, h: np.ndarray, att_dst: np.ndarray, att_src: np.ndarray, relu_slope: float = 0.2,
+) -> tuple:
+    """Fused-GAT math in float64 over the edge list:
+    score_e = exp(leaky_relu(att_dst[dst_e] + att_src[src_e]));
+    out[i] = sum_e score_e * h[src_e] / sum_e score_e, 0 for rows whose
+    score sum is 0.  Returns (out, edge_scores_unnormalized, row_score_sums)."""
+    h = np.asarray(h, np.float64)
+    z = np.asarray(att_dst, np.float64)[g.dst_per_edge] + np.asarray(att_src, np.float64)[g.indices]
+    score = np.exp(np.where(z > 0, z, z * relu_slope))
+    num = np.zeros((g.num_nodes, h.shape[1]))
+    np.add.at(num, g.dst_per_edge, score[:, None] * h[g.indices])
+    denom = np.zeros(g.num_nodes)
+    np.add.at(denom, g.dst_per_edge, score)
+    safe = np.where(denom == 0.0, 1.0, denom)
+    return num / safe[:, None], score, denom

@@ -36,16 +36,19 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     n_loaded, bad = proc.stdout.strip().splitlines()
-    assert int(n_loaded) >= 15
+    assert int(n_loaded) >= 20
     assert bad == "[]", bad
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from gnn_computing_tpu_torch.aggregator import Aggregator
-    from gnn_computing_tpu_torch.convert import gcn_params_from_jax
+    from gnn_computing_tpu_torch.convert import gat_params_from_jax, gcn_params_from_jax
     from gnn_computing_tpu_torch.graph import rmat_graph
+    from gnn_computing_tpu_torch.models.gat import GAT, glorot_gat_weights
     from gnn_computing_tpu_torch.models.gcn import GCN, glorot_weights
     from gnn_computing_tpu_torch.ops.cuda_bcsr import bcsr_spmm_cuda
+    from gnn_computing_tpu_torch.ops.cuda_gat import gat_bcsr_cuda
+    from gnn_computing_tpu_torch.ops.cuda_rowmax import rowmax_bcsr_cuda
     from gnn_computing_tpu_torch.utils.timing import cuda_time_ms
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -57,6 +60,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         GCN(weights)
     with pytest.raises(RuntimeError, match="cuda"):
         gcn_params_from_jax(weights)
+    gat_weights = glorot_gat_weights((8, 4), seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GAT(gat_weights)
+    with pytest.raises(RuntimeError, match="cuda"):
+        gat_params_from_jax(gat_weights)
     with pytest.raises(RuntimeError, match="CUDA"):
         cuda_time_ms(lambda: None)
     agg = Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, device="cpu")
@@ -64,3 +72,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         agg.to("cuda")
     with pytest.raises(ValueError):
         bcsr_spmm_cuda(agg.tile, torch.zeros(64, 8))
+    # run_gat on a CUDA request: the aggregator cannot be placed on the card,
+    # and the kernel wrappers take CUDA tensors only
+    with pytest.raises(RuntimeError, match="cuda"):
+        Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, device="cpu").to("cuda").run_gat(
+            torch.zeros(64, 8), torch.zeros(64, 2)
+        )
+    with pytest.raises(ValueError):
+        gat_bcsr_cuda(agg.tile, torch.zeros(64, 8), torch.ones(64, 2), torch.ones(64, 2))
+    with pytest.raises(ValueError):
+        rowmax_bcsr_cuda(agg.tile, torch.zeros(64))
+    assert agg.run_gat(torch.zeros(64, 8), torch.zeros(64, 2)).shape == (64, 8)
