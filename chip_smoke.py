@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py [--scale quick|reddit]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card name and power limit; build every kernel with nvcc (sm_90a), one
-     nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr, B5 rowmax_bcsr).
+     nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr, B5 rowmax_bcsr,
+     B3 gat_bwd_dad, B4 gat_bwd_dh_das).
   2. kernel phase: the B1 kernel against its plain PyTorch version on the
      card, at the main path's shapes (f = 128, 64, 32; 'split' and float32
      operands; pack 1 and 16), plus a ragged n with runs made only of filler
@@ -46,12 +47,46 @@ Phases (any failure exits non-zero; nothing is caught):
      torch.sparse.mm of the tile cells' score CSR, built outside the timed
      call, against [h | 1]; B5: index_select + scatter_reduce 'amax' over
      the cell list).
-  8. one "kernels" JSON line, the card line, then {"ok": true, ...}.
+  8. training kernel phase (quick scale): on bench.py --train's plan — the
+     same graph, int8 [256, 256] tiles at threshold 24, 4-slot residual,
+     pack 1 and 16, with its transposed plan — at f = 128, 64, 32: B3
+     (gat_bwd_dad) against gat_bwd_dad_plain and B4 (gat_bwd_dh_das)
+     against gat_bwd_dh_das_plain with att at scale 0.1 unshifted and at
+     scale 15 with the 'bound' shift; B1 over the transposed plan and B2 at
+     [256, 256] against their plain versions; a ragged raw-count plan with a
+     filler-only run, and its transpose.  Check: max|d| <= 1e-5 * max|ref|.
+  9. GCN training: make_train_step over the exact GCN forward
+     (512 -> 128 -> 64 -> 32, glorot_weights through convert.py, bench.py's
+     features and labels, torch.optim.Adam(1e-3)).  At the initial weights,
+     per layer from its own float32 input and a cos(arange) cotangent, the
+     aggregation's input gradient passes the gate against float64 autograd
+     through an index_add_ edge-list oracle (at most PURE_BAD_FRACTION bad),
+     and each weight gradient of the whole step is within GRAD_REL_L2
+     (relative L2) of the float64 edge-list chain's.  Five steps: B1 must
+     launch 6 times per step (3 forward, 3 backward), no GAT kernel; the
+     loss stays finite.
+ 10. GAT training: the same with gat_forward(fast=False, stabilize='bound',
+     dot_mode='split2') and glorot_gat_weights; the per-layer check is on
+     (dh, datt) against float64 autograd of the edge-list GAT oracle; for
+     edges within KINK of leaky-relu's kink (where float32 and float64 may
+     take different sides) the oracles take the port's side.  Five
+     steps: B2, B3 and B4 must launch 3 times per step each, B5 never.
+ 11. training timing: train-step, forward and backward + Adam ms, per layer
+     forward and backward ms; B3 and B4 ms per launch at each f against
+     their bound, plain ms and a library yardstick (B3:
+     torch.sparse.sampled_addmm of gbar h^T on the cells' CSR, then the
+     weighted row sum; B4: torch.sparse.mm of the transposed score CSR
+     against gbar plus the same sampled product on the transposed pattern;
+     the CSRs are built outside the timed call); B1 over the transposed
+     plan and B2 at [256, 256], the same four numbers.
+ 12. one "kernels" JSON line, the card line, then {"ok": true, ...}.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it (the GCN forward for B1, the GAT forward for B2, the
-stabilized GAT forward for B5); launches made to compare a kernel with its
-plain version are not counted.
+stabilized GAT forward for B5, five GCN training steps for B1, five GAT
+training steps for B2, B3 and B4); launches made to compare a kernel with
+its plain version are not counted.  The training phases run at the quick
+scale only (their float64 oracles hold the whole edge list in memory).
 
 The port schedules with pack=1: the CUDA kernels take runs of any length,
 so the TPU kernel's filler tiles would only add work (their cost is printed).
@@ -73,9 +108,20 @@ from gnn_computing_tpu_torch.convert import gat_params_from_jax, gcn_params_from
 from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, normal_features, rmat_graph
 from gnn_computing_tpu_torch.models.gat import gat_forward, glorot_gat_weights
 from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, fast_layer_opts, gcn_layer, glorot_weights
-from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_build, cuda_gat, cuda_rowmax
+from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xent
+from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_build, cuda_gat, cuda_gat_bwd, cuda_rowmax
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
-from gnn_computing_tpu_torch.ops.bcsr_gat import _branch_factors, _hybrid_row_shift, gat_bcsr, gat_bcsr_plain
+from gnn_computing_tpu_torch.ops.bcsr_gat import (
+    _branch_factors,
+    _global_bound_shift,
+    _hybrid_row_shift,
+    gat_bcsr,
+    gat_bcsr_plain,
+    gat_bwd_dad,
+    gat_bwd_dad_plain,
+    gat_bwd_dh_das,
+    gat_bwd_dh_das_plain,
+)
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
 from gnn_computing_tpu_torch.ops.validate import relative_error_count
 from gnn_computing_tpu_torch.schedule.tiles import densify
@@ -84,7 +130,15 @@ from gnn_computing_tpu_torch.utils.timing import cuda_time_ms
 SCALES = {"quick": (1 << 16, 1 << 22), "reddit": (232_965, 114_615_891)}
 SCHEDULE = dict(tile_rows=512, tile_cols=256, threshold=48)  # bench.py defaults
 GAT_SCHEDULE = dict(tile_rows=512, tile_cols=256, threshold=32)  # bench.py --model gat
+TRAIN_SCHEDULE = dict(tile_rows=256, tile_cols=256, threshold=24)  # bench.py --train (--bit-tiles off)
 RESIDUAL_BLOCK = 4
+TRAIN_STEPS = 5
+GRAD_REL_L2 = 1e-4  # whole-step weight gradients against the float64 chain
+# leaky-relu's derivative jumps by (1 - slope) * the attention weight at a
+# zero logit, and for an edge within ~1e-7 of it float32 and float64 may
+# take different sides: for edges within KINK of it the float64 oracles
+# take the side the port's float32 branch test takes
+KINK = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 KERNEL_TOL = 1e-5  # max|kernel - plain| / max|plain|: float32 sum order only
@@ -163,6 +217,14 @@ def edge_sum(z: torch.Tensor, dst, src, weight=None) -> torch.Tensor:
 def reset_counts():
     """Every kernel's launch count to 0, just before a path is driven."""
     cuda_bcsr.launches = cuda_gat.launches = cuda_rowmax.launches = 0
+    cuda_gat_bwd.dad_launches = cuda_gat_bwd.dh_das_launches = 0
+
+
+def counts() -> dict:
+    return dict(
+        B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
+        B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches,
+    )
 
 
 def ragged_graph():
@@ -388,6 +450,407 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> list:
     ]
 
 
+def edge_sum_ad(z: torch.Tensor, dst, src, weight=None) -> torch.Tensor:
+    """out[dst[e]] += weight[e] * z[src[e]], differentiable (no in-place on
+    a tensor autograd keeps)."""
+    msg = z.index_select(0, src)
+    if weight is not None:
+        msg = msg * weight[:, None]
+    return torch.zeros_like(z).index_add(0, dst, msg)
+
+
+def gat_edge_oracle_ad(feat, att, dst, src, kink_pos=None, slope=DEFAULT_SLOPE):
+    """gat_edge_oracle in a differentiable form (float64 autograd oracle).
+    ``kink_pos`` (per edge) gives the side of leaky-relu's kink for the
+    edges whose logit lies within KINK of it."""
+    z = att[dst, 0] + att[src, 1]
+    pos = z > 0
+    if kink_pos is not None:
+        pos = torch.where(z.abs() < KINK, kink_pos, pos)
+    score = torch.exp(torch.where(pos, z, slope * z))
+    den = torch.zeros(feat.shape[0], dtype=feat.dtype, device=feat.device).index_add(0, dst, score)
+    return edge_sum_ad(feat, dst, src, score) / torch.where(den == 0, 1.0, den)[:, None]
+
+
+def cotangent(shape, device) -> torch.Tensor:
+    """An O(1) signed float64 cotangent, cos(arange), as
+    tests/test_gat_streaming_bwd.py uses."""
+    numel = int(np.prod(shape))
+    return torch.cos(torch.arange(numel, dtype=torch.float64, device=device)).reshape(shape)
+
+
+def port_kink_sides(att, tp, dst, src) -> torch.Tensor:
+    """For the edges (dst, src): whether the port's float32 branch test puts
+    them on the z > 0 side, with the 'bound' shift of ``att``: the tile
+    cells' test u1 v1 >= u2 v2 and the residual's exp(lrelu(z) - M) >
+    exp(-M), the same operations on the same device.  Where the two tests
+    differ, the edge's place (a tile cell with a count, else the residual)
+    decides; a cell at the int8 cap, whose edges lie on both sides, raises."""
+    shift = _global_bound_shift(att, DEFAULT_SLOPE)
+    u12, v12 = _branch_factors(att, DEFAULT_SLOPE, shift)
+    pos_tile = u12[dst, 0] * v12[src, 0] >= u12[dst, 1] * v12[src, 1]
+    z = att[:, 0].index_select(0, dst) + att[:, 1].index_select(0, src)
+    sh = shift.index_select(0, dst)
+    pos_res = torch.exp(torch.maximum(z, z * DEFAULT_SLOPE) - sh) > torch.exp(-sh)
+    differ = pos_tile != pos_res
+    if not bool(differ.any()):
+        return pos_tile
+    tile_map = torch.full((tp.num_row_tiles, tp.num_col_tiles), -1, dtype=torch.long, device=dst.device)
+    tile_map[tp.tile_row.long(), tp.tile_col.long()] = torch.arange(tp.num_tiles, device=dst.device)
+    d, s_ = dst[differ], src[differ]
+    t = tile_map[d // tp.tile_rows, s_ // tp.tile_cols]
+    cnt = torch.where(t >= 0, tp.a[t.clamp_min(0), d % tp.tile_rows, s_ % tp.tile_cols].long(), 0)
+    check(not bool((cnt == 127).any()), "a near-kink edge lies in a cell at the int8 cap")
+    pos = pos_tile.clone()
+    pos[differ] = torch.where(cnt > 0, pos_tile[differ], pos_res[differ])
+    return pos
+
+
+def grad_gate(got, want, what: str):
+    """At most PURE_BAD_FRACTION of the elements may miss the gate."""
+    bad = relative_error_count(got, want)
+    err = (got.double() - want).abs().max().item()
+    log(f"  {what}: gate_bad={bad} of {want.numel()} max|d|={err:.3e} max|ref|={want.abs().max().item():.3e}")
+    check(bad <= PURE_BAD_FRACTION * want.numel(), f"{what}: too many elements off the float64 autograd oracle")
+
+
+def rel_l2(got, want) -> float:
+    return ((got.double() - want).norm() / want.norm()).item()
+
+
+def bwd_inputs(n, f, scale, shift, gen, dev):
+    """(h, gbar, c, u12, v12) for the backward kernels: N(0, 1) h, gbar and
+    c; att at ``scale``, with the 'bound' shift folded into u12 if asked."""
+    h = torch.randn((n, f), generator=gen, device=dev)
+    gbar = torch.randn((n, f), generator=gen, device=dev)
+    c = torch.randn(n, generator=gen, device=dev)
+    att = torch.randn((n, 2), generator=gen, device=dev) * scale
+    u12, v12 = _branch_factors(att, DEFAULT_SLOPE, _global_bound_shift(att, DEFAULT_SLOPE) if shift else None)
+    return h, gbar, c, u12, v12
+
+
+def bwd_kernels_vs_plain(tp, tp_t, f, gen, what) -> float:
+    """B3 over ``tp`` and B4 over ``tp_t`` against their plain versions, att
+    at scale 0.1 unshifted and at scale 15 with the 'bound' shift.  Returns
+    max|d| over the three outputs."""
+    err = 0.0
+    for scale, shift in ((0.1, False), (15.0, True)):
+        args = bwd_inputs(tp.num_nodes, f, scale, shift, gen, tp.a.device) + (DEFAULT_SLOPE,)
+        dad = gat_bwd_dad(tp, *args)
+        dh, das = gat_bwd_dh_das(tp_t, *args)
+        want_dad = gat_bwd_dad_plain(tp, *args)
+        want_dh, want_das = gat_bwd_dh_das_plain(tp_t, *args)
+        torch.cuda.synchronize()
+        label = f"{what} f={f} scale {scale}{' bound-shifted' if shift else ''}"
+        for got, want, out in ((dad, want_dad, "d_ad"), (dh, want_dh, "dh"), (das, want_das, "d_as")):
+            err = max(err, compare(got, want, f"{label} {out}", gate=False))
+    return err
+
+
+def bound(nbytes, flops) -> dict:
+    """The least time for ``nbytes`` moved and ``flops`` float32 operations."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return dict(bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations")
+
+
+def cells_csr(rows, cols, vals, shape) -> torch.Tensor:
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape).coalesce().to_sparse_csr()
+
+
+def csr_rows(m: torch.Tensor) -> torch.Tensor:
+    """The row of every stored value of a CSR matrix."""
+    crow = m.crow_indices()
+    return torch.repeat_interleave(torch.arange(crow.numel() - 1, device=crow.device), crow.diff())
+
+
+def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
+    """Phase 11's kernel rows: B3, B4, B1 over tp_t and B2 at each f, ms per
+    launch (pack 1 and 16), bound, plain ms and library yardstick ms."""
+    dev = tp.a.device
+    n = tp.num_nodes
+    c_dst, c_src, c_cnt = tile_cells(tp)
+    nnz = c_cnt.numel()
+    idx = 4 * (tp.num_tiles + tp.num_row_tiles + 1)
+    idx_t = 4 * (tp_t.num_tiles + tp_t.num_row_tiles + 1)
+    csr_t = tile_csr(tp_t)
+    rows = {"B3": [], "B4": [], "B1_t": [], "B2": []}
+    for f in BENCH_DIMS[1:]:
+        h, gbar, c, u12, v12 = bwd_inputs(n, f, 1.0, True, gen, dev)
+        args = (h, gbar, c, u12, v12, DEFAULT_SLOPE)
+        # the cells' scores and lrelu' * score, as CSRs in the forward and the
+        # transposed orientation, built outside the timed calls
+        b1 = u12[c_dst, 0] * v12[c_src, 0]
+        b2 = u12[c_dst, 1] * v12[c_src, 1]
+        score = c_cnt.float() * torch.maximum(b1, b2)
+        wgt = torch.where(b1 >= b2, 1.0, DEFAULT_SLOPE) * score
+        pat, pat_t = cells_csr(c_dst, c_src, wgt, (n, n)), cells_csr(c_src, c_dst, wgt, (n, n))
+        s_fwd, s_t = cells_csr(c_dst, c_src, score, (n, n)), cells_csr(c_src, c_dst, score, (n, n))
+        rows_f, rows_t = csr_rows(pat), csr_rows(pat_t)
+        c_f, c_t = c.index_select(0, rows_f), c.index_select(0, pat_t.col_indices())
+        ht, gbart = h.t().contiguous(), gbar.t().contiguous()
+        h1 = torch.cat([h, torch.ones((n, 1), device=dev)], dim=1)
+
+        def lib_dad():
+            p = torch.sparse.sampled_addmm(pat, gbar, ht, beta=0.0)
+            return torch.zeros(n, device=dev).index_add_(0, rows_f, pat.values() * (p.values() - c_f))
+
+        def lib_dh_das():
+            p = torch.sparse.sampled_addmm(pat_t, h, gbart, beta=0.0)
+            d_as = torch.zeros(n, device=dev).index_add_(0, rows_t, pat_t.values() * (p.values() - c_t))
+            return torch.sparse.mm(s_t, gbar), d_as
+
+        # the yardsticks compute the kernels' functions
+        want_dad = gat_bwd_dad_plain(tp, *args)
+        want_dh, want_das = gat_bwd_dh_das_plain(tp_t, *args)
+        got_dh, got_das = lib_dh_das()
+        for got, want, what in ((lib_dad(), want_dad, "B3"), (got_dh, want_dh, "B4 dh"), (got_das, want_das, "B4 d_as")):
+            check((got - want).abs().max() <= 1e-4 * want.abs().max(), f"{what} library yardstick disagrees at f={f}")
+        io = 4 * f * 2 * n + 8 * 2 * n + 4 * n  # h, gbar, u12, v12, c
+        r3 = dict(
+            f=f, ms=cuda_time_ms(lambda: gat_bwd_dad(tp, *args)),
+            ms_pack16=cuda_time_ms(lambda: gat_bwd_dad(tile16, *args)),
+            plain_ms=cuda_time_ms(lambda: gat_bwd_dad_plain(tp, *args)),
+            library_ms=cuda_time_ms(lib_dad), nnz_cells=nnz,
+            **bound(tp.a.numel() + idx + io + 4 * n, 2.0 * nnz * f),
+        )
+        r4 = dict(
+            f=f, ms=cuda_time_ms(lambda: gat_bwd_dh_das(tp_t, *args)),
+            ms_pack16=cuda_time_ms(lambda: gat_bwd_dh_das(tile_t16, *args)),
+            plain_ms=cuda_time_ms(lambda: gat_bwd_dh_das_plain(tp_t, *args)),
+            library_ms=cuda_time_ms(lib_dh_das), nnz_cells=nnz,
+            **bound(tp_t.a.numel() + idx_t + io + 4 * n * (f + 1), 4.0 * nnz * f),
+        )
+        r1 = dict(
+            f=f, ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp_t, gbar)),
+            ms_pack16=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tile_t16, gbar)),
+            plain_ms=cuda_time_ms(lambda: bcsr_spmm_plain(tp_t, gbar)),
+            library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr_t, gbar)), nnz_cells=nnz,
+            **bound(tp_t.a.numel() + idx_t + 8 * f * n, 2.0 * nnz * f),
+        )
+        att = torch.randn((n, 2), generator=gen, device=dev)
+        u12a, v12a = _branch_factors(att, DEFAULT_SLOPE)
+        r2 = dict(
+            f=f, ms=cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, h, u12a, v12a)),
+            ms_pack16=cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tile16, h, u12a, v12a)),
+            plain_ms=cuda_time_ms(lambda: gat_bcsr_plain(tp, h, att)),
+            library_ms=cuda_time_ms(lambda: torch.sparse.mm(s_fwd, h1)), nnz_cells=nnz,
+            **bound(tp.a.numel() + idx + 4 * f * n + 16 * n + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)),
+        )
+        for k, r in (("B3", r3), ("B4", r4), ("B1_t", r1), ("B2", r2)):
+            r["tiles"] = (tp_t if k in ("B4", "B1_t") else tp).num_tiles
+            rows[k].append(r)
+        for k, r in (("B3", r3), ("B4", r4), ("B1 transposed", r1), ("B2 [256, 256]", r2)):
+            log(
+                f"  f={f} {k}: {r['ms']:.3f} ms/launch (pack16 {r['ms_pack16']:.3f}) bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}) | plain {r['plain_ms']:.3f} | library {r['library_ms']:.3f}"
+            )
+        del pat, pat_t, s_fwd, s_t, b1, b2, score, wgt, h1
+    return rows
+
+
+def train_phases(args, g, h0, gen) -> dict:
+    """Phases 8-11: the backward kernels, then the GCN and GAT training
+    steps.  Returns the kernel rows, launch counts, losses and times."""
+    dev = h0.device
+    n = g.num_nodes
+    t0 = time.perf_counter()
+    agg = Aggregator.schedule_hybrid(
+        g, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, device=dev, **TRAIN_SCHEDULE
+    )
+    build_s = time.perf_counter() - t0
+    tile_host, _ = densify(g, **TRAIN_SCHEDULE)
+    tile_t_host = tile_host.transpose()
+    tile16, tile_t16 = tile_host.pad_runs(16).to(dev), tile_t_host.pad_runs(16).to(dev)
+    tp, tp_t = agg.tile, agg.tile_t
+    log(
+        f"training plan ({args.scale}): tiles={tp.num_tiles} (pack16: {tile16.num_tiles}), transposed "
+        f"{tp_t.num_tiles} ({tp_t.num_tiles - tp.num_tiles} coverage fillers; pack16: {tile_t16.num_tiles}) "
+        f"dense_edges={tp.num_dense_edges} residual_edges={agg.plan.num_edges} tasks={agg.plan.num_tasks} "
+        f"(transposed {agg.plan_t.num_tasks}) longest run={int(np.diff(tile_host.run_start).max())} "
+        f"(transposed {int(np.diff(tile_t_host.run_start).max())}) built in {build_s:.1f} s"
+    )
+    del tile_host, tile_t_host
+
+    # ---- phase 8: the kernels of the training path against their plain versions
+    log("phase 8: B3 vs gat_bwd_dad_plain, B4 vs gat_bwd_dh_das_plain, B1 transposed, B2 at [256, 256]")
+    max_err = {"B3": 0.0, "B1_t": 0.0, "B2": 0.0}
+    with torch.no_grad():
+        for (p, p_t), label in (((tp, tp_t), "pack1"), ((tile16, tile_t16), "pack16")):
+            for f in BENCH_DIMS[1:]:
+                errs = (
+                    bwd_kernels_vs_plain(p, p_t, f, gen, label),
+                    kernel_vs_plain(p_t, f, "native", gen, f"{label} transposed"),
+                    gat_kernel_vs_plain(p, f, gen, f"{label} [256, 256]"),
+                )
+                if p is tp:
+                    for k, e in zip(("B3", "B1_t", "B2"), errs):
+                        max_err[k] = max(max_err[k], e)
+        ng, _ = ragged_graph()
+        ragged_host = densify(ng, **TRAIN_SCHEDULE)[0]
+        ragged, ragged_t = ragged_host.pad_runs(16), ragged_host.transpose().pad_runs(16)
+        fillers, fillers_t = filler_only_runs(ragged), filler_only_runs(ragged_t)
+        check(bool(fillers) and bool(fillers_t), "training ragged case lacks a filler-only run")
+        log(
+            f"  ragged raw-count plan: n={ng.num_nodes} tiles={ragged.num_tiles} filler-only runs={fillers}; "
+            f"transposed tiles={ragged_t.num_tiles} filler-only runs={fillers_t}"
+        )
+        ragged, ragged_t = ragged.to(dev), ragged_t.to(dev)
+        for f in (BENCH_DIMS[1], BENCH_DIMS[3]):
+            bwd_kernels_vs_plain(ragged, ragged_t, f, gen, "ragged")
+            kernel_vs_plain(ragged_t, f, "native", gen, "ragged transposed")
+        del ragged, ragged_t
+
+    g_dst = torch.from_numpy(g.dst_per_edge.astype(np.int64)).to(dev)
+    g_src = torch.from_numpy(g.indices.astype(np.int64)).to(dev)
+    labels = torch.from_numpy(np.random.default_rng(7).integers(0, BENCH_DIMS[-1], n)).to(dev)
+
+    # ---- phase 9: GCN training
+    log(f"phase 9: GCN training, {TRAIN_STEPS} steps of make_train_step (exact modes, Adam 1e-3)")
+    gcn = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
+
+    def gcn_fwd(h):
+        return gcn(agg, h)
+
+    with torch.no_grad():
+        xs = [h0]
+        for w in gcn.weights:
+            xs.append(gcn_layer(agg, xs[-1], w))
+    for i, w in enumerate(gcn.weights):
+        with torch.no_grad():
+            z = xs[i] @ w
+        z.requires_grad_(True)
+        ct = cotangent(tuple(z.shape), dev)
+        (agg.run(z) * ct.float()).sum().backward()
+        z64 = z.detach().double().requires_grad_(True)
+        (edge_sum_ad(z64, g_dst, g_src) * ct).sum().backward()
+        grad_gate(z.grad, z64.grad, f"GCN layer {i + 1} aggregation input gradient vs f64 autograd")
+        del z, z64, ct
+    loss = softmax_xent(gcn_fwd(h0), labels)
+    loss.backward()
+    ws = [w.detach().double().requires_grad_(True) for w in gcn.weights]
+    x = h0.double()
+    for w in ws:
+        x = torch.relu(edge_sum_ad(x @ w, g_dst, g_src))
+    loss64 = torch.nn.functional.cross_entropy(x, labels)
+    loss64.backward()
+    log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
+    for i, (w, w64) in enumerate(zip(gcn.weights, ws)):
+        r = rel_l2(w.grad, w64.grad)
+        log(f"  GCN w{i + 1} gradient vs f64 chain: relative L2 {r:.3e}")
+        check(r <= GRAD_REL_L2, f"GCN w{i + 1} gradient off the float64 chain")
+    del ws, x, loss64
+    gcn.zero_grad(set_to_none=True)
+    step = make_train_step(gcn_fwd, torch.optim.Adam(gcn.parameters(), lr=1e-3), device=dev)
+    reset_counts()
+    losses = [step((h0,), labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    gcn_counts = counts()
+    losses = [float(v) for v in losses]
+    log(f"  losses {losses}; launches in {TRAIN_STEPS} steps: {gcn_counts}")
+    check(gcn_counts["B1"] == 6 * TRAIN_STEPS, "GCN training: B1 did not launch 6 times per step")
+    check(all(v == 0 for k, v in gcn_counts.items() if k != "B1"), "GCN training launched a GAT kernel")
+    check(all(np.isfinite(losses)), "GCN training loss not finite")
+
+    # ---- phase 10: GAT training
+    log(f"phase 10: GAT training, {TRAIN_STEPS} steps (fast=False, stabilize='bound', dot_mode='split2')")
+    gat = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
+
+    def gat_fwd(h):
+        return gat(agg, h, fast=False, stabilize="bound", dot_mode="split2")
+
+    def gat_one(h, p):
+        return gat_forward(agg, [p], h, fast=False, stabilize="bound", dot_mode="split2")
+
+    with torch.no_grad():
+        gxs = [h0]
+        for p in gat.layer_params():
+            gxs.append(gat_one(gxs[-1], p))
+    kink_pos = []  # per layer, the port's side of the kink for every edge
+    for i, p in enumerate(gat.layer_params()):
+        with torch.no_grad():
+            feat = gxs[i] @ p.w
+            att = feat @ p.w_att
+            kink_pos.append(port_kink_sides(att, tp, g_dst, g_src))
+            z = att[g_dst, 0].double() + att[g_src, 1].double()
+        log(f"  GAT layer {i + 1}: {int((z.abs() < KINK).sum())} edges within {KINK} of leaky-relu's kink")
+        feat.requires_grad_(True)
+        att.requires_grad_(True)
+        ct = cotangent(tuple(feat.shape), dev)
+        (agg.run_gat(feat, att, stabilize="bound", dot_mode="split2") * ct.float()).sum().backward()
+        f64 = feat.detach().double().requires_grad_(True)
+        a64 = att.detach().double().requires_grad_(True)
+        (gat_edge_oracle_ad(f64, a64, g_dst, g_src, kink_pos[i]) * ct).sum().backward()
+        grad_gate(feat.grad, f64.grad, f"GAT layer {i + 1} dh vs f64 autograd")
+        grad_gate(att.grad, a64.grad, f"GAT layer {i + 1} datt vs f64 autograd")
+        del feat, att, f64, a64, ct, z
+    loss = softmax_xent(gat_fwd(h0), labels)
+    loss.backward()
+    ps = [(p.w.detach().double().requires_grad_(True), p.w_att.detach().double().requires_grad_(True))
+          for p in gat.layer_params()]
+    x = h0.double()
+    for (w, a), pos in zip(ps, kink_pos):
+        feat = x @ w
+        x = gat_edge_oracle_ad(feat, feat @ a, g_dst, g_src, pos)
+    loss64 = torch.nn.functional.cross_entropy(x, labels)
+    loss64.backward()
+    log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
+    for i, (p, (w64, a64)) in enumerate(zip(gat.layer_params(), ps)):
+        rw, ra = rel_l2(p.w.grad, w64.grad), rel_l2(p.w_att.grad, a64.grad)
+        log(f"  GAT layer {i + 1} gradient vs f64 chain: w relative L2 {rw:.3e}, w_att {ra:.3e}")
+        check(rw <= GRAD_REL_L2 and ra <= GRAD_REL_L2, f"GAT layer {i + 1} gradient off the float64 chain")
+    del ps, x, feat, loss64, g_dst, g_src, kink_pos
+    gat.zero_grad(set_to_none=True)
+    gat_step = make_train_step(gat_fwd, torch.optim.Adam(gat.parameters(), lr=1e-3), device=dev)
+    reset_counts()
+    glosses = [gat_step((h0,), labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    gat_counts = counts()
+    glosses = [float(v) for v in glosses]
+    log(f"  losses {glosses}; launches in {TRAIN_STEPS} steps: {gat_counts}")
+    for k in ("B2", "B3", "B4"):
+        check(gat_counts[k] == 3 * TRAIN_STEPS, f"GAT training: {k} did not launch 3 times per step")
+    check(gat_counts["B1"] == 0 and gat_counts["B5"] == 0, "GAT training launched B1 or B5")
+    check(all(np.isfinite(glosses)), "GAT training loss not finite")
+
+    # ---- phase 11: timing
+    log("phase 11: training timing (CUDA events, median of 10 after 3 warm-up)")
+    times = dict(
+        gcn_step_ms=cuda_time_ms(lambda: step((h0,), labels)),
+        gcn_forward_ms=cuda_time_ms(lambda: gcn_fwd(h0)),
+        gat_step_ms=cuda_time_ms(lambda: gat_step((h0,), labels)),
+        gat_forward_ms=cuda_time_ms(lambda: gat_fwd(h0)),
+    )
+    for m in ("gcn", "gat"):
+        times[f"{m}_backward_adam_ms"] = times[f"{m}_step_ms"] - times[f"{m}_forward_ms"]
+        log(
+            f"  {m.upper()} step {times[f'{m}_step_ms']:.3f} ms = forward {times[f'{m}_forward_ms']:.3f} "
+            f"+ backward and Adam {times[f'{m}_backward_adam_ms']:.3f}"
+        )
+    layers = []
+    for i, (w, p) in enumerate(zip(gcn.weights, gat.layer_params())):
+        ct = cotangent((n, w.shape[1]), dev).float()
+        row = dict(layer=i + 1, f=int(w.shape[1]))
+        row["gcn_forward_ms"] = cuda_time_ms(lambda: gcn_layer(agg, xs[i], w))
+        row["gcn_fwd_bwd_ms"] = cuda_time_ms(lambda: (gcn_layer(agg, xs[i], w) * ct).sum().backward())
+        row["gat_forward_ms"] = cuda_time_ms(lambda: gat_one(gxs[i], p))
+        row["gat_fwd_bwd_ms"] = cuda_time_ms(lambda: (gat_one(gxs[i], p) * ct).sum().backward())
+        for m in ("gcn", "gat"):
+            row[f"{m}_backward_ms"] = row[f"{m}_fwd_bwd_ms"] - row[f"{m}_forward_ms"]
+        layers.append(row)
+        log(
+            f"  layer {i + 1} f={row['f']}: GCN forward {row['gcn_forward_ms']:.3f} backward "
+            f"{row['gcn_backward_ms']:.3f} ms | GAT forward {row['gat_forward_ms']:.3f} backward "
+            f"{row['gat_backward_ms']:.3f} ms"
+        )
+    del xs, gxs
+    with torch.no_grad():
+        rows = train_kernel_times(tp, tp_t, tile16, tile_t16, gen)
+    return dict(
+        rows=rows, max_err=max_err, times=times, layers=layers,
+        gcn_counts=gcn_counts, gat_counts=gat_counts, gcn_losses=losses, gat_losses=glosses,
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -550,8 +1013,14 @@ def main() -> int:
     del agg, tile16, model, xs
     torch.cuda.empty_cache()
     gat_kernels = gat_phases(args, g, h0, gen, forwards, libs)
+    torch.cuda.empty_cache()
+    train = None
+    if args.scale == "quick":
+        train = train_phases(args, g, h0, gen)
+    else:
+        log("phases 8-11 (training) run at the quick scale only")
 
-    # ---- phase 8: report
+    # ---- phase 12: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
     kernels = [dict(
         name="bcsr_spmm",
@@ -566,6 +1035,39 @@ def main() -> int:
         library_ms=total("library_ms"),
         forward_ms=fwd_ms, build_s=build_s, scale=args.scale, shapes=shapes,
     )] + gat_kernels
+    if train is not None:
+        def summed(rows, **extra):
+            # times summed over the three launches of one training step (f=128, 64, 32)
+            return dict(
+                ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
+                library_ms=sum(r["library_ms"] for r in rows), shapes=rows, **extra,
+            )
+
+        rows, tt = train["rows"], train["times"]
+        kernels[0]["training"] = dict(
+            path=f"GCN training step (B1 forward and over the transposed plan), {TRAIN_STEPS} steps",
+            launches=train["gcn_counts"]["B1"], launches_per_step=6, max_abs_err=train["max_err"]["B1_t"],
+            step_ms=tt["gcn_step_ms"], **summed(rows["B1_t"], over="transposed [256, 256] plan"),
+        )
+        kernels[1]["training"] = dict(
+            path=f"GAT training step, {TRAIN_STEPS} steps", launches=train["gat_counts"]["B2"], launches_per_step=3,
+            max_abs_err=train["max_err"]["B2"], step_ms=tt["gat_step_ms"], **summed(rows["B2"], over="[256, 256] plan"),
+        )
+        for kname, key, replaces in (
+            ("gat_bwd_dad", "B3", "gnn_computing_tpu/ops/pallas_bcsr.py:869"),
+            ("gat_bwd_dh_das", "B4", "gnn_computing_tpu/ops/pallas_bcsr.py:1045"),
+        ):
+            kernels.append(dict(
+                name=kname, route="cuda", source=f"gnn_computing_tpu_torch/csrc/{kname}.cu", replaces=replaces,
+                launches=train["gat_counts"][key], launches_per_step=3, max_abs_err=train["max_err"]["B3"],
+                **summed(rows[key]), path=f"GAT training step (fast=False, stabilize='bound', split2), {TRAIN_STEPS} steps",
+                step_ms=tt["gat_step_ms"], build_s=libs[kname][1], scale=args.scale,
+            ))
+        print(json.dumps({"training": dict(
+            times=tt, layers=train["layers"], gcn_losses=train["gcn_losses"], gat_losses=train["gat_losses"],
+        )}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

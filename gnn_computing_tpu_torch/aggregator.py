@@ -3,8 +3,9 @@
 Port of the hybrid part of ``gnn_computing_tpu/aggregator.py``: dense int8
 count tiles (schedule.tiles) plus a neighbor-grouping plan for the residual
 edges, run by ops.bcsr.hybrid_spmm (``run``) and ops.bcsr_gat.hybrid_gat
-(``run_gat``).  Forward only: transposed plans (backward), 1-bit tiles and
-the gather-only schedule are not ported yet.
+(``run_gat``).  ``with_transpose=True`` adds the transposed tile plan, the
+transposed residual plan and the edge map that the ops' backwards stream.
+Not ported yet: 1-bit tiles and the gather-only schedule.
 """
 
 from __future__ import annotations
@@ -32,9 +33,16 @@ class Aggregator:
     n_src: int
     num_edges: int
     tile: Optional[TilePlan] = None
+    # transposed plans for the backward (with_transpose=True)
+    tile_t: Optional[TilePlan] = None
+    plan_t: Optional[AggregationPlan] = None
+    edge_map_t: Optional[object] = None  # transposed residual edge -> residual edge
 
     def tile_parts(self) -> tuple:
         return tuple(p for p in (self.tile,) if p is not None and p.num_tiles)
+
+    def tile_parts_t(self) -> tuple:
+        return tuple(p for p in (self.tile_t,) if p is not None and p.num_tiles)
 
     @classmethod
     def schedule_hybrid(
@@ -56,9 +64,10 @@ class Aggregator:
         ``residual_block``) for the edges left outside them, placed on
         ``device``.  ``pack`` pads tile-row runs to a multiple of that many
         tiles as the TPU kernel needs; the CUDA kernel takes any run length,
-        so ``pack=1`` saves the filler tiles there."""
-        if with_transpose:
-            raise NotImplementedError("transposed plans (backward) are not ported yet")
+        so ``pack=1`` saves the filler tiles there.  ``with_transpose``
+        also builds what the backward streams: the transposed tile plan
+        (from the unpadded plan, then padded), a neighbor-grouping plan of
+        the transposed residual with the same block, and its edge map."""
         if bit_tiles:
             raise NotImplementedError("1-bit tiles are not ported yet")
         dev = resolve_device(device)
@@ -67,21 +76,40 @@ class Aggregator:
             threshold=threshold, dtype=tile_dtype, **densify_kw,
         )
         plan = neighbor_grouping_plan(res, block_size=residual_block)
+        tile_t = plan_t = edge_map = None
+        if with_transpose:
+            tile_t = tile.transpose().pad_runs(pack)
+            gt, edge_map = res.transpose_with_map()
+            plan_t = neighbor_grouping_plan(gt, block_size=residual_block)
+            edge_map = edge_map.astype(np.int32)
         agg = cls(
             plan=plan,
             num_nodes=g.num_nodes,
             n_src=g.n_src,
             num_edges=g.num_edges,
             tile=tile.pad_runs(pack),
+            tile_t=tile_t,
+            plan_t=plan_t,
+            edge_map_t=edge_map,
         )
         return agg.to(dev)
 
     def to(self, device) -> "Aggregator":
+        dev = resolve_device(device)
         return dataclasses.replace(
             self,
-            plan=self.plan.to(device),
-            tile=None if self.tile is None else self.tile.to(device),
+            plan=self.plan.to(dev),
+            tile=None if self.tile is None else self.tile.to(dev),
+            tile_t=None if self.tile_t is None else self.tile_t.to(dev),
+            plan_t=None if self.plan_t is None else self.plan_t.to(dev),
+            edge_map_t=None if self.edge_map_t is None else torch.as_tensor(self.edge_map_t).to(dev, torch.int64),
         )
+
+    def _plans_t(self):
+        """(transposed tile parts or None, transposed residual plan or None)
+        for the ops' backwards."""
+        plan_t = self.plan_t if self.plan_t is not None and self.plan_t.num_edges else None
+        return self.tile_parts_t() or None, plan_t
 
     def run(
         self,
@@ -89,12 +117,14 @@ class Aggregator:
         residual_gather_dtype=None,
         tile_h_mode: str = "auto",
     ) -> torch.Tensor:
-        """Weighted aggregation out = A @ h over tiles + residual."""
+        """Weighted aggregation out = A @ h over tiles + residual;
+        differentiable in h when the aggregator holds transposed plans."""
         tps = self.tile_parts()
         plan = self.plan if self.plan.num_edges else None
         if not tps:
             raise ValueError("aggregator has no tiles (schedule_hybrid always makes some)")
-        return hybrid_spmm(tps, plan, h, residual_gather_dtype, tile_h_mode)
+        tp_t, plan_t = self._plans_t()
+        return hybrid_spmm(tps, plan, h, residual_gather_dtype, tile_h_mode, tp_t=tp_t, plan_t=plan_t)
 
     def run_gat(
         self,
@@ -108,13 +138,16 @@ class Aggregator:
     ) -> torch.Tensor:
         """Fused GAT attention aggregation (softmax over each row's in-edges
         of exp(leaky_relu(att[dst, 0] + att[src, 1])), weighting h) over the
-        tiles + residual; see ops.bcsr_gat.hybrid_gat."""
+        tiles + residual; see ops.bcsr_gat.hybrid_gat.  Differentiable in
+        (h, att) when the aggregator holds transposed plans."""
         tps = self.tile_parts()
         if not tps:
             raise NotImplementedError("the gather-only GAT path (Aggregator.schedule) is not ported yet")
         plan = self.plan if self.plan.num_edges else None
+        tp_t, plan_t = self._plans_t()
         return hybrid_gat(
             tps, plan, h, att, relu_slope=relu_slope,
             att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype,
             stabilize=stabilize, dot_mode=dot_mode,
+            tp_t=tp_t, plan_t=plan_t, edge_map_t=self.edge_map_t,
         )

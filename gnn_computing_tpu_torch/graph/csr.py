@@ -83,6 +83,22 @@ class CSRGraph:
         np.cumsum(counts, out=indptr[1:])
         return cls(indptr=indptr.astype(np.int32), indices=src, val=val, n_src=n_src)
 
+    def transpose(self) -> "CSRGraph":
+        """Reverse every edge (dst <-> src), for backward aggregation."""
+        return self.transpose_with_map()[0]
+
+    def transpose_with_map(self) -> tuple:
+        """(gt, edge_map): the transposed graph and the edge correspondence,
+        transposed edge ``i`` being original edge ``edge_map[i]`` (int64).
+        Carries per-edge values (e.g. attention scores) into aggregation
+        over the reversed graph."""
+        dst = self.indices.astype(np.int64)
+        order = np.argsort(dst, kind="stable")
+        gt = CSRGraph.from_edges(
+            dst=dst, src=self.dst_per_edge, num_nodes=self.n_src, val=self.val, n_src=self.num_nodes,
+        )
+        return gt, order.astype(np.int64)
+
     def reorder(self, rows: np.ndarray) -> "CSRGraph":
         """Permute the graph so new row ``i`` is old row ``rows[i]``; sources
         are renumbered through the inverse permutation.  Square graphs only."""

@@ -1,6 +1,6 @@
 """Block-sparse aggregation over dense count tiles + the hybrid op.
 
-Port of ``gnn_computing_tpu/ops/bcsr.py`` (forward only).  ``bcsr_spmm``
+Port of ``gnn_computing_tpu/ops/bcsr.py``.  ``bcsr_spmm``
 computes out = A_tiles @ h: on a CUDA tensor it launches the hand-written
 kernel (ops.cuda_bcsr, the port of the TPU kernel ``bcsr_spmm_pallas``); on
 a CPU tensor it runs ``bcsr_spmm_plain``, the counterpart of the JAX
@@ -17,6 +17,12 @@ plans scale h by ``scale_src`` before the tiles and the result by
 ``bcsr_rowmax`` is the per-row max over the same tiles (the GAT softmax
 stabilizer's dense part): the B5 kernel (ops.cuda_rowmax) on a CUDA
 tensor, ``bcsr_rowmax_plain`` on a CPU tensor.
+
+``hybrid_spmm`` is a ``torch.autograd.Function`` (the JAX op's custom VJP):
+its backward aggregates the cotangent over the transposed plans, B1 over
+the transposed tiles plus the transposed residual.  The kernel wrappers
+refuse tensors that require grad with grad enabled, so no kernel output
+ever stands in a graph without its Function's backward.
 """
 
 from __future__ import annotations
@@ -140,17 +146,45 @@ def bcsr_rowmax(tp: TilePlan, col_vals: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"no tile row max for device {v.device}")
 
 
+class HybridSpmm(torch.autograd.Function):
+    """out = (A_tiles + A_residual) @ h; dh = (A_tiles^T + A_residual^T) @ ct
+    over the transposed plans, in the exact modes whatever the forward's
+    (cotangents are signed and cancel)."""
+
+    @staticmethod
+    def forward(ctx, h, tp, plan, tp_t, plan_t, residual_gather_dtype, tile_h_mode):
+        ctx.plans_t = (tp_t, plan_t, plan is not None)
+        out = bcsr_spmm(tp, h, h_mode=tile_h_mode)
+        if plan is not None:
+            out = out + spmm_plain(plan, h, gather_dtype=residual_gather_dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        tp_t, plan_t, has_residual = ctx.plans_t
+        if tp_t is None or (has_residual and plan_t is None):
+            raise RuntimeError(
+                "hybrid_spmm backward needs the transposed plans: build the "
+                "aggregator with schedule_hybrid(..., with_transpose=True)"
+            )
+        dh = bcsr_spmm(tp_t, ct)
+        if has_residual:
+            dh = dh + spmm_plain(plan_t, ct)
+        return dh, None, None, None, None, None, None
+
+
 def hybrid_spmm(
     tp,
     plan: Optional[AggregationPlan],
     h: torch.Tensor,
     residual_gather_dtype=None,
     tile_h_mode: str = "auto",
+    tp_t=None,
+    plan_t: Optional[AggregationPlan] = None,
 ) -> torch.Tensor:
-    """out = (A_tiles + A_residual) @ h, forward only (the JAX op's
-    transposed-plan backward comes with training).  Edge values live inside
-    the plans."""
-    out = bcsr_spmm(tp, h, h_mode=tile_h_mode)
-    if plan is not None:
-        out = out + spmm_plain(plan, h, gather_dtype=residual_gather_dtype)
-    return out
+    """out = (A_tiles + A_residual) @ h.  Edge values live inside the plans
+    (constants here).  Differentiable in h through HybridSpmm, whose
+    backward needs the transposed tile parts ``tp_t`` and, where there is a
+    residual, its transposed plan ``plan_t`` (Aggregator.schedule_hybrid
+    with_transpose=True)."""
+    return HybridSpmm.apply(h, tp, plan, tp_t, plan_t, residual_gather_dtype, tile_h_mode)

@@ -1,6 +1,6 @@
 """GAT attention aggregation over dense count tiles, hybrid with the residual.
 
-Port of the forward of ``gnn_computing_tpu/ops/bcsr_gat.py``.  Leaky-relu is
+Port of ``gnn_computing_tpu/ops/bcsr_gat.py``.  Leaky-relu is
 piecewise linear, so each attention score factors into per-node
 exponentials on each branch:
 
@@ -27,7 +27,23 @@ denominators still merge exactly; it cancels in num/den):
       over the tiles (bcsr_rowmax, kernel B5) and the residual;
   stabilize='bound': M_i = max(ad_i + A, s (ad_i + A)), A = max_j as_j: O(n),
       no pass over the adjacency.
-Forward only: the custom backward comes with training.
+
+Backward (``hybrid_gat`` is a ``torch.autograd.Function``, the JAX op's
+custom VJP).  out_i = num_i / den_i with s_ij = cnt_ij exp(lrelu(ad_i + as_j)
+- M_i) and M a constant (it cancels in num/den).  With gbar_i = ct_i / den_i
+and c_i = <ct_i, out_i> / den_i:
+
+  dh_j   = sum_i s_ij gbar_i                               (transposed SpMM)
+  d ad_i = sum_j lrelu'(z_ij) s_ij (<gbar_i, h_j> - c_i)   (row sums)
+  d as_j = sum_i lrelu'(z_ij) s_ij (<gbar_i, h_j> - c_i)   (column sums)
+
+and on the factored scores the branch test z > 0 is u1 v1 >= u2 v2.  d_ad
+streams the forward tile plan (``gat_bwd_dad``: the B3 kernel on CUDA),
+(dh, d_as) the transposed one (``gat_bwd_dh_das``: B4), and the residual
+has a flat hand-written backward over the forward and transposed residual
+plans (``_residual_bwd_flat``).  The JAX package's fallback of AD through
+the forward when no transposed plans exist is not ported: the backward
+raises and asks for them.
 """
 
 from __future__ import annotations
@@ -36,9 +52,15 @@ from typing import Optional
 
 import torch
 
-from gnn_computing_tpu_torch.ops import cuda_gat
+from gnn_computing_tpu_torch.ops import cuda_gat, cuda_gat_bwd
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate_parts, leaky_relu, slot_mask
+from gnn_computing_tpu_torch.ops.spmm import (
+    edge_values_from_slots_flat,
+    sddmm_slots,
+    slots_from_edge_values_flat,
+    spmm_plain,
+)
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
 
@@ -119,10 +141,7 @@ def gat_bcsr(
     """(num, den) of the tile edges.  ``tp`` is a TilePlan or a sequence of
     them whose partial sums add.  CUDA tensors go through the B2 kernel,
     CPU tensors through the plain version."""
-    if dot_mode == "default":
-        raise NotImplementedError("dot_mode 'default' (single-rounded bf16) is not ported")
-    if dot_mode not in DOT_MODES:
-        raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
+    _check_dot_mode(dot_mode)
     if isinstance(tp, (tuple, list)):
         parts = [p for p in tp if p is not None and p.num_tiles]
         num, den = gat_bcsr(parts[0], h, att, relu_slope, row_shift, dot_mode)
@@ -138,6 +157,102 @@ def gat_bcsr(
     if h.device.type == "cpu":
         return gat_bcsr_plain(tp, h, att, relu_slope, row_shift)
     raise ValueError(f"no GAT tile aggregation for device {h.device}")
+
+
+def _check_dot_mode(dot_mode: str):
+    if dot_mode == "default":
+        raise NotImplementedError("dot_mode 'default' (single-rounded bf16) is not ported")
+    if dot_mode not in DOT_MODES:
+        raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
+
+
+def _branch_scores(a_c, u, v, relu_slope: float):
+    """(s, lrelu') of a chunk of tiles from the row-side factors u [ch, R, 2]
+    and the column-side v [ch, C, 2].  Select on the count before scaling:
+    a non-edge's branch product can be inf, and 0 * inf = NaN."""
+    b1 = u[:, :, None, 0] * v[:, None, :, 0]
+    b2 = u[:, :, None, 1] * v[:, None, :, 1]
+    s = torch.where(a_c > 0, a_c * torch.maximum(b1, b2), 0.0)
+    lp = torch.where(b1 >= b2, 1.0, relu_slope)
+    return s, lp
+
+
+def gat_bwd_dad_plain(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float, chunk: int = 256) -> torch.Tensor:
+    """d_att_dst [num_nodes] over the forward tile plan, the counterpart of
+    ``gat_bwd_dad_xla``: per chunk of tiles, the cells' scores and branch
+    slopes, the [R, C] products <gbar_i, h_j> by bmm, and the row sums of
+    lrelu' s (<gbar_i, h_j> - c_i) added into the destination row-tiles."""
+    tr, tc = tp.tile_rows, tp.tile_cols
+    nct, nrt = tp.num_col_tiles, tp.num_row_tiles
+    f = h.shape[-1]
+    u12p = _pad_to(u12.float(), nrt * tr).reshape(nrt, tr, 2)
+    cp = _pad_to(c.float(), nrt * tr).reshape(nrt, tr)
+    gb = _pad_to(gbar.float(), nrt * tr).reshape(nrt, tr, f)
+    v12p = _pad_to(v12.float(), nct * tc).reshape(nct, tc, 2)
+    hp = _pad_to(h.float(), nct * tc).reshape(nct, tc, f)
+    acc = torch.zeros((nrt, tr), dtype=torch.float32, device=h.device)
+    for s0 in range(0, tp.num_tiles, chunk):
+        col = tp.tile_col[s0 : s0 + chunk].long()
+        row = tp.tile_row[s0 : s0 + chunk].long()
+        s, lp = _branch_scores(tp.a[s0 : s0 + chunk].float(), u12p.index_select(0, row), v12p.index_select(0, col), relu_slope)
+        p = torch.bmm(gb.index_select(0, row), hp.index_select(0, col).transpose(1, 2))
+        tt = lp * s * (p - cp.index_select(0, row)[:, :, None])
+        acc.index_add_(0, row, tt.sum(dim=2))
+    return acc.reshape(nrt * tr)[: tp.num_nodes]
+
+
+def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float, chunk: int = 256):
+    """(dh [n_src, f], d_att_src [n_src]) over the transposed tile plan (rows
+    are sources j, columns destinations i), the counterpart of
+    ``gat_bwd_dh_das_xla``: dh_j = sum_i s_ij gbar_i and the row sums of
+    lrelu' s (<gbar_i, h_j> - c_i)."""
+    tr, tc = tp_t.tile_rows, tp_t.tile_cols
+    nct, nrt = tp_t.num_col_tiles, tp_t.num_row_tiles
+    f = h.shape[-1]
+    v12p = _pad_to(v12.float(), nrt * tr).reshape(nrt, tr, 2)
+    hp = _pad_to(h.float(), nrt * tr).reshape(nrt, tr, f)
+    u12p = _pad_to(u12.float(), nct * tc).reshape(nct, tc, 2)
+    cp = _pad_to(c.float(), nct * tc).reshape(nct, tc)
+    gb = _pad_to(gbar.float(), nct * tc).reshape(nct, tc, f)
+    acch = torch.zeros((nrt, tr, f), dtype=torch.float32, device=h.device)
+    accs = torch.zeros((nrt, tr), dtype=torch.float32, device=h.device)
+    for s0 in range(0, tp_t.num_tiles, chunk):
+        col = tp_t.tile_col[s0 : s0 + chunk].long()
+        row = tp_t.tile_row[s0 : s0 + chunk].long()
+        s, lp = _branch_scores(tp_t.a[s0 : s0 + chunk].float(), v12p.index_select(0, row), u12p.index_select(0, col), relu_slope)
+        gbc = gb.index_select(0, col)
+        acch.index_add_(0, row, torch.bmm(s, gbc))
+        p = torch.bmm(hp.index_select(0, row), gbc.transpose(1, 2))
+        tt = lp * s * (p - cp.index_select(0, col)[:, None, :])
+        accs.index_add_(0, row, tt.sum(dim=2))
+    n = tp_t.num_nodes
+    return acch.reshape(nrt * tr, f)[:n], accs.reshape(nrt * tr)[:n]
+
+
+def gat_bwd_dad(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tensor:
+    """d_att_dst over the forward tile plan: the B3 kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if h.device.type == "cuda":
+        return cuda_gat_bwd.gat_bwd_dad_cuda(
+            tp, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),
+            u12[: tp.num_nodes].float().contiguous(), v12[: tp.n_src].float().contiguous(), relu_slope,
+        )
+    if h.device.type == "cpu":
+        return gat_bwd_dad_plain(tp, h, gbar, c, u12, v12, relu_slope)
+    raise ValueError(f"no GAT tile backward for device {h.device}")
+
+
+def gat_bwd_dh_das(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float):
+    """(dh, d_att_src) over the transposed tile plan: the B4 kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if h.device.type == "cuda":
+        return cuda_gat_bwd.gat_bwd_dh_das_cuda(
+            tp_t, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),
+            u12[: tp_t.n_src].float().contiguous(), v12[: tp_t.num_nodes].float().contiguous(), relu_slope,
+        )
+    if h.device.type == "cpu":
+        return gat_bwd_dh_das_plain(tp_t, h, gbar, c, u12, v12, relu_slope)
+    raise ValueError(f"no GAT tile backward for device {h.device}")
 
 
 def _hybrid_row_shift(tp, plan: Optional[AggregationPlan], att: torch.Tensor, relu_slope: float) -> torch.Tensor:
@@ -183,6 +298,91 @@ def _resolve_shift(tp, plan, att, relu_slope, stabilize) -> torch.Tensor:
     raise ValueError(f"stabilize must be False, True, 'exact' or 'bound', got {stabilize!r}")
 
 
+def _residual_bwd_flat(plan, plan_t, edge_map_t, h, gbar, c, score_flat, shift, relu_slope: float):
+    """The residual's (dh, d_ad, d_as), every slot array flat: dz_e =
+    lrelu' s_e (<gbar_i, h_j> - c_i); d_ad by task then destination sums on
+    the forward plan, d_as by a scatter over sources, dh over the transposed
+    plan with the slot scores carried across by the edge map.  The branch
+    test comes from the saved score: z > 0 <=> exp(z - M) > exp(-M)."""
+    b = plan.block_size
+    dst = plan.dst
+    s_flat = score_flat.float()
+    p_flat = sddmm_slots(plan, h.float(), gbar)
+    dsz = s_flat * (p_flat - c.index_select(0, dst).repeat_interleave(b))
+    thr = 1.0 if shift is None else torch.exp(-shift.index_select(0, dst)).repeat_interleave(b)
+    dz = torch.where(s_flat > thr, 1.0, relu_slope) * dsz
+    d_ad = torch.zeros((plan.num_nodes,), dtype=torch.float32, device=h.device)
+    d_ad.index_add_(0, dst, dz.reshape(-1, b).sum(dim=1))
+    d_as = torch.zeros((plan.n_src,), dtype=torch.float32, device=h.device)
+    d_as.index_add_(0, plan.src_flat(), dz)
+    s_t = slots_from_edge_values_flat(plan_t, edge_values_from_slots_flat(plan, s_flat)[edge_map_t])
+    dh = spmm_plain(plan_t, gbar, val=s_t)
+    return dh, d_ad, d_as
+
+
+def _parts(tp) -> list:
+    return [p for p in (tp if isinstance(tp, (tuple, list)) else (tp,)) if p is not None and p.num_tiles]
+
+
+class HybridGat(torch.autograd.Function):
+    """The GAT aggregation over tiles + residual with the hand-written
+    backward of the module doc.  The forward resolves the shift once and
+    saves it with out, den and the residual's slot scores."""
+
+    @staticmethod
+    def forward(ctx, h, att, tp, plan, tp_t, plan_t, edge_map_t, relu_slope, att_gather_dtype, h_gather_dtype,
+                stabilize, dot_mode):
+        shift = _resolve_shift(tp, plan, att, relu_slope, stabilize) if stabilize else None
+        num, den = gat_bcsr(tp, h, att, relu_slope, row_shift=shift, dot_mode=dot_mode)
+        score = None
+        if plan is not None and plan.num_edges:
+            nr, dr, score = gat_aggregate_parts(
+                plan, h, att, relu_slope=relu_slope,
+                att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype, row_shift=shift,
+            )
+            num = num + nr
+            den = den + dr
+            score = score.reshape(-1)
+        safe = torch.where(den == 0.0, 1.0, den)
+        out = (num / safe[:, None]).to(h.dtype)
+        ctx.save_for_backward(h, att, out, safe, shift, score)
+        ctx.plans = (tp, plan, tp_t, plan_t, edge_map_t)
+        ctx.relu_slope = relu_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        h, att, out, safe, shift, score = ctx.saved_tensors
+        tp, plan, tp_t, plan_t, edge_map_t = ctx.plans
+        has_residual = score is not None
+        if tp_t is None or (has_residual and (plan_t is None or edge_map_t is None)):
+            raise RuntimeError(
+                "hybrid_gat backward needs the transposed plans: build the "
+                "aggregator with schedule_hybrid(..., with_transpose=True)"
+            )
+        slope = ctx.relu_slope
+        ctf = ct.float()
+        gbar = ctf / safe[:, None]
+        c = (ctf * out.float()).sum(dim=1) / safe
+        u12, v12 = _branch_factors(att, slope, shift)
+        dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+        d_ad = torch.zeros((att.shape[0],), dtype=torch.float32, device=h.device)
+        d_as = torch.zeros((att.shape[0],), dtype=torch.float32, device=h.device)
+        for p in _parts(tp):
+            d_ad = d_ad + gat_bwd_dad(p, h, gbar, c, u12, v12, slope)
+        for p in _parts(tp_t):
+            dht, dast = gat_bwd_dh_das(p, h, gbar, c, u12, v12, slope)
+            dh = dh + dht
+            d_as = d_as + dast
+        if has_residual:
+            dh_r, dad_r, das_r = _residual_bwd_flat(plan, plan_t, edge_map_t, h, gbar, c, score, shift, slope)
+            dh = dh + dh_r
+            d_ad = d_ad + dad_r
+            d_as = d_as + das_r
+        datt = torch.stack([d_ad, d_as], dim=1).to(att.dtype)
+        return (dh.to(h.dtype), datt) + (None,) * 10
+
+
 def hybrid_gat(
     tp,
     plan: Optional[AggregationPlan],
@@ -193,23 +393,24 @@ def hybrid_gat(
     h_gather_dtype=None,
     stabilize=False,
     dot_mode: str = "exact",
+    tp_t=None,
+    plan_t: Optional[AggregationPlan] = None,
+    edge_map_t=None,
 ) -> torch.Tensor:
     """GAT forward over a hybrid schedule: (num, den) of the tiles plus those
     of the residual, then num / den (rows with den 0 give 0).  The tiles must
     hold raw counts (no factored scales): attention provides the edge
     weights.  stabilize=False is the reference's un-stabilized form, whose
-    wide logits overflow as the reference's do."""
+    wide logits overflow as the reference's do.  Differentiable in (h, att)
+    through HybridGat, whose backward needs the transposed tile parts
+    ``tp_t`` and, where there is a residual, the transposed residual plan
+    ``plan_t`` and ``edge_map_t`` (Aggregator.schedule_hybrid
+    with_transpose=True); the backward computes 'exact' and 'split2' alike,
+    in float32."""
     for p in tp if isinstance(tp, (tuple, list)) else (tp,):
         if p.scale_dst is not None or p.scale_src is not None:
             raise ValueError("hybrid GAT needs raw count tiles (no factored scales)")
-    row_shift = _resolve_shift(tp, plan, att, relu_slope, stabilize) if stabilize else None
-    num, den = gat_bcsr(tp, h, att, relu_slope, row_shift=row_shift, dot_mode=dot_mode)
-    if plan is not None and plan.num_edges:
-        nr, dr, _ = gat_aggregate_parts(
-            plan, h, att, relu_slope=relu_slope,
-            att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype, row_shift=row_shift,
-        )
-        num = num + nr
-        den = den + dr
-    safe = torch.where(den == 0.0, 1.0, den)
-    return (num / safe[:, None]).to(h.dtype)
+    _check_dot_mode(dot_mode)
+    return HybridGat.apply(
+        h, att, tp, plan, tp_t, plan_t, edge_map_t, relu_slope, att_gather_dtype, h_gather_dtype, stabilize, dot_mode,
+    )

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
 
 NAME = "bcsr_spmm"
 SIGNATURES = {"bcsr_spmm_i8_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
@@ -27,6 +27,7 @@ def bcsr_spmm_cuda(tp, h: torch.Tensor) -> torch.Tensor:
     rounded and scaled (see ops.bcsr.bcsr_spmm).  Launches the kernel or
     raises; it never falls back."""
     global launches
+    check_no_grad(h)
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"bcsr_spmm_cuda takes CUDA tensors, got {dev}")

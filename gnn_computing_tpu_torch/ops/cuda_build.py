@@ -3,7 +3,8 @@
 Each kernel source ``csrc/<name>.cu`` has a plain C interface (no PyTorch
 headers, so a build takes seconds) and is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` beside the package, keyed by a hash of
-the source and the flags, then bound with ctypes.  The compiler's report
+the source, the shared headers (``csrc/*.cuh``) and the flags, then bound
+with ctypes.  The compiler's report
 (registers, spills) is kept beside each library as ``.log``.
 
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("bcsr_spmm", "gat_bcsr", "rowmax_bcsr")
+KERNELS = ("bcsr_spmm", "gat_bcsr", "rowmax_bcsr", "gat_bwd_dad", "gat_bwd_dh_das")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -48,8 +49,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` with NVCC_FLAGS lives."""
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    content = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -116,6 +117,17 @@ def check_tensor(x, name: str, dtype, shape, device):
             f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
             f"got {'contiguous' if x.is_contiguous() else 'strided'} {x.dtype} "
             f"{tuple(x.shape)} on {x.device}"
+        )
+
+
+def check_no_grad(*tensors):
+    """Raise if grad is enabled and a tensor requires it: a kernel's output
+    carries no graph, so outside the ops' autograd Functions (which launch
+    the kernels with grad off) it would silently drop that gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a CUDA kernel wrapper was called on a tensor that requires grad; "
+            "go through the differentiable ops (hybrid_spmm, hybrid_gat) or torch.no_grad()"
         )
 
 

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
 
 NAME = "gat_bcsr"
 SIGNATURES = {"gat_bcsr_i8_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
@@ -28,6 +28,7 @@ def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
     ops.bcsr_gat._branch_factors).  Launches the kernel or raises; it never
     falls back."""
     global launches
+    check_no_grad(h, u12, v12)
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"gat_bcsr_cuda takes CUDA tensors, got {dev}")

@@ -1,0 +1,101 @@
+"""Launch the GAT backward CUDA kernels B3 (``csrc/gat_bwd_dad.cu``) and B4
+(``csrc/gat_bwd_dh_das.cu``).
+
+They replace ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bwd_dad_pallas`` and
+``gat_bwd_dh_das_pallas`` for int8 count tiles.  ops.cuda_build compiles
+each at first use and binds it with ctypes.
+
+``dad_launches`` and ``dh_das_launches`` count kernel launches (one per
+wrapper call); each rises only where its kernel is launched, so a run can
+show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
+
+DAD = "gat_bwd_dad"
+DH_DAS = "gat_bwd_dh_das"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+DAD_SIGNATURES = {"gat_bwd_dad_i8_f32": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]}
+DH_DAS_SIGNATURES = {"gat_bwd_dh_das_i8_f32": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P]}
+
+dad_launches = 0
+dh_das_launches = 0
+
+
+def _check_plan(tp, dev):
+    nrt, r, c = tp.num_row_tiles, tp.tile_rows, tp.tile_cols
+    check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
+    check_tensor(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
+    check_tensor(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
+
+
+def _check_inputs(name, tp, h, gbar, c, u12, v12, rows_h, rows_gbar):
+    """Device, dtype, shape and contiguity of the backward's inputs: h has
+    ``rows_h`` rows, gbar, c and u12 ``rows_gbar`` (the forward's
+    destinations), v12 ``rows_h`` (its sources)."""
+    check_no_grad(h, gbar, c, u12, v12)
+    dev = h.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    if h.dim() != 2:
+        raise ValueError(f"h must be 2-D, got {tuple(h.shape)}")
+    f = h.shape[1]
+    check_tensor(h, "h", torch.float32, (rows_h, f), dev)
+    check_tensor(gbar, "gbar", torch.float32, (rows_gbar, f), dev)
+    check_tensor(c, "c", torch.float32, (rows_gbar,), dev)
+    check_tensor(u12, "u12", torch.float32, (rows_gbar, 2), dev)
+    check_tensor(v12, "v12", torch.float32, (rows_h, 2), dev)
+    _check_plan(tp, dev)
+    return dev, f
+
+
+def gat_bwd_dad_cuda(tp, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tensor:
+    """d_att_dst [num_nodes] over the forward plan ``tp`` from h [n_src, f],
+    gbar [num_nodes, f], c [num_nodes], u12 [num_nodes, 2] and v12
+    [n_src, 2] (see ops.bcsr_gat).  Launches the kernel or raises; it never
+    falls back."""
+    global dad_launches
+    dev, f = _check_inputs("gat_bwd_dad_cuda", tp, h, gbar, c, u12, v12, tp.n_src, tp.num_nodes)
+    out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
+    if tp.num_nodes == 0:
+        return out
+    err = load(DAD, DAD_SIGNATURES).gat_bwd_dad_i8_f32(
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
+        c.data_ptr(), u12.data_ptr(), v12.data_ptr(), out.data_ptr(),
+        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, float(relu_slope),
+        *stream_args(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"gat_bwd_dad kernel launch failed: cudaError {err}")
+    dad_launches += 1
+    return out
+
+
+def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, u12, v12, relu_slope: float):
+    """(dh [num_nodes, f], d_att_src [num_nodes]) over the transposed plan
+    ``tp_t`` (rows: the forward's sources) from h [num_nodes, f], gbar
+    [n_src, f], c [n_src], u12 [n_src, 2] and v12 [num_nodes, 2].  One
+    launch computes both.  Launches the kernel or raises; it never falls
+    back."""
+    global dh_das_launches
+    dev, f = _check_inputs("gat_bwd_dh_das_cuda", tp_t, h, gbar, c, u12, v12, tp_t.num_nodes, tp_t.n_src)
+    dh = torch.empty((tp_t.num_nodes, f), dtype=torch.float32, device=dev)
+    d_as = torch.empty((tp_t.num_nodes,), dtype=torch.float32, device=dev)
+    if tp_t.num_nodes == 0:
+        return dh, d_as
+    err = load(DH_DAS, DH_DAS_SIGNATURES).gat_bwd_dh_das_i8_f32(
+        tp_t.a.data_ptr(), tp_t.tile_col.data_ptr(), tp_t.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
+        c.data_ptr(), u12.data_ptr(), v12.data_ptr(), dh.data_ptr(), d_as.data_ptr(),
+        tp_t.num_row_tiles, tp_t.tile_rows, tp_t.tile_cols, tp_t.num_nodes, tp_t.n_src, f, float(relu_slope),
+        *stream_args(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"gat_bwd_dh_das kernel launch failed: cudaError {err}")
+    dh_das_launches += 1
+    return dh, d_as

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
 
 NAME = "rowmax_bcsr"
 SIGNATURES = {"rowmax_bcsr_i8_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
@@ -27,6 +27,7 @@ def rowmax_bcsr_cuda(tp, col_vals: torch.Tensor) -> torch.Tensor:
     over tile cells with count > 0, -inf where there is none.  Launches the
     kernel or raises; it never falls back."""
     global launches
+    check_no_grad(col_vals)
     dev = col_vals.device
     if dev.type != "cuda":
         raise ValueError(f"rowmax_bcsr_cuda takes CUDA tensors, got {dev}")

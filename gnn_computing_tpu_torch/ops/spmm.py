@@ -61,10 +61,67 @@ def weighted_task_sums(
     return msg.reshape(nt, b, f).sum(dim=1, dtype=h.dtype)
 
 
-def spmm_plain(plan: AggregationPlan, h: torch.Tensor, gather_dtype=None) -> torch.Tensor:
+def spmm_plain(plan: AggregationPlan, h: torch.Tensor, gather_dtype=None, val=None) -> torch.Tensor:
     """Counterpart of ``gnn_computing_tpu.ops.spmm.spmm_xla``: gather ->
     per-task weighted sum -> sum of tasks into their destination rows,
-    weighted by the plan's slot values."""
-    task = weighted_task_sums(plan, h, plan.val, gather_dtype=gather_dtype)
+    weighted by ``val`` (flat [num_tasks_p * B] slot values) or, without
+    it, by the plan's own."""
+    task = weighted_task_sums(plan, h, plan.val if val is None else val, gather_dtype=gather_dtype)
     out = torch.zeros((plan.num_nodes, h.shape[-1]), dtype=h.dtype, device=h.device)
     return out.index_add_(0, plan.dst, task)
+
+
+def _slot_pos_flat(plan: AggregationPlan):
+    """(scheduled-edge position, task count, slot id) of every flat slot
+    [num_tasks_p * B]."""
+    b = plan.block_size
+    count = plan.count.long()
+    cum = torch.cumsum(count, 0) - count  # exclusive
+    slot = torch.arange(plan.num_tasks_padded * b, device=count.device) % b
+    return cum.repeat_interleave(b) + slot, count.repeat_interleave(b), slot
+
+
+def _check_edge_order(plan: AggregationPlan):
+    if plan.edge_perm is not None:
+        raise NotImplementedError("plans with an edge permutation are not ported (neighbor grouping keeps CSR order)")
+
+
+def slots_from_edge_values_flat(plan: AggregationPlan, edge_val: torch.Tensor) -> torch.Tensor:
+    """Per-edge values (CSR edge order) spread into the flat slot layout,
+    0 in pad slots."""
+    _check_edge_order(plan)
+    pos, cnt, slot = _slot_pos_flat(plan)
+    safe = pos.clamp(max=max(plan.num_edges - 1, 0))
+    return torch.where(slot < cnt, edge_val[safe], torch.zeros((), dtype=edge_val.dtype, device=edge_val.device))
+
+
+def edge_values_from_slots_flat(plan: AggregationPlan, slot_val: torch.Tensor) -> torch.Tensor:
+    """Flat slot values collected back into CSR edge order (pad slots
+    dropped)."""
+    _check_edge_order(plan)
+    pos, cnt, slot = _slot_pos_flat(plan)
+    valid = slot < cnt
+    out = torch.zeros((plan.num_edges,), dtype=slot_val.dtype, device=slot_val.device)
+    out[pos[valid]] = slot_val[valid]
+    return out
+
+
+def sddmm_slots(plan: AggregationPlan, a: torch.Tensor, b: torch.Tensor, chunk_slots: int = 1 << 22) -> torch.Tensor:
+    """Per-slot dot products, flat: out[t*B + s] = <a[src_{t,s}], b[dst_t]>,
+    0 in pad slots (the counterpart of ``sddmm_slots_xla``, in chunks of
+    whole tasks so the gathered [slots, f] block stays bounded)."""
+    bsz = plan.block_size
+    src = plan.src_flat()
+    dst = plan.dst
+    cnt = plan.count.long()
+    nt = plan.num_tasks_padded
+    out = torch.empty((nt * bsz,), dtype=b.dtype, device=b.device)
+    step = max(1, chunk_slots // bsz)
+    for t0 in range(0, nt, step):
+        t1 = min(nt, t0 + step)
+        ga = a.index_select(0, src[t0 * bsz : t1 * bsz]).reshape(t1 - t0, bsz, -1).to(b.dtype)
+        gb = b.index_select(0, dst[t0:t1])
+        dots = (ga * gb[:, None, :]).sum(dim=-1)
+        mask = torch.arange(bsz, device=cnt.device)[None, :] < cnt[t0:t1, None]
+        out[t0 * bsz : t1 * bsz] = torch.where(mask, dots, 0.0).reshape(-1)
+    return out

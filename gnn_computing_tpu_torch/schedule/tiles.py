@@ -1,7 +1,7 @@
 """Tile densification: dense int8 count tiles + a sparse residual graph.
 
 Port of the int8 count path of ``gnn_computing_tpu/schedule/tiles.py``
-(``TilePlan``, ``densify``, ``pad_runs``).  Edges falling in [R x C]
+(``TilePlan``, ``densify``, ``pad_runs``, ``transpose``).  Edges falling in [R x C]
 adjacency blocks that hold at least ``threshold`` edges become dense tiles
 holding exact edge counts; the rest stay in a residual CSR graph for the
 gather path.  Factored edge values val[e] = scale_dst[dst] * scale_src[src]
@@ -120,6 +120,40 @@ class TilePlan:
             run_start=new_start.astype(np.int32),
             num_tiles=total,
             pack=multiple,
+        )
+
+    def transpose(self) -> "TilePlan":
+        """Tile plan of A^T, for the backward: tiles stably sorted by source
+        tile and each transposed (rows and columns swap roles, [C, R] tiles),
+        plus one all-zero filler tile for every transposed row-tile that got
+        none, so the transposed plan covers every row-tile as densify's
+        does; scales swap.  Take it from the unpadded plan, then pad_runs,
+        as the JAX package's aggregator does."""
+        order = np.argsort(np.asarray(self.tile_col), kind="stable")
+        a = np.ascontiguousarray(np.asarray(self.a)[order].transpose(0, 2, 1))
+        rows = np.asarray(self.tile_col)[order].astype(np.int32)
+        cols = np.asarray(self.tile_row)[order].astype(np.int32)
+        nrt_t = self.num_col_tiles
+        missing = np.setdiff1d(np.arange(nrt_t, dtype=np.int32), rows)
+        if len(missing):
+            a = np.concatenate([a, np.zeros((len(missing),) + a.shape[1:], a.dtype)])
+            rows = np.concatenate([rows, missing])
+            cols = np.concatenate([cols, np.zeros(len(missing), np.int32)])
+            order2 = np.argsort(rows, kind="stable")
+            a, rows, cols = a[order2], rows[order2], cols[order2]
+        return TilePlan(
+            a=a,
+            tile_col=cols,
+            tile_row=rows,
+            run_start=run_offsets(rows, nrt_t),
+            scale_dst=self.scale_src,
+            scale_src=self.scale_dst,
+            num_nodes=self.n_src,
+            n_src=self.num_nodes,
+            tile_rows=self.tile_cols,
+            tile_cols=self.tile_rows,
+            num_tiles=len(rows),
+            num_dense_edges=self.num_dense_edges,
         )
 
 

@@ -1,9 +1,12 @@
-"""The CUDA kernels (B1 tile product, B2 GAT tile aggregation, B5 tile row
-max) against their plain PyTorch versions on the card, at small shapes that
-stress the edges: ragged n, C not a multiple of 8 or of the staging width,
-R not a multiple of the row slab, empty runs, filler-only runs, rows without
-tile edges, factored plans (B1), every feature-width branch, and a non-edge
-whose GAT branch product overflows to inf (B2).  Needs a CUDA card and nvcc; skips
+"""The CUDA kernels (B1 tile product, B2 GAT tile aggregation, B3 and B4 GAT
+tile backward, B5 tile row max) against their plain PyTorch versions on the
+card, at small shapes that stress the edges: ragged n, C not a multiple of
+8 or of the staging width, R not a multiple of the row slab, empty runs,
+filler-only runs, rows without tile edges, factored plans (B1), transposed
+plans (B1, B4), every feature-width branch, cells on both leaky-relu
+branches, and a non-edge whose GAT branch product overflows to inf (B2,
+B3, B4); and the training Functions' gradients on the card against the
+same Functions on the CPU.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
@@ -17,10 +20,21 @@ import numpy as np
 import pytest
 import torch
 
+from gnn_computing_tpu_torch.aggregator import Aggregator
 from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, rmat_graph
-from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_rowmax
+from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
-from gnn_computing_tpu_torch.ops.bcsr_gat import _hybrid_row_shift, gat_bcsr, gat_bcsr_plain
+from gnn_computing_tpu_torch.ops.bcsr_gat import (
+    _branch_factors,
+    _global_bound_shift,
+    _hybrid_row_shift,
+    gat_bcsr,
+    gat_bcsr_plain,
+    gat_bwd_dad,
+    gat_bwd_dad_plain,
+    gat_bwd_dh_das,
+    gat_bwd_dh_das_plain,
+)
 from gnn_computing_tpu_torch.ops.validate import assert_valid
 from gnn_computing_tpu_torch.schedule.tiles import densify
 
@@ -142,3 +156,133 @@ def test_rowmax_kernel_equals_plain(cuda_dev, tr, tc, pack):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert bool(torch.isneginf(got[800:1100]).all())
+
+
+def _bwd_plans(dev, tr, tc, pack):
+    """_gat_plan's graph as a forward plan and its transpose, both padded;
+    the transpose has coverage fillers for the source tiles that hold no
+    tile, and after pad_runs filler-only runs."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    d, s = g.dst_per_edge, g.indices
+    keep = ((d < 800) | (d >= 1100)) & ((d < 1237 - tr) | (s % 97 == 0)) & ((s < 500) | (s >= 500 + 2 * tc))
+    g = CSRGraph.from_edges(d[keep], s[keep], g.num_nodes)
+    tp = densify(g, tile_rows=tr, tile_cols=tc, threshold=3)[0]
+    tp_t = tp.transpose()
+    return g, tp.pad_runs(pack).to(dev), tp_t.pad_runs(pack).to(dev)
+
+
+def _close(got, want, what):
+    assert bool(torch.isfinite(got).all()), what
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max(), what
+
+
+def _bwd_check(tp, tp_t, h, gbar, c, u12, v12, what):
+    before = (cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches)
+    dad = gat_bwd_dad(tp, h, gbar, c, u12, v12, 0.2)
+    dh, das = gat_bwd_dh_das(tp_t, h, gbar, c, u12, v12, 0.2)
+    assert (cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches) == (before[0] + 1, before[1] + 1)
+    want_dad = gat_bwd_dad_plain(tp, h, gbar, c, u12, v12, 0.2)
+    want_dh, want_das = gat_bwd_dh_das_plain(tp_t, h, gbar, c, u12, v12, 0.2)
+    torch.cuda.synchronize()
+    _close(dad, want_dad, f"{what} d_ad")
+    _close(dh, want_dh, f"{what} dh")
+    _close(das, want_das, f"{what} d_as")
+    return dad, dh, das
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (96, 40, 4), (72, 13, 1), (256, 256, 16), (40, 300, 1)])
+@pytest.mark.parametrize("f", [1, 24, 32, 33, 100, 128, 160, 300])
+def test_gat_bwd_kernels_match_plain(cuda_dev, tr, tc, pack, f):
+    g, tp, tp_t = _bwd_plans(cuda_dev, tr, tc, pack)
+    n = g.num_nodes
+    starts = tp_t.run_start.cpu().numpy()
+    assert any(not tp_t.a[starts[r] : starts[r + 1]].any() for r in range(tp_t.num_row_tiles))  # filler-only
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    h = torch.randn((n, f), generator=gen, device=cuda_dev)
+    gbar = torch.randn((n, f), generator=gen, device=cuda_dev)
+    c = torch.randn(n, generator=gen, device=cuda_dev)
+    for scale, shift in ((0.1, False), (1.0, False), (15.0, True)):
+        att = torch.randn((n, 2), generator=gen, device=cuda_dev) * scale
+        u12, v12 = _branch_factors(att, 0.2, _global_bound_shift(att, 0.2) if shift else None)
+        z = att[:, 0:1] + att[:, 1][None, :200]
+        assert bool((z > 0).any()) and bool((z < 0).any())  # both branches
+        dad, dh, das = _bwd_check(tp, tp_t, h, gbar, c, u12, v12, f"r{tr} c{tc} f{f} scale{scale}")
+    # rows without tile edges give 0
+    assert bool((dad[800:1100] == 0).all())
+    assert bool((dh[500 : 500 + 2 * tc] == 0).all()) and bool((das[500 : 500 + 2 * tc] == 0).all())
+
+
+def test_gat_bwd_kernels_non_edge_overflow_is_not_nan(cuda_dev):
+    """Un-stabilized, the branch product of a non-edge (cnt == 0) can be inf;
+    B3 and B4 must select on the count, not multiply by it."""
+    g, tp, tp_t = _bwd_plans(cuda_dev, 64, 64, 1)
+    a = tp.a.cpu().numpy()
+    rows = tp.tile_row.cpu().numpy()[:, None] * 64 + np.arange(64)[None, :]
+    cols = tp.tile_col.cpu().numpy()[:, None] * 64 + np.arange(64)[None, :]
+    t, i, j = next(
+        (t, i, j) for t, i, j in np.argwhere(a == 0)
+        if a[t, i].any() and a[t, :, j].any() and rows[t, i] != cols[t, j]
+        and rows[t, i] < g.num_nodes and cols[t, j] < g.n_src
+    )
+    n = g.num_nodes
+    att = torch.zeros((n, 2), device=cuda_dev)
+    att[rows[t, i], 0] = 50.0
+    att[cols[t, j], 1] = 50.0  # exp(50) * exp(50) overflows float32
+    u12, v12 = _branch_factors(att, 0.2)
+    assert bool(torch.isinf(u12[rows[t, i], 0] * v12[cols[t, j], 0]))
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    h, gbar = (torch.randn((n, 8), generator=gen, device=cuda_dev) for _ in range(2))
+    c = torch.randn(n, generator=gen, device=cuda_dev)
+    _bwd_check(tp, tp_t, h, gbar, c, u12, v12, "non-edge overflow")
+
+
+@pytest.mark.parametrize("pack", [1, 16])
+@pytest.mark.parametrize("f", [32, 64, 128])
+def test_b1_b2_on_training_tiles(cuda_dev, pack, f):
+    """B1 over a transposed [256, 256] plan (the GCN backward) and B2 at
+    [256, 256] (the training plan's forward)."""
+    g, tp, tp_t = _bwd_plans(cuda_dev, 256, 256, pack)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    h = torch.randn((g.num_nodes, f), generator=gen, device=cuda_dev)
+    got = bcsr_spmm(tp_t, h)
+    want = bcsr_spmm_plain(tp_t, h)
+    torch.cuda.synchronize()
+    _close(got, want, f"B1 transposed f{f}")
+    att = torch.randn((g.num_nodes, 2), generator=gen, device=cuda_dev)
+    row_shift = _global_bound_shift(att, 0.2)
+    got = gat_bcsr(tp, h, att, row_shift=row_shift, dot_mode="split2")
+    want = gat_bcsr_plain(tp, h, att, row_shift=row_shift)
+    torch.cuda.synchronize()
+    _gat_check(got, want, f"B2 r256 c256 f{f}")
+
+
+@pytest.mark.parametrize("stabilize", [False, "bound"])
+def test_training_grads_on_card_match_cpu(cuda_dev, stabilize):
+    """hybrid_spmm and hybrid_gat gradients on the card (B1 forward and
+    backward; B2, B3, B4) against the same Functions on the CPU."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    cpu = Aggregator.schedule_hybrid(g, tile_rows=64, tile_cols=64, threshold=3, residual_block=4, pack=1,
+                                     with_transpose=True, device="cpu")
+    card = cpu.to(cuda_dev)
+    rng = np.random.default_rng(0)
+    h0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 24)).astype(np.float32))
+    a0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 2)).astype(np.float32))
+    w0 = torch.cos(torch.arange(g.num_nodes * 24, dtype=torch.float32)).reshape(g.num_nodes, 24)
+    grads = {}
+    for agg, dev in ((cpu, "cpu"), (card, cuda_dev)):
+        h = h0.to(dev, copy=True).requires_grad_(True)
+        att = a0.to(dev, copy=True).requires_grad_(True)
+        before = (cuda_bcsr.launches, cuda_gat.launches, cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches)
+        (agg.run(h) * w0.to(dev)).sum().backward()
+        dh_spmm = h.grad.clone()
+        h.grad = None
+        (agg.run_gat(h, att, stabilize=stabilize) * w0.to(dev)).sum().backward()
+        after = (cuda_bcsr.launches, cuda_gat.launches, cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches)
+        want = (2, 1, 1, 1) if dev != "cpu" else (0, 0, 0, 0)
+        assert tuple(x - y for x, y in zip(after, before)) == want
+        grads[str(dev)] = (dh_spmm.cpu(), h.grad.cpu(), att.grad.cpu())
+    torch.cuda.synchronize()
+    for got, want, what in zip(grads["cuda"], grads["cpu"], ("hybrid_spmm dh", "hybrid_gat dh", "hybrid_gat datt")):
+        _close(got, want, what)

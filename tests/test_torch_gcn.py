@@ -70,8 +70,6 @@ def test_fast_layer_opts_match_jax():
 def test_unported_options_raise():
     g = rmat_graph(100, 800, seed=1, with_val=False)
     with pytest.raises(NotImplementedError):
-        Aggregator.schedule_hybrid(g, with_transpose=True, device="cpu")
-    with pytest.raises(NotImplementedError):
         Aggregator.schedule_hybrid(g, bit_tiles=True, device="cpu")
     with pytest.raises(NotImplementedError):
         Aggregator.schedule_hybrid(g, tile_dtype=np.float32, device="cpu")

@@ -83,3 +83,34 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError):
         rowmax_bcsr_cuda(agg.tile, torch.zeros(64))
     assert agg.run_gat(torch.zeros(64, 8), torch.zeros(64, 2)).shape == (64, 8)
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    from gnn_computing_tpu_torch.aggregator import Aggregator
+    from gnn_computing_tpu_torch.graph import rmat_graph
+    from gnn_computing_tpu_torch.models.gcn import GCN, glorot_weights
+    from gnn_computing_tpu_torch.models.training import make_train_step
+    from gnn_computing_tpu_torch.ops.cuda_gat_bwd import gat_bwd_dad_cuda, gat_bwd_dh_das_cuda
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = rmat_graph(64, 400, seed=3, with_val=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, with_transpose=True)
+    agg = Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, with_transpose=True, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        agg.to("cuda")
+    model = GCN(glorot_weights((8, 4), seed=0), device="cpu")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    # the train step runs on the card unless asked for the CPU
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(lambda h: model(agg, h), opt)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(lambda h: model(agg, h), opt, device="cuda")
+    step = make_train_step(lambda h: model(agg, h), opt, device="cpu")
+    assert torch.isfinite(step((torch.rand(64, 8),), torch.zeros(64, dtype=torch.long)))
+    # the backward kernels' wrappers take CUDA tensors only
+    z, v = torch.zeros(64, 8), torch.ones(64, 2)
+    with pytest.raises(ValueError):
+        gat_bwd_dad_cuda(agg.tile, z, z, torch.zeros(64), v, v, 0.2)
+    with pytest.raises(ValueError):
+        gat_bwd_dh_das_cuda(agg.tile_t, z, z, torch.zeros(64), v, v, 0.2)
