@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py [--scale quick|reddit]
 Phases (any failure exits non-zero; nothing is caught):
   1. card name and power limit; build every kernel with nvcc (sm_90a), one
      nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr, B5 rowmax_bcsr,
-     B3 gat_bwd_dad, B4 gat_bwd_dh_das).
+     B3 gat_bwd_dad, B4 gat_bwd_dh_das, B6 sddmm_bcsr).
   2. kernel phase: the B1 kernel against its plain PyTorch version on the
      card, at the main path's shapes (f = 128, 64, 32; 'split' and float32
      operands; pack 1 and 16), plus a ragged n with runs made only of filler
@@ -79,14 +79,42 @@ Phases (any failure exits non-zero; nothing is caught):
      against gbar plus the same sampled product on the transposed pattern;
      the CSRs are built outside the timed call); B1 over the transposed
      plan and B2 at [256, 256], the same four numbers.
- 12. one "kernels" JSON line, the card line, then {"ok": true, ...}.
+ 12. SDDMM kernel phase: on bench.py --model sddmm's plan (the same graph,
+     [256, 128] tiles at threshold 24 split into a 1-bit and an int8 part,
+     4-slot residual), at pack 1 and 16 and f = 128, 64, 32, B6 against
+     sddmm_bcsr_plain on N(0, 1) a and b, float32 and bfloat16 cells; plus a
+     ragged raw-count plan with a filler-only run (whole and split), a
+     1-bit plan with R = 200, and a non-edge whose dot is inf.  Check:
+     float32 max|d| <= 1e-5 * max|plain|, bfloat16 at most one ulp apart,
+     cells without an edge exactly +0.
+ 13. SDDMM slice phase: bench.py's path — hybrid_sddmm at f = 32 with
+     a = normal_features(seed 3) * 0.1, b = (seed 4) * 0.1, split23 dots,
+     a f16_split2 residual, bfloat16 cells.  Five calls; B6 must launch once
+     per part per call.  Every edge maps through its part's (row-tile,
+     col-tile) -> tile index to a cell whose value passes the gate against
+     the float64 dot; every cell without an edge is +0; every residual edge
+     passes the gate; dense + residual edges = m (checked in chunks).
+ 14. 1-bit GCN phase: phase 3's plan split by split_bit_tiles; B1 over the
+     1-bit part against its plain version (pack 1 and 16, a ragged factored
+     plan's 1-bit part), then five forwards: B1 must launch 6 times per
+     forward (3 layers x 2 parts); phase 3's per-layer gates, and the output
+     passes the gate against phase 3's int8 forward.
+ 15. timing: the SDDMM path's ms and edges/s (bench.py's metric m / t), B6
+     ms per launch per part (pack 1 and 16) against its bound, its plain
+     version and torch.sparse.sampled_addmm of b a^T on the nonzero cells'
+     CSR (built outside the timed call), the residual's ms; the 1-bit GCN
+     forward, and per layer B1 over the 1-bit part against its bound, plain
+     version and torch.sparse.mm, beside B1 over the int8 part and over the
+     unsplit plan.
+ 16. one "kernels" JSON line, the card line, then {"ok": true, ...}.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it (the GCN forward for B1, the GAT forward for B2, the
 stabilized GAT forward for B5, five GCN training steps for B1, five GAT
-training steps for B2, B3 and B4); launches made to compare a kernel with
-its plain version are not counted.  The training phases run at the quick
-scale only (their float64 oracles hold the whole edge list in memory).
+training steps for B2, B3 and B4, five SDDMM calls for B6, five 1-bit GCN
+forwards for B1); launches made to compare a kernel with its plain version
+are not counted.  The training phases run at the quick scale only (their
+float64 oracles hold the whole edge list in memory).
 
 The port schedules with pack=1: the CUDA kernels take runs of any length,
 so the TPU kernel's filler tiles would only add work (their cost is printed).
@@ -95,6 +123,7 @@ so the TPU kernel's filler tiles would only add work (their cost is printed).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -109,7 +138,7 @@ from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, normal_features
 from gnn_computing_tpu_torch.models.gat import gat_forward, glorot_gat_weights
 from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, fast_layer_opts, gcn_layer, glorot_weights
 from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xent
-from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_build, cuda_gat, cuda_gat_bwd, cuda_rowmax
+from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_build, cuda_gat, cuda_gat_bwd, cuda_rowmax, cuda_sddmm
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
     _branch_factors,
@@ -122,15 +151,24 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
     gat_bwd_dh_das,
     gat_bwd_dh_das_plain,
 )
+from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
+from gnn_computing_tpu_torch.ops.spmm import sddmm_slots
 from gnn_computing_tpu_torch.ops.validate import relative_error_count
-from gnn_computing_tpu_torch.schedule.tiles import densify
+from gnn_computing_tpu_torch.schedule.tiles import densify, split_bit_tiles
 from gnn_computing_tpu_torch.utils.timing import cuda_time_ms
 
 SCALES = {"quick": (1 << 16, 1 << 22), "reddit": (232_965, 114_615_891)}
 SCHEDULE = dict(tile_rows=512, tile_cols=256, threshold=48)  # bench.py defaults
 GAT_SCHEDULE = dict(tile_rows=512, tile_cols=256, threshold=32)  # bench.py --model gat
 TRAIN_SCHEDULE = dict(tile_rows=256, tile_cols=256, threshold=24)  # bench.py --train (--bit-tiles off)
+# bench.py --model sddmm (strategy hybrid): [256, 128] tiles at t24, 1-bit
+# tiles on, f = 32, split23 tile dots, f16_split2 residual, bf16 cells
+SDDMM_SCHEDULE = dict(tile_rows=256, tile_cols=128, threshold=24)
+SDDMM_F = 32
+SDDMM_CALLS = 5
+CHECK_TILES = 16384  # tiles a kernel-vs-plain comparison or a cell check takes at once
+CHECK_EDGES = 1 << 22  # edges an edge-to-cell check takes at once
 RESIDUAL_BLOCK = 4
 TRAIN_STEPS = 5
 GRAD_REL_L2 = 1e-4  # whole-step weight gradients against the float64 chain
@@ -189,10 +227,11 @@ def kernel_vs_plain(tp, f: int, mode: str, gen: torch.Generator, what: str) -> f
 
 def tile_cells(tp):
     """(dst, src, count) of every nonzero cell of the plan's tiles."""
-    t, i, j = tp.a.nonzero(as_tuple=True)
+    cnt = tp.counts()
+    t, i, j = cnt.nonzero(as_tuple=True)
     rows = tp.tile_row.long()[t] * tp.tile_rows + i
     cols = tp.tile_col.long()[t] * tp.tile_cols + j
-    return rows, cols, tp.a[t, i, j].double()
+    return rows, cols, cnt[t, i, j].double()
 
 
 def tile_csr(tp) -> torch.Tensor:
@@ -216,15 +255,20 @@ def edge_sum(z: torch.Tensor, dst, src, weight=None) -> torch.Tensor:
 
 def reset_counts():
     """Every kernel's launch count to 0, just before a path is driven."""
-    cuda_bcsr.launches = cuda_gat.launches = cuda_rowmax.launches = 0
+    cuda_bcsr.launches = cuda_gat.launches = cuda_rowmax.launches = cuda_sddmm.launches = 0
     cuda_gat_bwd.dad_launches = cuda_gat_bwd.dh_das_launches = 0
 
 
 def counts() -> dict:
     return dict(
         B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
-        B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches,
+        B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches, B6=cuda_sddmm.launches,
     )
+
+
+def only(name: str) -> bool:
+    """No kernel other than ``name`` launched since the counts were reset."""
+    return all(v == 0 for k, v in counts().items() if k != name)
 
 
 def ragged_graph():
@@ -245,6 +289,65 @@ def filler_only_runs(tp) -> list:
         r for r in range(tp.num_row_tiles)
         if lens[r] and not tp.a[tp.run_start[r] : tp.run_start[r + 1]].any()
     ]
+
+
+def gcn_edges(g, res_host, tp) -> tuple:
+    """The float64 oracles' edge lists on the card: the graph's (dst, src),
+    the residual's, and the tile cells' (dst, src, count) of ``tp``; checks
+    that the tile cells and the residual partition the graph's edges (the
+    tile/residual split comes from the host densify)."""
+    dev = tp.a.device
+
+    def edge_list(gr):
+        return (
+            torch.from_numpy(gr.dst_per_edge.astype(np.int64)).to(dev),
+            torch.from_numpy(gr.indices.astype(np.int64)).to(dev),
+        )
+
+    g_dst, g_src = edge_list(g)
+    r_dst, r_src = edge_list(res_host)
+    c_dst, c_src, c_cnt = tile_cells(tp)
+    n = g.num_nodes
+    per_row = torch.bincount(c_dst, weights=c_cnt, minlength=n) + torch.bincount(r_dst, minlength=n)
+    check(
+        torch.equal(per_row.long().cpu(), torch.from_numpy(g.degrees.astype(np.int64))),
+        "tile cells + residual edges do not partition the graph's edges",
+    )
+    return g_dst, g_src, r_dst, r_src, c_dst, c_src, c_cnt
+
+
+def gcn_gates(agg, weights, opts, h0, out, edges, what: str) -> list:
+    """Phase 3's checks of a GCN forward over ``agg``: float64 oracles over
+    edge lists, the whole graph from the layer input ("pure") and the
+    aggregation the numeric modes define ("mode": from the layer's own
+    float32 transform z, tile edges take the tile_h_mode rounding of z,
+    residual edges z exactly).  Each layer, from the same float32 input,
+    passes the gate against its modes' oracle with 0 bad elements and misses
+    the pure one on at most PURE_BAD_FRACTION; so does the whole chain
+    ``out``.  Returns the layer inputs and outputs."""
+    g_dst, g_src, r_dst, r_src, c_dst, c_src, c_cnt = edges
+    limit = PURE_BAD_FRACTION
+    xs, chain = [h0], h0.double()
+    for i, w in enumerate(weights):
+        xs.append(gcn_layer(agg, xs[i], w, opts[i]))
+        z32 = xs[i] @ w  # the layer's own float32 transform
+        zt = round_h(z32, opts[i].tile_h_mode).double()
+        mode_ref = (edge_sum(zt, c_dst, c_src, c_cnt) + edge_sum(z32.double(), r_dst, r_src)).clamp_min_(0.0)
+        z = xs[i].double() @ w.double()
+        pure_ref = edge_sum(z, g_dst, g_src).clamp_min_(0.0)
+        bad = relative_error_count(xs[-1], mode_ref)
+        bad_pure = relative_error_count(xs[-1], pure_ref)
+        log(
+            f"  {what}layer {i + 1} (same input) vs f64 oracle: mode gate_bad={bad}, "
+            f"pure gate_bad={bad_pure} of {z.numel()}"
+        )
+        check(bad == 0, f"{what}layer {i + 1} fails the gate against its modes' f64 oracle")
+        check(bad_pure <= limit * z.numel(), f"{what}layer {i + 1}: too many elements off the pure oracle")
+        chain = edge_sum(chain @ w.double(), g_dst, g_src).clamp_min_(0.0)
+    bad = relative_error_count(out, chain)
+    log(f"  {what}forward vs f64 pure oracle chain: gate_bad={bad} of {chain.numel()}")
+    check(bad <= limit * chain.numel(), f"{what}forward: too many elements off the pure oracle chain")
+    return xs
 
 
 def gat_kernel_vs_plain(tp, f: int, gen: torch.Generator, what: str) -> float:
@@ -336,7 +439,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> list:
         launches = cuda_gat.launches
         log(f"  B2 launches in {forwards} forwards: {launches}; B5: {cuda_rowmax.launches}; B1: {cuda_bcsr.launches}")
         check(launches == 3 * forwards, "B2 did not launch 3 times per forward")
-        check(cuda_rowmax.launches == 0 and cuda_bcsr.launches == 0, "the GAT forward launched another kernel")
+        check(only("B2"), "the GAT forward launched another kernel")
         check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "GAT forward output")
 
         g_dst = torch.from_numpy(g.dst_per_edge.astype(np.int64)).to(dev)
@@ -851,6 +954,391 @@ def train_phases(args, g, h0, gen) -> dict:
     )
 
 
+def tile_slice(tp, start: int, stop: int):
+    """Tiles start..stop of a plan, for B6 and its plain version (which read
+    neither run_start nor the runs' order)."""
+    if start == 0 and stop >= tp.num_tiles:
+        return tp
+    return dataclasses.replace(
+        tp, a=tp.a[start:stop], tile_row=tp.tile_row[start:stop], tile_col=tp.tile_col[start:stop],
+        num_tiles=min(stop, tp.num_tiles) - start,
+    )
+
+
+def host_plan(tp):
+    """A card plan back on the host (numpy), for pad_runs."""
+    return dataclasses.replace(
+        tp, a=tp.a.cpu().numpy(), tile_row=tp.tile_row.cpu().numpy(), tile_col=tp.tile_col.cpu().numpy(),
+        run_start=tp.run_start.cpu().numpy(),
+    )
+
+
+def part_name(tp) -> str:
+    return "1-bit" if tp.bits else "int8"
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+
+
+def cells_agree(got, want, cnt, what: str) -> float:
+    """B6's cells against the plain version's: cells without an edge are
+    exactly +0; float32 cells within KERNEL_TOL * max|plain|, bfloat16 cells
+    at most one bfloat16 ulp apart.  Returns max|d|."""
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape or dtype")
+    raw = got.view(torch.int16) if got.dtype == torch.bfloat16 else got.view(torch.int32)
+    check(not bool(((raw != 0) & (cnt == 0)).any()), f"{what}: a cell without an edge is not +0")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite cell")
+    err = (g - w).abs().max().item()
+    scale = w.abs().max().item()
+    if got.dtype == torch.bfloat16:
+        ulp_bad = int(((g - w).abs() > bf16_ulp(torch.maximum(g.abs(), w.abs()))).sum())
+        check(ulp_bad == 0, f"{what}: {ulp_bad} bfloat16 cells more than one ulp from the plain version")
+    else:
+        check(err <= KERNEL_TOL * scale, f"{what}: disagrees with the plain version")
+    return err
+
+
+def sddmm_vs_plain(tp, f: int, gen, what: str) -> float:
+    """B6 against sddmm_bcsr_plain on N(0, 1) a and b, float32 and bfloat16
+    cells, CHECK_TILES tiles at a time.  Returns max|d| of the float32
+    cells."""
+    a = torch.randn((tp.n_src, f), generator=gen, device="cuda")
+    b = torch.randn((tp.num_nodes, f), generator=gen, device="cuda")
+    err, worst = 0.0, {}
+    for s in range(0, tp.num_tiles, CHECK_TILES):
+        sub = tile_slice(tp, s, s + CHECK_TILES)
+        cnt = sub.counts()
+        for out in (torch.float32, torch.bfloat16):
+            got = sddmm_bcsr(sub, a, b, out_dtype=out, dot_mode="split23")
+            want = sddmm_bcsr_plain(sub, a, b, out)
+            torch.cuda.synchronize()
+            e = cells_agree(got, want, cnt, f"{what} f={f} {out}")
+            worst[out] = max(worst.get(out, 0.0), e)
+            if out == torch.float32:
+                err = max(err, e)
+            del got, want
+    log(
+        f"  {what} f={f}: tiles={tp.num_tiles} float32 max|d|={worst[torch.float32]:.3e}, "
+        f"bfloat16 max|d|={worst[torch.bfloat16]:.3e} (<= 1 ulp), zero cells +0"
+    )
+    return err
+
+
+def sddmm_inf_non_edge(tp, gen):
+    """A non-edge cell whose dot overflows to inf must come out +0: its
+    column neighbour holds an edge, so the lane computes both dots, and B6
+    must select on the count; the other cells of up to CHECK_TILES tiles
+    from its tile on agree with the plain version."""
+    r, c = tp.tile_rows, tp.tile_cols
+    t = i = j = None
+    for t in range(tp.num_tiles):
+        # non-edges whose pair neighbour (column j ^ 1) is an edge
+        cnt = tp.counts(t, t + 1)[0]
+        pair = cnt.reshape(r, c // 2, 2).flip(-1).reshape(r, c)
+        cand = ((cnt == 0) & (pair > 0)).nonzero()
+        if cand.shape[0]:
+            i, j = (int(x) for x in cand[0])
+            break
+    check(i is not None, "no non-edge beside an edge")
+    row, col = tp.tile_row[t].item() * tp.tile_rows + i, tp.tile_col[t].item() * tp.tile_cols + j
+    tp = tile_slice(tp, t, t + CHECK_TILES)  # the chosen tile is now tile 0
+    cnt, t = tp.counts(), 0
+    a = torch.randn((tp.n_src, SDDMM_F), generator=gen, device="cuda")
+    b = torch.randn((tp.num_nodes, SDDMM_F), generator=gen, device="cuda")
+    a[col] = 1e30
+    b[row] = 1e30
+    check(bool(torch.isinf((a[col] * b[row]).sum())), "the chosen non-edge's dot does not overflow")
+    for out in (torch.float32, torch.bfloat16):
+        got = sddmm_bcsr(tp, a, b, out_dtype=out)
+        want = sddmm_bcsr_plain(tp, a, b, out)
+        torch.cuda.synchronize()
+        check(got[t, i, j].float().item() == 0.0, f"a non-edge with an inf dot gave {got[t, i, j].item()}")
+        cells_agree(got, want, cnt, f"{part_name(tp)} inf non-edge {out}")
+    log(f"  {part_name(tp)} non-edge cell ({row}, {col}) with an inf dot: +0")
+
+
+def cell_counts(tp, t, i, j) -> torch.Tensor:
+    """Counts of cells (t, i, j) of a plan, either format."""
+    if not tp.bits:
+        return tp.a[t, i, j].long()
+    r8 = tp.tile_rows // 8
+    return (tp.a[t, i % r8, j].long() >> (i // r8)) & 1
+
+
+def sddmm_path_checks(g, agg, cells, res, a, b):
+    """Phase 13's checks: every cell without an edge is +0; every edge of
+    the graph maps through its part's (row-tile, col-tile) -> tile index to
+    a cell with an edge whose value passes the gate against the float64
+    dot, or is a residual edge; every residual slot passes the gate and pad
+    slots are 0; dense edges + residual edges = m."""
+    dev = a.device
+    m = g.num_edges
+    a64, b64 = a.double(), b.double()
+    parts = agg.tile_parts()
+    maps, dense_edges = [], 0
+    for p, c in zip(parts, cells):
+        check(c.dtype == torch.bfloat16 and c.shape == (p.num_tiles, p.tile_rows, p.tile_cols), "cell array shape")
+        real = torch.zeros(p.num_tiles, dtype=torch.bool, device=dev)
+        in_cells = 0
+        for s in range(0, p.num_tiles, CHECK_TILES):
+            cnt = p.counts(s, s + CHECK_TILES)
+            cs = c[s : s + CHECK_TILES]
+            check(
+                not bool(((cs.view(torch.int16) != 0) & (cnt == 0)).any()),
+                f"{part_name(p)}: a cell without an edge is not +0",
+            )
+            check(bool(torch.isfinite(cs.float()).all()), f"{part_name(p)}: non-finite cell")
+            real[s : s + CHECK_TILES] = cnt.reshape(cnt.shape[0], -1).any(dim=1)
+            in_cells += int(cnt.sum(dtype=torch.int64))
+        check(in_cells == p.num_dense_edges, f"{part_name(p)}: cell counts do not sum to its dense edges")
+        dense_edges += p.num_dense_edges
+        tmap = torch.full((p.num_row_tiles, p.num_col_tiles), -1, dtype=torch.long, device=dev)
+        idx = real.nonzero().squeeze(1)
+        tmap[p.tile_row.long()[idx], p.tile_col.long()[idx]] = idx
+        maps.append(tmap)
+    check(dense_edges + agg.plan.num_edges == m, "dense edges + residual edges != m")
+
+    g_dst = torch.from_numpy(g.dst_per_edge.astype(np.int64)).to(dev)
+    g_src = torch.from_numpy(g.indices.astype(np.int64)).to(dev)
+    in_tiles, bad = 0, 0
+    for s in range(0, m, CHECK_EDGES):
+        d, sr = g_dst[s : s + CHECK_EDGES], g_src[s : s + CHECK_EDGES]
+        ref = (a64.index_select(0, sr) * b64.index_select(0, d)).sum(dim=1)
+        hit_any = torch.zeros(d.shape[0], dtype=torch.bool, device=dev)
+        for p, c, tmap in zip(parts, cells, maps):
+            t = tmap[d // p.tile_rows, sr // p.tile_cols]
+            hit = t >= 0
+            th, i, j = t[hit], d[hit] % p.tile_rows, sr[hit] % p.tile_cols
+            check(bool((cell_counts(p, th, i, j) > 0).all()), "an edge of a tile lies in a cell without an edge")
+            bad += relative_error_count(c[th, i, j].float(), ref[hit])
+            hit_any |= hit
+        in_tiles += int(hit_any.sum())
+    log(f"  dense edges vs f64 dots: gate_bad={bad} of {in_tiles} (edges in tiles; {dense_edges} in cell counts)")
+    check(bad == 0, "dense edges fail the gate against the f64 dots")
+    # edges outside every tile, and those past a cell's int8 cap, are the residual
+    check(m - in_tiles + (in_tiles - dense_edges) == agg.plan.num_edges, "the residual is not the edges left outside the cells")
+
+    plan = agg.plan
+    bsz = plan.block_size
+    valid = torch.arange(bsz, device=dev)[None, :] < plan.count.long()[:, None]
+    valid = valid.reshape(-1)
+    check(int(valid.sum()) == plan.num_edges, "residual slots != residual edges")
+    check(bool((res[~valid] == 0).all()), "a residual pad slot is not 0")
+    src, dst = plan.src_flat(), plan.dst.repeat_interleave(bsz)
+    bad = 0
+    for s in range(0, src.shape[0], CHECK_EDGES):
+        v = valid[s : s + CHECK_EDGES]
+        ref = (a64.index_select(0, src[s : s + CHECK_EDGES]) * b64.index_select(0, dst[s : s + CHECK_EDGES])).sum(dim=1)
+        bad += relative_error_count(res[s : s + CHECK_EDGES][v], ref[v])
+    log(f"  residual edges vs f64 dots: gate_bad={bad} of {plan.num_edges}")
+    check(bad == 0, "residual edges fail the gate against the f64 dots")
+
+
+def sddmm_phases(args, g, gen) -> dict:
+    """Phases 12-13: B6 against its plain version, then bench.py's SDDMM
+    path.  Returns what phase 15 times."""
+    dev = gen.device
+    n, m = g.num_nodes, g.num_edges
+    t0 = time.perf_counter()
+    agg = Aggregator.schedule_hybrid(
+        g, residual_block=RESIDUAL_BLOCK, pack=1, bit_tiles=True, device=dev, **SDDMM_SCHEDULE
+    )
+    build_s = time.perf_counter() - t0
+    parts = agg.tile_parts()
+    check(len(parts) == 2, "the SDDMM plan did not split into a 1-bit and an int8 part")
+    parts16 = [host_plan(p).pad_runs(16).to(dev) for p in parts]
+    nnz = [
+        sum(int((p.counts(s, s + CHECK_TILES) > 0).sum()) for s in range(0, p.num_tiles, CHECK_TILES))
+        for p in parts
+    ]
+    log(
+        f"SDDMM plan ({args.scale}): " + "; ".join(
+            f"{part_name(p)} part tiles={p.num_tiles} (pack16: {p16.num_tiles}) nonzero cells={z} "
+            f"dense edges={p.num_dense_edges} A bytes={p.a.numel()} longest run={int(p.run_start.diff().max())}"
+            for p, p16, z in zip(parts, parts16, nnz)
+        )
+        + f"; residual edges={agg.plan.num_edges} tasks={agg.plan.num_tasks}; cell bytes (bf16)="
+        f"{sum(2 * p.num_tiles * p.tile_rows * p.tile_cols for p in parts)}; built in {build_s:.1f} s"
+    )
+
+    # ---- phase 12: B6 against its plain version
+    log("phase 12: B6 kernel vs sddmm_bcsr_plain")
+    max_err = 0.0
+    with torch.no_grad():
+        for plans, label in ((parts, "pack1"), (parts16, "pack16")):
+            for p in plans:
+                for f in BENCH_DIMS[1:]:
+                    err = sddmm_vs_plain(p, f, gen, f"{label} {part_name(p)}")
+                    if label == "pack1":
+                        max_err = max(max_err, err)
+        ng, _ = ragged_graph()
+        rhost = densify(ng, **SDDMM_SCHEDULE)[0]
+        ragged = [rhost.pad_runs(16)] + [p.pad_runs(16) for p in split_bit_tiles(rhost) if p is not None]
+        fillers = [filler_only_runs(p) for p in ragged]
+        check(ng.num_nodes % SDDMM_SCHEDULE["tile_rows"] != 0 and all(fillers), "SDDMM ragged case lacks a filler-only run")
+        log(f"  ragged raw-count plan: n={ng.num_nodes}, int8 / 1-bit / int8 parts tiles "
+            f"{[p.num_tiles for p in ragged]}, filler-only runs {fillers}")
+        for p in ragged:
+            for f in (BENCH_DIMS[1], BENCH_DIMS[3]):
+                sddmm_vs_plain(p.to(dev), f, gen, f"ragged {'' if p is ragged[0] else 'part '}{part_name(p)}")
+        odd, _ = split_bit_tiles(densify(ng, tile_rows=200, tile_cols=128, threshold=24)[0])
+        check(odd is not None, "no 1-bit part at R = 200")
+        sddmm_vs_plain(odd.to(dev), SDDMM_F, gen, "1-bit R=200")
+        for p in parts:
+            sddmm_inf_non_edge(p, gen)
+        del ragged, odd
+
+    # ---- phase 13: the SDDMM path
+    log(f"phase 13: bench.py --model sddmm path, {SDDMM_CALLS} hybrid_sddmm calls (split23, f16_split2)")
+    a = torch.from_numpy(normal_features(n, SDDMM_F, seed=3) * 0.1).to(dev)
+    b = torch.from_numpy(normal_features(n, SDDMM_F, seed=4) * 0.1).to(dev)
+    plan = agg.plan if agg.plan.num_edges else None
+
+    def path():
+        return hybrid_sddmm(parts, plan, a, b, gather_dtype="f16_split2", dot_mode="split23")
+
+    with torch.no_grad():
+        reset_counts()
+        for _ in range(SDDMM_CALLS):
+            cells, res = path()
+        torch.cuda.synchronize()
+        launches = cuda_sddmm.launches
+        log(f"  B6 launches in {SDDMM_CALLS} calls: {launches} ({len(parts)} parts)")
+        check(launches == SDDMM_CALLS * len(parts), "B6 did not launch once per part per call")
+        check(only("B6"), "the SDDMM path launched another kernel")
+        sddmm_path_checks(g, agg, cells, res, a, b)
+        del cells, res
+    return dict(agg=agg, parts16=parts16, nnz=nnz, a=a, b=b, path=path, launches=launches, max_err=max_err)
+
+
+def bits_gcn_phase(g, h0, tile_host, res_host, res_plan, gcn_out, forwards, gen) -> dict:
+    """Phase 14: B1 over 1-bit tiles against its plain version, then the GCN
+    forward over phase 3's plan split by split_bit_tiles.  Returns what
+    phase 15 times."""
+    dev = h0.device
+    n = g.num_nodes
+    tb, ti = split_bit_tiles(tile_host)
+    check(tb is not None and ti is not None, "the GCN plan did not split into a 1-bit and an int8 part")
+    tb, ti = tb.to(dev), ti.to(dev)
+    agg = Aggregator(plan=res_plan, num_nodes=n, n_src=g.n_src, num_edges=g.num_edges, tile=ti, tile_bits=tb)
+    log(
+        f"phase 14: GCN forward over 1-bit tiles: phase 3's plan split into a 1-bit part (tiles={tb.num_tiles}, "
+        f"dense edges={tb.num_dense_edges}, A bytes={tb.a.numel()}) and an int8 part (tiles={ti.num_tiles}, "
+        f"dense edges={ti.num_dense_edges}, A bytes={ti.a.numel()}); unsplit A bytes={tile_host.a.nbytes}"
+    )
+    tb16 = host_plan(tb).pad_runs(16).to(dev)
+    max_err = 0.0
+    with torch.no_grad():
+        for plan, label in ((tb, "1-bit pack1"), (tb16, "1-bit pack16")):
+            for f in BENCH_DIMS[1:]:
+                for mode in ("split", "native"):
+                    err = kernel_vs_plain(plan, f, mode, gen, label)
+                    if plan is tb:
+                        max_err = max(max_err, err)
+        ng, rng = ragged_graph()
+        sd = rng.uniform(0.2, 2.0, ng.num_nodes).astype(np.float32)
+        ss = rng.uniform(0.2, 2.0, ng.n_src).astype(np.float32)
+        ragged, _ = densify(ng, val=sd[ng.dst_per_edge] * ss[ng.indices], scale_dst=sd, scale_src=ss, **SCHEDULE)
+        rbits = split_bit_tiles(ragged)[0].pad_runs(16)
+        check(bool(filler_only_runs(rbits)), "1-bit ragged case lacks a filler-only run")
+        rbits = rbits.to(dev)
+        for f in (BENCH_DIMS[1], BENCH_DIMS[3]):
+            for mode in ("split", "native"):
+                kernel_vs_plain(rbits, f, mode, gen, "ragged factored 1-bit part")
+        del rbits, ragged
+
+        model = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
+        opts = fast_layer_opts(BENCH_DIMS)
+        reset_counts()
+        for _ in range(forwards):
+            out = model(agg, h0, opts)
+        torch.cuda.synchronize()
+        launches = cuda_bcsr.launches
+        log(f"  B1 launches in {forwards} forwards: {launches} (3 layers x 2 parts)")
+        check(launches == 6 * forwards, "B1 did not launch 6 times per forward")
+        check(only("B1"), "the 1-bit GCN forward launched another kernel")
+        check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "1-bit forward output")
+        tp = tile_host.to(dev)  # the unsplit plan: its cells are the two parts' cells
+        edges = gcn_edges(g, res_host, tp)
+        xs = gcn_gates(agg, model.weights, opts, h0, out, edges, "1-bit ")
+        del edges
+        bad = relative_error_count(out, gcn_out)
+        log(f"  1-bit forward vs phase 3's int8 forward: gate_bad={bad} max|d|={(out - gcn_out).abs().max().item():.3e}")
+        check(bad == 0, "the 1-bit forward differs from the int8 forward")
+    return dict(agg=agg, model=model, opts=opts, xs=xs, tp=tp, launches=launches, max_err=max_err)
+
+
+def timing_phase(g, sd, bt) -> tuple:
+    """Phase 15: the SDDMM path and B6, then the 1-bit GCN forward and B1
+    over 1-bit tiles.  Returns (B6 entry fields, B1 1-bit entry fields)."""
+    log("phase 15: SDDMM and 1-bit timing (CUDA events, median of 10 after 3 warm-up)")
+    n, m = g.num_nodes, g.num_edges
+    agg, a, b = sd["agg"], sd["a"], sd["b"]
+    with torch.no_grad():
+        path_ms = cuda_time_ms(sd["path"])
+        plan = agg.plan
+        res_ms = cuda_time_ms(lambda: sddmm_slots(plan, a, b, gather_dtype="f16_split2")) if plan.num_edges else 0.0
+        log(f"  SDDMM path: {path_ms:.3f} ms, {m / (path_ms / 1e3):.4e} edges/s; residual {res_ms:.3f} ms")
+        at = a.t().contiguous()
+        rows6 = []
+        for p, p16, nnz in zip(agg.tile_parts(), sd["parts16"], sd["nnz"]):
+            c_dst, c_src, _ = tile_cells(p)
+            csr = cells_csr(c_dst, c_src, torch.ones(c_dst.shape[0], device=a.device), (n, p.n_src))
+            lib = torch.sparse.sampled_addmm(csr, b, at, beta=0.0)
+            r, c = csr_rows(lib), lib.col_indices()
+            ref = (b.index_select(0, r) * a.index_select(0, c)).sum(dim=1)
+            check((lib.values() - ref).abs().max() <= 1e-4 * ref.abs().max(), "sampled_addmm yardstick disagrees")
+            t, f = p.num_tiles, SDDMM_F
+            row = dict(
+                part=part_name(p), f=f, tiles=t, tiles_pack16=p16.num_tiles, nnz_cells=nnz,
+                ms=cuda_time_ms(lambda: cuda_sddmm.sddmm_bcsr_cuda(p, a, b)),
+                ms_pack16=cuda_time_ms(lambda: cuda_sddmm.sddmm_bcsr_cuda(p16, a, b)),
+                plain_ms=cuda_time_ms(lambda: sddmm_bcsr_plain(p, a, b)),
+                library_ms=cuda_time_ms(lambda: torch.sparse.sampled_addmm(csr, b, at, beta=0.0)),
+                **bound(p.a.numel() + 2 * t * p.tile_rows * p.tile_cols + 8 * t + 4 * f * (p.n_src + n), 2.0 * nnz * f),
+            )
+            rows6.append(row)
+            log(
+                f"  B6 {row['part']}: {row['ms']:.3f} ms/launch (pack16 {row['ms_pack16']:.3f}) bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | plain {row['plain_ms']:.3f} | "
+                f"sampled_addmm {row['library_ms']:.3f}"
+            )
+            del csr, lib, ref
+
+        bagg, model, opts, xs, tp = bt["agg"], bt["model"], bt["opts"], bt["xs"], bt["tp"]
+        fwd_ms = cuda_time_ms(lambda: model(bagg, xs[0], opts))
+        log(f"  1-bit GCN forward: {fwd_ms:.3f} ms")
+        tb, ti = bagg.tile_bits, bagg.tile
+        csr = tile_csr(tb)
+        nnz = csr.values().numel()
+        rows1 = []
+        for i, w in enumerate(model.weights):
+            x = round_h((xs[i] @ w).contiguous(), opts[i].tile_h_mode)
+            f = x.shape[1]
+            row = dict(
+                f=f, tiles=tb.num_tiles, nnz_cells=nnz,
+                ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tb, x)),
+                int8_part_ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(ti, x)),
+                unsplit_int8_ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, x)),
+                plain_ms=cuda_time_ms(lambda: bcsr_spmm_plain(tb, x)),
+                library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr, x)),
+                **bound(tb.a.numel() + 4 * (tb.num_tiles + tb.num_row_tiles + 1) + 4 * f * (tb.n_src + n), 2.0 * nnz * f),
+            )
+            rows1.append(row)
+            log(
+                f"  layer {i + 1} f={f}: B1 1-bit part {row['ms']:.3f} ms/launch + int8 part {row['int8_part_ms']:.3f} "
+                f"(unsplit int8 {row['unsplit_int8_ms']:.3f}) bound {row['bound_ms']:.4f} ({row['bound_by']}) | "
+                f"plain {row['plain_ms']:.3f} | torch.sparse.mm {row['library_ms']:.3f}"
+            )
+    return (
+        dict(rows=rows6, path_ms=path_ms, edges_per_s=m / (path_ms / 1e3), residual_ms=res_ms),
+        dict(rows=rows1, forward_ms=fwd_ms),
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -931,53 +1419,15 @@ def main() -> int:
             out = model(agg, h0, opts)
         torch.cuda.synchronize()
         launches = cuda_bcsr.launches
-        check(cuda_gat.launches == 0 and cuda_rowmax.launches == 0, "the GCN forward launched a GAT kernel")
+        check(only("B1"), "the GCN forward launched another kernel")
         log(f"  B1 launches in {forwards} forwards: {launches}")
         check(launches == 3 * forwards, "B1 did not launch 3 times per forward")
         check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "forward output")
 
-        # float64 oracles over edge lists: the whole graph from the layer
-        # input ("pure"), and the aggregation the numeric modes define
-        # ("mode"): from the layer's own float32 transform z, tile edges
-        # take the tile_h_mode rounding of z, residual edges z exactly.  The
-        # tile/residual split comes from the host densify, checked here to
-        # partition the graph's edges.
-        def edges(gr):
-            return (
-                torch.from_numpy(gr.dst_per_edge.astype(np.int64)).to(dev),
-                torch.from_numpy(gr.indices.astype(np.int64)).to(dev),
-            )
-
-        g_dst, g_src = edges(g)
-        r_dst, r_src = edges(res_host)
-        c_dst, c_src, c_cnt = tile_cells(tp)
-        per_row = torch.bincount(c_dst, weights=c_cnt, minlength=n) + torch.bincount(r_dst, minlength=n)
-        check(
-            torch.equal(per_row.long().cpu(), torch.from_numpy(g.degrees.astype(np.int64))),
-            "tile cells + residual edges do not partition the graph's edges",
-        )
-        limit = PURE_BAD_FRACTION
-        xs, chain = [h0], h0.double()
-        for i, w in enumerate(model.weights):
-            xs.append(gcn_layer(agg, xs[i], w, opts[i]))
-            z32 = xs[i] @ w  # the layer's own float32 transform
-            zt = round_h(z32, opts[i].tile_h_mode).double()
-            mode_ref = (edge_sum(zt, c_dst, c_src, c_cnt) + edge_sum(z32.double(), r_dst, r_src)).clamp_min_(0.0)
-            z = xs[i].double() @ w.double()
-            pure_ref = edge_sum(z, g_dst, g_src).clamp_min_(0.0)
-            bad = relative_error_count(xs[-1], mode_ref)
-            bad_pure = relative_error_count(xs[-1], pure_ref)
-            log(
-                f"  layer {i + 1} (same input) vs f64 oracle: mode gate_bad={bad}, "
-                f"pure gate_bad={bad_pure} of {z.numel()}"
-            )
-            check(bad == 0, f"layer {i + 1} fails the gate against its modes' f64 oracle")
-            check(bad_pure <= limit * z.numel(), f"layer {i + 1}: too many elements off the pure oracle")
-            chain = edge_sum(chain @ w.double(), g_dst, g_src).clamp_min_(0.0)
-        bad = relative_error_count(out, chain)
-        log(f"  forward vs f64 pure oracle chain: gate_bad={bad} of {chain.numel()}")
-        check(bad <= limit * chain.numel(), "forward: too many elements off the pure oracle chain")
-        del g_dst, g_src, r_dst, r_src, c_dst, c_src, c_cnt, chain, z, z32, zt, mode_ref, pure_ref
+        edges = gcn_edges(g, res_host, tp)
+        xs = gcn_gates(agg, model.weights, opts, h0, out, edges, "")
+        del edges
+        gcn_out = out
 
         # ---- phase 4: timing
         log("phase 4: timing (CUDA events, median of 10 after 3 warm-up)")
@@ -1010,7 +1460,8 @@ def main() -> int:
                 f"{stream_ms:.4f}) | plain {plain_ms:.3f} | torch.sparse.mm {library_ms:.3f}"
             )
 
-    del agg, tile16, model, xs
+    res_plan = agg.plan
+    del agg, tp, tile16, model, xs, csr
     torch.cuda.empty_cache()
     gat_kernels = gat_phases(args, g, h0, gen, forwards, libs)
     torch.cuda.empty_cache()
@@ -1019,8 +1470,13 @@ def main() -> int:
         train = train_phases(args, g, h0, gen)
     else:
         log("phases 8-11 (training) run at the quick scale only")
+    torch.cuda.empty_cache()
+    sdd = sddmm_phases(args, g, gen)
+    torch.cuda.empty_cache()
+    bt = bits_gcn_phase(g, h0, tile_host, res_host, res_plan, gcn_out, forwards, gen)
+    b6, b1_bits = timing_phase(g, sdd, bt)
 
-    # ---- phase 12: report
+    # ---- phase 16: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
     kernels = [dict(
         name="bcsr_spmm",
@@ -1035,16 +1491,23 @@ def main() -> int:
         library_ms=total("library_ms"),
         forward_ms=fwd_ms, build_s=build_s, scale=args.scale, shapes=shapes,
     )] + gat_kernels
-    if train is not None:
-        def summed(rows, **extra):
-            # times summed over the three launches of one training step (f=128, 64, 32)
-            return dict(
-                ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=sum(r["bound_ms"] for r in rows),
-                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
-                library_ms=sum(r["library_ms"] for r in rows), shapes=rows, **extra,
-            )
 
+    def summed(rows, **extra):
+        # times summed over the rows' launches (the three layers of one step
+        # or forward; the parts of one SDDMM call)
+        return dict(
+            ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(r["bound_ms"] for r in rows),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
+            library_ms=sum(r["library_ms"] for r in rows), shapes=rows, **extra,
+        )
+
+    kernels[0]["bits"] = dict(
+        path="GCN forward over phase 3's plan split into 1-bit and int8 parts (fast_layer_opts)",
+        launches=bt["launches"], launches_per_forward=6, max_abs_err=bt["max_err"],
+        forward_ms=b1_bits["forward_ms"], **summed(b1_bits["rows"], over="the 1-bit part, f=128, 64, 32"),
+    )
+    if train is not None:
         rows, tt = train["rows"], train["times"]
         kernels[0]["training"] = dict(
             path=f"GCN training step (B1 forward and over the transposed plan), {TRAIN_STEPS} steps",
@@ -1068,6 +1531,17 @@ def main() -> int:
         print(json.dumps({"training": dict(
             times=tt, layers=train["layers"], gcn_losses=train["gcn_losses"], gat_losses=train["gat_losses"],
         )}), flush=True)
+    kernels.append(dict(
+        name="sddmm_bcsr", route="cuda", source="gnn_computing_tpu_torch/csrc/sddmm_bcsr.cu",
+        replaces="gnn_computing_tpu/ops/bcsr_sddmm.py:100", launches=sdd["launches"],
+        launches_per_call=len(sdd["agg"].tile_parts()), max_abs_err=sdd["max_err"],
+        **summed(b6["rows"]), path=(
+            f"bench.py --model sddmm (hybrid): [256, 128] t24, 1-bit tiles, residual {RESIDUAL_BLOCK}, "
+            f"f={SDDMM_F}, split23, f16_split2, bf16 cells; {SDDMM_CALLS} calls"
+        ),
+        path_ms=b6["path_ms"], edges_per_s=b6["edges_per_s"], residual_ms=b6["residual_ms"],
+        build_s=libs["sddmm_bcsr"][1], scale=args.scale,
+    ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -5,7 +5,11 @@ count tiles (schedule.tiles) plus a neighbor-grouping plan for the residual
 edges, run by ops.bcsr.hybrid_spmm (``run``) and ops.bcsr_gat.hybrid_gat
 (``run_gat``).  ``with_transpose=True`` adds the transposed tile plan, the
 transposed residual plan and the edge map that the ops' backwards stream.
-Not ported yet: 1-bit tiles and the gather-only schedule.
+``bit_tiles=True`` splits the tiles into a 1-bit part (``tile_bits``) and an
+int8 part (``tile``); only the forward tile product and the SDDMM read
+1-bit parts yet, so ``run_gat`` raises on them and bit-tile training
+(``with_transpose=True``) is refused.  Not ported yet: the gather-only
+schedule.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import hybrid_gat
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
-from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify
+from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify, split_bit_tiles
 
 
 @dataclasses.dataclass
@@ -37,9 +41,12 @@ class Aggregator:
     tile_t: Optional[TilePlan] = None
     plan_t: Optional[AggregationPlan] = None
     edge_map_t: Optional[object] = None  # transposed residual edge -> residual edge
+    tile_bits: Optional[TilePlan] = None  # 1-bit part (bit_tiles=True)
 
     def tile_parts(self) -> tuple:
-        return tuple(p for p in (self.tile,) if p is not None and p.num_tiles)
+        """The non-empty tile parts: the 1-bit part first, as in the JAX
+        package."""
+        return tuple(p for p in (self.tile_bits, self.tile) if p is not None and p.num_tiles)
 
     def tile_parts_t(self) -> tuple:
         return tuple(p for p in (self.tile_t,) if p is not None and p.num_tiles)
@@ -67,14 +74,19 @@ class Aggregator:
         so ``pack=1`` saves the filler tiles there.  ``with_transpose``
         also builds what the backward streams: the transposed tile plan
         (from the unpadded plan, then padded), a neighbor-grouping plan of
-        the transposed residual with the same block, and its edge map."""
-        if bit_tiles:
-            raise NotImplementedError("1-bit tiles are not ported yet")
+        the transposed residual with the same block, and its edge map.
+        ``bit_tiles`` splits the tiles by content (split_bit_tiles) before
+        padding each part."""
+        if bit_tiles and with_transpose:
+            raise NotImplementedError("bit-tile training (bit_tiles with with_transpose) is a later slice")
         dev = resolve_device(device)
         tile, res = densify(
             g, val=val, tile_rows=tile_rows, tile_cols=tile_cols,
             threshold=threshold, dtype=tile_dtype, **densify_kw,
         )
+        tile_b = None
+        if bit_tiles:
+            tile_b, tile = split_bit_tiles(tile)
         plan = neighbor_grouping_plan(res, block_size=residual_block)
         tile_t = plan_t = edge_map = None
         if with_transpose:
@@ -87,10 +99,11 @@ class Aggregator:
             num_nodes=g.num_nodes,
             n_src=g.n_src,
             num_edges=g.num_edges,
-            tile=tile.pad_runs(pack),
+            tile=None if tile is None else tile.pad_runs(pack),
             tile_t=tile_t,
             plan_t=plan_t,
             edge_map_t=edge_map,
+            tile_bits=None if tile_b is None else tile_b.pad_runs(pack),
         )
         return agg.to(dev)
 
@@ -103,6 +116,7 @@ class Aggregator:
             tile_t=None if self.tile_t is None else self.tile_t.to(dev),
             plan_t=None if self.plan_t is None else self.plan_t.to(dev),
             edge_map_t=None if self.edge_map_t is None else torch.as_tensor(self.edge_map_t).to(dev, torch.int64),
+            tile_bits=None if self.tile_bits is None else self.tile_bits.to(dev),
         )
 
     def _plans_t(self):

@@ -1,7 +1,10 @@
-// Block-sparse SpMM over int8 count tiles (B1), hand-written for Hopper.
+// Block-sparse SpMM over count tiles (B1), hand-written for Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/pallas_bcsr.py:
-// bcsr_spmm_pallas (int8 tile format, f32 operand after the h_mode rounding).
+// bcsr_spmm_pallas (int8 and 1-bit tile formats, f32 operand after the
+// h_mode rounding).  The A format is a template argument (bit_tiles.cuh):
+// int8 counts, or 1-bit tiles whose row i lies in bit plane i / (R/8) of
+// byte row i % (R/8); a 1-bit tile reads 8x fewer A bytes.
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every row-tile,
@@ -35,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bit_tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 threads
@@ -42,13 +47,13 @@ constexpr int kBR = 64;        // destination rows per block (4 per thread)
 constexpr int kBK = 32;        // tile columns staged per step
 constexpr int kTM = 4;
 
-template <int BF>
+template <int BF, class Fmt>
 __global__ void __launch_bounds__(kThreads)
-bcsr_spmm_i8_kernel(const int8_t* __restrict__ a,
-                    const int32_t* __restrict__ tile_col,
-                    const int32_t* __restrict__ run_start,
-                    const float* __restrict__ h, float* __restrict__ out,
-                    int R, int C, int n, int n_src, int f, int slabs_per_run) {
+bcsr_spmm_kernel(const uint8_t* __restrict__ a,
+                 const int32_t* __restrict__ tile_col,
+                 const int32_t* __restrict__ run_start,
+                 const float* __restrict__ h, float* __restrict__ out,
+                 int R, int C, int n, int n_src, int f, int slabs_per_run) {
   constexpr int TN = BF / 16;
   // +4 pad keeps rows 16-byte aligned and the transposing stores free of
   // bank conflicts (32 consecutive rows per warp, one k)
@@ -63,6 +68,9 @@ bcsr_spmm_i8_kernel(const int8_t* __restrict__ a,
   // A staging: thread loads 8 consecutive columns of one slab row
   const int ai = tid % kBR, aj = (tid / kBR) * 8;
   const bool vec_a = (C % 8) == 0;
+  const int row = r0 + ai;
+  int shift = 0;
+  const int64_t row_off = row < R ? Fmt::row_offset(row, R, C, &shift) : 0;
 
   float acc[kTM][TN];
 #pragma unroll
@@ -72,7 +80,7 @@ bcsr_spmm_i8_kernel(const int8_t* __restrict__ a,
 
   const int t_end = run_start[run + 1];
   for (int t = run_start[run]; t < t_end; ++t) {
-    const int8_t* at = a + (int64_t)t * R * C;
+    const uint8_t* arow = a + t * Fmt::tile_bytes(R, C) + row_off;
     const int64_t col0 = (int64_t)tile_col[t] * C;
     // one tile's product A_t @ H_t, added to the run's sum once the tile is
     // done (as the TPU kernel adds each tile's dot): a hub run spans ~10^5
@@ -83,18 +91,16 @@ bcsr_spmm_i8_kernel(const int8_t* __restrict__ a,
 #pragma unroll
       for (int j = 0; j < TN; ++j) part[m][j] = 0.f;
     for (int k0 = 0; k0 < C; k0 += kBK) {
-      const int row = r0 + ai;
       const int kk = k0 + aj;
       if (vec_a && row < R && kk + 8 <= C) {
-        const int2 v = *reinterpret_cast<const int2*>(at + (int64_t)row * C + kk);
-        const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+        const int2 v = *reinterpret_cast<const int2*>(arow + kk);
+        const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) as[aj + q][ai] = (float)b[q];
+        for (int q = 0; q < 8; ++q) as[aj + q][ai] = (float)Fmt::count(b[q], shift);
       } else {
 #pragma unroll
         for (int q = 0; q < 8; ++q)
-          as[aj + q][ai] =
-              (row < R && kk + q < C) ? (float)at[(int64_t)row * C + kk + q] : 0.f;
+          as[aj + q][ai] = (row < R && kk + q < C) ? (float)Fmt::count(arow[kk + q], shift) : 0.f;
       }
       for (int e = tid; e < kBK * BF; e += kThreads) {
         const int k = e / BF, c = e % BF;
@@ -140,12 +146,9 @@ bcsr_spmm_i8_kernel(const int8_t* __restrict__ a,
   }
 }
 
-}  // namespace
-
-extern "C" int bcsr_spmm_i8_f32(const void* a, const void* tile_col,
-                                const void* run_start, const void* h, void* out,
-                                int num_row_tiles, int R, int C, int n,
-                                int n_src, int f, int device, void* stream) {
+template <class Fmt>
+int launch(const void* a, const void* tile_col, const void* run_start, const void* h, void* out,
+           int num_row_tiles, int R, int C, int n, int n_src, int f, int device, void* stream) {
   if (num_row_tiles == 0 || f == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
   // card in it before launching on the caller's stream
@@ -154,17 +157,34 @@ extern "C" int bcsr_spmm_i8_f32(const void* a, const void* tile_col,
   const int slabs = (R + kBR - 1) / kBR;
   const dim3 block(kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* a8 = static_cast<const int8_t*>(a);
+  const uint8_t* a8 = static_cast<const uint8_t*>(a);
   const int32_t* col = static_cast<const int32_t*>(tile_col);
   const int32_t* rs = static_cast<const int32_t*>(run_start);
   const float* hf = static_cast<const float*>(h);
   float* o = static_cast<float*>(out);
   if (f <= 32) {
     const dim3 grid(num_row_tiles * slabs, 1);
-    bcsr_spmm_i8_kernel<32><<<grid, block, 0, s>>>(a8, col, rs, hf, o, R, C, n, n_src, f, slabs);
+    bcsr_spmm_kernel<32, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, o, R, C, n, n_src, f, slabs);
   } else {
     const dim3 grid(num_row_tiles * slabs, (f + 63) / 64);
-    bcsr_spmm_i8_kernel<64><<<grid, block, 0, s>>>(a8, col, rs, hf, o, R, C, n, n_src, f, slabs);
+    bcsr_spmm_kernel<64, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, o, R, C, n, n_src, f, slabs);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int bcsr_spmm_i8_f32(const void* a, const void* tile_col, const void* run_start,
+                                const void* h, void* out, int num_row_tiles, int R, int C, int n,
+                                int n_src, int f, int device, void* stream) {
+  return launch<CountTiles>(a, tile_col, run_start, h, out, num_row_tiles, R, C, n, n_src, f,
+                            device, stream);
+}
+
+extern "C" int bcsr_spmm_b1_f32(const void* a, const void* tile_col, const void* run_start,
+                                const void* h, void* out, int num_row_tiles, int R, int C, int n,
+                                int n_src, int f, int device, void* stream) {
+  if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<BitTiles>(a, tile_col, run_start, h, out, num_row_tiles, R, C, n, n_src, f,
+                          device, stream);
 }

@@ -1,10 +1,12 @@
 """Block-sparse aggregation over dense count tiles + the hybrid op.
 
 Port of ``gnn_computing_tpu/ops/bcsr.py``.  ``bcsr_spmm``
-computes out = A_tiles @ h: on a CUDA tensor it launches the hand-written
-kernel (ops.cuda_bcsr, the port of the TPU kernel ``bcsr_spmm_pallas``); on
-a CPU tensor it runs ``bcsr_spmm_plain``, the counterpart of the JAX
-package's ``bcsr_spmm_xla``.  There is no fallback between the two.
+computes out = A_tiles @ h over int8 or 1-bit tiles: on a CUDA tensor it
+launches the hand-written kernel (ops.cuda_bcsr, the port of the TPU kernel
+``bcsr_spmm_pallas``); on a CPU tensor it runs ``bcsr_spmm_plain``, the
+counterpart of the JAX package's ``bcsr_spmm_xla``.  There is no fallback
+between the two.  A 1-bit tile times a float32 or 'split' operand is exact,
+as an int8 tile is (the TPU kernel's ``mxu_ladder`` bit path is not copied).
 
 The ``h_mode`` rounding is applied here, outside the kernel, exactly as the
 JAX package emulates it on its portable path: 'split' rounds h to hi + lo
@@ -16,7 +18,7 @@ plans scale h by ``scale_src`` before the tiles and the result by
 
 ``bcsr_rowmax`` is the per-row max over the same tiles (the GAT softmax
 stabilizer's dense part): the B5 kernel (ops.cuda_rowmax) on a CUDA
-tensor, ``bcsr_rowmax_plain`` on a CPU tensor.
+tensor, ``bcsr_rowmax_plain`` on a CPU tensor; int8 tiles only.
 
 ``hybrid_spmm`` is a ``torch.autograd.Function`` (the JAX op's custom VJP):
 its backward aggregates the cotangent over the transposed plans, B1 over
@@ -80,7 +82,7 @@ def _tiles_plain(tp: TilePlan, h: torch.Tensor, chunk: int) -> torch.Tensor:
     h_t = h_t.reshape(nct, tc, f)
     out_t = torch.zeros((nrt, tr, f), dtype=h.dtype, device=h.device)
     for s in range(0, tp.num_tiles, chunk):
-        a_c = tp.a[s : s + chunk].to(h.dtype)
+        a_c = tp.counts(s, s + chunk).to(h.dtype)
         g = h_t.index_select(0, tp.tile_col[s : s + chunk].long())
         out_t.index_add_(0, tp.tile_row[s : s + chunk].long(), torch.bmm(a_c, g))
     return out_t.reshape(nrt * tr, f)[: tp.num_nodes]
@@ -120,6 +122,7 @@ def bcsr_rowmax_plain(tp: TilePlan, col_vals: torch.Tensor, chunk: int = 256) ->
     """Plain PyTorch per-row max, the counterpart of the JAX package's
     ``_bcsr_rowmax_xla``: out[i] = max of col_vals[j] over tile cells (i, j)
     with count > 0; -inf where the tiles give row i no edge."""
+    tp.require_counts("bcsr_rowmax_plain")
     tr, tc = tp.tile_rows, tp.tile_cols
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
     v = torch.full((nct * tc,), float("-inf"), dtype=torch.float32, device=col_vals.device)
@@ -138,6 +141,7 @@ def bcsr_rowmax(tp: TilePlan, col_vals: torch.Tensor) -> torch.Tensor:
     """Per-destination-row max of ``col_vals`` [n_src] over the tile cells
     with count > 0 (-inf for rows without one).  CUDA tensors go through the
     B5 kernel, CPU tensors through the plain version."""
+    tp.require_counts("bcsr_rowmax")
     v = col_vals.float().contiguous()
     if v.device.type == "cuda":
         return cuda_rowmax.rowmax_bcsr_cuda(tp, v)

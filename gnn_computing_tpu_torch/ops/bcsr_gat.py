@@ -44,6 +44,10 @@ has a flat hand-written backward over the forward and transposed residual
 plans (``_residual_bwd_flat``).  The JAX package's fallback of AD through
 the forward when no transposed plans exist is not ported: the backward
 raises and asks for them.
+
+Every function here takes int8 count tiles only and raises
+NotImplementedError on a 1-bit part: the bit variants of B2-B5 come with
+bit-tile training.
 """
 
 from __future__ import annotations
@@ -103,6 +107,7 @@ def gat_bcsr_plain(
     branch test (ad + as) > 0, batched matmuls against the gathered
     [v*h | v] operands (den packed in as the last column), scale by the row
     exponentials and add into the destination row-tiles."""
+    tp.require_counts("gat_bcsr_plain")
     tr, tc = tp.tile_rows, tp.tile_cols
     f = h.shape[-1]
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
@@ -149,6 +154,7 @@ def gat_bcsr(
             n2, d2 = gat_bcsr(p, h, att, relu_slope, row_shift, dot_mode)
             num, den = num + n2, den + d2
         return num, den
+    tp.require_counts("gat_bcsr")
     if h.device.type == "cuda":
         if h.dtype != torch.float32:
             raise ValueError(f"the CUDA GAT tile kernel takes float32 h, got {h.dtype}")
@@ -182,6 +188,7 @@ def gat_bwd_dad_plain(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float, chu
     ``gat_bwd_dad_xla``: per chunk of tiles, the cells' scores and branch
     slopes, the [R, C] products <gbar_i, h_j> by bmm, and the row sums of
     lrelu' s (<gbar_i, h_j> - c_i) added into the destination row-tiles."""
+    tp.require_counts("gat_bwd_dad_plain")
     tr, tc = tp.tile_rows, tp.tile_cols
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
     f = h.shape[-1]
@@ -206,6 +213,7 @@ def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float
     are sources j, columns destinations i), the counterpart of
     ``gat_bwd_dh_das_xla``: dh_j = sum_i s_ij gbar_i and the row sums of
     lrelu' s (<gbar_i, h_j> - c_i)."""
+    tp_t.require_counts("gat_bwd_dh_das_plain")
     tr, tc = tp_t.tile_rows, tp_t.tile_cols
     nct, nrt = tp_t.num_col_tiles, tp_t.num_row_tiles
     f = h.shape[-1]
@@ -232,6 +240,7 @@ def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float
 def gat_bwd_dad(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tensor:
     """d_att_dst over the forward tile plan: the B3 kernel on CUDA tensors,
     the plain version on CPU tensors."""
+    tp.require_counts("gat_bwd_dad")
     if h.device.type == "cuda":
         return cuda_gat_bwd.gat_bwd_dad_cuda(
             tp, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),
@@ -245,6 +254,7 @@ def gat_bwd_dad(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float) -> torch.
 def gat_bwd_dh_das(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float):
     """(dh, d_att_src) over the transposed tile plan: the B4 kernel on CUDA
     tensors, the plain version on CPU tensors."""
+    tp_t.require_counts("gat_bwd_dh_das")
     if h.device.type == "cuda":
         return cuda_gat_bwd.gat_bwd_dh_das_cuda(
             tp_t, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),

@@ -1,8 +1,9 @@
 """Launch the B1 CUDA kernel (``csrc/bcsr_spmm.cu``).
 
 The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:bcsr_spmm_pallas``
-for int8 count tiles and a float32 operand.  ops.cuda_build compiles it at
-first use and binds it with ctypes.
+for int8 count tiles and 1-bit tiles (one template on the A format) and a
+float32 operand.  ops.cuda_build compiles it at first use and binds it with
+ctypes.
 
 ``launches`` counts kernel launches; it rises only where the kernel is
 launched, so a run can show that its main path went through the kernel.
@@ -17,7 +18,10 @@ import torch
 from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
 
 NAME = "bcsr_spmm"
-SIGNATURES = {"bcsr_spmm_i8_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
+SIGNATURES = {
+    fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    for fn in ("bcsr_spmm_i8_f32", "bcsr_spmm_b1_f32")
+}
 
 launches = 0
 
@@ -36,13 +40,19 @@ def bcsr_spmm_cuda(tp, h: torch.Tensor) -> torch.Tensor:
     f = h.shape[1]
     nrt, r, c = tp.num_row_tiles, tp.tile_rows, tp.tile_cols
     check_tensor(h, "h", torch.float32, (tp.n_src, f), dev)
-    check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
+    if tp.bits:
+        if r % 8:
+            raise ValueError(f"1-bit tiles need R % 8 == 0, got R = {r}")
+        check_tensor(tp.a, "a", torch.uint8, (tp.num_tiles, r // 8, c), dev)
+    else:
+        check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
     check_tensor(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
     check_tensor(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
     out = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    err = load(NAME, SIGNATURES).bcsr_spmm_i8_f32(
+    lib = load(NAME, SIGNATURES)
+    err = (lib.bcsr_spmm_b1_f32 if tp.bits else lib.bcsr_spmm_i8_f32)(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
         h.data_ptr(), out.data_ptr(), nrt, r, c, tp.num_nodes, tp.n_src, f,
         *stream_args(dev),

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("bcsr_spmm", "gat_bcsr", "rowmax_bcsr", "gat_bwd_dad", "gat_bwd_dh_das")
+KERNELS = ("bcsr_spmm", "gat_bcsr", "rowmax_bcsr", "gat_bwd_dad", "gat_bwd_dh_das", "sddmm_bcsr")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

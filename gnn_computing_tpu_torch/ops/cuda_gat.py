@@ -28,6 +28,7 @@ def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
     ops.bcsr_gat._branch_factors).  Launches the kernel or raises; it never
     falls back."""
     global launches
+    tp.require_counts("gat_bcsr_cuda")
     check_no_grad(h, u12, v12)
     dev = h.device
     if dev.type != "cuda":

@@ -39,6 +39,7 @@ def _check_inputs(name, tp, h, gbar, c, u12, v12, rows_h, rows_gbar):
     """Device, dtype, shape and contiguity of the backward's inputs: h has
     ``rows_h`` rows, gbar, c and u12 ``rows_gbar`` (the forward's
     destinations), v12 ``rows_h`` (its sources)."""
+    tp.require_counts(name)
     check_no_grad(h, gbar, c, u12, v12)
     dev = h.device
     if dev.type != "cuda":

@@ -27,6 +27,7 @@ def rowmax_bcsr_cuda(tp, col_vals: torch.Tensor) -> torch.Tensor:
     over tile cells with count > 0, -inf where there is none.  Launches the
     kernel or raises; it never falls back."""
     global launches
+    tp.require_counts("rowmax_bcsr_cuda")
     check_no_grad(col_vals)
     dev = col_vals.device
     if dev.type != "cuda":

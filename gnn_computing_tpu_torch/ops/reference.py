@@ -1,5 +1,6 @@
-"""Dense float64 numpy oracles (small graphs only), copies of ``spmm_dense``
-and ``gat_aggregate_dense`` from ``gnn_computing_tpu/ops/reference.py``."""
+"""Dense float64 numpy oracles (small graphs only), copies of ``spmm_dense``,
+``sddmm_dense`` and ``gat_aggregate_dense`` from
+``gnn_computing_tpu/ops/reference.py``."""
 
 from __future__ import annotations
 
@@ -19,6 +20,13 @@ def dense_adjacency(g: CSRGraph, val=None) -> np.ndarray:
 
 def spmm_dense(g: CSRGraph, h: np.ndarray, val=None) -> np.ndarray:
     return dense_adjacency(g, val) @ np.asarray(h, np.float64)
+
+
+def sddmm_dense(g: CSRGraph, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per-edge dots in CSR edge order: out[e] = <a[src_e], b[dst_e]>."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.einsum("ef,ef->e", a[g.indices], b[g.dst_per_edge])
 
 
 def gat_aggregate_dense(

@@ -106,20 +106,38 @@ def edge_values_from_slots_flat(plan: AggregationPlan, slot_val: torch.Tensor) -
     return out
 
 
-def sddmm_slots(plan: AggregationPlan, a: torch.Tensor, b: torch.Tensor, chunk_slots: int = 1 << 22) -> torch.Tensor:
+def sddmm_slots(
+    plan: AggregationPlan, a: torch.Tensor, b: torch.Tensor, gather_dtype=None, chunk_slots: int = 1 << 22
+) -> torch.Tensor:
     """Per-slot dot products, flat: out[t*B + s] = <a[src_{t,s}], b[dst_t]>,
-    0 in pad slots (the counterpart of ``sddmm_slots_xla``, in chunks of
-    whole tasks so the gathered [slots, f] block stays bounded)."""
+    0 in pad slots (the counterpart of ``sddmm_slots_xla`` and
+    ``sddmm_slots_chunked``, in chunks of whole tasks so the gathered
+    [slots, f] block stays bounded).  ``gather_dtype`` as in
+    weighted_task_sums: 'f16_split2' gathers the [n, 2f] float16 (hi, lo)
+    table and rebuilds hi + lo in float32 before the dot; a beyond
+    float16's range is gathered as float32 rows."""
     bsz = plan.block_size
+    f = a.shape[-1]
     src = plan.src_flat()
     dst = plan.dst
     cnt = plan.count.long()
     nt = plan.num_tasks_padded
+    if gather_dtype == "f16_split2" and a.numel() and a.abs().max() > F16_MAX:
+        gather_dtype = None
+    if gather_dtype == "f16_split2":
+        table = torch.cat(f16_split2(a), dim=1)
+    elif gather_dtype is None:
+        table = a
+    else:
+        raise NotImplementedError(f"gather_dtype {gather_dtype!r} is not ported")
     out = torch.empty((nt * bsz,), dtype=b.dtype, device=b.device)
     step = max(1, chunk_slots // bsz)
     for t0 in range(0, nt, step):
         t1 = min(nt, t0 + step)
-        ga = a.index_select(0, src[t0 * bsz : t1 * bsz]).reshape(t1 - t0, bsz, -1).to(b.dtype)
+        g = table.index_select(0, src[t0 * bsz : t1 * bsz])
+        if gather_dtype == "f16_split2":
+            g = g[:, :f].float() + g[:, f:].float()
+        ga = g.reshape(t1 - t0, bsz, f).to(b.dtype)
         gb = b.index_select(0, dst[t0:t1])
         dots = (ga * gb[:, None, :]).sum(dim=-1)
         mask = torch.arange(bsz, device=cnt.device)[None, :] < cnt[t0:t1, None]

@@ -1,7 +1,8 @@
 """Tile densification: dense int8 count tiles + a sparse residual graph.
 
-Port of the int8 count path of ``gnn_computing_tpu/schedule/tiles.py``
-(``TilePlan``, ``densify``, ``pad_runs``, ``transpose``).  Edges falling in [R x C]
+Port of the integer count path of ``gnn_computing_tpu/schedule/tiles.py``
+(``TilePlan``, ``densify``, ``pad_runs``, ``transpose``, the 1-bit format
+``pack_bit_tiles`` / ``unpack_bit_tiles`` / ``split_bit_tiles``).  Edges falling in [R x C]
 adjacency blocks that hold at least ``threshold`` edges become dense tiles
 holding exact edge counts; the rest stay in a residual CSR graph for the
 gather path.  Factored edge values val[e] = scale_dst[dst] * scale_src[src]
@@ -12,6 +13,12 @@ The counts are written straight from the sorted cell keys: no float
 at reddit scale).  A cell holds at most 127 edges; in each cell the first
 127 edges in edge order stay in the tile and later ones spill to the
 residual, the rule of the JAX package's native fill.
+
+1-bit tiles (``TilePlan.bits``): a tile whose every cell holds 0 or 1 is
+stored as uint8 [R/8, C], plane-major along rows: bit b of a[t, i, c] is
+cell (b*R/8 + i, c) — the layout the JAX package's code packs and decodes
+(its ``TilePlan.bits`` comment describes another).  ``split_bit_tiles``
+splits an int8 plan by tile content into a 1-bit and an int8 part.
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ class TilePlan:
     """Dense adjacency tiles, sorted by destination row-tile.
 
     a:         int8 [num_tiles, R, C]; a[t, i, j] counts the edges
-               (src = tile_col[t]*C + j) -> (dst = tile_row[t]*R + i).
+               (src = tile_col[t]*C + j) -> (dst = tile_row[t]*R + i);
+               with ``bits``, uint8 [num_tiles, R/8, C] in the 1-bit
+               format (module doc), every count 0 or 1.
     tile_col:  int32[num_tiles] source-tile index per tile.
     tile_row:  int32[num_tiles] destination-tile index, ascending.
     run_start: int32[nrt + 1] run offsets into the tile axis (run_offsets).
@@ -64,6 +73,8 @@ class TilePlan:
     num_dense_edges: int
     # run-length multiple guaranteed by pad_runs
     pack: int = 1
+    # ``a`` holds 1-bit tiles (module doc)
+    bits: bool = False
 
     @property
     def num_row_tiles(self) -> int:
@@ -81,13 +92,34 @@ class TilePlan:
 
         return dataclasses.replace(
             self,
-            a=put(self.a, torch.int8),
+            # bytes of a 1-bit plan go above 127: they stay uint8
+            a=put(self.a, torch.uint8 if self.bits else torch.int8),
             tile_col=put(self.tile_col, torch.int32),
             tile_row=put(self.tile_row, torch.int32),
             run_start=put(self.run_start, torch.int32),
             scale_dst=put(self.scale_dst, torch.float32),
             scale_src=put(self.scale_src, torch.float32),
         )
+
+    def counts(self, start: int = 0, stop: Optional[int] = None):
+        """The edge counts [stop - start, R, C] of tiles start..stop (the
+        1-bit format unpacked), for the plain versions."""
+        a = self.a[start:stop]
+        return unpack_bit_tiles(a) if self.bits else a
+
+    def unpack_bits(self) -> "TilePlan":
+        """The same plan with int8 count tiles."""
+        if not self.bits:
+            return self
+        return dataclasses.replace(self, a=unpack_bit_tiles(self.a), bits=False)
+
+    def require_counts(self, op: str):
+        """Raise for a 1-bit plan: ``op`` reads int8 counts only."""
+        if self.bits:
+            raise NotImplementedError(
+                f"{op} over 1-bit tiles is not ported yet (it comes with bit-tile training); "
+                "1-bit parts go through bcsr_spmm and sddmm_bcsr only"
+            )
 
     def pad_runs(self, multiple: int) -> "TilePlan":
         """Pad every tile-row run with all-zero tiles (column 0) to a multiple
@@ -107,8 +139,9 @@ class TilePlan:
         # destination slot of every existing tile: its run's new start plus
         # its rank inside the run
         pos = new_start[rows] + (np.arange(len(rows)) - old_start[rows])
-        a = np.zeros((total,) + np.asarray(self.a).shape[1:], np.int8)
-        a[pos] = self.a
+        old_a = np.asarray(self.a)
+        a = np.zeros((total,) + old_a.shape[1:], old_a.dtype)
+        a[pos] = old_a
         cols = np.zeros(total, np.int32)
         cols[pos] = self.tile_col
         new_rows = np.repeat(np.arange(nrt, dtype=np.int32), padded)
@@ -129,6 +162,8 @@ class TilePlan:
         none, so the transposed plan covers every row-tile as densify's
         does; scales swap.  Take it from the unpadded plan, then pad_runs,
         as the JAX package's aggregator does."""
+        if self.bits:
+            raise NotImplementedError("the transpose of a 1-bit plan comes with bit-tile training, a later slice")
         order = np.argsort(np.asarray(self.tile_col), kind="stable")
         a = np.ascontiguousarray(np.asarray(self.a)[order].transpose(0, 2, 1))
         rows = np.asarray(self.tile_col)[order].astype(np.int32)
@@ -155,6 +190,78 @@ class TilePlan:
             num_tiles=len(rows),
             num_dense_edges=self.num_dense_edges,
         )
+
+
+def pack_bit_tiles(a: np.ndarray) -> np.ndarray:
+    """[T, R, C] 0/1 tiles -> uint8 [T, R/8, C], plane-major along rows:
+    bit b of out[t, i, c] = a[t, b*(R/8) + i, c]."""
+    a = np.asarray(a)
+    t, r, c = a.shape
+    if r % 8:
+        raise ValueError(f"1-bit tiles need R % 8 == 0, got R = {r}")
+    bits = (a != 0).astype(np.uint8).reshape(t, 8, r // 8, c)
+    shifts = (1 << np.arange(8, dtype=np.uint8))[None, :, None, None]
+    return (bits * shifts).sum(axis=1, dtype=np.uint8)
+
+
+def unpack_bit_tiles(packed):
+    """Inverse of pack_bit_tiles: uint8 [T, R/8, C] -> int8 [T, R, C]; a
+    numpy array or a tensor, returned as the same kind."""
+    if isinstance(packed, torch.Tensor):
+        return torch.cat([(packed >> b) & 1 for b in range(8)], dim=1).to(torch.int8)
+    packed = np.asarray(packed)
+    return np.concatenate([(packed >> b) & 1 for b in range(8)], axis=1).astype(np.int8)
+
+
+def split_bit_tiles(tp: TilePlan) -> Tuple[Optional[TilePlan], Optional[TilePlan]]:
+    """Split a host int8 count plan into (1-bit part, int8 part) by tile
+    content: tiles whose every cell is 0 or 1 go to the 1-bit part,
+    multigraph tiles (a cell > 1) stay int8.  Either part may be None.
+    Each part gets all-zero filler tiles (column 0) for the row-tiles it
+    lacks, a stable sort by row and its own ``num_dense_edges``.  Runs
+    before pad_runs, as in the JAX package."""
+    if tp.bits or tp.pack != 1:
+        raise ValueError("split_bit_tiles takes an unpadded int8 plan (split before pad_runs)")
+    a = np.asarray(tp.a)
+    t = a.shape[0]
+    if t == 0:
+        return None, tp
+    chunk = 4096
+    multi = np.zeros(t, bool)
+    for i in range(0, t, chunk):
+        multi[i : i + chunk] = a[i : i + chunk].max(axis=(1, 2)) > 1
+    if not multi.any():
+        return dataclasses.replace(tp, a=pack_bit_tiles(a), bits=True), None
+    if multi.all():
+        return None, tp
+    nrt = tp.num_row_tiles
+
+    def part(sel, bits, num_edges):
+        aa = a[sel]
+        rows = np.asarray(tp.tile_row)[sel]
+        cols = np.asarray(tp.tile_col)[sel]
+        missing = np.setdiff1d(np.arange(nrt, dtype=np.int32), rows)
+        if len(missing):
+            aa = np.concatenate([aa, np.zeros((len(missing),) + aa.shape[1:], aa.dtype)])
+            rows = np.concatenate([rows, missing])
+            cols = np.concatenate([cols, np.zeros(len(missing), np.int32)])
+        order = np.argsort(rows, kind="stable")
+        rows = rows[order].astype(np.int32)
+        return dataclasses.replace(
+            tp,
+            a=pack_bit_tiles(aa[order]) if bits else aa[order],
+            tile_row=rows,
+            tile_col=cols[order].astype(np.int32),
+            run_start=run_offsets(rows, nrt),
+            num_tiles=len(rows),
+            num_dense_edges=int(num_edges),
+            bits=bits,
+        )
+
+    edges_multi = sum(
+        int(a[i : i + chunk][multi[i : i + chunk]].sum(dtype=np.int64)) for i in range(0, t, chunk)
+    )
+    return part(~multi, True, tp.num_dense_edges - edges_multi), part(multi, False, edges_multi)
 
 
 def densify(

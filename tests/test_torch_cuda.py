@@ -1,12 +1,14 @@
-"""The CUDA kernels (B1 tile product, B2 GAT tile aggregation, B3 and B4 GAT
-tile backward, B5 tile row max) against their plain PyTorch versions on the
-card, at small shapes that stress the edges: ragged n, C not a multiple of
-8 or of the staging width, R not a multiple of the row slab, empty runs,
-filler-only runs, rows without tile edges, factored plans (B1), transposed
-plans (B1, B4), every feature-width branch, cells on both leaky-relu
-branches, and a non-edge whose GAT branch product overflows to inf (B2,
-B3, B4); and the training Functions' gradients on the card against the
-same Functions on the CPU.  Needs a CUDA card and nvcc; skips
+"""The CUDA kernels (B1 tile product over int8 and 1-bit tiles, B2 GAT tile
+aggregation, B3 and B4 GAT tile backward, B5 tile row max, B6 tile SDDMM)
+against their plain PyTorch versions on the card, at small shapes that
+stress the edges: ragged n, C odd or not a multiple of 8 or of the staging
+width, R not a multiple of the row slab (and, for 1-bit tiles, not a power
+of two), empty runs, filler-only runs, rows without tile edges, factored
+plans (B1), transposed plans (B1, B4), every feature-width branch, f up to
+300 (B6's column chunks), cells on both leaky-relu branches, and a non-edge
+whose GAT branch product or SDDMM dot overflows to inf (B2, B3, B4, B6);
+and the training Functions' gradients on the card against the same
+Functions on the CPU.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
@@ -14,7 +16,11 @@ Tolerance: max|kernel - plain| <= 1e-5 * max|plain| (float32 summation
 order only) on nonnegative and signed operands, plus the ops/validate gate
 on the nonnegative ones (B2's den): signed sums of many terms cancel to
 near zero, where two float32 summation orders differ by more than the
-gate's floor.  B5 is a max: equal to the plain version, -inf rows included."""
+gate's floor.  B5 is a max: equal to the plain version, -inf rows included.
+B6 float32 cells: the same bound; bfloat16 cells at most one bfloat16 ulp
+apart; cells without an edge exactly +0.  B1 over a 1-bit part is equal to
+B1 over the same part unpacked to int8 (the same operations in the same
+order)."""
 
 import numpy as np
 import pytest
@@ -22,7 +28,7 @@ import torch
 
 from gnn_computing_tpu_torch.aggregator import Aggregator
 from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, rmat_graph
-from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax
+from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax, cuda_sddmm
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
     _branch_factors,
@@ -35,8 +41,9 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
     gat_bwd_dh_das,
     gat_bwd_dh_das_plain,
 )
+from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain
 from gnn_computing_tpu_torch.ops.validate import assert_valid
-from gnn_computing_tpu_torch.schedule.tiles import densify
+from gnn_computing_tpu_torch.schedule.tiles import densify, split_bit_tiles
 
 pytestmark = pytest.mark.cuda
 
@@ -286,3 +293,127 @@ def test_training_grads_on_card_match_cpu(cuda_dev, stabilize):
     torch.cuda.synchronize()
     for got, want, what in zip(grads["cuda"], grads["cpu"], ("hybrid_spmm dh", "hybrid_gat dh", "hybrid_gat datt")):
         _close(got, want, what)
+
+
+def _split_plans(dev, tr, tc, pack):
+    """_gat_plan's graph as an int8 plan and as its 1-bit and int8 parts
+    (split before pad_runs), each padded; the parts' coverage fillers and
+    the sparse last row-tile give filler-only runs."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    d, s = g.dst_per_edge, g.indices
+    keep = ((d < 800) | (d >= 1100)) & ((d < 1237 - tr) | (s % 97 == 0))
+    g = CSRGraph.from_edges(d[keep], s[keep], g.num_nodes)
+    tp = densify(g, tile_rows=tr, tile_cols=tc, threshold=3)[0]
+    bits, ints = split_bit_tiles(tp)
+    assert bits is not None and ints is not None
+    return g, [p.pad_runs(pack).to(dev) for p in (tp, bits, ints)]
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+
+
+def _sddmm_check(got, want, counts, what):
+    zero = counts == 0
+    bits = got.view(torch.int16) if got.dtype == torch.bfloat16 else got.view(torch.int32)
+    assert bool((bits[zero] == 0).all()), f"{what}: a cell without an edge is not +0"
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all()), what
+    if got.dtype == torch.bfloat16:
+        assert bool(((g - w).abs() <= _bf16_ulp(torch.maximum(g.abs(), w.abs()))).all()), what
+    else:
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max(), what
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (96, 40, 4), (72, 13, 1), (256, 128, 16), (40, 300, 1)])
+@pytest.mark.parametrize("f", [1, 24, 32, 33, 100, 128, 300])
+def test_sddmm_kernel_matches_plain(cuda_dev, tr, tc, pack, f):
+    g, plans = _split_plans(cuda_dev, tr, tc, pack)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    a = torch.randn((g.n_src, f), generator=gen, device=cuda_dev)
+    b = torch.randn((g.num_nodes, f), generator=gen, device=cuda_dev)
+    for tp, label in zip(plans, ("int8", "1-bit part", "int8 part")):
+        counts = tp.counts()
+        for out in (torch.float32, torch.bfloat16):
+            before = cuda_sddmm.launches
+            got = sddmm_bcsr(tp, a, b, out_dtype=out, dot_mode="split23")
+            assert cuda_sddmm.launches == before + 1
+            want = sddmm_bcsr_plain(tp, a, b, out)
+            torch.cuda.synchronize()
+            assert got.dtype == out and got.shape == (tp.num_tiles, tr, tc)
+            _sddmm_check(got, want, counts, f"{label} r{tr} c{tc} f{f} {out}")
+        fillers = ~counts.reshape(tp.num_tiles, -1).bool().any(dim=1)
+        assert bool(fillers.any()) and bool((got[fillers] == 0).all())
+
+
+def test_sddmm_kernel_non_edge_overflow_is_zero(cuda_dev):
+    """A non-edge whose dot overflows to inf must come out +0.  Its column
+    neighbour (j ^ 1, the same lane) holds an edge, so the kernel computes
+    both dots and must select on the count, never multiply by it."""
+    g, plans = _split_plans(cuda_dev, 64, 64, 1)
+    for tp in plans[1:]:
+        counts = tp.counts().cpu().numpy()
+        pair = counts.reshape(tp.num_tiles, 64, 32, 2)[..., ::-1].reshape(counts.shape)
+        t, i, j = np.argwhere((counts == 0) & (pair > 0))[0]
+        row = tp.tile_row[t].item() * 64 + i
+        col = tp.tile_col[t].item() * 64 + j
+        a = torch.rand((g.n_src, 8), device=cuda_dev)
+        b = torch.rand((g.num_nodes, 8), device=cuda_dev)
+        a[col] = 1e30
+        b[row] = 1e30
+        assert bool(torch.isinf((a[col] * b[row]).sum()))
+        for out in (torch.float32, torch.bfloat16):
+            got = sddmm_bcsr(tp, a, b, out_dtype=out)
+            want = sddmm_bcsr_plain(tp, a, b, out)
+            torch.cuda.synchronize()
+            assert got[t, i, j].float().item() == 0.0
+            _sddmm_check(got, want, tp.counts(), f"bits={tp.bits} {out}")
+
+
+def test_hybrid_sddmm_on_card_matches_cpu(cuda_dev):
+    """bench.py's SDDMM configuration in miniature: cells and residual slots
+    on the card (B6 once per part) against the same op on the CPU."""
+    g = rmat_graph(2048, 65536, seed=123, with_val=False)
+    g = g.reorder(degree_sort(g))
+    cpu = Aggregator.schedule_hybrid(g, tile_rows=256, tile_cols=128, threshold=24, residual_block=4,
+                                     bit_tiles=True, pack=1, device="cpu")
+    card = cpu.to(cuda_dev)
+    rng = np.random.default_rng(0)
+    a0 = torch.from_numpy((rng.standard_normal((g.num_nodes, 32)) * 0.1).astype(np.float32))
+    b0 = torch.from_numpy((rng.standard_normal((g.num_nodes, 32)) * 0.1).astype(np.float32))
+    want_cells, want_res = hybrid_sddmm(cpu.tile_parts(), cpu.plan, a0, b0, gather_dtype="f16_split2",
+                                        dot_mode="split23")
+    before = cuda_sddmm.launches
+    got_cells, got_res = hybrid_sddmm(card.tile_parts(), card.plan, a0.to(cuda_dev), b0.to(cuda_dev),
+                                      gather_dtype="f16_split2", dot_mode="split23")
+    torch.cuda.synchronize()
+    assert cuda_sddmm.launches == before + 2
+    for got, want, p in zip(got_cells, want_cells, cpu.tile_parts()):
+        _sddmm_check(got.cpu(), want, p.counts(), f"bits={p.bits}")
+    assert (got_res.cpu() - want_res).abs().max() <= 1e-5 * want_res.abs().max()
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (96, 40, 4), (72, 13, 1), (512, 256, 16), (40, 300, 1)])
+@pytest.mark.parametrize("f", [1, 24, 32, 33, 64, 100, 128])
+def test_bits_kernel_matches_plain(cuda_dev, tr, tc, pack, f):
+    """B1 over a 1-bit part: equal to B1 over the same part unpacked to
+    int8, and within the bound of the plain version."""
+    g, (_, bits, _) = _split_plans(cuda_dev, tr, tc, pack)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    unpacked = bits.unpack_bits()
+    for signed in (False, True):
+        h = (torch.randn if signed else torch.rand)((g.n_src, f), generator=gen, device=cuda_dev)
+        for mode in ("split", "native"):
+            before = cuda_bcsr.launches
+            got = bcsr_spmm(bits, h, h_mode=mode)
+            assert cuda_bcsr.launches == before + 1
+            same = bcsr_spmm(unpacked, h, h_mode=mode)
+            want = bcsr_spmm_plain(bits, round_h(h, mode))
+            torch.cuda.synchronize()
+            assert torch.equal(got, same)
+            if not signed:
+                assert_valid(got, want, what=f"bits {mode} r{tr} c{tc} f{f}")
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    # rows without tile edges give 0
+    assert bool((got[800:1100] == 0).all())
