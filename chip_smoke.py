@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--scale quick|reddit]
 Phases (any failure exits non-zero; nothing is caught):
   1. card name and power limit; build every kernel with nvcc (sm_90a), one
      nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr, B5 rowmax_bcsr,
-     B3 gat_bwd_dad, B4 gat_bwd_dh_das, B6 sddmm_bcsr).
+     B3 gat_bwd_dad, B4 gat_bwd_dh_das, B6 sddmm_bcsr; each with an int8
+     and a 1-bit entry point).
   2. kernel phase: the B1 kernel against its plain PyTorch version on the
      card, at the main path's shapes (f = 128, 64, 32; 'split' and float32
      operands; pack 1 and 16), plus a ragged n with runs made only of filler
@@ -106,15 +107,48 @@ Phases (any failure exits non-zero; nothing is caught):
      forward, and per layer B1 over the 1-bit part against its bound, plain
      version and torch.sparse.mm, beside B1 over the int8 part and over the
      unsplit plan.
- 16. one "kernels" JSON line, the card line, then {"ok": true, ...}.
+ 16. 1-bit kernel phase (bit-tile training's kernels): on bench.py --train's
+     default plan (phase 8's split by split_bit_tiles, with each part's
+     transpose), pack 1 and 16, f = 128, 64, 32: B2 and B3 over the 1-bit
+     part, B4 and B1 over its transpose, B5 with B2 (gat_kernel_vs_plain);
+     B2 and B5 over the 1-bit part of phase 6's plan; the ragged raw-count
+     plan's 1-bit part (filler-only runs) and its transpose; a 1-bit part
+     at R = 200 (transposed [128, 200]); a non-edge whose branch product is
+     inf.  Check: max|d| <= 1e-5 * max|plain|, B5 exactly equal.
+ 17. GCN bit-tile training: phase 9 on the bit-tile plan.  Five steps: B1
+     must launch 12 times per step (3 layers x 2 parts, forward and
+     backward), 6 of them 1-bit; the first step's weight gradients within
+     BITS_REL_L2 (relative L2) of phase 9's.
+ 18. GAT bit-tile training: phase 10 on the bit-tile plan (the kink sides
+     looked up in both parts).  B2, B3 and B4 must launch 6 times per step
+     each, 3 of them 1-bit, B5 never; first-step gradients as in 17.
+ 19. 1-bit GAT forward: phase 6's plan split by split_bit_tiles.  Five
+     forwards: B2 6 launches a forward (3 1-bit), no other kernel; one
+     stabilize=True forward: B5 6 launches (3 1-bit).  Both outputs pass
+     the gate against phase 6's int8 outputs with 0 bad elements.
+ 20. timing: the bit-tile GCN and GAT steps (step, forward, backward +
+     Adam) beside phase 11's; per part (1-bit and int8) phase 11's kernel
+     rows (B3, B4, B1 transposed, B2); B5 over each part of the GAT plan as
+     phase 7 times it; the 1-bit GAT forward with and without stabilize.
+ 21. one "kernels" JSON line, the card line, then {"ok": true, ...}.
+
+With --scale reddit, phases 8-11 and 16-20 are replaced by one GCN
+bit-tile training phase at reddit scale (bench.py --train's headline
+configuration): the [256, 256] t24 bit-tile plan with its transposes and
+its build time, the first step's weight gradients within BITS_REL_L2 of
+the same step over the same parts passed through unpack_bits() (a check
+on the card, not the training path), REDDIT_STEPS steps with B1 at 12
+launches a step (6 1-bit) and a finite loss, and the step's time.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it (the GCN forward for B1, the GAT forward for B2, the
 stabilized GAT forward for B5, five GCN training steps for B1, five GAT
 training steps for B2, B3 and B4, five SDDMM calls for B6, five 1-bit GCN
-forwards for B1); launches made to compare a kernel with its plain version
-are not counted.  The training phases run at the quick scale only (their
-float64 oracles hold the whole edge list in memory).
+forwards for B1, and the bit-tile phases' steps and forwards); launches
+made to compare a kernel with its plain version are not counted.  Each
+wrapper also counts its 1-bit launches apart (``bits_launches``).  The
+training phases run at the quick scale only (their float64 oracles hold
+the whole edge list in memory).
 
 The port schedules with pack=1: the CUDA kernels take runs of any length,
 so the TPU kernel's filler tiles would only add work (their cost is printed).
@@ -161,7 +195,8 @@ from gnn_computing_tpu_torch.utils.timing import cuda_time_ms
 SCALES = {"quick": (1 << 16, 1 << 22), "reddit": (232_965, 114_615_891)}
 SCHEDULE = dict(tile_rows=512, tile_cols=256, threshold=48)  # bench.py defaults
 GAT_SCHEDULE = dict(tile_rows=512, tile_cols=256, threshold=32)  # bench.py --model gat
-TRAIN_SCHEDULE = dict(tile_rows=256, tile_cols=256, threshold=24)  # bench.py --train (--bit-tiles off)
+# bench.py --train; --bit-tiles off (phases 8-11), its default on (16-20)
+TRAIN_SCHEDULE = dict(tile_rows=256, tile_cols=256, threshold=24)
 # bench.py --model sddmm (strategy hybrid): [256, 128] tiles at t24, 1-bit
 # tiles on, f = 32, split23 tile dots, f16_split2 residual, bf16 cells
 SDDMM_SCHEDULE = dict(tile_rows=256, tile_cols=128, threshold=24)
@@ -172,6 +207,10 @@ CHECK_EDGES = 1 << 22  # edges an edge-to-cell check takes at once
 RESIDUAL_BLOCK = 4
 TRAIN_STEPS = 5
 GRAD_REL_L2 = 1e-4  # whole-step weight gradients against the float64 chain
+# a bit-tile step's weight gradients against the same step over int8 tiles
+# (float32 summation order only: the parts add their partial sums)
+BITS_REL_L2 = 1e-5
+REDDIT_STEPS = 3  # bit-tile GCN training steps at --scale reddit
 # leaky-relu's derivative jumps by (1 - slope) * the attention weight at a
 # zero logit, and for an edge within ~1e-7 of it float32 and float64 may
 # take different sides: for edges within KINK of it the float64 oracles
@@ -253,16 +292,35 @@ def edge_sum(z: torch.Tensor, dst, src, weight=None) -> torch.Tensor:
     return out
 
 
+def edge_lists(g, dev) -> tuple:
+    """A graph's (dst, src) per edge as int64 tensors on ``dev``."""
+    return (
+        torch.from_numpy(g.dst_per_edge.astype(np.int64)).to(dev),
+        torch.from_numpy(g.indices.astype(np.int64)).to(dev),
+    )
+
+
 def reset_counts():
-    """Every kernel's launch count to 0, just before a path is driven."""
+    """Every kernel's launch count (and 1-bit launch count) to 0, just
+    before a path is driven."""
     cuda_bcsr.launches = cuda_gat.launches = cuda_rowmax.launches = cuda_sddmm.launches = 0
     cuda_gat_bwd.dad_launches = cuda_gat_bwd.dh_das_launches = 0
+    cuda_bcsr.bits_launches = cuda_gat.bits_launches = cuda_rowmax.bits_launches = 0
+    cuda_gat_bwd.dad_bits_launches = cuda_gat_bwd.dh_das_bits_launches = 0
 
 
 def counts() -> dict:
     return dict(
         B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
         B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches, B6=cuda_sddmm.launches,
+    )
+
+
+def bit_counts() -> dict:
+    """The 1-bit launches among counts() (B6 has no separate count)."""
+    return dict(
+        B1=cuda_bcsr.bits_launches, B2=cuda_gat.bits_launches, B3=cuda_gat_bwd.dad_bits_launches,
+        B4=cuda_gat_bwd.dh_das_bits_launches, B5=cuda_rowmax.bits_launches,
     )
 
 
@@ -298,14 +356,8 @@ def gcn_edges(g, res_host, tp) -> tuple:
     tile/residual split comes from the host densify)."""
     dev = tp.a.device
 
-    def edge_list(gr):
-        return (
-            torch.from_numpy(gr.dst_per_edge.astype(np.int64)).to(dev),
-            torch.from_numpy(gr.indices.astype(np.int64)).to(dev),
-        )
-
-    g_dst, g_src = edge_list(g)
-    r_dst, r_src = edge_list(res_host)
+    g_dst, g_src = edge_lists(g, dev)
+    r_dst, r_src = edge_lists(res_host, dev)
     c_dst, c_src, c_cnt = tile_cells(tp)
     n = g.num_nodes
     per_row = torch.bincount(c_dst, weights=c_cnt, minlength=n) + torch.bincount(r_dst, minlength=n)
@@ -387,9 +439,41 @@ def gat_edge_oracle(feat, att, dst, src, slope=DEFAULT_SLOPE):
     return num / torch.where(den == 0, 1.0, den)[:, None]
 
 
-def gat_phases(args, g, h0, gen, forwards, libs) -> list:
+def b5_rows(tp, tp16, xs, params) -> list:
+    """Phase 7's B5 timing rows over ``tp`` (ms a launch, pack 16, plain,
+    the scatter_reduce yardstick, bound) from each GAT layer's att."""
+    dev = tp.a.device
+    n = tp.num_nodes
+    c_dst, c_src, c_cnt = tile_cells(tp)
+    move_plan = tp.a.numel() + 4 * (tp.num_tiles + tp.num_row_tiles + 1)
+    rows = []
+    for i, p in enumerate(params):
+        asrc = ((xs[i] @ p.w) @ p.w_att)[:, 1].contiguous()
+        rows.append(dict(
+            layer=i + 1, tiles=tp.num_tiles, nnz_cells=c_cnt.numel(),
+            ms=cuda_time_ms(lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, asrc)),
+            ms_pack16=cuda_time_ms(lambda: cuda_rowmax.rowmax_bcsr_cuda(tp16, asrc)),
+            plain_ms=cuda_time_ms(lambda: bcsr_rowmax_plain(tp, asrc)),
+            library_ms=cuda_time_ms(
+                lambda: torch.full((n,), float("-inf"), device=dev).scatter_reduce_(
+                    0, c_dst, asrc.index_select(0, c_src), "amax"
+                )
+            ),
+            **bound(move_plan + 4 * (tp.n_src + n), c_cnt.numel()),
+        ))
+        r = rows[-1]
+        log(
+            f"  layer {i + 1}: B5 over {tp.num_tiles} {part_name(tp)} tiles {r['ms']:.3f} ms/launch "
+            f"(pack16 {r['ms_pack16']:.3f}) bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) | plain {r['plain_ms']:.3f} | scatter_reduce {r['library_ms']:.3f}"
+        )
+    return rows
+
+
+def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
     """Phases 5-7: the GAT kernels and the GAT forward.  Returns the B2 and
-    B5 entries of the kernels line."""
+    B5 entries of the kernels line, and phase 6's un-stabilized and
+    stabilize=True outputs."""
     dev = h0.device
     n = g.num_nodes
     t0 = time.perf_counter()
@@ -442,8 +526,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> list:
         check(only("B2"), "the GAT forward launched another kernel")
         check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "GAT forward output")
 
-        g_dst = torch.from_numpy(g.dst_per_edge.astype(np.int64)).to(dev)
-        g_src = torch.from_numpy(g.indices.astype(np.int64)).to(dev)
+        g_dst, g_src = edge_lists(g, dev)
         xs, chain = [h0], h0.double()
         for i, p in enumerate(params):
             xs.append(gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2"))
@@ -484,7 +567,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> list:
         c_dst, c_src, c_cnt = tile_cells(tp)
         nnz = c_cnt.numel()
         move_plan = tp.a.numel() + 4 * (tp.num_tiles + tp.num_row_tiles + 1)
-        b2_rows, b5_rows = [], []
+        b2_rows = []
         for i, p in enumerate(params):
             layer_ms = cuda_time_ms(lambda: gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2"))
             feat = (xs[i] @ p.w).contiguous()
@@ -508,28 +591,13 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> list:
                 bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 tiles=tp.num_tiles, nnz_cells=nnz,
             ))
-            asrc = att[:, 1].contiguous()
-            r_ms = cuda_time_ms(lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, asrc))
-            r_ms16 = cuda_time_ms(lambda: cuda_rowmax.rowmax_bcsr_cuda(tile16, asrc))
-            r_plain = cuda_time_ms(lambda: bcsr_rowmax_plain(tp, asrc))
-            r_lib = cuda_time_ms(
-                lambda: torch.full((n,), float("-inf"), device=dev).scatter_reduce_(
-                    0, c_dst, asrc.index_select(0, c_src), "amax"
-                )
-            )
-            r_bytes_ms = (move_plan + 4 * (tp.n_src + n)) / HBM_BYTES_PER_S * 1e3
-            r_ops_ms = nnz / FP32_FLOPS * 1e3
-            b5_rows.append(dict(
-                layer=i + 1, ms=r_ms, ms_pack16=r_ms16, plain_ms=r_plain, library_ms=r_lib,
-                bound_ms=max(r_bytes_ms, r_ops_ms), bound_by="bytes" if r_bytes_ms >= r_ops_ms else "operations",
-            ))
             log(
                 f"  layer {i + 1} f={f}: layer {layer_ms:.3f} ms | B2 {ms:.3f} ms/launch (pack16 {ms16:.3f}) "
                 f"bound {b2_rows[-1]['bound_ms']:.4f} ms ({b2_rows[-1]['bound_by']}) | plain {plain_ms:.3f} | "
-                f"torch.sparse.mm {library_ms:.3f} || B5 {r_ms:.3f} ms/launch (pack16 {r_ms16:.3f}) bound "
-                f"{b5_rows[-1]['bound_ms']:.4f} | plain {r_plain:.3f} | scatter_reduce {r_lib:.3f}"
+                f"torch.sparse.mm {library_ms:.3f}"
             )
             del csr, hx, z, score
+        rows5 = b5_rows(tp, tile16, xs, params)
 
     def total(rows, k):
         return sum(r[k] for r in rows)
@@ -547,10 +615,10 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> list:
     return [
         entry("gat_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:436", b2_rows, launches, max_err,
               path="GAT forward (fast, split2)", forward_ms=fwd_ms, build_s=libs["gat_bcsr"][1]),
-        entry("rowmax_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:1251", b5_rows, rowmax_launches, 0.0,
+        entry("rowmax_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:1251", rows5, rowmax_launches, 0.0,
               path="GAT forward (fast, split2, stabilize=True)", forward_ms=stab_ms,
               bound_forward_ms=bound_fwd_ms, build_s=libs["rowmax_bcsr"][1]),
-    ]
+    ], dict(out=out, out_exact=out_exact)
 
 
 def edge_sum_ad(z: torch.Tensor, dst, src, weight=None) -> torch.Tensor:
@@ -582,13 +650,14 @@ def cotangent(shape, device) -> torch.Tensor:
     return torch.cos(torch.arange(numel, dtype=torch.float64, device=device)).reshape(shape)
 
 
-def port_kink_sides(att, tp, dst, src) -> torch.Tensor:
+def port_kink_sides(att, parts, dst, src) -> torch.Tensor:
     """For the edges (dst, src): whether the port's float32 branch test puts
     them on the z > 0 side, with the 'bound' shift of ``att``: the tile
     cells' test u1 v1 >= u2 v2 and the residual's exp(lrelu(z) - M) >
     exp(-M), the same operations on the same device.  Where the two tests
-    differ, the edge's place (a tile cell with a count, else the residual)
-    decides; a cell at the int8 cap, whose edges lie on both sides, raises."""
+    differ, the edge's place (a tile cell with a count in one of the tile
+    ``parts``, else the residual) decides; a cell at the int8 cap, whose
+    edges lie on both sides, raises."""
     shift = _global_bound_shift(att, DEFAULT_SLOPE)
     u12, v12 = _branch_factors(att, DEFAULT_SLOPE, shift)
     pos_tile = u12[dst, 0] * v12[src, 0] >= u12[dst, 1] * v12[src, 1]
@@ -598,11 +667,13 @@ def port_kink_sides(att, tp, dst, src) -> torch.Tensor:
     differ = pos_tile != pos_res
     if not bool(differ.any()):
         return pos_tile
-    tile_map = torch.full((tp.num_row_tiles, tp.num_col_tiles), -1, dtype=torch.long, device=dst.device)
-    tile_map[tp.tile_row.long(), tp.tile_col.long()] = torch.arange(tp.num_tiles, device=dst.device)
     d, s_ = dst[differ], src[differ]
-    t = tile_map[d // tp.tile_rows, s_ // tp.tile_cols]
-    cnt = torch.where(t >= 0, tp.a[t.clamp_min(0), d % tp.tile_rows, s_ % tp.tile_cols].long(), 0)
+    cnt = torch.zeros_like(d)
+    for tp in parts:
+        tile_map = torch.full((tp.num_row_tiles, tp.num_col_tiles), -1, dtype=torch.long, device=dst.device)
+        tile_map[tp.tile_row.long(), tp.tile_col.long()] = torch.arange(tp.num_tiles, device=dst.device)
+        t = tile_map[d // tp.tile_rows, s_ // tp.tile_cols]
+        cnt += torch.where(t >= 0, cell_counts(tp, t.clamp_min(0), d % tp.tile_rows, s_ % tp.tile_cols), 0)
     check(not bool((cnt == 127).any()), "a near-kink edge lies in a cell at the int8 cap")
     pos = pos_tile.clone()
     pos[differ] = torch.where(cnt > 0, pos_tile[differ], pos_res[differ])
@@ -751,9 +822,161 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
     return rows
 
 
+def train_labels(n: int, dev) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(7).integers(0, BENCH_DIMS[-1], n)).to(dev)
+
+
+def gcn_training(agg, g, h0, what: str) -> dict:
+    """Phase 9's checks and steps over ``agg`` (a schedule with transposed
+    plans), from glorot_weights (seed 0): at the initial weights, per layer
+    from its own float32 input and a cos(arange) cotangent, the
+    aggregation's input gradient against float64 autograd through an
+    index_add_ edge-list oracle (at most PURE_BAD_FRACTION bad), and each
+    weight gradient of the whole step within GRAD_REL_L2 of the float64
+    chain's; then TRAIN_STEPS steps of make_train_step, the launch counts
+    set to 0 just before and read just after.  Returns the model, its
+    forward and step, the layer inputs, the first step's weight gradients,
+    the counts and the losses."""
+    dev = h0.device
+    g_dst, g_src = edge_lists(g, dev)
+    labels = train_labels(g.num_nodes, dev)
+    gcn = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
+
+    def fwd(h):
+        return gcn(agg, h)
+
+    with torch.no_grad():
+        xs = [h0]
+        for w in gcn.weights:
+            xs.append(gcn_layer(agg, xs[-1], w))
+    for i, w in enumerate(gcn.weights):
+        with torch.no_grad():
+            z = xs[i] @ w
+        z.requires_grad_(True)
+        ct = cotangent(tuple(z.shape), dev)
+        (agg.run(z) * ct.float()).sum().backward()
+        z64 = z.detach().double().requires_grad_(True)
+        (edge_sum_ad(z64, g_dst, g_src) * ct).sum().backward()
+        grad_gate(z.grad, z64.grad, f"{what}GCN layer {i + 1} aggregation input gradient vs f64 autograd")
+        del z, z64, ct
+    loss = softmax_xent(fwd(h0), labels)
+    loss.backward()
+    grads0 = [w.grad.detach().clone() for w in gcn.weights]
+    ws = [w.detach().double().requires_grad_(True) for w in gcn.weights]
+    x = h0.double()
+    for w in ws:
+        x = torch.relu(edge_sum_ad(x @ w, g_dst, g_src))
+    loss64 = torch.nn.functional.cross_entropy(x, labels)
+    loss64.backward()
+    log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
+    for i, (g32, w64) in enumerate(zip(grads0, ws)):
+        r = rel_l2(g32, w64.grad)
+        log(f"  {what}GCN w{i + 1} gradient vs f64 chain: relative L2 {r:.3e}")
+        check(r <= GRAD_REL_L2, f"{what}GCN w{i + 1} gradient off the float64 chain")
+    del ws, x, loss64, g_dst, g_src
+    gcn.zero_grad(set_to_none=True)
+    step = make_train_step(fwd, torch.optim.Adam(gcn.parameters(), lr=1e-3), device=dev)
+    reset_counts()
+    losses = [step((h0,), labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    c, cb = counts(), bit_counts()
+    losses = [float(v) for v in losses]
+    log(f"  losses {losses}; launches in {TRAIN_STEPS} steps: {c}, 1-bit among them: {cb}")
+    check(all(np.isfinite(losses)), f"{what}GCN training loss not finite")
+    return dict(model=gcn, fwd=fwd, step=lambda: step((h0,), labels), xs=xs, grads0=grads0, counts=c,
+                bit_counts=cb, losses=losses)
+
+
+def gat_training(agg, g, h0, what: str) -> dict:
+    """Phase 10's checks and steps over ``agg``: gcn_training's with
+    gat_forward(fast=False, stabilize='bound', dot_mode='split2') and
+    glorot_gat_weights (seed 0); the per-layer check is on (dh, datt)
+    against float64 autograd of the edge-list GAT oracle, which takes the
+    port's side of leaky-relu's kink for edges within KINK of it."""
+    dev = h0.device
+    g_dst, g_src = edge_lists(g, dev)
+    labels = train_labels(g.num_nodes, dev)
+    gat = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
+
+    def fwd(h):
+        return gat(agg, h, fast=False, stabilize="bound", dot_mode="split2")
+
+    def one(h, p):
+        return gat_forward(agg, [p], h, fast=False, stabilize="bound", dot_mode="split2")
+
+    with torch.no_grad():
+        gxs = [h0]
+        for p in gat.layer_params():
+            gxs.append(one(gxs[-1], p))
+    kink_pos = []  # per layer, the port's side of the kink for every edge
+    for i, p in enumerate(gat.layer_params()):
+        with torch.no_grad():
+            feat = gxs[i] @ p.w
+            att = feat @ p.w_att
+            kink_pos.append(port_kink_sides(att, agg.tile_parts(), g_dst, g_src))
+            z = att[g_dst, 0].double() + att[g_src, 1].double()
+        log(f"  {what}GAT layer {i + 1}: {int((z.abs() < KINK).sum())} edges within {KINK} of leaky-relu's kink")
+        feat.requires_grad_(True)
+        att.requires_grad_(True)
+        ct = cotangent(tuple(feat.shape), dev)
+        (agg.run_gat(feat, att, stabilize="bound", dot_mode="split2") * ct.float()).sum().backward()
+        f64 = feat.detach().double().requires_grad_(True)
+        a64 = att.detach().double().requires_grad_(True)
+        (gat_edge_oracle_ad(f64, a64, g_dst, g_src, kink_pos[i]) * ct).sum().backward()
+        grad_gate(feat.grad, f64.grad, f"{what}GAT layer {i + 1} dh vs f64 autograd")
+        grad_gate(att.grad, a64.grad, f"{what}GAT layer {i + 1} datt vs f64 autograd")
+        del feat, att, f64, a64, ct, z
+    loss = softmax_xent(fwd(h0), labels)
+    loss.backward()
+    grads0 = [(p.w.grad.detach().clone(), p.w_att.grad.detach().clone()) for p in gat.layer_params()]
+    ps = [(p.w.detach().double().requires_grad_(True), p.w_att.detach().double().requires_grad_(True))
+          for p in gat.layer_params()]
+    x = h0.double()
+    for (w, a), pos in zip(ps, kink_pos):
+        feat = x @ w
+        x = gat_edge_oracle_ad(feat, feat @ a, g_dst, g_src, pos)
+    loss64 = torch.nn.functional.cross_entropy(x, labels)
+    loss64.backward()
+    log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
+    for i, ((gw, ga), (w64, a64)) in enumerate(zip(grads0, ps)):
+        rw, ra = rel_l2(gw, w64.grad), rel_l2(ga, a64.grad)
+        log(f"  {what}GAT layer {i + 1} gradient vs f64 chain: w relative L2 {rw:.3e}, w_att {ra:.3e}")
+        check(rw <= GRAD_REL_L2 and ra <= GRAD_REL_L2, f"{what}GAT layer {i + 1} gradient off the float64 chain")
+    del ps, x, feat, loss64, g_dst, g_src, kink_pos
+    gat.zero_grad(set_to_none=True)
+    step = make_train_step(fwd, torch.optim.Adam(gat.parameters(), lr=1e-3), device=dev)
+    reset_counts()
+    losses = [step((h0,), labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    c, cb = counts(), bit_counts()
+    losses = [float(v) for v in losses]
+    log(f"  losses {losses}; launches in {TRAIN_STEPS} steps: {c}, 1-bit among them: {cb}")
+    check(all(np.isfinite(losses)), f"{what}GAT training loss not finite")
+    return dict(model=gat, fwd=fwd, one=one, step=lambda: step((h0,), labels), xs=gxs, grads0=grads0,
+                counts=c, bit_counts=cb, losses=losses)
+
+
+def step_times(gcn: dict, gat: dict, h0) -> dict:
+    """Train-step, forward and backward + Adam ms of a GCN and a GAT run."""
+    times = dict(
+        gcn_step_ms=cuda_time_ms(gcn["step"]),
+        gcn_forward_ms=cuda_time_ms(lambda: gcn["fwd"](h0)),
+        gat_step_ms=cuda_time_ms(gat["step"]),
+        gat_forward_ms=cuda_time_ms(lambda: gat["fwd"](h0)),
+    )
+    for m in ("gcn", "gat"):
+        times[f"{m}_backward_adam_ms"] = times[f"{m}_step_ms"] - times[f"{m}_forward_ms"]
+        log(
+            f"  {m.upper()} step {times[f'{m}_step_ms']:.3f} ms = forward {times[f'{m}_forward_ms']:.3f} "
+            f"+ backward and Adam {times[f'{m}_backward_adam_ms']:.3f}"
+        )
+    return times
+
+
 def train_phases(args, g, h0, gen) -> dict:
     """Phases 8-11: the backward kernels, then the GCN and GAT training
-    steps.  Returns the kernel rows, launch counts, losses and times."""
+    steps.  Returns the kernel rows, launch counts, losses, times and the
+    first steps' weight gradients."""
     dev = h0.device
     n = g.num_nodes
     t0 = time.perf_counter()
@@ -803,140 +1026,31 @@ def train_phases(args, g, h0, gen) -> dict:
             kernel_vs_plain(ragged_t, f, "native", gen, "ragged transposed")
         del ragged, ragged_t
 
-    g_dst = torch.from_numpy(g.dst_per_edge.astype(np.int64)).to(dev)
-    g_src = torch.from_numpy(g.indices.astype(np.int64)).to(dev)
-    labels = torch.from_numpy(np.random.default_rng(7).integers(0, BENCH_DIMS[-1], n)).to(dev)
-
     # ---- phase 9: GCN training
     log(f"phase 9: GCN training, {TRAIN_STEPS} steps of make_train_step (exact modes, Adam 1e-3)")
-    gcn = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
-
-    def gcn_fwd(h):
-        return gcn(agg, h)
-
-    with torch.no_grad():
-        xs = [h0]
-        for w in gcn.weights:
-            xs.append(gcn_layer(agg, xs[-1], w))
-    for i, w in enumerate(gcn.weights):
-        with torch.no_grad():
-            z = xs[i] @ w
-        z.requires_grad_(True)
-        ct = cotangent(tuple(z.shape), dev)
-        (agg.run(z) * ct.float()).sum().backward()
-        z64 = z.detach().double().requires_grad_(True)
-        (edge_sum_ad(z64, g_dst, g_src) * ct).sum().backward()
-        grad_gate(z.grad, z64.grad, f"GCN layer {i + 1} aggregation input gradient vs f64 autograd")
-        del z, z64, ct
-    loss = softmax_xent(gcn_fwd(h0), labels)
-    loss.backward()
-    ws = [w.detach().double().requires_grad_(True) for w in gcn.weights]
-    x = h0.double()
-    for w in ws:
-        x = torch.relu(edge_sum_ad(x @ w, g_dst, g_src))
-    loss64 = torch.nn.functional.cross_entropy(x, labels)
-    loss64.backward()
-    log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
-    for i, (w, w64) in enumerate(zip(gcn.weights, ws)):
-        r = rel_l2(w.grad, w64.grad)
-        log(f"  GCN w{i + 1} gradient vs f64 chain: relative L2 {r:.3e}")
-        check(r <= GRAD_REL_L2, f"GCN w{i + 1} gradient off the float64 chain")
-    del ws, x, loss64
-    gcn.zero_grad(set_to_none=True)
-    step = make_train_step(gcn_fwd, torch.optim.Adam(gcn.parameters(), lr=1e-3), device=dev)
-    reset_counts()
-    losses = [step((h0,), labels) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    gcn_counts = counts()
-    losses = [float(v) for v in losses]
-    log(f"  losses {losses}; launches in {TRAIN_STEPS} steps: {gcn_counts}")
-    check(gcn_counts["B1"] == 6 * TRAIN_STEPS, "GCN training: B1 did not launch 6 times per step")
-    check(all(v == 0 for k, v in gcn_counts.items() if k != "B1"), "GCN training launched a GAT kernel")
-    check(all(np.isfinite(losses)), "GCN training loss not finite")
+    gcn = gcn_training(agg, g, h0, "")
+    check(gcn["counts"]["B1"] == 6 * TRAIN_STEPS, "GCN training: B1 did not launch 6 times per step")
+    check(all(v == 0 for k, v in gcn["counts"].items() if k != "B1"), "GCN training launched a GAT kernel")
 
     # ---- phase 10: GAT training
     log(f"phase 10: GAT training, {TRAIN_STEPS} steps (fast=False, stabilize='bound', dot_mode='split2')")
-    gat = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
-
-    def gat_fwd(h):
-        return gat(agg, h, fast=False, stabilize="bound", dot_mode="split2")
-
-    def gat_one(h, p):
-        return gat_forward(agg, [p], h, fast=False, stabilize="bound", dot_mode="split2")
-
-    with torch.no_grad():
-        gxs = [h0]
-        for p in gat.layer_params():
-            gxs.append(gat_one(gxs[-1], p))
-    kink_pos = []  # per layer, the port's side of the kink for every edge
-    for i, p in enumerate(gat.layer_params()):
-        with torch.no_grad():
-            feat = gxs[i] @ p.w
-            att = feat @ p.w_att
-            kink_pos.append(port_kink_sides(att, tp, g_dst, g_src))
-            z = att[g_dst, 0].double() + att[g_src, 1].double()
-        log(f"  GAT layer {i + 1}: {int((z.abs() < KINK).sum())} edges within {KINK} of leaky-relu's kink")
-        feat.requires_grad_(True)
-        att.requires_grad_(True)
-        ct = cotangent(tuple(feat.shape), dev)
-        (agg.run_gat(feat, att, stabilize="bound", dot_mode="split2") * ct.float()).sum().backward()
-        f64 = feat.detach().double().requires_grad_(True)
-        a64 = att.detach().double().requires_grad_(True)
-        (gat_edge_oracle_ad(f64, a64, g_dst, g_src, kink_pos[i]) * ct).sum().backward()
-        grad_gate(feat.grad, f64.grad, f"GAT layer {i + 1} dh vs f64 autograd")
-        grad_gate(att.grad, a64.grad, f"GAT layer {i + 1} datt vs f64 autograd")
-        del feat, att, f64, a64, ct, z
-    loss = softmax_xent(gat_fwd(h0), labels)
-    loss.backward()
-    ps = [(p.w.detach().double().requires_grad_(True), p.w_att.detach().double().requires_grad_(True))
-          for p in gat.layer_params()]
-    x = h0.double()
-    for (w, a), pos in zip(ps, kink_pos):
-        feat = x @ w
-        x = gat_edge_oracle_ad(feat, feat @ a, g_dst, g_src, pos)
-    loss64 = torch.nn.functional.cross_entropy(x, labels)
-    loss64.backward()
-    log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
-    for i, (p, (w64, a64)) in enumerate(zip(gat.layer_params(), ps)):
-        rw, ra = rel_l2(p.w.grad, w64.grad), rel_l2(p.w_att.grad, a64.grad)
-        log(f"  GAT layer {i + 1} gradient vs f64 chain: w relative L2 {rw:.3e}, w_att {ra:.3e}")
-        check(rw <= GRAD_REL_L2 and ra <= GRAD_REL_L2, f"GAT layer {i + 1} gradient off the float64 chain")
-    del ps, x, feat, loss64, g_dst, g_src, kink_pos
-    gat.zero_grad(set_to_none=True)
-    gat_step = make_train_step(gat_fwd, torch.optim.Adam(gat.parameters(), lr=1e-3), device=dev)
-    reset_counts()
-    glosses = [gat_step((h0,), labels) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    gat_counts = counts()
-    glosses = [float(v) for v in glosses]
-    log(f"  losses {glosses}; launches in {TRAIN_STEPS} steps: {gat_counts}")
+    gat = gat_training(agg, g, h0, "")
     for k in ("B2", "B3", "B4"):
-        check(gat_counts[k] == 3 * TRAIN_STEPS, f"GAT training: {k} did not launch 3 times per step")
-    check(gat_counts["B1"] == 0 and gat_counts["B5"] == 0, "GAT training launched B1 or B5")
-    check(all(np.isfinite(glosses)), "GAT training loss not finite")
+        check(gat["counts"][k] == 3 * TRAIN_STEPS, f"GAT training: {k} did not launch 3 times per step")
+    check(gat["counts"]["B1"] == 0 and gat["counts"]["B5"] == 0, "GAT training launched B1 or B5")
 
     # ---- phase 11: timing
     log("phase 11: training timing (CUDA events, median of 10 after 3 warm-up)")
-    times = dict(
-        gcn_step_ms=cuda_time_ms(lambda: step((h0,), labels)),
-        gcn_forward_ms=cuda_time_ms(lambda: gcn_fwd(h0)),
-        gat_step_ms=cuda_time_ms(lambda: gat_step((h0,), labels)),
-        gat_forward_ms=cuda_time_ms(lambda: gat_fwd(h0)),
-    )
-    for m in ("gcn", "gat"):
-        times[f"{m}_backward_adam_ms"] = times[f"{m}_step_ms"] - times[f"{m}_forward_ms"]
-        log(
-            f"  {m.upper()} step {times[f'{m}_step_ms']:.3f} ms = forward {times[f'{m}_forward_ms']:.3f} "
-            f"+ backward and Adam {times[f'{m}_backward_adam_ms']:.3f}"
-        )
+    times = step_times(gcn, gat, h0)
     layers = []
-    for i, (w, p) in enumerate(zip(gcn.weights, gat.layer_params())):
+    for i, (w, p) in enumerate(zip(gcn["model"].weights, gat["model"].layer_params())):
         ct = cotangent((n, w.shape[1]), dev).float()
+        xi, gxi = gcn["xs"][i], gat["xs"][i]
         row = dict(layer=i + 1, f=int(w.shape[1]))
-        row["gcn_forward_ms"] = cuda_time_ms(lambda: gcn_layer(agg, xs[i], w))
-        row["gcn_fwd_bwd_ms"] = cuda_time_ms(lambda: (gcn_layer(agg, xs[i], w) * ct).sum().backward())
-        row["gat_forward_ms"] = cuda_time_ms(lambda: gat_one(gxs[i], p))
-        row["gat_fwd_bwd_ms"] = cuda_time_ms(lambda: (gat_one(gxs[i], p) * ct).sum().backward())
+        row["gcn_forward_ms"] = cuda_time_ms(lambda: gcn_layer(agg, xi, w))
+        row["gcn_fwd_bwd_ms"] = cuda_time_ms(lambda: (gcn_layer(agg, xi, w) * ct).sum().backward())
+        row["gat_forward_ms"] = cuda_time_ms(lambda: gat["one"](gxi, p))
+        row["gat_fwd_bwd_ms"] = cuda_time_ms(lambda: (gat["one"](gxi, p) * ct).sum().backward())
         for m in ("gcn", "gat"):
             row[f"{m}_backward_ms"] = row[f"{m}_fwd_bwd_ms"] - row[f"{m}_forward_ms"]
         layers.append(row)
@@ -945,12 +1059,12 @@ def train_phases(args, g, h0, gen) -> dict:
             f"{row['gcn_backward_ms']:.3f} ms | GAT forward {row['gat_forward_ms']:.3f} backward "
             f"{row['gat_backward_ms']:.3f} ms"
         )
-    del xs, gxs
     with torch.no_grad():
         rows = train_kernel_times(tp, tp_t, tile16, tile_t16, gen)
     return dict(
         rows=rows, max_err=max_err, times=times, layers=layers,
-        gcn_counts=gcn_counts, gat_counts=gat_counts, gcn_losses=losses, gat_losses=glosses,
+        gcn_counts=gcn["counts"], gat_counts=gat["counts"], gcn_losses=gcn["losses"], gat_losses=gat["losses"],
+        gcn_grads0=gcn["grads0"], gat_grads0=gat["grads0"],
     )
 
 
@@ -1101,8 +1215,7 @@ def sddmm_path_checks(g, agg, cells, res, a, b):
         maps.append(tmap)
     check(dense_edges + agg.plan.num_edges == m, "dense edges + residual edges != m")
 
-    g_dst = torch.from_numpy(g.dst_per_edge.astype(np.int64)).to(dev)
-    g_src = torch.from_numpy(g.indices.astype(np.int64)).to(dev)
+    g_dst, g_src = edge_lists(g, dev)
     in_tiles, bad = 0, 0
     for s in range(0, m, CHECK_EDGES):
         d, sr = g_dst[s : s + CHECK_EDGES], g_src[s : s + CHECK_EDGES]
@@ -1339,6 +1452,267 @@ def timing_phase(g, sd, bt) -> tuple:
     )
 
 
+def bits_inf_non_edge(tp, tp_t, gen, what: str):
+    """A non-edge of a 1-bit part whose branch product overflows to inf:
+    its row and its column hold edges in the same tile, so B2 scores the
+    row and B3/B4 walk the row and the column; each must select on the
+    bit, never multiply by it.  B2, B3 and B4 against their plain versions
+    on the part, outputs finite."""
+    r, c = tp.tile_rows, tp.tile_cols
+    dev = tp.a.device
+    found = None
+    for t in range(tp.num_tiles):
+        cnt = tp.counts(t, t + 1)[0]
+        rows = tp.tile_row[t].long() * r + torch.arange(r, device=dev)
+        cols = tp.tile_col[t].long() * c + torch.arange(c, device=dev)
+        cand = (
+            (cnt == 0) & (cnt.sum(1, keepdim=True) > 0) & (cnt.sum(0, keepdim=True) > 0)
+            & (rows[:, None] != cols[None, :]) & (rows[:, None] < tp.num_nodes) & (cols[None, :] < tp.n_src)
+        ).nonzero()
+        if cand.shape[0]:
+            found = (int(rows[cand[0, 0]]), int(cols[cand[0, 1]]))
+            break
+    check(found is not None, f"{what}: no non-edge whose row and column hold edges")
+    row, col = found
+    n = tp.num_nodes
+    att = torch.zeros((n, 2), device=dev)
+    att[row, 0] = 50.0
+    att[col, 1] = 50.0  # exp(50) * exp(50) overflows float32
+    u12, v12 = _branch_factors(att, DEFAULT_SLOPE)
+    check(bool(torch.isinf(u12[row, 0] * v12[col, 0])), f"{what}: the chosen non-edge's branch product is finite")
+    h, gbar = (torch.randn((n, 16), generator=gen, device=dev) for _ in range(2))
+    c_ = torch.randn(n, generator=gen, device=dev)
+    num, den = gat_bcsr(tp, h, att)
+    ref_num, ref_den = gat_bcsr_plain(tp, h, att)
+    args = (h, gbar, c_, u12, v12, DEFAULT_SLOPE)
+    dad, (dh, das) = gat_bwd_dad(tp, *args), gat_bwd_dh_das(tp_t, *args)
+    want_dad, (want_dh, want_das) = gat_bwd_dad_plain(tp, *args), gat_bwd_dh_das_plain(tp_t, *args)
+    torch.cuda.synchronize()
+    for got, want, out, gate in ((num, ref_num, "B2 num", False), (den, ref_den, "B2 den", True),
+                                 (dad, want_dad, "B3 d_ad", False), (dh, want_dh, "B4 dh", False),
+                                 (das, want_das, "B4 d_as", False)):
+        compare(got, want, f"{what} non-edge ({row}, {col}) with an inf branch product: {out}", gate=gate)
+
+
+def bits_kernel_phase(tb, tb_t, tb16, tb_t16, gat_bits, gat_bits16, gen) -> dict:
+    """Phase 16: B2, B3, B4, B1 and B5 over 1-bit tiles against their plain
+    versions.  Returns max|d| per kernel over the pack-1 training part."""
+    dev = gen.device
+    log("phase 16: B2, B3, B4, B1 and B5 over 1-bit tiles vs their plain versions")
+    max_err = {"B3": 0.0, "B1_t": 0.0, "B2": 0.0}
+    with torch.no_grad():
+        for (p, p_t), label in (((tb, tb_t), "1-bit pack1"), ((tb16, tb_t16), "1-bit pack16")):
+            for f in BENCH_DIMS[1:]:
+                errs = (
+                    bwd_kernels_vs_plain(p, p_t, f, gen, label),
+                    kernel_vs_plain(p_t, f, "native", gen, f"{label} transposed"),
+                    gat_kernel_vs_plain(p, f, gen, f"{label} [256, 256]"),
+                )
+                if p is tb:
+                    for k, e in zip(("B3", "B1_t", "B2"), errs):
+                        max_err[k] = max(max_err[k], e)
+        for p, label in ((gat_bits, "GAT plan 1-bit pack1"), (gat_bits16, "GAT plan 1-bit pack16")):
+            for f in BENCH_DIMS[1:]:
+                gat_kernel_vs_plain(p, f, gen, label)
+        ng, _ = ragged_graph()
+        rbits = split_bit_tiles(densify(ng, **TRAIN_SCHEDULE)[0])[0]
+        ragged, ragged_t = rbits.pad_runs(16), rbits.transpose().pad_runs(16)
+        fillers, fillers_t = filler_only_runs(ragged), filler_only_runs(ragged_t)
+        check(bool(fillers) and bool(fillers_t), "1-bit training ragged case lacks a filler-only run")
+        log(
+            f"  ragged raw-count plan's 1-bit part: n={ng.num_nodes} tiles={ragged.num_tiles} filler-only "
+            f"runs={fillers}; transposed tiles={ragged_t.num_tiles} filler-only runs={fillers_t}"
+        )
+        ragged, ragged_t = ragged.to(dev), ragged_t.to(dev)
+        for f in (BENCH_DIMS[1], BENCH_DIMS[3]):
+            bwd_kernels_vs_plain(ragged, ragged_t, f, gen, "ragged 1-bit")
+            kernel_vs_plain(ragged_t, f, "native", gen, "ragged 1-bit transposed")
+            gat_kernel_vs_plain(ragged, f, gen, "ragged 1-bit")
+        odd, _ = split_bit_tiles(densify(ng, tile_rows=200, tile_cols=128, threshold=24)[0])
+        check(odd is not None, "no 1-bit part at R = 200")
+        odd_t = odd.transpose()
+        odd, odd_t = odd.to(dev), odd_t.to(dev)
+        log(f"  1-bit part at R = 200: tiles={odd.num_tiles}; transposed [128, 200] tiles={odd_t.num_tiles}")
+        bwd_kernels_vs_plain(odd, odd_t, BENCH_DIMS[1], gen, "1-bit R=200")
+        kernel_vs_plain(odd_t, BENCH_DIMS[1], "native", gen, "1-bit R=200 transposed")
+        gat_kernel_vs_plain(odd, BENCH_DIMS[1], gen, "1-bit R=200")
+        bits_inf_non_edge(tb, tb_t, gen, "1-bit")
+        del ragged, ragged_t, odd, odd_t
+    return max_err
+
+
+def bits_train_phases(args, g, h0, gen, train: dict, gat_out: dict, forwards: int) -> dict:
+    """Phases 16-20: the 1-bit kernels of bit-tile training against their
+    plain versions, GCN and GAT training over bench.py --train's default
+    plan (1-bit and int8 parts with their transposes), the 1-bit GAT
+    forward, and their timing.  Returns what the report needs."""
+    dev = h0.device
+    t0 = time.perf_counter()
+    agg = Aggregator.schedule_hybrid(
+        g, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, bit_tiles=True, device=dev, **TRAIN_SCHEDULE
+    )
+    build_s = time.perf_counter() - t0
+    tb, ti, tb_t, ti_t = agg.tile_bits, agg.tile, agg.tile_bits_t, agg.tile_t
+    check(None not in (tb, ti, tb_t, ti_t), "the training plan did not split into a 1-bit and an int8 part")
+    hb, hi = split_bit_tiles(densify(g, **TRAIN_SCHEDULE)[0])
+    tb16, ti16 = hb.pad_runs(16).to(dev), hi.pad_runs(16).to(dev)
+    tb_t16, ti_t16 = hb.transpose().pad_runs(16).to(dev), hi.transpose().pad_runs(16).to(dev)
+    del hb, hi
+    log(
+        f"bit-tile training plan ({args.scale}): " + "; ".join(
+            f"{part_name(p)} part tiles={p.num_tiles} (transposed {q.num_tiles}) dense edges={p.num_dense_edges} "
+            f"A bytes={p.a.numel()} (transposed {q.a.numel()}) "
+            f"longest run={int(p.run_start.diff().max())} (transposed {int(q.run_start.diff().max())})"
+            for p, q in ((tb, tb_t), (ti, ti_t))
+        ) + f"; built with both transposes in {build_s:.1f} s"
+    )
+    gagg = Aggregator.schedule_hybrid(g, residual_block=RESIDUAL_BLOCK, pack=1, bit_tiles=True, device=dev,
+                                      **GAT_SCHEDULE)
+    gat_bits = gagg.tile_bits
+    check(gat_bits is not None and gagg.tile is not None, "the GAT plan did not split into a 1-bit and an int8 part")
+    gat_bits16 = host_plan(gat_bits).pad_runs(16).to(dev)
+    log(f"GAT plan split: 1-bit part tiles={gat_bits.num_tiles} (A bytes {gat_bits.a.numel()}), "
+        f"int8 part tiles={gagg.tile.num_tiles} (A bytes {gagg.tile.a.numel()})")
+
+    # ---- phase 16: the 1-bit kernels against their plain versions
+    max_err = bits_kernel_phase(tb, tb_t, tb16, tb_t16, gat_bits, gat_bits16, gen)
+
+    # ---- phase 17: GCN bit-tile training
+    log(f"phase 17: GCN bit-tile training, {TRAIN_STEPS} steps of make_train_step (exact modes, Adam 1e-3)")
+    gcn = gcn_training(agg, g, h0, "1-bit ")
+    check(gcn["counts"]["B1"] == 12 * TRAIN_STEPS and gcn["bit_counts"]["B1"] == 6 * TRAIN_STEPS,
+          "GCN bit-tile training: B1 did not launch 12 times per step, 6 of them 1-bit")
+    check(all(v == 0 for k, v in gcn["counts"].items() if k != "B1"), "GCN bit-tile training launched a GAT kernel")
+    for i, (got, want) in enumerate(zip(gcn["grads0"], train["gcn_grads0"])):
+        r = rel_l2(got, want.double())
+        log(f"  first step's w{i + 1} gradient vs phase 9's (int8 tiles): relative L2 {r:.3e}")
+        check(r <= BITS_REL_L2, f"GCN bit-tile w{i + 1} gradient off the int8 step's")
+
+    # ---- phase 18: GAT bit-tile training
+    log(f"phase 18: GAT bit-tile training, {TRAIN_STEPS} steps (fast=False, stabilize='bound', dot_mode='split2')")
+    gat = gat_training(agg, g, h0, "1-bit ")
+    for k in ("B2", "B3", "B4"):
+        check(gat["counts"][k] == 6 * TRAIN_STEPS and gat["bit_counts"][k] == 3 * TRAIN_STEPS,
+              f"GAT bit-tile training: {k} did not launch 6 times per step, 3 of them 1-bit")
+    check(gat["counts"]["B1"] == 0 and gat["counts"]["B5"] == 0, "GAT bit-tile training launched B1 or B5")
+    for i, ((gw, ga), (ww, wa)) in enumerate(zip(gat["grads0"], train["gat_grads0"])):
+        rw, ra = rel_l2(gw, ww.double()), rel_l2(ga, wa.double())
+        log(f"  first step's layer {i + 1} gradient vs phase 10's (int8 tiles): w {rw:.3e}, w_att {ra:.3e}")
+        check(rw <= BITS_REL_L2 and ra <= BITS_REL_L2, f"GAT bit-tile layer {i + 1} gradient off the int8 step's")
+
+    # ---- phase 19: the 1-bit GAT forward
+    log("phase 19: 3-layer GAT forward over phase 6's plan split by split_bit_tiles (fast=True, split2)")
+    model = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
+    params = model.layer_params()
+
+    def fwd(**kw):
+        return model(gagg, h0, fast=True, dot_mode="split2", **kw)
+
+    with torch.no_grad():
+        reset_counts()
+        for _ in range(forwards):
+            out = fwd()
+        torch.cuda.synchronize()
+        fwd_counts = (cuda_gat.launches, cuda_gat.bits_launches)
+        log(f"  B2 launches in {forwards} forwards: {fwd_counts[0]} ({fwd_counts[1]} 1-bit)")
+        check(fwd_counts == (6 * forwards, 3 * forwards), "1-bit GAT forward: B2 not 6 launches a forward, 3 1-bit")
+        check(only("B2"), "the 1-bit GAT forward launched another kernel")
+        reset_counts()
+        out_exact = fwd(stabilize=True)
+        torch.cuda.synchronize()
+        stab_counts = (cuda_rowmax.launches, cuda_rowmax.bits_launches, cuda_gat.launches)
+        log(f"  stabilize=True forward: B5 launches {stab_counts[0]} ({stab_counts[1]} 1-bit), B2 {stab_counts[2]}")
+        check(stab_counts == (6, 3, 6), "1-bit stabilized forward: B5 not 6 launches (3 1-bit) or B2 not 6")
+        for label, o, want in (("un-stabilized", out, gat_out["out"]), ("stabilize=True", out_exact, gat_out["out_exact"])):
+            bad = relative_error_count(o, want)
+            log(f"  1-bit {label} forward vs phase 6's int8 one: gate_bad={bad} max|d|={(o - want).abs().max().item():.3e}")
+            check(o.shape == want.shape and bool(torch.isfinite(o).all()) and bad == 0,
+                  f"the 1-bit {label} GAT forward differs from the int8 one")
+        xs = [h0]
+        for p in params:
+            xs.append(gat_forward(gagg, [p], xs[-1], fast=True, dot_mode="split2"))
+
+    # ---- phase 20: timing
+    log("phase 20: bit-tile timing (CUDA events, median of 10 after 3 warm-up)")
+    times = step_times(gcn, gat, h0)
+    for k, v in train["times"].items():
+        log(f"  {k}: 1-bit {times[k]:.3f} ms vs int8 {v:.3f} ms (phase 11)")
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(fwd)
+        stab_ms = cuda_time_ms(lambda: fwd(stabilize=True))
+        log(f"  1-bit GAT forward: {fwd_ms:.3f} ms; stabilize=True {stab_ms:.3f} ms")
+        log("  training kernels over the 1-bit part:")
+        rows_b = train_kernel_times(tb, tb_t, tb16, tb_t16, gen)
+        log("  training kernels over the int8 part:")
+        rows_i = train_kernel_times(ti, ti_t, ti16, ti_t16, gen)
+        rows5 = b5_rows(gat_bits, gat_bits16, xs, params)
+        rows5_i = b5_rows(gagg.tile, host_plan(gagg.tile).pad_runs(16).to(dev), xs, params)
+    return dict(
+        build_s=build_s, max_err=max_err, times=times, gcn_counts=gcn["counts"], gcn_bits=gcn["bit_counts"],
+        gat_counts=gat["counts"], gat_bits=gat["bit_counts"], gcn_losses=gcn["losses"], gat_losses=gat["losses"],
+        fwd_counts=fwd_counts, stab_counts=stab_counts, forward_ms=fwd_ms, stab_ms=stab_ms,
+        rows_b=rows_b, rows_i=rows_i, rows5=rows5, rows5_i=rows5_i,
+    )
+
+
+def bits_train_reddit_phase(g, h0) -> dict:
+    """--scale reddit: bench.py --train's headline configuration at its own
+    scale, GCN only (the float64 oracles of phases 9 and 17 hold the whole
+    edge list): the [256, 256] t24 bit-tile plan with its transposes, the
+    first step's weight gradients against the same step over the same parts
+    passed through unpack_bits() (a check, not the training path), then
+    REDDIT_STEPS steps with B1 at 12 launches a step, and the step's time."""
+    dev = h0.device
+    n = g.num_nodes
+    log(f"phase 17 (reddit): GCN bit-tile training, {REDDIT_STEPS} steps")
+    t0 = time.perf_counter()
+    agg = Aggregator.schedule_hybrid(
+        g, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, bit_tiles=True, device=dev, **TRAIN_SCHEDULE
+    )
+    build_s = time.perf_counter() - t0
+    log(
+        "  plan: " + "; ".join(
+            f"{part_name(p)} part tiles={p.num_tiles} (transposed {q.num_tiles}) A bytes={p.a.numel()}"
+            for p, q in ((agg.tile_bits, agg.tile_bits_t), (agg.tile, agg.tile_t))
+        ) + f"; residual edges={agg.plan.num_edges}; built with both transposes in {build_s:.1f} s"
+    )
+    labels = train_labels(n, dev)
+    unpacked = dataclasses.replace(
+        agg, tile_bits=agg.tile_bits.unpack_bits(), tile_bits_t=agg.tile_bits_t.unpack_bits()
+    )
+    grads = []
+    for a in (unpacked, agg):
+        gcn = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
+        softmax_xent(gcn(a, h0), labels).backward()
+        grads.append([w.grad.detach().clone() for w in gcn.weights])
+    del unpacked
+    torch.cuda.empty_cache()
+    for i, (got, want) in enumerate(zip(grads[1], grads[0])):
+        r = rel_l2(got, want.double())
+        log(f"  first step's w{i + 1} gradient vs the unpacked parts': relative L2 {r:.3e}")
+        check(r <= BITS_REL_L2, f"reddit bit-tile w{i + 1} gradient off the unpacked parts' step")
+    gcn.zero_grad(set_to_none=True)
+    step = make_train_step(lambda h: gcn(agg, h), torch.optim.Adam(gcn.parameters(), lr=1e-3), device=dev)
+    reset_counts()
+    losses = [step((h0,), labels) for _ in range(REDDIT_STEPS)]
+    torch.cuda.synchronize()
+    c, cb = counts(), bit_counts()
+    losses = [float(v) for v in losses]
+    log(f"  losses {losses}; launches in {REDDIT_STEPS} steps: B1 {c['B1']} ({cb['B1']} 1-bit)")
+    check(all(np.isfinite(losses)), "reddit bit-tile GCN training loss not finite")
+    check(c["B1"] == 12 * REDDIT_STEPS and cb["B1"] == 6 * REDDIT_STEPS and only("B1"),
+          "reddit bit-tile GCN training: B1 not 12 launches a step (6 1-bit), or another kernel launched")
+    step_ms = cuda_time_ms(lambda: step((h0,), labels))
+    with torch.no_grad():
+        forward_ms = cuda_time_ms(lambda: gcn(agg, h0))
+    log(f"  GCN bit-tile step {step_ms:.3f} ms = forward {forward_ms:.3f} + backward and Adam {step_ms - forward_ms:.3f}")
+    return dict(
+        path=f"GCN bit-tile training step at reddit scale, {REDDIT_STEPS} steps", launches=c["B1"],
+        bits_launches=cb["B1"], launches_per_step=12, step_ms=step_ms, forward_ms=forward_ms,
+        backward_adam_ms=step_ms - forward_ms, plan_build_s=build_s, losses=losses,
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -1463,7 +1837,7 @@ def main() -> int:
     res_plan = agg.plan
     del agg, tp, tile16, model, xs, csr
     torch.cuda.empty_cache()
-    gat_kernels = gat_phases(args, g, h0, gen, forwards, libs)
+    gat_kernels, gat_out = gat_phases(args, g, h0, gen, forwards, libs)
     torch.cuda.empty_cache()
     train = None
     if args.scale == "quick":
@@ -1475,8 +1849,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     bt = bits_gcn_phase(g, h0, tile_host, res_host, res_plan, gcn_out, forwards, gen)
     b6, b1_bits = timing_phase(g, sdd, bt)
+    b6.update(launches=sdd["launches"], parts=len(sdd["agg"].tile_parts()), max_err=sdd["max_err"])
+    b1_bits.update(launches=bt["launches"], max_err=bt["max_err"])
+    del sdd, bt
+    torch.cuda.empty_cache()
+    if train is not None:
+        bits_train = bits_train_phases(args, g, h0, gen, train, gat_out, forwards)
+    else:
+        reddit_train = bits_train_reddit_phase(g, h0)
 
-    # ---- phase 16: report
+    # ---- phase 21: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
     kernels = [dict(
         name="bcsr_spmm",
@@ -1504,7 +1886,7 @@ def main() -> int:
 
     kernels[0]["bits"] = dict(
         path="GCN forward over phase 3's plan split into 1-bit and int8 parts (fast_layer_opts)",
-        launches=bt["launches"], launches_per_forward=6, max_abs_err=bt["max_err"],
+        launches=b1_bits["launches"], launches_per_forward=6, max_abs_err=b1_bits["max_err"],
         forward_ms=b1_bits["forward_ms"], **summed(b1_bits["rows"], over="the 1-bit part, f=128, 64, 32"),
     )
     if train is not None:
@@ -1528,13 +1910,55 @@ def main() -> int:
                 **summed(rows[key]), path=f"GAT training step (fast=False, stabilize='bound', split2), {TRAIN_STEPS} steps",
                 step_ms=tt["gat_step_ms"], build_s=libs[kname][1], scale=args.scale,
             ))
+        # bit-tile training (phases 16-20): times over the 1-bit parts, the
+        # int8 parts' beside them
+        bits = bits_train
+        bt_times = bits["times"]
+        step_path = f"bit-tile training step (1-bit and int8 parts with their transposes), {TRAIN_STEPS} steps"
+        kernels[0]["training"]["bits"] = dict(
+            path=f"GCN {step_path}", launches=bits["gcn_counts"]["B1"], bits_launches=bits["gcn_bits"]["B1"],
+            launches_per_step=12, max_abs_err=bits["max_err"]["B1_t"], step_ms=bt_times["gcn_step_ms"],
+            forward_ms=bt_times["gcn_forward_ms"], backward_adam_ms=bt_times["gcn_backward_adam_ms"],
+            int8_step_ms=tt["gcn_step_ms"], plan_build_s=bits["build_s"],
+            int8_part=summed(bits["rows_i"]["B1_t"], over="int8 part of the transposed plan"),
+            **summed(bits["rows_b"]["B1_t"], over="1-bit part of the transposed [256, 256] plan"),
+        )
+        kernels[1]["bits"] = dict(
+            path=f"GAT {step_path}; 1-bit GAT forward (fast, split2)", launches=bits["gat_counts"]["B2"],
+            bits_launches=bits["gat_bits"]["B2"], launches_per_step=6, max_abs_err=bits["max_err"]["B2"],
+            step_ms=bt_times["gat_step_ms"], int8_step_ms=tt["gat_step_ms"],
+            forward_launches=bits["fwd_counts"][0], forward_bits_launches=bits["fwd_counts"][1],
+            forward_ms=bits["forward_ms"], int8_forward_ms=kernels[1]["forward_ms"],
+            int8_part=summed(bits["rows_i"]["B2"], over="int8 part of the [256, 256] plan"),
+            **summed(bits["rows_b"]["B2"], over="1-bit part of the [256, 256] plan"),
+        )
+        kernels[2]["bits"] = dict(
+            path="1-bit GAT forward (fast, split2, stabilize=True)", launches=bits["stab_counts"][0],
+            bits_launches=bits["stab_counts"][1], launches_per_forward=6, max_abs_err=0.0,
+            forward_ms=bits["stab_ms"], int8_forward_ms=kernels[2]["forward_ms"],
+            int8_part=summed(bits["rows5_i"], over="int8 part of the [512, 256] t32 plan"),
+            **summed(bits["rows5"], over="1-bit part of the [512, 256] t32 plan"),
+        )
+        for k, key in ((kernels[-2], "B3"), (kernels[-1], "B4")):
+            k["bits"] = dict(
+                path=f"GAT {step_path}", launches=bits["gat_counts"][key], bits_launches=bits["gat_bits"][key],
+                launches_per_step=6, max_abs_err=bits["max_err"]["B3"], step_ms=bt_times["gat_step_ms"],
+                int8_part=summed(bits["rows_i"][key], over="int8 part"),
+                **summed(bits["rows_b"][key], over="1-bit part"),
+            )
         print(json.dumps({"training": dict(
             times=tt, layers=train["layers"], gcn_losses=train["gcn_losses"], gat_losses=train["gat_losses"],
+            bits=dict(times=bt_times, gcn_losses=bits["gcn_losses"], gat_losses=bits["gat_losses"],
+                      plan_build_s=bits["build_s"], gat_forward_ms=bits["forward_ms"],
+                      gat_stabilized_forward_ms=bits["stab_ms"]),
         )}), flush=True)
+    else:
+        kernels[0]["training"] = dict(bits=reddit_train)
+        print(json.dumps({"training": dict(bits=reddit_train)}), flush=True)
     kernels.append(dict(
         name="sddmm_bcsr", route="cuda", source="gnn_computing_tpu_torch/csrc/sddmm_bcsr.cu",
-        replaces="gnn_computing_tpu/ops/bcsr_sddmm.py:100", launches=sdd["launches"],
-        launches_per_call=len(sdd["agg"].tile_parts()), max_abs_err=sdd["max_err"],
+        replaces="gnn_computing_tpu/ops/bcsr_sddmm.py:100", launches=b6["launches"],
+        launches_per_call=b6["parts"], max_abs_err=b6["max_err"],
         **summed(b6["rows"]), path=(
             f"bench.py --model sddmm (hybrid): [256, 128] t24, 1-bit tiles, residual {RESIDUAL_BLOCK}, "
             f"f={SDDMM_F}, split23, f16_split2, bf16 cells; {SDDMM_CALLS} calls"

@@ -6,10 +6,13 @@ edges, run by ops.bcsr.hybrid_spmm (``run``) and ops.bcsr_gat.hybrid_gat
 (``run_gat``).  ``with_transpose=True`` adds the transposed tile plan, the
 transposed residual plan and the edge map that the ops' backwards stream.
 ``bit_tiles=True`` splits the tiles into a 1-bit part (``tile_bits``) and an
-int8 part (``tile``); only the forward tile product and the SDDMM read
-1-bit parts yet, so ``run_gat`` raises on them and bit-tile training
-(``with_transpose=True``) is refused.  Not ported yet: the gather-only
-schedule.
+int8 part (``tile``); with ``with_transpose=True`` each part gets its own
+transposed plan (``tile_bits_t``, ``tile_t``), the configuration of bench.py
+``--train``.  Every tile kernel reads both formats.  Unlike the JAX package,
+a transposed 1-bit part stays 1-bit whatever its R: the JAX package unpacks
+it below R = 256, the minimum int8 sublane tile of its Mosaic kernel; the
+CUDA kernels need only R % 8 == 0.  Both store the same counts, so the
+function is the same.  Not ported yet: the gather-only schedule.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ class Aggregator:
     plan_t: Optional[AggregationPlan] = None
     edge_map_t: Optional[object] = None  # transposed residual edge -> residual edge
     tile_bits: Optional[TilePlan] = None  # 1-bit part (bit_tiles=True)
+    tile_bits_t: Optional[TilePlan] = None  # its transposed plan (with_transpose=True)
 
     def tile_parts(self) -> tuple:
         """The non-empty tile parts: the 1-bit part first, as in the JAX
@@ -49,7 +53,8 @@ class Aggregator:
         return tuple(p for p in (self.tile_bits, self.tile) if p is not None and p.num_tiles)
 
     def tile_parts_t(self) -> tuple:
-        return tuple(p for p in (self.tile_t,) if p is not None and p.num_tiles)
+        """The non-empty transposed tile parts, the 1-bit part first."""
+        return tuple(p for p in (self.tile_bits_t, self.tile_t) if p is not None and p.num_tiles)
 
     @classmethod
     def schedule_hybrid(
@@ -76,9 +81,7 @@ class Aggregator:
         (from the unpadded plan, then padded), a neighbor-grouping plan of
         the transposed residual with the same block, and its edge map.
         ``bit_tiles`` splits the tiles by content (split_bit_tiles) before
-        padding each part."""
-        if bit_tiles and with_transpose:
-            raise NotImplementedError("bit-tile training (bit_tiles with with_transpose) is a later slice")
+        padding each part, and each part is transposed on its own."""
         dev = resolve_device(device)
         tile, res = densify(
             g, val=val, tile_rows=tile_rows, tile_cols=tile_cols,
@@ -88,9 +91,10 @@ class Aggregator:
         if bit_tiles:
             tile_b, tile = split_bit_tiles(tile)
         plan = neighbor_grouping_plan(res, block_size=residual_block)
-        tile_t = plan_t = edge_map = None
+        tile_t = tile_bt = plan_t = edge_map = None
         if with_transpose:
-            tile_t = tile.transpose().pad_runs(pack)
+            tile_t = None if tile is None else tile.transpose().pad_runs(pack)
+            tile_bt = None if tile_b is None else tile_b.transpose().pad_runs(pack)
             gt, edge_map = res.transpose_with_map()
             plan_t = neighbor_grouping_plan(gt, block_size=residual_block)
             edge_map = edge_map.astype(np.int32)
@@ -104,19 +108,25 @@ class Aggregator:
             plan_t=plan_t,
             edge_map_t=edge_map,
             tile_bits=None if tile_b is None else tile_b.pad_runs(pack),
+            tile_bits_t=tile_bt,
         )
         return agg.to(dev)
 
     def to(self, device) -> "Aggregator":
         dev = resolve_device(device)
+
+        def put(x):
+            return None if x is None else x.to(dev)
+
         return dataclasses.replace(
             self,
             plan=self.plan.to(dev),
-            tile=None if self.tile is None else self.tile.to(dev),
-            tile_t=None if self.tile_t is None else self.tile_t.to(dev),
-            plan_t=None if self.plan_t is None else self.plan_t.to(dev),
+            tile=put(self.tile),
+            tile_t=put(self.tile_t),
+            plan_t=put(self.plan_t),
             edge_map_t=None if self.edge_map_t is None else torch.as_tensor(self.edge_map_t).to(dev, torch.int64),
-            tile_bits=None if self.tile_bits is None else self.tile_bits.to(dev),
+            tile_bits=put(self.tile_bits),
+            tile_bits_t=put(self.tile_bits_t),
         )
 
     def _plans_t(self):

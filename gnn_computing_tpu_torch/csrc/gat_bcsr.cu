@@ -1,9 +1,12 @@
-// GAT attention aggregation over int8 count tiles (B2), hand-written for
-// Hopper.
+// GAT attention aggregation over count tiles (B2), hand-written for Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/pallas_bcsr.py:
-// gat_bcsr_pallas in mode 'maxdot' (int8 tile format, dot_mode 'exact' and
-// 'split2'; both are computed here in float32, see below).
+// gat_bcsr_pallas in mode 'maxdot' (int8 and 1-bit tile formats, dot_mode
+// 'exact' and 'split2'; both are computed here in float32, see below).  The
+// A format is a template argument (bit_tiles.cuh), as in B1: a scoring
+// thread finds its row's bytes at Fmt::row_offset and reads a cell's count
+// as Fmt::count(byte, shift).  A 64-row slab of a 1-bit tile with R = 256
+// spans two bit planes, so the shift comes from each thread's own row.
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination
@@ -18,9 +21,9 @@
 // score, exact for any slope.  The softmax row shift folds into u12 in the
 // wrapper; the kernel never sees it.
 //
-// Numerics: cnt is an exact integer (<= 127) and each branch product is one
-// float32 rounding, so s_ij carries float32 precision; num and den are float32
-// sums.  That meets the TPU's 'split2' dot (score and h rounded to ~16
+// Numerics: cnt is an exact integer (<= 127; 0 or 1 in a 1-bit tile) and
+// each branch product is one float32 rounding, so s_ij carries float32
+// precision; num and den are float32 sums.  That meets the TPU's 'split2' dot (score and h rounded to ~16
 // mantissa bits, error ~2^-16) and its 'exact' f32 dot alike.  Two traps,
 // both designed around:
 //   - select, never multiply, on cnt == 0: in the unstabilized form the
@@ -31,8 +34,8 @@
 // Design (the shape of B1, csrc/bcsr_spmm.cu): one block owns a slab of BR
 // rows of one row-tile run and BF feature columns.  It walks the run's tiles;
 // per staged [BR, BK] piece each thread scores 8 cells of one row into shared
-// memory (int8 counts, u of its row in registers, v read only for cells with
-// a count), the block stages the H tile [BK, BF], and FFMAs form the tile's
+// memory (8 count bytes in one load, u of its row in registers, v read only
+// for cells with a count), the block stages the H tile [BK, BF], and FFMAs form the tile's
 // product in registers.  Each tile's partial (num and the thread's den slice)
 // is added to the run's sum when the tile is done: a single float32 sum over
 // a hub run of ~10^5 columns drifts ~1e-5.  Outputs are written once at the
@@ -43,7 +46,8 @@
 // cores): the function reads A (T*R*C bytes), h (n_src*f*4), u12 and v12
 // (8 bytes a node) and writes num and den (n*(f+1)*4), against 2*nnz*(f+1)
 // FLOPs for the nnz nonzero cells.  At the quick scale (4,024 tiles of
-// [512, 256], f = 128) that is about 0.18 ms, bytes-bound.
+// [512, 256], f = 128) that is about 0.18 ms, bytes-bound.  A 1-bit part
+// reads R/8*C A bytes a tile.
 //
 // What the simple design leaves on the table: the tiles are ~1% full, so
 // almost all FFMAs multiply zero scores (compacting each slab's nonzeros
@@ -54,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bit_tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 threads
@@ -62,16 +68,16 @@ constexpr int kBK = 32;        // tile columns staged per step
 constexpr int kTM = 4;
 constexpr int kStagers = kThreads / kBR;  // threads scoring one row's piece
 
-template <int BF>
+template <int BF, class Fmt>
 __global__ void __launch_bounds__(kThreads)
-gat_bcsr_i8_kernel(const int8_t* __restrict__ a,
-                   const int32_t* __restrict__ tile_col,
-                   const int32_t* __restrict__ run_start,
-                   const float* __restrict__ h,
-                   const float2* __restrict__ u12,
-                   const float2* __restrict__ v12,
-                   float* __restrict__ num, float* __restrict__ den,
-                   int R, int C, int n, int n_src, int f, int slabs_per_run) {
+gat_bcsr_kernel(const uint8_t* __restrict__ a,
+                const int32_t* __restrict__ tile_col,
+                const int32_t* __restrict__ run_start,
+                const float* __restrict__ h,
+                const float2* __restrict__ u12,
+                const float2* __restrict__ v12,
+                float* __restrict__ num, float* __restrict__ den,
+                int R, int C, int n, int n_src, int f, int slabs_per_run) {
   constexpr int TN = BF / 16;
   // +4 pad keeps rows 16-byte aligned and the transposing stores free of
   // bank conflicts (32 consecutive rows per warp, one k)
@@ -90,6 +96,8 @@ gat_bcsr_i8_kernel(const int8_t* __restrict__ a,
   const int srow = r0 + ai;
   const int64_t sgrow = (int64_t)run * R + srow;
   const float2 u = (srow < R && sgrow < n) ? u12[sgrow] : make_float2(0.f, 0.f);
+  int shift = 0;
+  const int64_t row_off = srow < R ? Fmt::row_offset(srow, R, C, &shift) : 0;
 
   float acc[kTM][TN];
 #pragma unroll
@@ -100,7 +108,7 @@ gat_bcsr_i8_kernel(const int8_t* __restrict__ a,
 
   const int t_end = run_start[run + 1];
   for (int t = run_start[run]; t < t_end; ++t) {
-    const int8_t* at = a + (int64_t)t * R * C;
+    const uint8_t* arow = a + t * Fmt::tile_bytes(R, C) + row_off;
     const int64_t col0 = (int64_t)tile_col[t] * C;
     float part[kTM][TN];
 #pragma unroll
@@ -110,16 +118,15 @@ gat_bcsr_i8_kernel(const int8_t* __restrict__ a,
     float den_part = 0.f;
     for (int k0 = 0; k0 < C; k0 += kBK) {
       const int kk = k0 + aj;
-      int8_t cnt[8];
+      int cnt[8];
       if (vec_a && srow < R && kk + 8 <= C) {
-        const int2 v = *reinterpret_cast<const int2*>(at + (int64_t)srow * C + kk);
-        const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+        const int2 v = *reinterpret_cast<const int2*>(arow + kk);
+        const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) cnt[q] = b[q];
+        for (int q = 0; q < 8; ++q) cnt[q] = Fmt::count(b[q], shift);
       } else {
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          cnt[q] = (srow < R && kk + q < C) ? at[(int64_t)srow * C + kk + q] : int8_t(0);
+        for (int q = 0; q < 8; ++q) cnt[q] = (srow < R && kk + q < C) ? Fmt::count(arow[kk + q], shift) : 0;
       }
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -191,14 +198,10 @@ gat_bcsr_i8_kernel(const int8_t* __restrict__ a,
   }
 }
 
-}  // namespace
-
-extern "C" int gat_bcsr_i8_f32(const void* a, const void* tile_col,
-                               const void* run_start, const void* h,
-                               const void* u12, const void* v12, void* num,
-                               void* den, int num_row_tiles, int R, int C,
-                               int n, int n_src, int f, int device,
-                               void* stream) {
+template <class Fmt>
+int launch(const void* a, const void* tile_col, const void* run_start, const void* h, const void* u12,
+           const void* v12, void* num, void* den, int num_row_tiles, int R, int C, int n, int n_src, int f,
+           int device, void* stream) {
   if (num_row_tiles == 0 || n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
   // card in it before launching on the caller's stream
@@ -207,7 +210,7 @@ extern "C" int gat_bcsr_i8_f32(const void* a, const void* tile_col,
   const int slabs = (R + kBR - 1) / kBR;
   const dim3 block(kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* a8 = static_cast<const int8_t*>(a);
+  const uint8_t* a8 = static_cast<const uint8_t*>(a);
   const int32_t* col = static_cast<const int32_t*>(tile_col);
   const int32_t* rs = static_cast<const int32_t*>(run_start);
   const float* hf = static_cast<const float*>(h);
@@ -218,10 +221,27 @@ extern "C" int gat_bcsr_i8_f32(const void* a, const void* tile_col,
   // at least one f-slice, so den is written even for f == 0
   if (f <= 32) {
     const dim3 grid(num_row_tiles * slabs, 1);
-    gat_bcsr_i8_kernel<32><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slabs);
+    gat_bcsr_kernel<32, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slabs);
   } else {
     const dim3 grid(num_row_tiles * slabs, (f + 63) / 64);
-    gat_bcsr_i8_kernel<64><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slabs);
+    gat_bcsr_kernel<64, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slabs);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int gat_bcsr_i8_f32(const void* a, const void* tile_col, const void* run_start, const void* h,
+                               const void* u12, const void* v12, void* num, void* den, int num_row_tiles,
+                               int R, int C, int n, int n_src, int f, int device, void* stream) {
+  return launch<CountTiles>(a, tile_col, run_start, h, u12, v12, num, den, num_row_tiles, R, C, n, n_src, f,
+                            device, stream);
+}
+
+extern "C" int gat_bcsr_b1_f32(const void* a, const void* tile_col, const void* run_start, const void* h,
+                               const void* u12, const void* v12, void* num, void* den, int num_row_tiles,
+                               int R, int C, int n, int n_src, int f, int device, void* stream) {
+  if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<BitTiles>(a, tile_col, run_start, h, u12, v12, num, den, num_row_tiles, R, C, n, n_src, f,
+                          device, stream);
 }

@@ -1,9 +1,12 @@
-// GAT backward, d_att_dst over the forward int8 count tiles (B3),
-// hand-written for Hopper.
+// GAT backward, d_att_dst over the forward count tiles (B3), hand-written
+// for Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/pallas_bcsr.py:
-// gat_bwd_dad_pallas (int8 tile format, dot_mode 'exact' and 'split2'; both
-// are computed here in float32, as B2 computes the forward).
+// gat_bwd_dad_pallas (int8 and 1-bit tile formats, dot_mode 'exact' and
+// 'split2'; both are computed here in float32, as B2 computes the forward).
+// The A format is a template argument (bit_tiles.cuh): the row's bytes are
+// found at Fmt::row_offset and tile_cells::compact_row keeps the cells whose
+// count (a byte, or one bit of it) is nonzero.
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination row
@@ -35,7 +38,7 @@
 // u12/v12 (8 bytes a node) and c, and writes d_ad (n*4), against 2*cells*f
 // FLOPs for the nonzero cells.  At the quick training plan (7,090 tiles of
 // [256, 256], 3.3M nonzero cells, f = 128) that is about 0.16 ms,
-// bytes-bound (A alone is 0.14 ms).
+// bytes-bound (A alone is 0.14 ms); a 1-bit part reads R/8*C bytes a tile.
 //
 // What the simple design leaves on the table: a hub row's cells (14,305 at
 // the quick training plan, against a mean of 50) are one warp's serial
@@ -59,17 +62,18 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kKPL = 4;    // features of gbar_i a lane holds in registers
 constexpr int kG = 8;      // nonzero cells in flight per warp
 
+template <class Fmt>
 __global__ void __launch_bounds__(kThreads)
-gat_bwd_dad_i8_kernel(const int8_t* __restrict__ a,
-                      const int32_t* __restrict__ tile_col,
-                      const int32_t* __restrict__ run_start,
-                      const float* __restrict__ h,
-                      const float* __restrict__ gbar,
-                      const float* __restrict__ c,
-                      const float2* __restrict__ u12,
-                      const float2* __restrict__ v12,
-                      float* __restrict__ out,
-                      int R, int C, int n, int n_src, int f, float slope, int slabs_per_run) {
+gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
+                   const int32_t* __restrict__ tile_col,
+                   const int32_t* __restrict__ run_start,
+                   const float* __restrict__ h,
+                   const float* __restrict__ gbar,
+                   const float* __restrict__ c,
+                   const float2* __restrict__ u12,
+                   const float2* __restrict__ v12,
+                   float* __restrict__ out,
+                   int R, int C, int n, int n_src, int f, float slope, int slabs_per_run) {
   __shared__ int lists[kWarps][kChunk];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int run = blockIdx.x / slabs_per_run;
@@ -78,6 +82,8 @@ gat_bwd_dad_i8_kernel(const int8_t* __restrict__ a,
   if (r >= R || i >= n) return;  // the whole warp leaves together
   int* list = lists[warp];
   const bool vec = (C % 8) == 0;
+  int shift = 0;
+  const int64_t row_off = Fmt::row_offset(r, R, C, &shift);
 
   const float2 u = u12[i];
   const float ci = c[i];
@@ -89,11 +95,11 @@ gat_bwd_dad_i8_kernel(const int8_t* __restrict__ a,
   float acc = 0.f;
   const int t_end = run_start[run + 1];
   for (int t = run_start[run]; t < t_end; ++t) {
-    const int8_t* row_a = a + ((int64_t)t * R + r) * C;
+    const uint8_t* row_a = a + t * Fmt::tile_bytes(R, C) + row_off;
     const int64_t col0 = (int64_t)tile_col[t] * C;
     float part = 0.f;
     for (int c0 = 0; c0 < C; c0 += kChunk) {
-      const int total = tile_cells::compact_row(row_a, C, c0, vec, lane, list);
+      const int total = tile_cells::compact_row<Fmt>(row_a, shift, C, c0, vec, lane, list);
       for (int b0 = 0; b0 < total; b0 += kG) {
         int cn[kG];
         int64_t src[kG];
@@ -142,22 +148,39 @@ gat_bwd_dad_i8_kernel(const int8_t* __restrict__ a,
   if (lane == 0) out[i] = acc;
 }
 
-}  // namespace
-
-extern "C" int gat_bwd_dad_i8_f32(const void* a, const void* tile_col, const void* run_start,
-                                  const void* h, const void* gbar, const void* c, const void* u12,
-                                  const void* v12, void* out, int num_row_tiles, int R, int C, int n,
-                                  int n_src, int f, float slope, int device, void* stream) {
+template <class Fmt>
+int launch(const void* a, const void* tile_col, const void* run_start, const void* h, const void* gbar,
+           const void* c, const void* u12, const void* v12, void* out, int num_row_tiles, int R, int C,
+           int n, int n_src, int f, float slope, int device, void* stream) {
   if (num_row_tiles == 0 || n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
   // card in it before launching on the caller's stream
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int slabs = (R + kWarps - 1) / kWarps;
-  gat_bwd_dad_i8_kernel<<<dim3(num_row_tiles * slabs), dim3(kThreads), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int32_t*>(tile_col),
+  gat_bwd_dad_kernel<Fmt><<<dim3(num_row_tiles * slabs), dim3(kThreads), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const int32_t*>(tile_col),
       static_cast<const int32_t*>(run_start), static_cast<const float*>(h),
       static_cast<const float*>(gbar), static_cast<const float*>(c), static_cast<const float2*>(u12),
       static_cast<const float2*>(v12), static_cast<float*>(out), R, C, n, n_src, f, slope, slabs);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int gat_bwd_dad_i8_f32(const void* a, const void* tile_col, const void* run_start,
+                                  const void* h, const void* gbar, const void* c, const void* u12,
+                                  const void* v12, void* out, int num_row_tiles, int R, int C, int n,
+                                  int n_src, int f, float slope, int device, void* stream) {
+  return launch<CountTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, out, num_row_tiles, R, C, n,
+                            n_src, f, slope, device, stream);
+}
+
+extern "C" int gat_bwd_dad_b1_f32(const void* a, const void* tile_col, const void* run_start,
+                                  const void* h, const void* gbar, const void* c, const void* u12,
+                                  const void* v12, void* out, int num_row_tiles, int R, int C, int n,
+                                  int n_src, int f, float slope, int device, void* stream) {
+  if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<BitTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, out, num_row_tiles, R, C, n,
+                          n_src, f, slope, device, stream);
 }

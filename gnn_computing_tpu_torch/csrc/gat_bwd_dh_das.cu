@@ -1,9 +1,11 @@
-// GAT backward, (dh, d_att_src) over the transposed int8 count tiles (B4),
+// GAT backward, (dh, d_att_src) over the transposed count tiles (B4),
 // hand-written for Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/pallas_bcsr.py:
-// gat_bwd_dh_das_pallas (int8 tile format, dot_mode 'exact' and 'split2';
-// both are computed here in float32, as B2 computes the forward).
+// gat_bwd_dh_das_pallas (int8 and 1-bit tile formats, dot_mode 'exact' and
+// 'split2'; both are computed here in float32, as B2 computes the forward).
+// The A format is a template argument (bit_tiles.cuh), read as B3 reads it;
+// a transposed 1-bit part packs the forward's C as its R.
 //
 // What it computes: the plan is the transposed one, so the rows are source
 // nodes j and the columns the forward's destinations i; tiles are sorted by
@@ -38,7 +40,8 @@
 // u12/v12 (8 bytes a node) and c, and writes dh (n_src*f*4) and d_as
 // (n_src*4), against 4*cells*f FLOPs for the nonzero cells.  At the quick
 // training plan (7,125 transposed tiles of [256, 256], 3.3M nonzero cells,
-// f = 128) that is about 0.18 ms, bytes-bound.
+// f = 128) that is about 0.18 ms, bytes-bound; a 1-bit part reads R/8*C
+// bytes a tile.
 //
 // What the simple design leaves on the table: a hub row's cells (14,316 at
 // the quick training plan) are one warp's serial work, so the hub rows
@@ -62,17 +65,18 @@ constexpr int kKPL = 4;    // features a lane holds: one f-slice is 128 wide
 constexpr int kSlice = 32 * kKPL;
 constexpr int kG = 8;      // nonzero cells in flight per warp
 
+template <class Fmt>
 __global__ void __launch_bounds__(kThreads)
-gat_bwd_dh_das_i8_kernel(const int8_t* __restrict__ a,
-                         const int32_t* __restrict__ tile_col,
-                         const int32_t* __restrict__ run_start,
-                         const float* __restrict__ h,
-                         const float* __restrict__ gbar,
-                         const float* __restrict__ c,
-                         const float2* __restrict__ u12,
-                         const float2* __restrict__ v12,
-                         float* __restrict__ dh, float* __restrict__ d_as,
-                         int R, int C, int n, int n_cols, int f, float slope, int slabs_per_run) {
+gat_bwd_dh_das_kernel(const uint8_t* __restrict__ a,
+                      const int32_t* __restrict__ tile_col,
+                      const int32_t* __restrict__ run_start,
+                      const float* __restrict__ h,
+                      const float* __restrict__ gbar,
+                      const float* __restrict__ c,
+                      const float2* __restrict__ u12,
+                      const float2* __restrict__ v12,
+                      float* __restrict__ dh, float* __restrict__ d_as,
+                      int R, int C, int n, int n_cols, int f, float slope, int slabs_per_run) {
   __shared__ int lists[kWarps][kChunk];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int run = blockIdx.x / slabs_per_run;
@@ -81,6 +85,8 @@ gat_bwd_dh_das_i8_kernel(const int8_t* __restrict__ a,
   if (r >= R || j >= n) return;  // the whole warp leaves together
   int* list = lists[warp];
   const bool vec = (C % 8) == 0;
+  int shift = 0;
+  const int64_t row_off = Fmt::row_offset(r, R, C, &shift);
   const bool with_das = blockIdx.y == 0;
   const int f0 = blockIdx.y * kSlice;
 
@@ -95,13 +101,13 @@ gat_bwd_dh_das_i8_kernel(const int8_t* __restrict__ a,
   for (int m = 0; m < kKPL; ++m) acc_h[m] = 0.f;
   const int t_end = run_start[run + 1];
   for (int t = run_start[run]; t < t_end; ++t) {
-    const int8_t* row_a = a + ((int64_t)t * R + r) * C;
+    const uint8_t* row_a = a + t * Fmt::tile_bytes(R, C) + row_off;
     const int64_t col0 = (int64_t)tile_col[t] * C;
     float part_h[kKPL], part_s = 0.f;
 #pragma unroll
     for (int m = 0; m < kKPL; ++m) part_h[m] = 0.f;
     for (int c0 = 0; c0 < C; c0 += kChunk) {
-      const int total = tile_cells::compact_row(row_a, C, c0, vec, lane, list);
+      const int total = tile_cells::compact_row<Fmt>(row_a, shift, C, c0, vec, lane, list);
       for (int b0 = 0; b0 < total; b0 += kG) {
         int cn[kG];
         int64_t dst[kG];
@@ -164,13 +170,10 @@ gat_bwd_dh_das_i8_kernel(const int8_t* __restrict__ a,
   if (with_das && lane == 0) d_as[j] = acc_s;
 }
 
-}  // namespace
-
-extern "C" int gat_bwd_dh_das_i8_f32(const void* a, const void* tile_col, const void* run_start,
-                                     const void* h, const void* gbar, const void* c, const void* u12,
-                                     const void* v12, void* dh, void* d_as, int num_row_tiles, int R,
-                                     int C, int n, int n_cols, int f, float slope, int device,
-                                     void* stream) {
+template <class Fmt>
+int launch(const void* a, const void* tile_col, const void* run_start, const void* h, const void* gbar,
+           const void* c, const void* u12, const void* v12, void* dh, void* d_as, int num_row_tiles, int R,
+           int C, int n, int n_cols, int f, float slope, int device, void* stream) {
   if (num_row_tiles == 0 || n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
   // card in it before launching on the caller's stream
@@ -179,11 +182,32 @@ extern "C" int gat_bwd_dh_das_i8_f32(const void* a, const void* tile_col, const 
   const int slabs = (R + kWarps - 1) / kWarps;
   // at least one f-slice, so d_as is written even for f == 0
   const dim3 grid(num_row_tiles * slabs, f > kSlice ? (f + kSlice - 1) / kSlice : 1);
-  gat_bwd_dh_das_i8_kernel<<<grid, dim3(kThreads), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int32_t*>(tile_col),
+  gat_bwd_dh_das_kernel<Fmt><<<grid, dim3(kThreads), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const int32_t*>(tile_col),
       static_cast<const int32_t*>(run_start), static_cast<const float*>(h),
       static_cast<const float*>(gbar), static_cast<const float*>(c), static_cast<const float2*>(u12),
       static_cast<const float2*>(v12), static_cast<float*>(dh), static_cast<float*>(d_as), R, C, n,
       n_cols, f, slope, slabs);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int gat_bwd_dh_das_i8_f32(const void* a, const void* tile_col, const void* run_start,
+                                     const void* h, const void* gbar, const void* c, const void* u12,
+                                     const void* v12, void* dh, void* d_as, int num_row_tiles, int R,
+                                     int C, int n, int n_cols, int f, float slope, int device,
+                                     void* stream) {
+  return launch<CountTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, dh, d_as, num_row_tiles, R, C,
+                            n, n_cols, f, slope, device, stream);
+}
+
+extern "C" int gat_bwd_dh_das_b1_f32(const void* a, const void* tile_col, const void* run_start,
+                                     const void* h, const void* gbar, const void* c, const void* u12,
+                                     const void* v12, void* dh, void* d_as, int num_row_tiles, int R,
+                                     int C, int n, int n_cols, int f, float slope, int device,
+                                     void* stream) {
+  if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<BitTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, dh, d_as, num_row_tiles, R, C, n,
+                          n_cols, f, slope, device, stream);
 }

@@ -1,8 +1,10 @@
-// Per-destination-row max over int8 count tiles (B5), hand-written for
-// Hopper.
+// Per-destination-row max over count tiles (B5), hand-written for Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/pallas_bcsr.py:
-// rowmax_bcsr_pallas (int8 tile format).
+// rowmax_bcsr_pallas (int8 and 1-bit tile formats).  The A format is a
+// template argument (bit_tiles.cuh), as in B1: a row's bytes lie at
+// Fmt::row_offset, and a cell counts where Fmt::count(byte, shift) > 0 (for
+// a 1-bit row, where the row's bit of the byte is set).
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination row
@@ -13,8 +15,9 @@
 //
 // Design: one block owns a slab of rows of one row-tile run and walks the
 // run's tiles, as B1 and B2 do.  A warp owns kRowsPerWarp consecutive rows;
-// its lanes stride a row's C columns in 4-byte words (coalesced int8 loads,
-// 128 bytes per warp instruction), read col_vals only for cells with a count,
+// its lanes stride a row's C columns in 4-byte words (coalesced byte loads,
+// 128 bytes per warp instruction; an all-zero word is skipped in either
+// format), read col_vals only for cells with a count,
 // and keep a running max per row in registers across the run's tiles.  A
 // __shfl_xor reduction finishes each row and lane 0 writes it once: no
 // atomics.
@@ -22,13 +25,16 @@
 // Bound on the H100 SXM (3.35 TB/s): the function reads A (T*R*C bytes) and
 // col_vals (n_src*4) and writes out (n*4); one compare per cell is far below
 // any compute limit.  At the quick scale (4,024 tiles of [512, 256]) that is
-// about 0.16 ms, bytes-bound.  What the simple design leaves on the table:
+// about 0.16 ms, bytes-bound; a 1-bit part reads R/8*C bytes a tile.  What
+// the simple design leaves on the table:
 // the longest run is ~7x the mean, so its blocks finish last; the A stream
 // is not prefetched ahead of the max (no cp.async/TMA ring).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "bit_tiles.cuh"
 
 namespace {
 
@@ -37,19 +43,20 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBR = kWarps * kRowsPerWarp;  // destination rows per block
 
-__device__ __forceinline__ float cell_max(float mx, int8_t cnt, int64_t src,
+__device__ __forceinline__ float cell_max(float mx, int cnt, int64_t src,
                                           int n_src,
                                           const float* __restrict__ col_vals) {
   return (cnt > 0 && src < n_src) ? fmaxf(mx, col_vals[src]) : mx;
 }
 
+template <class Fmt>
 __global__ void __launch_bounds__(kThreads)
-rowmax_bcsr_i8_kernel(const int8_t* __restrict__ a,
-                      const int32_t* __restrict__ tile_col,
-                      const int32_t* __restrict__ run_start,
-                      const float* __restrict__ col_vals,
-                      float* __restrict__ out, int R, int C, int n, int n_src,
-                      int slabs_per_run) {
+rowmax_bcsr_kernel(const uint8_t* __restrict__ a,
+                   const int32_t* __restrict__ tile_col,
+                   const int32_t* __restrict__ run_start,
+                   const float* __restrict__ col_vals,
+                   float* __restrict__ out, int R, int C, int n, int n_src,
+                   int slabs_per_run) {
   const int run = blockIdx.x / slabs_per_run;
   const int r0 = (blockIdx.x % slabs_per_run) * kBR + (threadIdx.x / 32) * kRowsPerWarp;
   const int lane = threadIdx.x % 32;
@@ -61,13 +68,14 @@ rowmax_bcsr_i8_kernel(const int8_t* __restrict__ a,
 
   const int t_end = run_start[run + 1];
   for (int t = run_start[run]; t < t_end; ++t) {
-    const int8_t* at = a + (int64_t)t * R * C;
+    const uint8_t* at = a + t * Fmt::tile_bytes(R, C);
     const int64_t col0 = (int64_t)tile_col[t] * C;
 #pragma unroll
     for (int m = 0; m < kRowsPerWarp; ++m) {
       const int r = r0 + m;
       if (r < R) {
-        const int8_t* arow = at + (int64_t)r * C;
+        int shift = 0;
+        const uint8_t* arow = at + Fmt::row_offset(r, R, C, &shift);
         float v = mx[m];
         if (vec) {
           const int* words = reinterpret_cast<const int*>(arow);
@@ -76,10 +84,11 @@ rowmax_bcsr_i8_kernel(const int8_t* __restrict__ a,
             if (word == 0) continue;
 #pragma unroll
             for (int b = 0; b < 4; ++b)
-              v = cell_max(v, static_cast<int8_t>(word >> (8 * b)), col0 + 4 * w + b, n_src, col_vals);
+              v = cell_max(v, Fmt::count(static_cast<uint8_t>(word >> (8 * b)), shift), col0 + 4 * w + b, n_src,
+                           col_vals);
           }
         } else {
-          for (int j = lane; j < C; j += 32) v = cell_max(v, arow[j], col0 + j, n_src, col_vals);
+          for (int j = lane; j < C; j += 32) v = cell_max(v, Fmt::count(arow[j], shift), col0 + j, n_src, col_vals);
         }
         mx[m] = v;
       }
@@ -97,21 +106,33 @@ rowmax_bcsr_i8_kernel(const int8_t* __restrict__ a,
   }
 }
 
-}  // namespace
-
-extern "C" int rowmax_bcsr_i8_f32(const void* a, const void* tile_col,
-                                  const void* run_start, const void* col_vals,
-                                  void* out, int num_row_tiles, int R, int C,
-                                  int n, int n_src, int device, void* stream) {
+template <class Fmt>
+int launch(const void* a, const void* tile_col, const void* run_start, const void* col_vals, void* out,
+           int num_row_tiles, int R, int C, int n, int n_src, int device, void* stream) {
   if (num_row_tiles == 0 || n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
   // card in it before launching on the caller's stream
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int slabs = (R + kBR - 1) / kBR;
-  rowmax_bcsr_i8_kernel<<<num_row_tiles * slabs, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int32_t*>(tile_col),
+  rowmax_bcsr_kernel<Fmt><<<num_row_tiles * slabs, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const int32_t*>(tile_col),
       static_cast<const int32_t*>(run_start), static_cast<const float*>(col_vals),
       static_cast<float*>(out), R, C, n, n_src, slabs);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int rowmax_bcsr_i8_f32(const void* a, const void* tile_col, const void* run_start,
+                                  const void* col_vals, void* out, int num_row_tiles, int R, int C, int n,
+                                  int n_src, int device, void* stream) {
+  return launch<CountTiles>(a, tile_col, run_start, col_vals, out, num_row_tiles, R, C, n, n_src, device, stream);
+}
+
+extern "C" int rowmax_bcsr_b1_f32(const void* a, const void* tile_col, const void* run_start,
+                                  const void* col_vals, void* out, int num_row_tiles, int R, int C, int n,
+                                  int n_src, int device, void* stream) {
+  if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<BitTiles>(a, tile_col, run_start, col_vals, out, num_row_tiles, R, C, n, n_src, device, stream);
 }

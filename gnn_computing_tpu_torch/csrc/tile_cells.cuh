@@ -1,16 +1,21 @@
-// Nonzero cells of one row of an int8 count tile, compacted by one warp.
+// Nonzero cells of one row of a count tile, compacted by one warp.
 //
 // Shared by the GAT backward kernels (gat_bwd_dad.cu, gat_bwd_dh_das.cu),
 // which walk a row's tiles with one warp and do work only for the cells
 // that hold an edge (the tiles are ~99% zero).  Each pass scans kChunk
 // columns, 8 per lane (one 8-byte load where C is a multiple of 8), and
 // writes the nonzero ones, in ascending column order, to the warp's list as
-// (column << 8) | count.
+// (column << 8) | count.  The A format is a template argument
+// (bit_tiles.cuh): a row's bytes are C consecutive bytes in both formats,
+// so the load is the same, and a 1-bit row keeps the cells whose bit is set,
+// with count 1.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bit_tiles.cuh"
 
 namespace tile_cells {
 
@@ -26,22 +31,24 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Compacts the nonzero cells among columns [c0, c0 + kChunk) of the tile
-// row at row_a (C counts) into list and returns their number, the same in
-// every lane.  vec: C % 8 == 0, so each lane's 8 counts are one aligned
-// 8-byte word.  The leading __syncwarp lets the warp finish reading the
-// previous list before it is overwritten.
-__device__ __forceinline__ int compact_row(const int8_t* __restrict__ row_a, int C, int c0, bool vec,
-                                           int lane, int* list) {
+// row whose C bytes start at row_a (shift: the row's bit plane, from
+// Fmt::row_offset) into list and returns their number, the same in every
+// lane.  vec: C % 8 == 0, so each lane's 8 bytes are one aligned 8-byte
+// word.  The leading __syncwarp lets the warp finish reading the previous
+// list before it is overwritten.
+template <class Fmt>
+__device__ __forceinline__ int compact_row(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
+                                           bool vec, int lane, int* list) {
   const int base = c0 + lane * 8;
-  int8_t cnt[8];
+  int cnt[8];
   if (vec && base + 8 <= C) {
     const int2 v = *reinterpret_cast<const int2*>(row_a + base);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) cnt[q] = b[q];
+    for (int q = 0; q < 8; ++q) cnt[q] = Fmt::count(b[q], shift);
   } else {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) cnt[q] = base + q < C ? row_a[base + q] : int8_t(0);
+    for (int q = 0; q < 8; ++q) cnt[q] = base + q < C ? Fmt::count(row_a[base + q], shift) : 0;
   }
   int nz = 0;
 #pragma unroll

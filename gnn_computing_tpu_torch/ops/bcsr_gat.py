@@ -45,9 +45,9 @@ plans (``_residual_bwd_flat``).  The JAX package's fallback of AD through
 the forward when no transposed plans exist is not ported: the backward
 raises and asks for them.
 
-Every function here takes int8 count tiles only and raises
-NotImplementedError on a 1-bit part: the bit variants of B2-B5 come with
-bit-tile training.
+Every function here takes int8 count tiles and 1-bit tiles alike: the plain
+versions read a chunk of counts at a time through ``TilePlan.counts``, the
+kernels decode the 1-bit format themselves (csrc/bit_tiles.cuh).
 """
 
 from __future__ import annotations
@@ -107,7 +107,6 @@ def gat_bcsr_plain(
     branch test (ad + as) > 0, batched matmuls against the gathered
     [v*h | v] operands (den packed in as the last column), scale by the row
     exponentials and add into the destination row-tiles."""
-    tp.require_counts("gat_bcsr_plain")
     tr, tc = tp.tile_rows, tp.tile_cols
     f = h.shape[-1]
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
@@ -124,7 +123,7 @@ def gat_bcsr_plain(
     for s in range(0, tp.num_tiles, chunk):
         col = tp.tile_col[s : s + chunk].long()
         row = tp.tile_row[s : s + chunk].long()
-        a_c = tp.a[s : s + chunk].float()
+        a_c = tp.counts(s, s + chunk).float()
         pos = (ad.index_select(0, row)[:, :, None] + asrc.index_select(0, col)[:, None, :]) > 0
         a1 = torch.where(pos, a_c, 0.0)
         a2 = a_c - a1
@@ -154,7 +153,6 @@ def gat_bcsr(
             n2, d2 = gat_bcsr(p, h, att, relu_slope, row_shift, dot_mode)
             num, den = num + n2, den + d2
         return num, den
-    tp.require_counts("gat_bcsr")
     if h.device.type == "cuda":
         if h.dtype != torch.float32:
             raise ValueError(f"the CUDA GAT tile kernel takes float32 h, got {h.dtype}")
@@ -188,7 +186,6 @@ def gat_bwd_dad_plain(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float, chu
     ``gat_bwd_dad_xla``: per chunk of tiles, the cells' scores and branch
     slopes, the [R, C] products <gbar_i, h_j> by bmm, and the row sums of
     lrelu' s (<gbar_i, h_j> - c_i) added into the destination row-tiles."""
-    tp.require_counts("gat_bwd_dad_plain")
     tr, tc = tp.tile_rows, tp.tile_cols
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
     f = h.shape[-1]
@@ -201,7 +198,7 @@ def gat_bwd_dad_plain(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float, chu
     for s0 in range(0, tp.num_tiles, chunk):
         col = tp.tile_col[s0 : s0 + chunk].long()
         row = tp.tile_row[s0 : s0 + chunk].long()
-        s, lp = _branch_scores(tp.a[s0 : s0 + chunk].float(), u12p.index_select(0, row), v12p.index_select(0, col), relu_slope)
+        s, lp = _branch_scores(tp.counts(s0, s0 + chunk).float(), u12p.index_select(0, row), v12p.index_select(0, col), relu_slope)
         p = torch.bmm(gb.index_select(0, row), hp.index_select(0, col).transpose(1, 2))
         tt = lp * s * (p - cp.index_select(0, row)[:, :, None])
         acc.index_add_(0, row, tt.sum(dim=2))
@@ -213,7 +210,6 @@ def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float
     are sources j, columns destinations i), the counterpart of
     ``gat_bwd_dh_das_xla``: dh_j = sum_i s_ij gbar_i and the row sums of
     lrelu' s (<gbar_i, h_j> - c_i)."""
-    tp_t.require_counts("gat_bwd_dh_das_plain")
     tr, tc = tp_t.tile_rows, tp_t.tile_cols
     nct, nrt = tp_t.num_col_tiles, tp_t.num_row_tiles
     f = h.shape[-1]
@@ -227,7 +223,7 @@ def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float
     for s0 in range(0, tp_t.num_tiles, chunk):
         col = tp_t.tile_col[s0 : s0 + chunk].long()
         row = tp_t.tile_row[s0 : s0 + chunk].long()
-        s, lp = _branch_scores(tp_t.a[s0 : s0 + chunk].float(), v12p.index_select(0, row), u12p.index_select(0, col), relu_slope)
+        s, lp = _branch_scores(tp_t.counts(s0, s0 + chunk).float(), v12p.index_select(0, row), u12p.index_select(0, col), relu_slope)
         gbc = gb.index_select(0, col)
         acch.index_add_(0, row, torch.bmm(s, gbc))
         p = torch.bmm(hp.index_select(0, row), gbc.transpose(1, 2))
@@ -240,7 +236,6 @@ def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float
 def gat_bwd_dad(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tensor:
     """d_att_dst over the forward tile plan: the B3 kernel on CUDA tensors,
     the plain version on CPU tensors."""
-    tp.require_counts("gat_bwd_dad")
     if h.device.type == "cuda":
         return cuda_gat_bwd.gat_bwd_dad_cuda(
             tp, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),
@@ -254,7 +249,6 @@ def gat_bwd_dad(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float) -> torch.
 def gat_bwd_dh_das(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float):
     """(dh, d_att_src) over the transposed tile plan: the B4 kernel on CUDA
     tensors, the plain version on CPU tensors."""
-    tp_t.require_counts("gat_bwd_dh_das")
     if h.device.type == "cuda":
         return cuda_gat_bwd.gat_bwd_dh_das_cuda(
             tp_t, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),

@@ -120,6 +120,23 @@ def check_tensor(x, name: str, dtype, shape, device):
         )
 
 
+def check_plan(tp, device) -> str:
+    """Raise unless the plan's tiles, ``tile_col`` and ``run_start`` are what
+    a run-walking tile kernel takes on ``device``: int8 [T, R, C] counts, or
+    1-bit uint8 [T, R/8, C] with R % 8 == 0.  Returns the tag of the A
+    format's entry point: 'b1' or 'i8'."""
+    t, r, c = tp.num_tiles, tp.tile_rows, tp.tile_cols
+    if tp.bits:
+        if r % 8:
+            raise ValueError(f"1-bit tiles need R % 8 == 0, got R = {r}")
+        check_tensor(tp.a, "a", torch.uint8, (t, r // 8, c), device)
+    else:
+        check_tensor(tp.a, "a", torch.int8, (t, r, c), device)
+    check_tensor(tp.tile_col, "tile_col", torch.int32, (t,), device)
+    check_tensor(tp.run_start, "run_start", torch.int32, (tp.num_row_tiles + 1,), device)
+    return "b1" if tp.bits else "i8"
+
+
 def check_no_grad(*tensors):
     """Raise if grad is enabled and a tensor requires it: a kernel's output
     carries no graph, so outside the ops' autograd Functions (which launch

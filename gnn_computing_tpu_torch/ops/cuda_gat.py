@@ -1,11 +1,12 @@
 """Launch the B2 CUDA kernel (``csrc/gat_bcsr.cu``).
 
 The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bcsr_pallas``
-in mode 'maxdot' for int8 count tiles.  ops.cuda_build compiles it at first
-use and binds it with ctypes.
+in mode 'maxdot' for int8 count tiles and 1-bit tiles (one template on the A
+format).  ops.cuda_build compiles it at first use and binds it with ctypes.
 
-``launches`` counts kernel launches; it rises only where the kernel is
-launched, so a run can show that its main path went through the kernel.
+``launches`` counts kernel launches and ``bits_launches`` the 1-bit ones
+among them; each rises only where the kernel is launched, so a run can show
+that its main path went through the kernel and its 1-bit variant.
 """
 
 from __future__ import annotations
@@ -14,12 +15,16 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "gat_bcsr"
-SIGNATURES = {"gat_bcsr_i8_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
+SIGNATURES = {
+    fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    for fn in ("gat_bcsr_i8_f32", "gat_bcsr_b1_f32")
+}
 
 launches = 0
+bits_launches = 0
 
 
 def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
@@ -27,8 +32,7 @@ def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
     per-node exponentials ``u12`` [num_nodes, 2] and ``v12`` [n_src, 2] (see
     ops.bcsr_gat._branch_factors).  Launches the kernel or raises; it never
     falls back."""
-    global launches
-    tp.require_counts("gat_bcsr_cuda")
+    global launches, bits_launches
     check_no_grad(h, u12, v12)
     dev = h.device
     if dev.type != "cuda":
@@ -36,23 +40,21 @@ def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
     if h.dim() != 2:
         raise ValueError(f"h must be [n_src, f], got {tuple(h.shape)}")
     f = h.shape[1]
-    nrt, r, c = tp.num_row_tiles, tp.tile_rows, tp.tile_cols
     check_tensor(h, "h", torch.float32, (tp.n_src, f), dev)
     check_tensor(u12, "u12", torch.float32, (tp.num_nodes, 2), dev)
     check_tensor(v12, "v12", torch.float32, (tp.n_src, 2), dev)
-    check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
-    check_tensor(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
-    check_tensor(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
+    fmt = check_plan(tp, dev)
     num = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
     den = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return num, den
-    err = load(NAME, SIGNATURES).gat_bcsr_i8_f32(
+    err = getattr(load(NAME, SIGNATURES), f"gat_bcsr_{fmt}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
         h.data_ptr(), u12.data_ptr(), v12.data_ptr(), num.data_ptr(), den.data_ptr(),
-        nrt, r, c, tp.num_nodes, tp.n_src, f, *stream_args(dev),
+        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"gat_bcsr kernel launch failed: cudaError {err}")
     launches += 1
+    bits_launches += tp.bits
     return num, den

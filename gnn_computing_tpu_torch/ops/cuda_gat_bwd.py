@@ -2,12 +2,14 @@
 (``csrc/gat_bwd_dh_das.cu``).
 
 They replace ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bwd_dad_pallas`` and
-``gat_bwd_dh_das_pallas`` for int8 count tiles.  ops.cuda_build compiles
-each at first use and binds it with ctypes.
+``gat_bwd_dh_das_pallas`` for int8 count tiles and 1-bit tiles (each one
+template on the A format).  ops.cuda_build compiles each at first use and
+binds it with ctypes.
 
 ``dad_launches`` and ``dh_das_launches`` count kernel launches (one per
-wrapper call); each rises only where its kernel is launched, so a run can
-show that its path went through the kernels.
+wrapper call), ``dad_bits_launches`` and ``dh_das_bits_launches`` the 1-bit
+ones among them; each rises only where its kernel is launched, so a run can
+show that its path went through the kernels and their 1-bit variants.
 """
 
 from __future__ import annotations
@@ -16,30 +18,27 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_plan, check_tensor, load, stream_args
 
 DAD = "gat_bwd_dad"
 DH_DAS = "gat_bwd_dh_das"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-DAD_SIGNATURES = {"gat_bwd_dad_i8_f32": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]}
-DH_DAS_SIGNATURES = {"gat_bwd_dh_das_i8_f32": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P]}
+DAD_SIGNATURES = {f"gat_bwd_dad_{fmt}_f32": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in ("i8", "b1")}
+DH_DAS_SIGNATURES = {
+    f"gat_bwd_dh_das_{fmt}_f32": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in ("i8", "b1")
+}
 
 dad_launches = 0
 dh_das_launches = 0
-
-
-def _check_plan(tp, dev):
-    nrt, r, c = tp.num_row_tiles, tp.tile_rows, tp.tile_cols
-    check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
-    check_tensor(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
-    check_tensor(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
+dad_bits_launches = 0
+dh_das_bits_launches = 0
 
 
 def _check_inputs(name, tp, h, gbar, c, u12, v12, rows_h, rows_gbar):
     """Device, dtype, shape and contiguity of the backward's inputs: h has
     ``rows_h`` rows, gbar, c and u12 ``rows_gbar`` (the forward's
-    destinations), v12 ``rows_h`` (its sources)."""
-    tp.require_counts(name)
+    destinations), v12 ``rows_h`` (its sources).  Returns (device, f, the
+    A format's entry-point tag)."""
     check_no_grad(h, gbar, c, u12, v12)
     dev = h.device
     if dev.type != "cuda":
@@ -52,8 +51,7 @@ def _check_inputs(name, tp, h, gbar, c, u12, v12, rows_h, rows_gbar):
     check_tensor(c, "c", torch.float32, (rows_gbar,), dev)
     check_tensor(u12, "u12", torch.float32, (rows_gbar, 2), dev)
     check_tensor(v12, "v12", torch.float32, (rows_h, 2), dev)
-    _check_plan(tp, dev)
-    return dev, f
+    return dev, f, check_plan(tp, dev)
 
 
 def gat_bwd_dad_cuda(tp, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tensor:
@@ -61,12 +59,12 @@ def gat_bwd_dad_cuda(tp, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tenso
     gbar [num_nodes, f], c [num_nodes], u12 [num_nodes, 2] and v12
     [n_src, 2] (see ops.bcsr_gat).  Launches the kernel or raises; it never
     falls back."""
-    global dad_launches
-    dev, f = _check_inputs("gat_bwd_dad_cuda", tp, h, gbar, c, u12, v12, tp.n_src, tp.num_nodes)
+    global dad_launches, dad_bits_launches
+    dev, f, fmt = _check_inputs("gat_bwd_dad_cuda", tp, h, gbar, c, u12, v12, tp.n_src, tp.num_nodes)
     out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return out
-    err = load(DAD, DAD_SIGNATURES).gat_bwd_dad_i8_f32(
+    err = getattr(load(DAD, DAD_SIGNATURES), f"gat_bwd_dad_{fmt}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
         c.data_ptr(), u12.data_ptr(), v12.data_ptr(), out.data_ptr(),
         tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, float(relu_slope),
@@ -75,6 +73,7 @@ def gat_bwd_dad_cuda(tp, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tenso
     if err != 0:
         raise RuntimeError(f"gat_bwd_dad kernel launch failed: cudaError {err}")
     dad_launches += 1
+    dad_bits_launches += tp.bits
     return out
 
 
@@ -84,13 +83,13 @@ def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, u12, v12, relu_slope: float):
     [n_src, f], c [n_src], u12 [n_src, 2] and v12 [num_nodes, 2].  One
     launch computes both.  Launches the kernel or raises; it never falls
     back."""
-    global dh_das_launches
-    dev, f = _check_inputs("gat_bwd_dh_das_cuda", tp_t, h, gbar, c, u12, v12, tp_t.num_nodes, tp_t.n_src)
+    global dh_das_launches, dh_das_bits_launches
+    dev, f, fmt = _check_inputs("gat_bwd_dh_das_cuda", tp_t, h, gbar, c, u12, v12, tp_t.num_nodes, tp_t.n_src)
     dh = torch.empty((tp_t.num_nodes, f), dtype=torch.float32, device=dev)
     d_as = torch.empty((tp_t.num_nodes,), dtype=torch.float32, device=dev)
     if tp_t.num_nodes == 0:
         return dh, d_as
-    err = load(DH_DAS, DH_DAS_SIGNATURES).gat_bwd_dh_das_i8_f32(
+    err = getattr(load(DH_DAS, DH_DAS_SIGNATURES), f"gat_bwd_dh_das_{fmt}_f32")(
         tp_t.a.data_ptr(), tp_t.tile_col.data_ptr(), tp_t.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
         c.data_ptr(), u12.data_ptr(), v12.data_ptr(), dh.data_ptr(), d_as.data_ptr(),
         tp_t.num_row_tiles, tp_t.tile_rows, tp_t.tile_cols, tp_t.num_nodes, tp_t.n_src, f, float(relu_slope),
@@ -99,4 +98,5 @@ def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, u12, v12, relu_slope: float):
     if err != 0:
         raise RuntimeError(f"gat_bwd_dh_das kernel launch failed: cudaError {err}")
     dh_das_launches += 1
+    dh_das_bits_launches += tp_t.bits
     return dh, d_as

@@ -1,11 +1,12 @@
 """Launch the B5 CUDA kernel (``csrc/rowmax_bcsr.cu``).
 
 The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:rowmax_bcsr_pallas``
-for int8 count tiles.  ops.cuda_build compiles it at first use and binds it
-with ctypes.
+for int8 count tiles and 1-bit tiles (one template on the A format).
+ops.cuda_build compiles it at first use and binds it with ctypes.
 
-``launches`` counts kernel launches; it rises only where the kernel is
-launched, so a run can show that its path went through the kernel.
+``launches`` counts kernel launches and ``bits_launches`` the 1-bit ones
+among them; each rises only where the kernel is launched, so a run can show
+that its path went through the kernel and its 1-bit variant.
 """
 
 from __future__ import annotations
@@ -14,38 +15,39 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "rowmax_bcsr"
-SIGNATURES = {"rowmax_bcsr_i8_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+SIGNATURES = {
+    fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for fn in ("rowmax_bcsr_i8_f32", "rowmax_bcsr_b1_f32")
+}
 
 launches = 0
+bits_launches = 0
 
 
 def rowmax_bcsr_cuda(tp, col_vals: torch.Tensor) -> torch.Tensor:
     """out[num_nodes]: per destination row, the max of ``col_vals`` [n_src]
     over tile cells with count > 0, -inf where there is none.  Launches the
     kernel or raises; it never falls back."""
-    global launches
-    tp.require_counts("rowmax_bcsr_cuda")
+    global launches, bits_launches
     check_no_grad(col_vals)
     dev = col_vals.device
     if dev.type != "cuda":
         raise ValueError(f"rowmax_bcsr_cuda takes CUDA tensors, got {dev}")
-    nrt, r, c = tp.num_row_tiles, tp.tile_rows, tp.tile_cols
     check_tensor(col_vals, "col_vals", torch.float32, (tp.n_src,), dev)
-    check_tensor(tp.a, "a", torch.int8, (tp.num_tiles, r, c), dev)
-    check_tensor(tp.tile_col, "tile_col", torch.int32, (tp.num_tiles,), dev)
-    check_tensor(tp.run_start, "run_start", torch.int32, (nrt + 1,), dev)
+    fmt = check_plan(tp, dev)
     out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return out
-    err = load(NAME, SIGNATURES).rowmax_bcsr_i8_f32(
+    err = getattr(load(NAME, SIGNATURES), f"rowmax_bcsr_{fmt}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
-        col_vals.data_ptr(), out.data_ptr(), nrt, r, c, tp.num_nodes, tp.n_src,
-        *stream_args(dev),
+        col_vals.data_ptr(), out.data_ptr(), tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes,
+        tp.n_src, *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"rowmax_bcsr kernel launch failed: cudaError {err}")
     launches += 1
+    bits_launches += tp.bits
     return out

@@ -18,7 +18,9 @@ residual, the rule of the JAX package's native fill.
 stored as uint8 [R/8, C], plane-major along rows: bit b of a[t, i, c] is
 cell (b*R/8 + i, c) — the layout the JAX package's code packs and decodes
 (its ``TilePlan.bits`` comment describes another).  ``split_bit_tiles``
-splits an int8 plan by tile content into a 1-bit and an int8 part.
+splits an int8 plan by tile content into a 1-bit and an int8 part;
+``transpose`` keeps a plan's format, so the transposed 1-bit part packs the
+forward's C as its R.
 """
 
 from __future__ import annotations
@@ -113,14 +115,6 @@ class TilePlan:
             return self
         return dataclasses.replace(self, a=unpack_bit_tiles(self.a), bits=False)
 
-    def require_counts(self, op: str):
-        """Raise for a 1-bit plan: ``op`` reads int8 counts only."""
-        if self.bits:
-            raise NotImplementedError(
-                f"{op} over 1-bit tiles is not ported yet (it comes with bit-tile training); "
-                "1-bit parts go through bcsr_spmm and sddmm_bcsr only"
-            )
-
     def pad_runs(self, multiple: int) -> "TilePlan":
         """Pad every tile-row run with all-zero tiles (column 0) to a multiple
         of ``multiple`` tiles — the layout the TPU kernel's K-tile steps need.
@@ -161,11 +155,22 @@ class TilePlan:
         plus one all-zero filler tile for every transposed row-tile that got
         none, so the transposed plan covers every row-tile as densify's
         does; scales swap.  Take it from the unpadded plan, then pad_runs,
-        as the JAX package's aggregator does."""
-        if self.bits:
-            raise NotImplementedError("the transpose of a 1-bit plan comes with bit-tile training, a later slice")
+        as the JAX package's aggregator does.  A 1-bit plan stays 1-bit: each
+        tile is unpacked, transposed and packed again (chunks of tiles at a
+        time), so the forward's C must be a multiple of 8."""
         order = np.argsort(np.asarray(self.tile_col), kind="stable")
-        a = np.ascontiguousarray(np.asarray(self.a)[order].transpose(0, 2, 1))
+        a_in = np.asarray(self.a)
+        if self.bits:
+            if self.tile_cols % 8:
+                raise ValueError(
+                    f"the transpose of a 1-bit plan packs the forward's C as its R: "
+                    f"C = {self.tile_cols} is not a multiple of 8"
+                )
+            a = np.empty((len(order), self.tile_cols // 8, self.tile_rows), np.uint8)
+            for s in range(0, len(order), 4096):
+                a[s : s + 4096] = pack_bit_tiles(unpack_bit_tiles(a_in[order[s : s + 4096]]).transpose(0, 2, 1))
+        else:
+            a = np.ascontiguousarray(a_in[order].transpose(0, 2, 1))
         rows = np.asarray(self.tile_col)[order].astype(np.int32)
         cols = np.asarray(self.tile_row)[order].astype(np.int32)
         nrt_t = self.num_col_tiles
@@ -189,6 +194,7 @@ class TilePlan:
             tile_cols=self.tile_rows,
             num_tiles=len(rows),
             num_dense_edges=self.num_dense_edges,
+            bits=self.bits,
         )
 
 

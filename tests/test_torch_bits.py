@@ -2,7 +2,9 @@
 packing, split_bit_tiles, the bit_tiles=True hybrid schedule, the tile
 product (B1's plain version) over 1-bit parts, the GCN forward of the
 package's flagship compile check (``__graft_entry__.entry()``), and the
-refusals of the paths whose bit variants are not ported yet.
+calls over 1-bit parts that equal themselves over the parts unpacked to
+int8 (bit-tile training's own checks against the JAX package are in
+``tests/test_torch_bits_train.py``).
 
 Tolerance: host arrays are compared for equality.  Forwards: the ops/validate
 gate (|y - ref| <= 1e-2*|ref| + 1e-5) against the JAX package and a float64
@@ -213,35 +215,68 @@ def _bit_part():
     return gp, bits.to("cpu")
 
 
-def test_unported_bit_variants_raise():
+def _bit_calls():
+    """name -> call(plan, h, gbar, c, v) of every plain version and
+    dispatcher that reads tile counts, and of the aggregator paths."""
+    return {
+        "gat_bcsr_plain": lambda tp, h, g, c, v: gat_bcsr_plain(tp, h, v),
+        "gat_bcsr": lambda tp, h, g, c, v: gat_bcsr(tp, h, v),
+        "gat_bcsr_parts": lambda tp, h, g, c, v: gat_bcsr((tp,), h, v),
+        "bcsr_rowmax_plain": lambda tp, h, g, c, v: bcsr_rowmax_plain(tp, c),
+        "bcsr_rowmax": lambda tp, h, g, c, v: bcsr_rowmax(tp, c),
+        "gat_bwd_dad_plain": lambda tp, h, g, c, v: gat_bwd_dad_plain(tp, h, g, c, v, v, 0.2),
+        "gat_bwd_dad": lambda tp, h, g, c, v: gat_bwd_dad(tp, h, g, c, v, v, 0.2),
+        "gat_bwd_dh_das_plain": lambda tp, h, g, c, v: gat_bwd_dh_das_plain(tp, h, g, c, v, v, 0.2),
+        "gat_bwd_dh_das": lambda tp, h, g, c, v: gat_bwd_dh_das(tp, h, g, c, v, v, 0.2),
+        "transpose": lambda tp, h, g, c, v: tp.transpose().counts(),
+    }
+
+
+@pytest.mark.parametrize("call", sorted(_bit_calls()))
+def test_bit_variants_equal_unpacked(call):
+    """Each call that raised on a 1-bit part before bit-tile training was
+    ported runs on it, and equals the same call over the part unpacked to
+    int8."""
     gp, tp = _bit_part()
     n = gp.num_nodes
-    h, g, c, v = torch.rand(n, 8), torch.rand(n, 8), torch.rand(n), torch.rand(n, 2)
-    calls = [
-        lambda: gat_bcsr_plain(tp, h, v),
-        lambda: gat_bcsr(tp, h, v),
-        lambda: gat_bcsr((tp,), h, v),
-        lambda: bcsr_rowmax_plain(tp, c),
-        lambda: bcsr_rowmax(tp, c),
-        lambda: gat_bwd_dad_plain(tp, h, g, c, v, v, 0.2),
-        lambda: gat_bwd_dad(tp, h, g, c, v, v, 0.2),
-        lambda: gat_bwd_dh_das_plain(tp, h, g, c, v, v, 0.2),
-        lambda: gat_bwd_dh_das(tp, h, g, c, v, v, 0.2),
+    rng = np.random.default_rng(3)
+    h, g, c, v = (torch.from_numpy(rng.random(s).astype(np.float32)) for s in ((n, 8), (n, 8), n, (n, 2)))
+    fn = _bit_calls()[call]
+    if call == "transpose":
+        tp = dataclasses.replace(tp, a=tp.a.numpy(), tile_row=tp.tile_row.numpy(),
+                                 tile_col=tp.tile_col.numpy(), run_start=tp.run_start.numpy())
+    got, want = fn(tp, h, g, c, v), fn(tp.unpack_bits(), h, g, c, v)
+    for x, y in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert np.array_equal(np.asarray(x), np.asarray(y))
+    assert (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches) == (0, 0, 0)
+    assert (cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches) == (0, 0)
+
+
+def test_bit_aggregator_gat_and_training_run():
+    """run_gat on a bit_tiles=True aggregator and the bit_tiles=True,
+    with_transpose=True schedule run on the CPU and equal the same calls
+    over the parts unpacked to int8; the kernel wrappers reach their device
+    check on a 1-bit part (no format refusal)."""
+    gp, tp = _bit_part()
+    n = gp.num_nodes
+    rng = np.random.default_rng(4)
+    h = torch.from_numpy(rng.random((n, 8)).astype(np.float32))
+    v = torch.from_numpy(rng.random((n, 2)).astype(np.float32))
+    agg = Aggregator.schedule_hybrid(gp, tile_rows=64, tile_cols=64, threshold=6, bit_tiles=True,
+                                     with_transpose=True, device="cpu")
+    assert [p.bits for p in agg.tile_parts_t()] == [True, False]
+    unpacked = dataclasses.replace(agg, tile_bits=agg.tile_bits.unpack_bits(),
+                                   tile_bits_t=agg.tile_bits_t.unpack_bits())
+    assert torch.equal(agg.run_gat(h, v), unpacked.run_gat(h, v))
+    assert torch.equal(agg.run(h), unpacked.run(h))
+    for call in (
         lambda: cuda_gat.gat_bcsr_cuda(tp, h, v, v),
-        lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, c),
-        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(tp, h, g, c, v, v, 0.2),
-        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp, h, g, c, v, v, 0.2),
-        lambda: tp.transpose(),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="1-bit|bit-tile"):
+        lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, v[:, 1].contiguous()),
+        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(tp, h, h, v[:, 0].contiguous(), v, v, 0.2),
+        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp, h, h, v[:, 0].contiguous(), v, v, 0.2),
+    ):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             call()
-    agg = Aggregator.schedule_hybrid(gp, tile_rows=64, tile_cols=64, threshold=6, bit_tiles=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        agg.run_gat(h, v)
-    with pytest.raises(NotImplementedError):
-        Aggregator.schedule_hybrid(gp, bit_tiles=True, with_transpose=True, device="cpu")
-    assert agg.run(h).shape == (n, 8)
 
 
 def _entry_module():

@@ -1,6 +1,6 @@
-"""The CUDA kernels (B1 tile product over int8 and 1-bit tiles, B2 GAT tile
-aggregation, B3 and B4 GAT tile backward, B5 tile row max, B6 tile SDDMM)
-against their plain PyTorch versions on the card, at small shapes that
+"""The CUDA kernels (B1 tile product, B2 GAT tile aggregation, B3 and B4 GAT
+tile backward, B5 tile row max and B6 tile SDDMM, each over int8 and 1-bit
+tiles) against their plain PyTorch versions on the card, at small shapes that
 stress the edges: ragged n, C odd or not a multiple of 8 or of the staging
 width, R not a multiple of the row slab (and, for 1-bit tiles, not a power
 of two), empty runs, filler-only runs, rows without tile edges, factored
@@ -8,7 +8,7 @@ plans (B1), transposed plans (B1, B4), every feature-width branch, f up to
 300 (B6's column chunks), cells on both leaky-relu branches, and a non-edge
 whose GAT branch product or SDDMM dot overflows to inf (B2, B3, B4, B6);
 and the training Functions' gradients on the card against the same
-Functions on the CPU.  Needs a CUDA card and nvcc; skips
+Functions on the CPU, over int8 and over bit-tile aggregators.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
@@ -18,9 +18,11 @@ on the nonnegative ones (B2's den): signed sums of many terms cancel to
 near zero, where two float32 summation orders differ by more than the
 gate's floor.  B5 is a max: equal to the plain version, -inf rows included.
 B6 float32 cells: the same bound; bfloat16 cells at most one bfloat16 ulp
-apart; cells without an edge exactly +0.  B1 over a 1-bit part is equal to
-B1 over the same part unpacked to int8 (the same operations in the same
-order)."""
+apart; cells without an edge exactly +0.  B1 and B2-B5 over a 1-bit part
+are equal to the same kernel over the part unpacked to int8 (the same
+operations in the same order)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -42,6 +44,7 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
     gat_bwd_dh_das_plain,
 )
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain
+from gnn_computing_tpu_torch.ops.cuda_build import check_plan
 from gnn_computing_tpu_torch.ops.validate import assert_valid
 from gnn_computing_tpu_torch.schedule.tiles import densify, split_bit_tiles
 
@@ -417,3 +420,152 @@ def test_bits_kernel_matches_plain(cuda_dev, tr, tc, pack, f):
             assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     # rows without tile edges give 0
     assert bool((got[800:1100] == 0).all())
+
+
+def _bit_counts():
+    return (cuda_gat.bits_launches, cuda_gat_bwd.dad_bits_launches, cuda_gat_bwd.dh_das_bits_launches,
+            cuda_rowmax.bits_launches)
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(40, 13, 1), (72, 40, 4), (96, 64, 1), (256, 256, 16), (64, 200, 1)])
+@pytest.mark.parametrize("f", [1, 24, 33, 100, 128, 160, 300])
+def test_bit_gat_kernels_match_plain(cuda_dev, tr, tc, pack, f):
+    """B2, B3 and B5 over a 1-bit part and B4 over its transpose (C % 8 ==
+    0 only: the transpose packs C as its R): equal to the same kernel over
+    the part unpacked to int8, within the bound of the plain version; each
+    call adds one to its kernel's 1-bit launch count."""
+    g, (_, bits, _) = _split_plans(cuda_dev, tr, tc, 1)
+    host = dataclasses.replace(bits, a=bits.a.cpu().numpy(), tile_row=bits.tile_row.cpu().numpy(),
+                               tile_col=bits.tile_col.cpu().numpy(), run_start=bits.run_start.cpu().numpy())
+    bits = host.pad_runs(pack).to(cuda_dev)
+    bits_t = host.transpose().pad_runs(pack).to(cuda_dev) if tc % 8 == 0 else None
+    starts = bits.run_start.cpu().numpy()
+    assert any(starts[r + 1] > starts[r] and not bits.a[starts[r] : starts[r + 1]].any()
+               for r in range(bits.num_row_tiles))  # a filler-only run
+    n = g.num_nodes
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    h = torch.randn((n, f), generator=gen, device=cuda_dev)
+    gbar = torch.randn((n, f), generator=gen, device=cuda_dev)
+    c = torch.randn(n, generator=gen, device=cuda_dev)
+    for scale, shift in ((0.1, False), (15.0, True)):
+        att = torch.randn((n, 2), generator=gen, device=cuda_dev) * scale
+        row_shift = _hybrid_row_shift(bits, None, att, 0.2) if shift else None
+        what = f"1-bit r{tr} c{tc} pack{pack} f{f} scale{scale}"
+        before = _bit_counts()
+        got = gat_bcsr(bits, h, att, row_shift=row_shift)
+        assert cuda_gat.bits_launches == before[0] + 1
+        same = gat_bcsr(bits.unpack_bits(), h, att, row_shift=row_shift)
+        want = gat_bcsr_plain(bits, h, att, row_shift=row_shift)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], same[0]) and torch.equal(got[1], same[1]), what
+        _gat_check(got, want, f"B2 {what}")
+        u12, v12 = _branch_factors(att, 0.2, row_shift)
+        args = (h, gbar, c, u12, v12, 0.2)
+        dad = gat_bwd_dad(bits, *args)
+        assert torch.equal(dad, gat_bwd_dad(bits.unpack_bits(), *args)), what
+        _close(dad, gat_bwd_dad_plain(bits, *args), f"B3 {what}")
+        if bits_t is not None:
+            dh, das = gat_bwd_dh_das(bits_t, *args)
+            dh2, das2 = gat_bwd_dh_das(bits_t.unpack_bits(), *args)
+            assert torch.equal(dh, dh2) and torch.equal(das, das2), what
+            want_dh, want_das = gat_bwd_dh_das_plain(bits_t, *args)
+            _close(dh, want_dh, f"B4 dh {what}")
+            _close(das, want_das, f"B4 d_as {what}")
+        mx = bcsr_rowmax(bits, att[:, 1].contiguous())
+        assert torch.equal(mx, bcsr_rowmax_plain(bits, att[:, 1].contiguous())), what
+        assert bool(torch.isneginf(mx[800:1100]).all())
+        after = _bit_counts()
+        assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1 if bits_t is not None else 0, 1)
+    # rows without tile edges give 0
+    assert bool((got[0][800:1100] == 0).all()) and bool((got[1][800:1100] == 0).all())
+    assert bool((dad[800:1100] == 0).all())
+
+
+def test_bit_gat_kernels_non_edge_overflow_is_not_nan(cuda_dev):
+    """A non-edge of a 1-bit tile whose branch product is inf: B2, B3 and
+    B4 select on the bit, never multiply by it."""
+    g, (_, bits, _) = _split_plans(cuda_dev, 64, 64, 1)
+    bits_t = dataclasses.replace(bits, a=bits.a.cpu().numpy(), tile_row=bits.tile_row.cpu().numpy(),
+                                 tile_col=bits.tile_col.cpu().numpy(),
+                                 run_start=bits.run_start.cpu().numpy()).transpose().to(cuda_dev)
+    a = bits.counts().cpu().numpy()
+    rows = bits.tile_row.cpu().numpy()[:, None] * 64 + np.arange(64)[None, :]
+    cols = bits.tile_col.cpu().numpy()[:, None] * 64 + np.arange(64)[None, :]
+    t, i, j = next(
+        (t, i, j) for t, i, j in np.argwhere(a == 0)
+        if a[t, i].any() and a[t, :, j].any() and rows[t, i] != cols[t, j]
+        and rows[t, i] < g.num_nodes and cols[t, j] < g.n_src
+    )
+    n = g.num_nodes
+    att = torch.zeros((n, 2), device=cuda_dev)
+    att[rows[t, i], 0] = 50.0
+    att[cols[t, j], 1] = 50.0  # exp(50) * exp(50) overflows float32
+    u12, v12 = _branch_factors(att, 0.2)
+    assert bool(torch.isinf(u12[rows[t, i], 0] * v12[cols[t, j], 0]))
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    h, gbar = (torch.randn((n, 8), generator=gen, device=cuda_dev) for _ in range(2))
+    c = torch.randn(n, generator=gen, device=cuda_dev)
+    got = gat_bcsr(bits, h, att)
+    want = gat_bcsr_plain(bits, h, att)
+    torch.cuda.synchronize()
+    _gat_check(got, want, "1-bit non-edge overflow")
+    _bwd_check(bits, bits_t, h, gbar, c, u12, v12, "1-bit non-edge overflow")
+
+
+def test_bit_wrappers_refuse_r_not_multiple_of_8(cuda_dev):
+    """A 1-bit plan whose R is not a multiple of 8 is refused by every
+    wrapper with ValueError, before any launch."""
+    g, (_, bits, _) = _split_plans(cuda_dev, 64, 64, 1)
+    odd = dataclasses.replace(bits, tile_rows=60)
+    with pytest.raises(ValueError, match="R % 8 == 0"):
+        check_plan(odd, cuda_dev)
+    n = g.num_nodes
+    h = torch.rand((n, 8), device=cuda_dev)
+    v = torch.rand((n, 2), device=cuda_dev)
+    c = torch.rand(n, device=cuda_dev)
+    before = (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches,
+              cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches)
+    for call in (
+        lambda: cuda_bcsr.bcsr_spmm_cuda(odd, h),
+        lambda: cuda_gat.gat_bcsr_cuda(odd, h, v, v),
+        lambda: cuda_rowmax.rowmax_bcsr_cuda(odd, c),
+        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(odd, h, h, c, v, v, 0.2),
+        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(odd, h, h, c, v, v, 0.2),
+    ):
+        with pytest.raises(ValueError, match="R % 8 == 0"):
+            call()
+    assert before == (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches,
+                      cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches)
+
+
+@pytest.mark.parametrize("stabilize", [False, True, "bound"])
+def test_bit_training_grads_on_card_match_cpu(cuda_dev, stabilize):
+    """hybrid_spmm and hybrid_gat gradients on a bit_tiles=True aggregator
+    with transposed plans (every tile kernel over both parts) on the card
+    against the same Functions on the CPU."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    cpu = Aggregator.schedule_hybrid(g, tile_rows=64, tile_cols=64, threshold=3, residual_block=4, pack=1,
+                                     with_transpose=True, bit_tiles=True, device="cpu")
+    assert [p.bits for p in cpu.tile_parts_t()] == [True, False]
+    card = cpu.to(cuda_dev)
+    rng = np.random.default_rng(0)
+    h0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 24)).astype(np.float32))
+    a0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 2)).astype(np.float32))
+    w0 = torch.cos(torch.arange(g.num_nodes * 24, dtype=torch.float32)).reshape(g.num_nodes, 24)
+    grads = {}
+    for agg, dev in ((cpu, "cpu"), (card, cuda_dev)):
+        h = h0.to(dev, copy=True).requires_grad_(True)
+        att = a0.to(dev, copy=True).requires_grad_(True)
+        before = (cuda_bcsr.bits_launches,) + _bit_counts()
+        (agg.run(h) * w0.to(dev)).sum().backward()
+        dh_spmm = h.grad.clone()
+        h.grad = None
+        (agg.run_gat(h, att, stabilize=stabilize) * w0.to(dev)).sum().backward()
+        after = (cuda_bcsr.bits_launches,) + _bit_counts()
+        want = (2, 1, 1, 1, 1 if stabilize is True else 0) if dev != "cpu" else (0,) * 5
+        assert tuple(x - y for x, y in zip(after, before)) == want
+        grads[str(dev)] = (dh_spmm.cpu(), h.grad.cpu(), att.grad.cpu())
+    torch.cuda.synchronize()
+    for got, want, what in zip(grads["cuda"], grads["cpu"], ("hybrid_spmm dh", "hybrid_gat dh", "hybrid_gat datt")):
+        _close(got, want, f"1-bit {what}")

@@ -69,8 +69,5 @@ def test_fast_layer_opts_match_jax():
 
 def test_unported_options_raise():
     g = rmat_graph(100, 800, seed=1, with_val=False)
-    # 1-bit tiles are ported for the forward; bit-tile training is not
-    with pytest.raises(NotImplementedError):
-        Aggregator.schedule_hybrid(g, bit_tiles=True, with_transpose=True, device="cpu")
     with pytest.raises(NotImplementedError):
         Aggregator.schedule_hybrid(g, tile_dtype=np.float32, device="cpu")

@@ -103,6 +103,7 @@ def _graphs(n=700, m=22000, seed=5, with_val=False, src_gap=None):
 
 
 def _aggs(gj, gp, **kw):
+    """The same hybrid schedule with transposed plans in both packages."""
     kw = dict(SCHEDULE, **kw)
     jagg = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=True, **kw)
     agg = Aggregator.schedule_hybrid(gp, with_transpose=True, device="cpu", **kw)
@@ -463,10 +464,11 @@ def test_kernel_wrappers_refuse_grad():
 DIMS = (64, 32, 16, 8)
 
 
-def _train_setting():
+def _train_setting(bit_tiles=False):
     gj, gp = _graphs(n=480, m=9000, seed=29)
     gj, gp = gj.reorder(j_degree_sort(gj)), gp.reorder(degree_sort(gp))
-    jagg, agg = _aggs(gj, gp, tile_rows=64, tile_cols=64, residual_block=4, pack=1)
+    jagg, agg = _aggs(gj, gp, tile_rows=64, tile_cols=64, residual_block=4, pack=1, bit_tiles=bit_tiles)
+    assert len(agg.tile_parts_t()) == (2 if bit_tiles else 1)
     h = normal_features(gp.num_nodes, DIMS[0], seed=123) * 0.1
     labels = np.random.default_rng(7).integers(0, DIMS[-1], gp.num_nodes)
     return jagg, agg, h, labels
@@ -497,9 +499,15 @@ def _check_training(losses, jlosses, model, jleaves):
         assert np.abs(got.detach().numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("model_kind", ["gcn", "gat"])
-def test_training_steps_match_optax(model_kind):
-    jagg, agg, h, labels = _train_setting()
+@pytest.mark.parametrize(
+    "model_kind,bit_tiles",
+    [("gcn", False), ("gat", False), ("gcn", True), ("gat", True)],
+    ids=["gcn", "gat", "gcn-bit_tiles", "gat-bit_tiles"],
+)
+def test_training_steps_match_optax(model_kind, bit_tiles):
+    """3 Adam steps against optax, over int8 tiles and over bench.py
+    --train's default split into a 1-bit and an int8 part."""
+    jagg, agg, h, labels = _train_setting(bit_tiles)
     if model_kind == "gcn":
         weights = glorot_weights(DIMS, seed=0)
         jparams = [jnp.asarray(w) for w in weights]
