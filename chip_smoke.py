@@ -113,7 +113,7 @@ Phases (any failure exits non-zero; nothing is caught):
      part, B4 and B1 over its transpose, B5 with B2 (gat_kernel_vs_plain);
      B2 and B5 over the 1-bit part of phase 6's plan; the ragged raw-count
      plan's 1-bit part (filler-only runs) and its transpose; a 1-bit part
-     at R = 200 (transposed [128, 200]); a non-edge whose branch product is
+     at R = 200 (transposed [128, 200]); a non-edge whose unstabilized score is
      inf.  Check: max|d| <= 1e-5 * max|plain|, B5 exactly equal.
  17. GCN bit-tile training: phase 9 on the bit-tile plan.  Five steps: B1
      must launch 12 times per step (3 layers x 2 parts, forward and
@@ -130,9 +130,50 @@ Phases (any failure exits non-zero; nothing is caught):
      Adam) beside phase 11's; per part (1-bit and int8) phase 11's kernel
      rows (B3, B4, B1 transposed, B2); B5 over each part of the GAT plan as
      phase 7 times it; the 1-bit GAT forward with and without stabilize.
- 21. one "kernels" JSON line, the card line, then {"ok": true, ...}.
+ 22. float-tile kernel phase (quick scale): B1 over float32 tiles (the
+     weighted GCN plan: [512, 256] t48 of gcn_norm_val, the JAX package's
+     default schedule) and over bfloat16 tiles, at pack 1 and 16, f = 128,
+     64, 32, on the plan and its transpose; a densify_gcn_norm plan (float32
+     counts plus scales); a ragged float plan with filler-only runs; B1's
+     w_epilogue over int8, 1-bit, float32, bfloat16 and factored parts at
+     (f, f_out) = (32, 32), (128, 64), (64, 32).  Check: agg and trans each
+     max|d| <= 1e-5 * max|plain|.
+ 23. path 1's forward: the 3-layer GCN with fast_layer_opts over the
+     weighted float32 schedule; five forwards, B1 3 launches a forward, all
+     float; phase 3's per-layer gates against a float64 edge-list oracle
+     weighted by gcn_norm_val.
+ 24. path 1's training: five Adam(1e-3) steps (exact modes), B1 6 float
+     launches a step, phase 9's gradient gates on the weighted oracle.
+ 25. path 2, bench.py --tile-dtype bf16: phase 3's forward over bfloat16
+     count tiles; B1 3 float launches a forward; at most PURE_BAD_FRACTION
+     of the output misses the gate against phase 3's int8 forward (int8
+     cells cap at 127 and spill the rest to the residual; bfloat16 cells
+     keep every edge and round an odd count above 256, as the JAX
+     package's bfloat16 tiles do).
+ 26. path 3, the updateval chain: hybrid_sddmm over bench.py --model
+     sddmm's plan (float32 cells), tileplan_with_values per part, B1 over
+     the float32 tiles (B6 and B1 once a part); the result passes the gate
+     against float64 (S * A_dense) @ h.
+ 27. path 4, the fused aggregate+GEMM: hybrid_spmm_nn over fig10b_pallas's
+     schedule (int8 [256, 128] t24, residual 4, f = 32, W = 0.1 *
+     normal_features(32, 32, seed 3)); five calls, the w_epilogue kernel
+     once a part a call; agg and trans pass the gate against float64 (agg,
+     agg @ W).  Then the timing of paths 1-4 and the B1 rows of PERF.md
+     (float32, bfloat16, transposed, the chain's tiles, the epilogue beside
+     B1 + matmul), with the fused call against the split one.
+ 28. repairs: C1, one source's as at 95 and 120 on a 16x16 case and at 120
+     on the GAT plan (int8 [512, 256] t32, transposed plans): forward and
+     gradients of stabilize=True and 'bound' finite and within the gate
+     (absolute floor 1e-5 * max|ref|) of float64 autograd of the softmax;
+     B2, B3 and B4 against their plain versions there.  C2, a row whose
+     neighbors lie 200 logits below the global bound, the same gate.  C4,
+     the f16_split2 gathers (weighted_task_sums, sddmm_slots,
+     _att_slots_flat) with rows past 65504 under
+     torch.cuda.set_sync_debug_mode("error"), within the gate of float64.
+ 21. (printed last) one "kernels" JSON line, the card line, then
+     {"ok": true, ...}.
 
-With --scale reddit, phases 8-11 and 16-20 are replaced by one GCN
+With --scale reddit, phases 8-11, 16-20 and 22-28 are replaced by one GCN
 bit-tile training phase at reddit scale (bench.py --train's headline
 configuration): the [256, 256] t24 bit-tile plan with its transposes and
 its build time, the first step's weight gradients within BITS_REL_L2 of
@@ -144,9 +185,11 @@ Launch counts: every count is set to 0 just before a path is driven and
 read just after it (the GCN forward for B1, the GAT forward for B2, the
 stabilized GAT forward for B5, five GCN training steps for B1, five GAT
 training steps for B2, B3 and B4, five SDDMM calls for B6, five 1-bit GCN
-forwards for B1, and the bit-tile phases' steps and forwards); launches
-made to compare a kernel with its plain version are not counted.  Each
-wrapper also counts its 1-bit launches apart (``bits_launches``).  The
+forwards for B1, the bit-tile phases' steps and forwards, and phases
+23-27's forwards, steps, chain and fused calls); launches made to compare a
+kernel with its plain version are not counted.  Each wrapper also counts
+its 1-bit launches apart (``bits_launches``); B1 its float-tile launches
+(``float_launches``) and its w_epilogue launches (``epilogue_launches``).  The
 training phases run at the quick scale only (their float64 oracles hold
 the whole edge list in memory).
 
@@ -175,9 +218,10 @@ from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xen
 from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_build, cuda_gat, cuda_gat_bwd, cuda_rowmax, cuda_sddmm
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
-    _branch_factors,
     _global_bound_shift,
     _hybrid_row_shift,
+    _resolve_shift,
+    _score_terms,
     gat_bcsr,
     gat_bcsr_plain,
     gat_bwd_dad,
@@ -185,11 +229,12 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
     gat_bwd_dh_das,
     gat_bwd_dh_das_plain,
 )
-from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain
-from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
-from gnn_computing_tpu_torch.ops.spmm import sddmm_slots
+from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain, tileplan_with_values
+from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn, bcsr_spmm_nn_plain, hybrid_spmm_nn
+from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, _att_slots_flat
+from gnn_computing_tpu_torch.ops.spmm import sddmm_slots, weighted_task_sums
 from gnn_computing_tpu_torch.ops.validate import relative_error_count
-from gnn_computing_tpu_torch.schedule.tiles import densify, split_bit_tiles
+from gnn_computing_tpu_torch.schedule.tiles import densify, densify_gcn_norm, split_bit_tiles
 from gnn_computing_tpu_torch.utils.timing import cuda_time_ms
 
 SCALES = {"quick": (1 << 16, 1 << 22), "reddit": (232_965, 114_615_891)}
@@ -202,6 +247,12 @@ TRAIN_SCHEDULE = dict(tile_rows=256, tile_cols=256, threshold=24)
 SDDMM_SCHEDULE = dict(tile_rows=256, tile_cols=128, threshold=24)
 SDDMM_F = 32
 SDDMM_CALLS = 5
+# fig10b_pallas (benchmarks/fig10_fusion.py): int8 [256, 128] tiles at t24,
+# residual block 4, no transposed plans, f = 32, W [32, 32]
+FUSED_SCHEDULE = dict(tile_rows=256, tile_cols=128, threshold=24)
+FUSED_F = 32
+FUSED_CALLS = 5
+EPILOGUE_SHAPES = ((32, 32), (128, 64), (64, 32))  # (f, f_out) of the epilogue checks
 CHECK_TILES = 16384  # tiles a kernel-vs-plain comparison or a cell check takes at once
 CHECK_EDGES = 1 << 22  # edges an edge-to-cell check takes at once
 RESIDUAL_BLOCK = 4
@@ -301,12 +352,13 @@ def edge_lists(g, dev) -> tuple:
 
 
 def reset_counts():
-    """Every kernel's launch count (and 1-bit launch count) to 0, just
-    before a path is driven."""
+    """Every kernel's launch count (and its 1-bit, float-tile and epilogue
+    counts) to 0, just before a path is driven."""
     cuda_bcsr.launches = cuda_gat.launches = cuda_rowmax.launches = cuda_sddmm.launches = 0
     cuda_gat_bwd.dad_launches = cuda_gat_bwd.dh_das_launches = 0
     cuda_bcsr.bits_launches = cuda_gat.bits_launches = cuda_rowmax.bits_launches = 0
     cuda_gat_bwd.dad_bits_launches = cuda_gat_bwd.dh_das_bits_launches = 0
+    cuda_bcsr.float_launches = cuda_bcsr.epilogue_launches = 0
 
 
 def counts() -> dict:
@@ -349,44 +401,59 @@ def filler_only_runs(tp) -> list:
     ]
 
 
-def gcn_edges(g, res_host, tp) -> tuple:
-    """The float64 oracles' edge lists on the card: the graph's (dst, src),
-    the residual's, and the tile cells' (dst, src, count) of ``tp``; checks
-    that the tile cells and the residual partition the graph's edges (the
-    tile/residual split comes from the host densify)."""
+def gcn_edges(g, res_host, tp, val=None) -> tuple:
+    """The float64 oracles' edge lists on the card: the graph's (dst, src,
+    weight), the residual's, and the tile cells' (dst, src, value) of
+    ``tp``; the weights are None for an unweighted graph (``val`` None),
+    else the graph's edge values and the residual's own.  Checks that the
+    tile cells and the residual partition the graph's edges (the
+    tile/residual split comes from the host densify): per row, the counts
+    add up, or for a weighted graph the values do to float32 rounding."""
     dev = tp.a.device
 
     g_dst, g_src = edge_lists(g, dev)
     r_dst, r_src = edge_lists(res_host, dev)
     c_dst, c_src, c_cnt = tile_cells(tp)
     n = g.num_nodes
-    per_row = torch.bincount(c_dst, weights=c_cnt, minlength=n) + torch.bincount(r_dst, minlength=n)
-    check(
-        torch.equal(per_row.long().cpu(), torch.from_numpy(g.degrees.astype(np.int64))),
-        "tile cells + residual edges do not partition the graph's edges",
-    )
-    return g_dst, g_src, r_dst, r_src, c_dst, c_src, c_cnt
+    g_w = r_w = None
+    if val is None:
+        per_row = torch.bincount(c_dst, weights=c_cnt, minlength=n) + torch.bincount(r_dst, minlength=n)
+        check(
+            torch.equal(per_row.long().cpu(), torch.from_numpy(g.degrees.astype(np.int64))),
+            "tile cells + residual edges do not partition the graph's edges",
+        )
+    else:
+        g_w = torch.from_numpy(np.asarray(val, np.float64)).to(dev)
+        r_w = torch.from_numpy(res_host.val.astype(np.float64)).to(dev)
+        per_row = torch.bincount(c_dst, weights=c_cnt, minlength=n) + torch.bincount(r_dst, weights=r_w, minlength=n)
+        want = torch.bincount(g_dst, weights=g_w, minlength=n)
+        check(
+            bool(((per_row - want).abs() <= 1e-5 * want.abs() + 1e-12).all()),
+            "tile cell values + residual edge values do not add up to the graph's per row",
+        )
+    return g_dst, g_src, g_w, r_dst, r_src, r_w, c_dst, c_src, c_cnt
 
 
 def gcn_gates(agg, weights, opts, h0, out, edges, what: str) -> list:
     """Phase 3's checks of a GCN forward over ``agg``: float64 oracles over
-    edge lists, the whole graph from the layer input ("pure") and the
-    aggregation the numeric modes define ("mode": from the layer's own
-    float32 transform z, tile edges take the tile_h_mode rounding of z,
-    residual edges z exactly).  Each layer, from the same float32 input,
-    passes the gate against its modes' oracle with 0 bad elements and misses
-    the pure one on at most PURE_BAD_FRACTION; so does the whole chain
-    ``out``.  Returns the layer inputs and outputs."""
-    g_dst, g_src, r_dst, r_src, c_dst, c_src, c_cnt = edges
+    edge lists (weighted where the graph is), the whole graph from the
+    layer input ("pure") and the aggregation the numeric modes define
+    ("mode": from the layer's own float32 transform z, tile edges take the
+    tile_h_mode rounding of z times the stored tile values, residual edges
+    z exactly).  Each layer, from the same float32 input, passes the gate
+    against its modes' oracle with 0 bad elements and misses the pure one
+    on at most PURE_BAD_FRACTION; so does the whole chain ``out``.  Returns
+    the layer inputs and outputs."""
+    g_dst, g_src, g_w, r_dst, r_src, r_w, c_dst, c_src, c_cnt = edges
     limit = PURE_BAD_FRACTION
     xs, chain = [h0], h0.double()
     for i, w in enumerate(weights):
         xs.append(gcn_layer(agg, xs[i], w, opts[i]))
         z32 = xs[i] @ w  # the layer's own float32 transform
         zt = round_h(z32, opts[i].tile_h_mode).double()
-        mode_ref = (edge_sum(zt, c_dst, c_src, c_cnt) + edge_sum(z32.double(), r_dst, r_src)).clamp_min_(0.0)
+        mode_ref = (edge_sum(zt, c_dst, c_src, c_cnt) + edge_sum(z32.double(), r_dst, r_src, r_w)).clamp_min_(0.0)
         z = xs[i].double() @ w.double()
-        pure_ref = edge_sum(z, g_dst, g_src).clamp_min_(0.0)
+        pure_ref = edge_sum(z, g_dst, g_src, g_w).clamp_min_(0.0)
         bad = relative_error_count(xs[-1], mode_ref)
         bad_pure = relative_error_count(xs[-1], pure_ref)
         log(
@@ -395,7 +462,7 @@ def gcn_gates(agg, weights, opts, h0, out, edges, what: str) -> list:
         )
         check(bad == 0, f"{what}layer {i + 1} fails the gate against its modes' f64 oracle")
         check(bad_pure <= limit * z.numel(), f"{what}layer {i + 1}: too many elements off the pure oracle")
-        chain = edge_sum(chain @ w.double(), g_dst, g_src).clamp_min_(0.0)
+        chain = edge_sum(chain @ w.double(), g_dst, g_src, g_w).clamp_min_(0.0)
     bad = relative_error_count(out, chain)
     log(f"  {what}forward vs f64 pure oracle chain: gate_bad={bad} of {chain.numel()}")
     check(bad <= limit * chain.numel(), f"{what}forward: too many elements off the pure oracle chain")
@@ -477,8 +544,8 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
     dev = h0.device
     n = g.num_nodes
     t0 = time.perf_counter()
-    agg = Aggregator.schedule_hybrid(g, residual_block=RESIDUAL_BLOCK, pack=1, device=dev, **GAT_SCHEDULE)
-    tile_host, _ = densify(g, **GAT_SCHEDULE)
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK, pack=1, device=dev, **GAT_SCHEDULE)
+    tile_host, _ = densify(g, dtype=np.int8, **GAT_SCHEDULE)
     tile16 = tile_host.pad_runs(16).to(dev)
     tp = agg.tile
     log(
@@ -498,7 +565,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
                 if plan is tp:
                     max_err = max(max_err, err)
         ng, _ = ragged_graph()
-        ragged = densify(ng, **GAT_SCHEDULE)[0].pad_runs(16)
+        ragged = densify(ng, dtype=np.int8, **GAT_SCHEDULE)[0].pad_runs(16)
         filler_runs = filler_only_runs(ragged)
         check(ng.num_nodes % GAT_SCHEDULE["tile_rows"] != 0 and filler_runs, "GAT ragged case lacks a filler-only run")
         log(f"  ragged raw-count plan: n={ng.num_nodes} tiles={ragged.num_tiles} filler-only runs={filler_runs}")
@@ -573,9 +640,9 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
             feat = (xs[i] @ p.w).contiguous()
             att = feat @ p.w_att
             f = feat.shape[1]
-            u12, v12 = _branch_factors(att, DEFAULT_SLOPE)
-            ms = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, feat, u12, v12))
-            ms16 = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tile16, feat, u12, v12))
+            dm, asrc = _score_terms(att)
+            ms = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, feat, dm, asrc, DEFAULT_SLOPE))
+            ms16 = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tile16, feat, dm, asrc, DEFAULT_SLOPE))
             plain_ms = cuda_time_ms(lambda: gat_bcsr_plain(tp, feat, att))
             # library yardstick: the cells' scores as one CSR, built outside
             # the timed call, times [h | 1]
@@ -584,7 +651,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
             csr = torch.sparse_coo_tensor(torch.stack([c_dst, c_src]), score, (n, tp.n_src)).coalesce().to_sparse_csr()
             hx = torch.cat([feat, torch.ones((feat.shape[0], 1), device=dev)], dim=1)
             library_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, hx))
-            bytes_ms = (move_plan + 4 * f * tp.n_src + 8 * (n + tp.n_src) + 4 * (f + 1) * n) / HBM_BYTES_PER_S * 1e3
+            bytes_ms = (move_plan + 4 * f * tp.n_src + 8 * n + 4 * tp.n_src + 4 * (f + 1) * n) / HBM_BYTES_PER_S * 1e3
             ops_ms = 2.0 * nnz * (f + 1) / FP32_FLOPS * 1e3
             b2_rows.append(dict(
                 f=f, layer_ms=layer_ms, ms=ms, ms_pack16=ms16, plain_ms=plain_ms, library_ms=library_ms,
@@ -653,15 +720,14 @@ def cotangent(shape, device) -> torch.Tensor:
 def port_kink_sides(att, parts, dst, src) -> torch.Tensor:
     """For the edges (dst, src): whether the port's float32 branch test puts
     them on the z > 0 side, with the 'bound' shift of ``att``: the tile
-    cells' test u1 v1 >= u2 v2 and the residual's exp(lrelu(z) - M) >
-    exp(-M), the same operations on the same device.  Where the two tests
+    cells' test z >= 0 and the residual's exp(lrelu(z) - M) > exp(-M), the
+    same operations on the same device.  Where the two tests
     differ, the edge's place (a tile cell with a count in one of the tile
     ``parts``, else the residual) decides; a cell at the int8 cap, whose
     edges lie on both sides, raises."""
     shift = _global_bound_shift(att, DEFAULT_SLOPE)
-    u12, v12 = _branch_factors(att, DEFAULT_SLOPE, shift)
-    pos_tile = u12[dst, 0] * v12[src, 0] >= u12[dst, 1] * v12[src, 1]
     z = att[:, 0].index_select(0, dst) + att[:, 1].index_select(0, src)
+    pos_tile = z >= 0
     sh = shift.index_select(0, dst)
     pos_res = torch.exp(torch.maximum(z, z * DEFAULT_SLOPE) - sh) > torch.exp(-sh)
     differ = pos_tile != pos_res
@@ -693,14 +759,14 @@ def rel_l2(got, want) -> float:
 
 
 def bwd_inputs(n, f, scale, shift, gen, dev):
-    """(h, gbar, c, u12, v12) for the backward kernels: N(0, 1) h, gbar and
-    c; att at ``scale``, with the 'bound' shift folded into u12 if asked."""
+    """(h, gbar, c, dm, asrc) for the backward kernels: N(0, 1) h, gbar and
+    c; att at ``scale``, with the 'bound' shift in dm if asked."""
     h = torch.randn((n, f), generator=gen, device=dev)
     gbar = torch.randn((n, f), generator=gen, device=dev)
     c = torch.randn(n, generator=gen, device=dev)
     att = torch.randn((n, 2), generator=gen, device=dev) * scale
-    u12, v12 = _branch_factors(att, DEFAULT_SLOPE, _global_bound_shift(att, DEFAULT_SLOPE) if shift else None)
-    return h, gbar, c, u12, v12
+    dm, asrc = _score_terms(att, _global_bound_shift(att, DEFAULT_SLOPE) if shift else None)
+    return h, gbar, c, dm, asrc
 
 
 def bwd_kernels_vs_plain(tp, tp_t, f, gen, what) -> float:
@@ -749,14 +815,13 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
     csr_t = tile_csr(tp_t)
     rows = {"B3": [], "B4": [], "B1_t": [], "B2": []}
     for f in BENCH_DIMS[1:]:
-        h, gbar, c, u12, v12 = bwd_inputs(n, f, 1.0, True, gen, dev)
-        args = (h, gbar, c, u12, v12, DEFAULT_SLOPE)
+        h, gbar, c, dm, asrc = bwd_inputs(n, f, 1.0, True, gen, dev)
+        args = (h, gbar, c, dm, asrc, DEFAULT_SLOPE)
         # the cells' scores and lrelu' * score, as CSRs in the forward and the
         # transposed orientation, built outside the timed calls
-        b1 = u12[c_dst, 0] * v12[c_src, 0]
-        b2 = u12[c_dst, 1] * v12[c_src, 1]
-        score = c_cnt.float() * torch.maximum(b1, b2)
-        wgt = torch.where(b1 >= b2, 1.0, DEFAULT_SLOPE) * score
+        z = dm[c_dst, 0] + asrc[c_src]
+        score = c_cnt.float() * torch.exp(torch.maximum(z, DEFAULT_SLOPE * z) - dm[c_dst, 1])
+        wgt = torch.where(z >= 0, 1.0, DEFAULT_SLOPE) * score
         pat, pat_t = cells_csr(c_dst, c_src, wgt, (n, n)), cells_csr(c_src, c_dst, wgt, (n, n))
         s_fwd, s_t = cells_csr(c_dst, c_src, score, (n, n)), cells_csr(c_src, c_dst, score, (n, n))
         rows_f, rows_t = csr_rows(pat), csr_rows(pat_t)
@@ -779,7 +844,7 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
         got_dh, got_das = lib_dh_das()
         for got, want, what in ((lib_dad(), want_dad, "B3"), (got_dh, want_dh, "B4 dh"), (got_das, want_das, "B4 d_as")):
             check((got - want).abs().max() <= 1e-4 * want.abs().max(), f"{what} library yardstick disagrees at f={f}")
-        io = 4 * f * 2 * n + 8 * 2 * n + 4 * n  # h, gbar, u12, v12, c
+        io = 4 * f * 2 * n + 12 * n + 4 * n  # h, gbar, dm, asrc, c
         r3 = dict(
             f=f, ms=cuda_time_ms(lambda: gat_bwd_dad(tp, *args)),
             ms_pack16=cuda_time_ms(lambda: gat_bwd_dad(tile16, *args)),
@@ -802,13 +867,13 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
             **bound(tp_t.a.numel() + idx_t + 8 * f * n, 2.0 * nnz * f),
         )
         att = torch.randn((n, 2), generator=gen, device=dev)
-        u12a, v12a = _branch_factors(att, DEFAULT_SLOPE)
+        dma, asa = _score_terms(att)
         r2 = dict(
-            f=f, ms=cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, h, u12a, v12a)),
-            ms_pack16=cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tile16, h, u12a, v12a)),
+            f=f, ms=cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, h, dma, asa, DEFAULT_SLOPE)),
+            ms_pack16=cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tile16, h, dma, asa, DEFAULT_SLOPE)),
             plain_ms=cuda_time_ms(lambda: gat_bcsr_plain(tp, h, att)),
             library_ms=cuda_time_ms(lambda: torch.sparse.mm(s_fwd, h1)), nnz_cells=nnz,
-            **bound(tp.a.numel() + idx + 4 * f * n + 16 * n + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)),
+            **bound(tp.a.numel() + idx + 4 * f * n + 12 * n + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)),
         )
         for k, r in (("B3", r3), ("B4", r4), ("B1_t", r1), ("B2", r2)):
             r["tiles"] = (tp_t if k in ("B4", "B1_t") else tp).num_tiles
@@ -818,7 +883,7 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
                 f"  f={f} {k}: {r['ms']:.3f} ms/launch (pack16 {r['ms_pack16']:.3f}) bound {r['bound_ms']:.4f} "
                 f"({r['bound_by']}) | plain {r['plain_ms']:.3f} | library {r['library_ms']:.3f}"
             )
-        del pat, pat_t, s_fwd, s_t, b1, b2, score, wgt, h1
+        del pat, pat_t, s_fwd, s_t, z, score, wgt, h1
     return rows
 
 
@@ -826,9 +891,10 @@ def train_labels(n: int, dev) -> torch.Tensor:
     return torch.from_numpy(np.random.default_rng(7).integers(0, BENCH_DIMS[-1], n)).to(dev)
 
 
-def gcn_training(agg, g, h0, what: str) -> dict:
+def gcn_training(agg, g, h0, what: str, val=None) -> dict:
     """Phase 9's checks and steps over ``agg`` (a schedule with transposed
-    plans), from glorot_weights (seed 0): at the initial weights, per layer
+    plans; ``val`` the graph's edge values where it is weighted), from
+    glorot_weights (seed 0): at the initial weights, per layer
     from its own float32 input and a cos(arange) cotangent, the
     aggregation's input gradient against float64 autograd through an
     index_add_ edge-list oracle (at most PURE_BAD_FRACTION bad), and each
@@ -839,6 +905,7 @@ def gcn_training(agg, g, h0, what: str) -> dict:
     the counts and the losses."""
     dev = h0.device
     g_dst, g_src = edge_lists(g, dev)
+    g_w = None if val is None else torch.from_numpy(np.asarray(val, np.float64)).to(dev)
     labels = train_labels(g.num_nodes, dev)
     gcn = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
 
@@ -856,7 +923,7 @@ def gcn_training(agg, g, h0, what: str) -> dict:
         ct = cotangent(tuple(z.shape), dev)
         (agg.run(z) * ct.float()).sum().backward()
         z64 = z.detach().double().requires_grad_(True)
-        (edge_sum_ad(z64, g_dst, g_src) * ct).sum().backward()
+        (edge_sum_ad(z64, g_dst, g_src, g_w) * ct).sum().backward()
         grad_gate(z.grad, z64.grad, f"{what}GCN layer {i + 1} aggregation input gradient vs f64 autograd")
         del z, z64, ct
     loss = softmax_xent(fwd(h0), labels)
@@ -865,7 +932,7 @@ def gcn_training(agg, g, h0, what: str) -> dict:
     ws = [w.detach().double().requires_grad_(True) for w in gcn.weights]
     x = h0.double()
     for w in ws:
-        x = torch.relu(edge_sum_ad(x @ w, g_dst, g_src))
+        x = torch.relu(edge_sum_ad(x @ w, g_dst, g_src, g_w))
     loss64 = torch.nn.functional.cross_entropy(x, labels)
     loss64.backward()
     log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
@@ -873,7 +940,7 @@ def gcn_training(agg, g, h0, what: str) -> dict:
         r = rel_l2(g32, w64.grad)
         log(f"  {what}GCN w{i + 1} gradient vs f64 chain: relative L2 {r:.3e}")
         check(r <= GRAD_REL_L2, f"{what}GCN w{i + 1} gradient off the float64 chain")
-    del ws, x, loss64, g_dst, g_src
+    del ws, x, loss64, g_dst, g_src, g_w
     gcn.zero_grad(set_to_none=True)
     step = make_train_step(fwd, torch.optim.Adam(gcn.parameters(), lr=1e-3), device=dev)
     reset_counts()
@@ -981,10 +1048,10 @@ def train_phases(args, g, h0, gen) -> dict:
     n = g.num_nodes
     t0 = time.perf_counter()
     agg = Aggregator.schedule_hybrid(
-        g, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, device=dev, **TRAIN_SCHEDULE
+        g, tile_dtype=np.int8, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, device=dev, **TRAIN_SCHEDULE
     )
     build_s = time.perf_counter() - t0
-    tile_host, _ = densify(g, **TRAIN_SCHEDULE)
+    tile_host, _ = densify(g, dtype=np.int8, **TRAIN_SCHEDULE)
     tile_t_host = tile_host.transpose()
     tile16, tile_t16 = tile_host.pad_runs(16).to(dev), tile_t_host.pad_runs(16).to(dev)
     tp, tp_t = agg.tile, agg.tile_t
@@ -1012,7 +1079,7 @@ def train_phases(args, g, h0, gen) -> dict:
                     for k, e in zip(("B3", "B1_t", "B2"), errs):
                         max_err[k] = max(max_err[k], e)
         ng, _ = ragged_graph()
-        ragged_host = densify(ng, **TRAIN_SCHEDULE)[0]
+        ragged_host = densify(ng, dtype=np.int8, **TRAIN_SCHEDULE)[0]
         ragged, ragged_t = ragged_host.pad_runs(16), ragged_host.transpose().pad_runs(16)
         fillers, fillers_t = filler_only_runs(ragged), filler_only_runs(ragged_t)
         check(bool(fillers) and bool(fillers_t), "training ragged case lacks a filler-only run")
@@ -1257,7 +1324,7 @@ def sddmm_phases(args, g, gen) -> dict:
     n, m = g.num_nodes, g.num_edges
     t0 = time.perf_counter()
     agg = Aggregator.schedule_hybrid(
-        g, residual_block=RESIDUAL_BLOCK, pack=1, bit_tiles=True, device=dev, **SDDMM_SCHEDULE
+        g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK, pack=1, bit_tiles=True, device=dev, **SDDMM_SCHEDULE
     )
     build_s = time.perf_counter() - t0
     parts = agg.tile_parts()
@@ -1288,7 +1355,7 @@ def sddmm_phases(args, g, gen) -> dict:
                     if label == "pack1":
                         max_err = max(max_err, err)
         ng, _ = ragged_graph()
-        rhost = densify(ng, **SDDMM_SCHEDULE)[0]
+        rhost = densify(ng, dtype=np.int8, **SDDMM_SCHEDULE)[0]
         ragged = [rhost.pad_runs(16)] + [p.pad_runs(16) for p in split_bit_tiles(rhost) if p is not None]
         fillers = [filler_only_runs(p) for p in ragged]
         check(ng.num_nodes % SDDMM_SCHEDULE["tile_rows"] != 0 and all(fillers), "SDDMM ragged case lacks a filler-only run")
@@ -1297,7 +1364,7 @@ def sddmm_phases(args, g, gen) -> dict:
         for p in ragged:
             for f in (BENCH_DIMS[1], BENCH_DIMS[3]):
                 sddmm_vs_plain(p.to(dev), f, gen, f"ragged {'' if p is ragged[0] else 'part '}{part_name(p)}")
-        odd, _ = split_bit_tiles(densify(ng, tile_rows=200, tile_cols=128, threshold=24)[0])
+        odd, _ = split_bit_tiles(densify(ng, dtype=np.int8, tile_rows=200, tile_cols=128, threshold=24)[0])
         check(odd is not None, "no 1-bit part at R = 200")
         sddmm_vs_plain(odd.to(dev), SDDMM_F, gen, "1-bit R=200")
         for p in parts:
@@ -1354,7 +1421,7 @@ def bits_gcn_phase(g, h0, tile_host, res_host, res_plan, gcn_out, forwards, gen)
         ng, rng = ragged_graph()
         sd = rng.uniform(0.2, 2.0, ng.num_nodes).astype(np.float32)
         ss = rng.uniform(0.2, 2.0, ng.n_src).astype(np.float32)
-        ragged, _ = densify(ng, val=sd[ng.dst_per_edge] * ss[ng.indices], scale_dst=sd, scale_src=ss, **SCHEDULE)
+        ragged, _ = densify(ng, dtype=np.int8, val=sd[ng.dst_per_edge] * ss[ng.indices], scale_dst=sd, scale_src=ss, **SCHEDULE)
         rbits = split_bit_tiles(ragged)[0].pad_runs(16)
         check(bool(filler_only_runs(rbits)), "1-bit ragged case lacks a filler-only run")
         rbits = rbits.to(dev)
@@ -1453,7 +1520,7 @@ def timing_phase(g, sd, bt) -> tuple:
 
 
 def bits_inf_non_edge(tp, tp_t, gen, what: str):
-    """A non-edge of a 1-bit part whose branch product overflows to inf:
+    """A non-edge of a 1-bit part whose unstabilized score overflows to inf:
     its row and its column hold edges in the same tile, so B2 scores the
     row and B3/B4 walk the row and the column; each must select on the
     bit, never multiply by it.  B2, B3 and B4 against their plain versions
@@ -1477,21 +1544,21 @@ def bits_inf_non_edge(tp, tp_t, gen, what: str):
     n = tp.num_nodes
     att = torch.zeros((n, 2), device=dev)
     att[row, 0] = 50.0
-    att[col, 1] = 50.0  # exp(50) * exp(50) overflows float32
-    u12, v12 = _branch_factors(att, DEFAULT_SLOPE)
-    check(bool(torch.isinf(u12[row, 0] * v12[col, 0])), f"{what}: the chosen non-edge's branch product is finite")
+    att[col, 1] = 50.0  # exp(50 + 50) overflows float32
+    dm, asrc = _score_terms(att)
+    check(bool(torch.isinf(torch.exp(att[row, 0] + att[col, 1]))), f"{what}: the chosen non-edge's score is finite")
     h, gbar = (torch.randn((n, 16), generator=gen, device=dev) for _ in range(2))
     c_ = torch.randn(n, generator=gen, device=dev)
     num, den = gat_bcsr(tp, h, att)
     ref_num, ref_den = gat_bcsr_plain(tp, h, att)
-    args = (h, gbar, c_, u12, v12, DEFAULT_SLOPE)
+    args = (h, gbar, c_, dm, asrc, DEFAULT_SLOPE)
     dad, (dh, das) = gat_bwd_dad(tp, *args), gat_bwd_dh_das(tp_t, *args)
     want_dad, (want_dh, want_das) = gat_bwd_dad_plain(tp, *args), gat_bwd_dh_das_plain(tp_t, *args)
     torch.cuda.synchronize()
     for got, want, out, gate in ((num, ref_num, "B2 num", False), (den, ref_den, "B2 den", True),
                                  (dad, want_dad, "B3 d_ad", False), (dh, want_dh, "B4 dh", False),
                                  (das, want_das, "B4 d_as", False)):
-        compare(got, want, f"{what} non-edge ({row}, {col}) with an inf branch product: {out}", gate=gate)
+        compare(got, want, f"{what} non-edge ({row}, {col}) with an inf score: {out}", gate=gate)
 
 
 def bits_kernel_phase(tb, tb_t, tb16, tb_t16, gat_bits, gat_bits16, gen) -> dict:
@@ -1515,7 +1582,7 @@ def bits_kernel_phase(tb, tb_t, tb16, tb_t16, gat_bits, gat_bits16, gen) -> dict
             for f in BENCH_DIMS[1:]:
                 gat_kernel_vs_plain(p, f, gen, label)
         ng, _ = ragged_graph()
-        rbits = split_bit_tiles(densify(ng, **TRAIN_SCHEDULE)[0])[0]
+        rbits = split_bit_tiles(densify(ng, dtype=np.int8, **TRAIN_SCHEDULE)[0])[0]
         ragged, ragged_t = rbits.pad_runs(16), rbits.transpose().pad_runs(16)
         fillers, fillers_t = filler_only_runs(ragged), filler_only_runs(ragged_t)
         check(bool(fillers) and bool(fillers_t), "1-bit training ragged case lacks a filler-only run")
@@ -1528,7 +1595,7 @@ def bits_kernel_phase(tb, tb_t, tb16, tb_t16, gat_bits, gat_bits16, gen) -> dict
             bwd_kernels_vs_plain(ragged, ragged_t, f, gen, "ragged 1-bit")
             kernel_vs_plain(ragged_t, f, "native", gen, "ragged 1-bit transposed")
             gat_kernel_vs_plain(ragged, f, gen, "ragged 1-bit")
-        odd, _ = split_bit_tiles(densify(ng, tile_rows=200, tile_cols=128, threshold=24)[0])
+        odd, _ = split_bit_tiles(densify(ng, dtype=np.int8, tile_rows=200, tile_cols=128, threshold=24)[0])
         check(odd is not None, "no 1-bit part at R = 200")
         odd_t = odd.transpose()
         odd, odd_t = odd.to(dev), odd_t.to(dev)
@@ -1549,12 +1616,12 @@ def bits_train_phases(args, g, h0, gen, train: dict, gat_out: dict, forwards: in
     dev = h0.device
     t0 = time.perf_counter()
     agg = Aggregator.schedule_hybrid(
-        g, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, bit_tiles=True, device=dev, **TRAIN_SCHEDULE
+        g, tile_dtype=np.int8, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, bit_tiles=True, device=dev, **TRAIN_SCHEDULE
     )
     build_s = time.perf_counter() - t0
     tb, ti, tb_t, ti_t = agg.tile_bits, agg.tile, agg.tile_bits_t, agg.tile_t
     check(None not in (tb, ti, tb_t, ti_t), "the training plan did not split into a 1-bit and an int8 part")
-    hb, hi = split_bit_tiles(densify(g, **TRAIN_SCHEDULE)[0])
+    hb, hi = split_bit_tiles(densify(g, dtype=np.int8, **TRAIN_SCHEDULE)[0])
     tb16, ti16 = hb.pad_runs(16).to(dev), hi.pad_runs(16).to(dev)
     tb_t16, ti_t16 = hb.transpose().pad_runs(16).to(dev), hi.transpose().pad_runs(16).to(dev)
     del hb, hi
@@ -1566,7 +1633,7 @@ def bits_train_phases(args, g, h0, gen, train: dict, gat_out: dict, forwards: in
             for p, q in ((tb, tb_t), (ti, ti_t))
         ) + f"; built with both transposes in {build_s:.1f} s"
     )
-    gagg = Aggregator.schedule_hybrid(g, residual_block=RESIDUAL_BLOCK, pack=1, bit_tiles=True, device=dev,
+    gagg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK, pack=1, bit_tiles=True, device=dev,
                                       **GAT_SCHEDULE)
     gat_bits = gagg.tile_bits
     check(gat_bits is not None and gagg.tile is not None, "the GAT plan did not split into a 1-bit and an int8 part")
@@ -1667,7 +1734,7 @@ def bits_train_reddit_phase(g, h0) -> dict:
     log(f"phase 17 (reddit): GCN bit-tile training, {REDDIT_STEPS} steps")
     t0 = time.perf_counter()
     agg = Aggregator.schedule_hybrid(
-        g, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, bit_tiles=True, device=dev, **TRAIN_SCHEDULE
+        g, tile_dtype=np.int8, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True, bit_tiles=True, device=dev, **TRAIN_SCHEDULE
     )
     build_s = time.perf_counter() - t0
     log(
@@ -1713,6 +1780,394 @@ def bits_train_reddit_phase(g, h0) -> dict:
     )
 
 
+def float_kernel_rows(tp, xs_or_h, what: str, tp16=None) -> list:
+    """B1 timing rows over one plan, one row per operand in ``xs_or_h``
+    (f = 128, 64, 32): ms a launch (and pack 16), the plain version, the
+    torch.sparse.mm yardstick over the cells' CSR (built outside the timed
+    call) and the bound: A's bytes (1, 2 or 4 a cell; R*C/8 a 1-bit tile),
+    H read and the output written once, 2 FLOPs a nonzero cell and f."""
+    csr = tile_csr(tp)
+    nnz = csr.values().numel()
+    a_bytes = tp.a.numel() * tp.a.element_size()
+    rows = []
+    for x in xs_or_h:
+        f = x.shape[1]
+        row = dict(
+            f=f, ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, x)),
+            plain_ms=cuda_time_ms(lambda: bcsr_spmm_plain(tp, x)),
+            library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr, x)), tiles=tp.num_tiles, nnz_cells=nnz,
+            a_bytes=a_bytes,
+            **bound(a_bytes + 4 * (tp.num_tiles + tp.num_row_tiles + 1) + 4 * f * (tp.n_src + tp.num_nodes),
+                    2.0 * nnz * f),
+        )
+        if tp16 is not None:
+            row["ms_pack16"] = cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp16, x))
+        rows.append(row)
+        log(
+            f"  {what} f={f}: B1 {row['ms']:.3f} ms/launch"
+            + (f" (pack16 {row['ms_pack16']:.3f})" if tp16 is not None else "")
+            + f" bound {row['bound_ms']:.4f} ({row['bound_by']}) | plain {row['plain_ms']:.3f} | "
+            f"torch.sparse.mm {row['library_ms']:.3f}"
+        )
+    del csr
+    return rows
+
+
+def epilogue_vs_plain(tp, f: int, f_out: int, gen, what: str) -> float:
+    """B1's w_epilogue variant against bcsr_spmm_nn_plain on signed N(0, 1)
+    h and W = 0.1 N(0, 1): agg and trans each within KERNEL_TOL *
+    max|plain|.  Returns max|d| of both, relative to their max|plain|."""
+    h = torch.randn((tp.n_src, f), generator=gen, device="cuda")
+    w = torch.randn((f, f_out), generator=gen, device="cuda") * 0.1
+    agg, trans = bcsr_spmm_nn(tp, h, w)
+    want_agg, want_trans = bcsr_spmm_nn_plain(tp, h, w)
+    torch.cuda.synchronize()
+    e1 = compare(agg, want_agg, f"{what} ({f}, {f_out}) agg", gate=False)
+    e2 = compare(trans, want_trans, f"{what} ({f}, {f_out}) trans", gate=False)
+    return max(e1, e2)
+
+
+def float_phases(g, h0, gen, gcn_out, forwards) -> dict:
+    """Phases 22-27 (quick scale): B1 over float32 / bfloat16 tiles and its
+    w_epilogue against their plain versions, then the four paths of float
+    tiles and the fused aggregate+GEMM, and their timing.  Returns the
+    kernels line's B1 entries."""
+    dev = h0.device
+    n = g.num_nodes
+    val = g.gcn_norm_val()
+    t0 = time.perf_counter()
+    # the JAX package's defaults: float32 tiles of the edge values, with
+    # the transposed plans
+    agg = Aggregator.schedule_hybrid(g, val=val, residual_block=RESIDUAL_BLOCK, pack=1, device=dev, **SCHEDULE)
+    build_s = time.perf_counter() - t0
+    tile_host, res_host = densify(g, val=val, **SCHEDULE)
+    tp, tp_t = agg.tile, agg.tile_t
+    check(tp.format == "float32" and tp_t.format == "float32", "the weighted schedule's tiles are not float32")
+    tile16, tile_t16 = tile_host.pad_runs(16).to(dev), tile_host.transpose().pad_runs(16).to(dev)
+    del tile_host
+    bf, bf_t, bf16p, bf_t16 = (p.astype(torch.bfloat16) for p in (tp, tp_t, tile16, tile_t16))
+    log(
+        f"weighted GCN plan (gcn_norm_val, float32 tiles): tiles={tp.num_tiles} (pack16: {tile16.num_tiles}) "
+        f"transposed {tp_t.num_tiles}; A bytes={tp.a.numel() * 4} (bf16 {bf.a.numel() * 2}); "
+        f"dense_edges={tp.num_dense_edges} residual_edges={agg.plan.num_edges}; built in {build_s:.1f} s"
+    )
+    fused = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK,
+                                       pack=1, device=dev, **FUSED_SCHEDULE)
+    fused_bits = split_bit_tiles(densify(g, dtype=np.int8, **FUSED_SCHEDULE)[0])[0].to(dev)
+    gnorm = densify_gcn_norm(g, **SCHEDULE)[0].to(dev)
+
+    # ---- phase 22: B1 over float A and the epilogue against their plain versions
+    log("phase 22: B1 over float32 / bfloat16 A and B1's w_epilogue vs their plain versions")
+    max_err = {"f32": 0.0, "bf16": 0.0, "epilogue": 0.0}
+    with torch.no_grad():
+        for (p1, p16), label, key in (
+            ((tp, tile16), "f32", "f32"), ((tp_t, tile_t16), "f32 transposed", "f32"),
+            ((bf, bf16p), "bf16", "bf16"), ((bf_t, bf_t16), "bf16 transposed", "bf16"),
+        ):
+            for plan, pk in ((p1, "pack1"), (p16, "pack16")):
+                for f in BENCH_DIMS[1:]:
+                    err = kernel_vs_plain(plan, f, "native", gen, f"{label} {pk}")
+                    if pk == "pack1":
+                        max_err[key] = max(max_err[key], err)
+        for f in BENCH_DIMS[1:]:
+            for mode in ("split", "native"):
+                kernel_vs_plain(gnorm, f, mode, gen, "densify_gcn_norm (f32 counts, scales)")
+        ng, rng = ragged_graph()
+        rhost = densify(ng, val=rng.uniform(0.2, 2.0, ng.num_edges).astype(np.float32), **SCHEDULE)[0].pad_runs(16)
+        check(bool(filler_only_runs(rhost)), "float ragged case lacks a filler-only run")
+        for fmt in (np.float32, torch.bfloat16):
+            rp = rhost.astype(fmt).to(dev)
+            for f in (BENCH_DIMS[1], BENCH_DIMS[3]):
+                kernel_vs_plain(rp, f, "native", gen, f"ragged {rp.format}")
+        del rhost, rp
+        for part, label in ((fused.tile, "epilogue int8"), (fused_bits, "epilogue 1-bit"), (tp, "epilogue f32"),
+                            (bf, "epilogue bf16"), (gnorm, "epilogue factored f32")):
+            for f, f_out in EPILOGUE_SHAPES:
+                max_err["epilogue"] = max(max_err["epilogue"], epilogue_vs_plain(part, f, f_out, gen, label))
+
+    # ---- phase 23: path 1, the weighted GCN forward over float32 tiles
+    log("phase 23: weighted 3-layer GCN forward over float32 tiles (gcn_norm_val), fast_layer_opts")
+    model = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
+    opts = fast_layer_opts(BENCH_DIMS)
+    with torch.no_grad():
+        reset_counts()
+        for _ in range(forwards):
+            out = model(agg, h0, opts)
+        torch.cuda.synchronize()
+        fwd_counts = (cuda_bcsr.launches, cuda_bcsr.float_launches)
+        log(f"  B1 launches in {forwards} forwards: {fwd_counts[0]}, float32 tiles: {fwd_counts[1]}")
+        check(only("B1") and fwd_counts == (3 * forwards, 3 * forwards), "the weighted forward: B1 not 3 float launches a forward")
+        check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "weighted forward output")
+        edges = gcn_edges(g, res_host, tp, val)
+        xs = gcn_gates(agg, model.weights, opts, h0, out, edges, "weighted ")
+        del edges
+
+    # ---- phase 24: path 1, weighted GCN training over float32 tiles and their transpose
+    log(f"phase 24: weighted GCN training over float32 tiles, {TRAIN_STEPS} steps (exact modes, Adam 1e-3)")
+    gcn = gcn_training(agg, g, h0, "weighted ", val=val)
+    check(gcn["counts"]["B1"] == 6 * TRAIN_STEPS and only("B1"), "weighted GCN training: B1 not 6 launches a step")
+    check(cuda_bcsr.float_launches == 6 * TRAIN_STEPS, "weighted GCN training: B1 not over float tiles")
+    train_float = cuda_bcsr.float_launches
+
+    # ---- phase 25: path 2, bench.py --tile-dtype bf16
+    log("phase 25: bench.py --tile-dtype bf16: phase 3's GCN forward over bfloat16 count tiles")
+    agg2 = Aggregator.schedule_hybrid(g, tile_dtype=torch.bfloat16, with_transpose=False,
+                                      residual_block=RESIDUAL_BLOCK, pack=1, device=dev, **SCHEDULE)
+    check(agg2.tile.format == "bfloat16", "bench.py --tile-dtype bf16 did not build bfloat16 tiles")
+    with torch.no_grad():
+        reset_counts()
+        for _ in range(forwards):
+            out2 = model(agg2, h0, opts)
+        torch.cuda.synchronize()
+        bf16_counts = (cuda_bcsr.launches, cuda_bcsr.float_launches)
+        check(only("B1") and bf16_counts == (3 * forwards, 3 * forwards), "the bf16 forward: B1 not 3 float launches")
+        # bfloat16 holds counts up to 256 exactly; int8 tiles cap a cell at
+        # 127 and spill the rest to the residual, bfloat16 tiles keep every
+        # edge and round an odd count above 256 (as the JAX package's do)
+        vals = agg2.tile.a.float()
+        rounded = int((vals > 256).sum())
+        del vals
+        bad = relative_error_count(out2, gcn_out)
+        log(f"  B1 launches {bf16_counts}; cells above 256: {rounded}; vs phase 3's int8 forward: gate_bad={bad} "
+            f"of {out2.numel()} max|d|={(out2 - gcn_out).abs().max().item():.3e}")
+        check(bad <= PURE_BAD_FRACTION * out2.numel(), "the bfloat16-tile forward is off the int8 forward")
+
+    # ---- phase 26: path 3, the updateval chain (B6 -> B1 over float32 tiles)
+    log("phase 26: updateval chain: hybrid_sddmm cells -> tileplan_with_values -> B1 over float32 tiles")
+    sagg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK,
+                                      pack=1, bit_tiles=True, device=dev, **SDDMM_SCHEDULE)
+    parts = sagg.tile_parts()
+    a = torch.from_numpy(normal_features(n, SDDMM_F, seed=3) * 0.1).to(dev)
+    b = torch.from_numpy(normal_features(n, SDDMM_F, seed=4) * 0.1).to(dev)
+    hc = torch.from_numpy(normal_features(n, SDDMM_F, seed=5)).to(dev)
+
+    def chain():
+        cells, _ = hybrid_sddmm(parts, None, a, b, out_dtype=torch.float32, dot_mode="split23")
+        wparts = [tileplan_with_values(p, c) for p, c in zip(parts, cells)]
+        return bcsr_spmm(wparts, hc), wparts
+
+    with torch.no_grad():
+        reset_counts()
+        out3, wparts = chain()
+        torch.cuda.synchronize()
+        chain_counts = counts()
+        log(f"  launches: {chain_counts}, B1 float32 tiles {cuda_bcsr.float_launches}")
+        check(chain_counts["B6"] == len(parts) and chain_counts["B1"] == len(parts)
+              and cuda_bcsr.float_launches == len(parts), "the updateval chain did not run B6 then B1 over float tiles")
+        a64, b64 = a.double(), b.double()
+        ref3 = torch.zeros((n, SDDMM_F), dtype=torch.float64, device=dev)
+        for p in parts:
+            c_dst, c_src, c_cnt = tile_cells(p)
+            wgt = c_cnt * (b64.index_select(0, c_dst) * a64.index_select(0, c_src)).sum(dim=1)
+            ref3 += edge_sum(hc.double(), c_dst, c_src, wgt)
+        bad = relative_error_count(out3, ref3)
+        log(f"  (S * A_dense) @ h vs f64 oracle: gate_bad={bad} of {ref3.numel()}")
+        check(bad == 0, "the updateval chain fails the gate against the f64 (S * A_dense) @ h")
+        del ref3, a64, b64
+
+    # ---- phase 27: path 4, the fused aggregate+GEMM (fig10b_pallas)
+    log(f"phase 27: hybrid_spmm_nn over fig10b_pallas's schedule, f={FUSED_F}, {FUSED_CALLS} calls")
+    hx = torch.from_numpy(normal_features(n, FUSED_F, seed=1)).to(dev)
+    wx = torch.from_numpy(normal_features(FUSED_F, FUSED_F, seed=3) * 0.1).to(dev)
+    fparts = fused.tile_parts()
+    with torch.no_grad():
+        reset_counts()
+        for _ in range(FUSED_CALLS):
+            fa, ft = hybrid_spmm_nn(fused, hx, wx)
+        torch.cuda.synchronize()
+        fused_counts = (cuda_bcsr.launches, cuda_bcsr.epilogue_launches)
+        log(f"  B1 launches {fused_counts[0]}, w_epilogue {fused_counts[1]} ({len(fparts)} part(s) a call)")
+        check(only("B1") and fused_counts == (len(fparts) * FUSED_CALLS,) * 2,
+              "the fused path did not launch the w_epilogue kernel once a part a call")
+        g_dst, g_src = edge_lists(g, dev)
+        agg64 = edge_sum(hx.double(), g_dst, g_src)
+        for got, want, what in ((fa, agg64, "agg"), (ft, agg64 @ wx.double(), "trans")):
+            bad = relative_error_count(got, want)
+            log(f"  fused {what} vs f64 oracle: gate_bad={bad} of {want.numel()}")
+            check(bad == 0, f"the fused {what} fails the gate against the f64 oracle")
+        del agg64, g_dst, g_src
+
+    # ---- timing
+    log("phase 27 timing: float tiles and the fused path (CUDA events, median of 10 after 3 warm-up)")
+    with torch.no_grad():
+        times = dict(
+            weighted_forward_ms=cuda_time_ms(lambda: model(agg, h0, opts)),
+            bf16_forward_ms=cuda_time_ms(lambda: model(agg2, h0, opts)),
+            chain_ms=cuda_time_ms(lambda: chain()[0]),
+            fused_ms=cuda_time_ms(lambda: hybrid_spmm_nn(fused, hx, wx)),
+            split_ms=cuda_time_ms(lambda: fused.run(hx) @ wx),
+        )
+    times["weighted_step_ms"] = cuda_time_ms(gcn["step"])
+    log(
+        f"  weighted GCN forward {times['weighted_forward_ms']:.3f} ms, step {times['weighted_step_ms']:.3f} ms; "
+        f"bf16-tile forward {times['bf16_forward_ms']:.3f} ms; updateval chain {times['chain_ms']:.3f} ms; "
+        f"fused {times['fused_ms']:.3f} ms vs split (B1 + residual, then matmul) {times['split_ms']:.3f} ms"
+    )
+    with torch.no_grad():
+        zs = [(xs[i] @ w).contiguous() for i, w in enumerate(model.weights)]
+        rows_f32 = float_kernel_rows(tp, zs, "f32 [512, 256] t48", tile16)
+        rows_bf16 = float_kernel_rows(agg2.tile, [round_h(z, "split").contiguous() for z in zs], "bf16 counts")
+        cts = [cotangent((n, z.shape[1]), dev).float() for z in zs]
+        rows_t = float_kernel_rows(tp_t, cts, "f32 transposed", tile_t16)
+        rows_chain = [float_kernel_rows(w, [hc], f"updateval {part_name(p)} part")[0] for w, p in zip(wparts, parts)]
+        rows_epi = []
+        for part in fparts:
+            csr = tile_csr(part)
+            nnz = csr.values().numel()
+            a_bytes = part.a.numel() * part.a.element_size()
+            f, f_out = FUSED_F, FUSED_F
+            row = dict(
+                f=f, f_out=f_out, ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_nn_cuda(part, hx, wx)),
+                plain_ms=cuda_time_ms(lambda: bcsr_spmm_nn_plain(part, hx, wx)),
+                library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr, hx) @ wx),
+                split_kernel_ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(part, hx) @ wx),
+                tiles=part.num_tiles, nnz_cells=nnz,
+                **bound(a_bytes + 4 * (part.num_tiles + part.num_row_tiles + 1) + 4 * f * part.n_src
+                        + 4 * (f + f_out) * part.num_nodes + 4 * f * f_out,
+                        2.0 * nnz * f + 2.0 * part.num_nodes * f * f_out),
+            )
+            rows_epi.append(row)
+            log(
+                f"  epilogue {part_name(part)} part f={f} f_out={f_out}: {row['ms']:.3f} ms/launch, B1 then matmul "
+                f"{row['split_kernel_ms']:.3f} | bound {row['bound_ms']:.4f} ({row['bound_by']}) | plain "
+                f"{row['plain_ms']:.3f} | torch.sparse.mm + matmul {row['library_ms']:.3f}"
+            )
+            del csr
+    return dict(
+        max_err=max_err, times=times, rows_f32=rows_f32, rows_bf16=rows_bf16, rows_t=rows_t, rows_chain=rows_chain,
+        rows_epi=rows_epi, fwd_counts=fwd_counts, bf16_counts=bf16_counts, train_counts=gcn["counts"],
+        train_float=train_float, train_losses=gcn["losses"], chain_counts=chain_counts, fused_counts=fused_counts,
+        build_s=build_s,
+    )
+
+
+def softmax_oracle(g_dst, g_src, n, h, att, slope=DEFAULT_SLOPE):
+    """float64 GAT aggregation over an edge list with autograd: per row the
+    softmax of lrelu(ad_i + as_j) over its in-edges, shifted by the row's
+    max logit (so exp never overflows).  Returns (out, h64, att64)."""
+    h64 = h.detach().double().requires_grad_(True)
+    a64 = att.detach().double().requires_grad_(True)
+    z = a64[g_dst, 0] + a64[g_src, 1]
+    lz = torch.maximum(z, slope * z)
+    mx = torch.full((n,), -torch.inf, dtype=torch.float64, device=h.device).scatter_reduce(0, g_dst, lz, "amax")
+    s = torch.exp(lz - mx[g_dst].detach())
+    den = torch.zeros(n, dtype=torch.float64, device=h.device).index_add(0, g_dst, s)
+    num = torch.zeros((n, h.shape[1]), dtype=torch.float64, device=h.device).index_add(
+        0, g_dst, s[:, None] * h64.index_select(0, g_src)
+    )
+    return num / torch.where(den == 0, 1.0, den)[:, None], h64, a64
+
+
+def wide_logit_check(agg, g, h, att, stabilize, what: str):
+    """hybrid_gat forward and gradients over ``agg`` on the card: finite and
+    within the gate of float64 autograd of the softmax oracle (cotangent
+    cos(arange)), with the gate's absolute floor at 1e-5 * max|ref|: d_ad
+    and d_as are signed sums that cancel (d_ad_i is exactly 0 when all of
+    row i's edges lie on one branch of leaky-relu), where two summation
+    orders differ by more than the gate's 1e-5."""
+    dev = h.device
+    g_dst, g_src = edge_lists(g, dev)
+    ct = cotangent(tuple(h.shape), dev)
+    want, h64, a64 = softmax_oracle(g_dst, g_src, g.num_nodes, h, att)
+    (want * ct).sum().backward()
+    hg, ag = h.clone().requires_grad_(True), att.clone().requires_grad_(True)
+    out = agg.run_gat(hg, ag, stabilize=stabilize)
+    (out * ct.float()).sum().backward()
+    torch.cuda.synchronize()
+    for got, ref, name in ((out, want, "out"), (hg.grad, h64.grad, "dh"), (ag.grad, a64.grad, "datt")):
+        check(bool(torch.isfinite(got).all()), f"{what} {name}: non-finite")
+        scale = ref.abs().max().item()
+        bad = relative_error_count(got.detach(), ref.detach(), 1e-2, max(1e-5, KERNEL_TOL * scale))
+        err = (got.detach().double() - ref.detach()).abs().max().item()
+        log(f"  {what} stabilize={stabilize!r} {name} vs f64 softmax: gate_bad={bad} of {ref.numel()} "
+            f"max|d|={err:.3e} max|ref|={scale:.3e}")
+        check(bad == 0, f"{what} stabilize={stabilize!r} {name} off the float64 softmax")
+
+
+def repair_phase(g, gen) -> dict:
+    """Phase 28: the repairs on the card.  C1: one source's as at 95 and 120
+    on the 16x16 case and on the GAT plan (int8 [512, 256] t32, transposed
+    plans): forward and gradients finite and within the gate of the
+    float64 softmax, for stabilize=True and 'bound'; B2, B3 and B4 against
+    their plain versions there.  C2: a row whose neighbors lie 200 logits
+    below the global bound.  C4: the f16_split2 gathers run under
+    torch.cuda.set_sync_debug_mode('error') with rows past 65504."""
+    dev = gen.device
+    log("phase 28: repairs on the card (C1 wide logits, C2 'bound' far below, C4 no host sync)")
+    rng = np.random.default_rng(3)
+    bd, bs = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    dst = np.concatenate([bd.reshape(-1), rng.integers(0, 64, 600)])
+    src = np.concatenate([bs.reshape(-1), rng.integers(0, 64, 600)])
+    small = CSRGraph.from_edges(dst, src, 64)
+    sagg = Aggregator.schedule_hybrid(small, tile_dtype=np.int8, tile_rows=16, tile_cols=16, threshold=60,
+                                      residual_block=4, pack=1, device=dev)
+    hs = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32)).to(dev)
+    att0 = torch.from_numpy((rng.standard_normal((64, 2)) * 0.1).astype(np.float32)).to(dev)
+    for big in (95.0, 120.0):
+        att = att0.clone()
+        att[5, 1] = big
+        for stabilize in (True, "bound"):
+            wide_logit_check(sagg, small, hs, att, stabilize, f"C1 16x16 as_5={big}")
+    # C2: row 0's in-neighbors at as = -100, a far source at +100
+    nbrs = np.unique(small.indices[small.indptr[0] : small.indptr[1]])
+    far = next(j for j in range(16, 64) if j not in nbrs and (small.indices == j).any())
+    att = att0.clone().clamp(-1.0, 1.0)
+    att[torch.from_numpy(nbrs).to(dev), 1] = -100.0
+    att[far, 1] = 100.0
+    wide_logit_check(sagg, small, hs, att, "bound", "C2 far below the bound")
+
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, residual_block=RESIDUAL_BLOCK, pack=1, device=dev,
+                                     **GAT_SCHEDULE)
+    n = g.num_nodes
+    h = torch.randn((n, 32), generator=gen, device=dev)
+    att = torch.randn((n, 2), generator=gen, device=dev)
+    hub = int(torch.bincount(torch.from_numpy(g.indices.astype(np.int64)), minlength=n).argmax())
+    att[hub, 1] = 120.0
+    for stabilize in (True, "bound"):
+        wide_logit_check(agg, g, h, att, stabilize, f"C1 GAT plan as_{hub}=120")
+    err = 0.0
+    with torch.no_grad():
+        tp, tp_t = agg.tile, agg.tile_t
+        for stabilize in (True, "bound"):
+            shift = _resolve_shift(agg.tile_parts(), agg.plan, att, DEFAULT_SLOPE, stabilize)
+            num, den = gat_bcsr(tp, h, att, row_shift=shift)
+            ref_num, ref_den = gat_bcsr_plain(tp, h, att, row_shift=shift)
+            gbar = torch.randn((n, 32), generator=gen, device=dev)
+            c = torch.randn(n, generator=gen, device=dev)
+            dm, asrc = _score_terms(att, shift)
+            args = (h, gbar, c, dm, asrc, DEFAULT_SLOPE)
+            dad, (dh, das) = gat_bwd_dad(tp, *args), gat_bwd_dh_das(tp_t, *args)
+            want = (gat_bwd_dad_plain(tp, *args),) + gat_bwd_dh_das_plain(tp_t, *args)
+            torch.cuda.synchronize()
+            for got, ref, name in ((num, ref_num, "B2 num"), (den, ref_den, "B2 den"), (dad, want[0], "B3 d_ad"),
+                                   (dh, want[1], "B4 dh"), (das, want[2], "B4 d_as")):
+                err = max(err, compare(got, ref, f"C1 as=120 stabilize={stabilize!r} {name}", gate=False))
+    # C4: every f16_split2 gather with rows past float16's range, no host sync
+    plan = agg.plan
+    hw = torch.randn((n, 32), generator=gen, device=dev)
+    hw[hub] *= 3.0e5
+    aw = att.clone()
+    aw[hub, 1] = 1.0e6
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        task = weighted_task_sums(plan, hw, plan.val, gather_dtype="f16_split2")
+        slots = sddmm_slots(plan, hw, hw, gather_dtype="f16_split2")
+        z = _att_slots_flat(plan, aw, gather_dtype="f16_split2")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for got, ref, name in (
+        (task, weighted_task_sums(plan, hw.double(), plan.val), "weighted_task_sums"),
+        (slots, sddmm_slots(plan, hw.double(), hw.double()), "sddmm_slots"),
+        (z, _att_slots_flat(plan, aw.double()), "_att_slots_flat"),
+    ):
+        bad = relative_error_count(got, ref)
+        log(f"  C4 {name} f16_split2 under sync-debug 'error', rows past 65504: gate_bad={bad} of {ref.numel()}")
+        check(bool(torch.isfinite(got).all()) and bad == 0, f"C4 {name} off the float64 result")
+    return dict(max_err=err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -1744,8 +2199,8 @@ def main() -> int:
     t0 = time.perf_counter()
     g = rmat_graph(n, m, seed=123, with_val=False)
     g = g.reorder(degree_sort(g))
-    agg = Aggregator.schedule_hybrid(g, residual_block=RESIDUAL_BLOCK, pack=1, device=dev, **SCHEDULE)
-    tile_host, res_host = densify(g, **SCHEDULE)
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK, pack=1, device=dev, **SCHEDULE)
+    tile_host, res_host = densify(g, dtype=np.int8, **SCHEDULE)
     tile16 = tile_host.pad_runs(16).to(dev)
     tp = agg.tile
     log(
@@ -1770,7 +2225,7 @@ def main() -> int:
     sd = rng.uniform(0.2, 2.0, ng.num_nodes).astype(np.float32)
     ss = rng.uniform(0.2, 2.0, ng.n_src).astype(np.float32)
     ragged, _ = densify(
-        ng, val=sd[ng.dst_per_edge] * ss[ng.indices], scale_dst=sd, scale_src=ss, **SCHEDULE
+        ng, dtype=np.int8, val=sd[ng.dst_per_edge] * ss[ng.indices], scale_dst=sd, scale_src=ss, **SCHEDULE
     )
     ragged = ragged.pad_runs(16)
     filler_runs = filler_only_runs(ragged)
@@ -1855,8 +2310,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     if train is not None:
         bits_train = bits_train_phases(args, g, h0, gen, train, gat_out, forwards)
+        torch.cuda.empty_cache()
+        fl = float_phases(g, h0, gen, gcn_out, forwards)
+        torch.cuda.empty_cache()
+        repair = repair_phase(g, gen)
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
+        log("phases 22-28 (float tiles, the fused aggregate+GEMM, the repairs) run at the quick scale only")
 
     # ---- phase 21: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
@@ -1946,6 +2406,32 @@ def main() -> int:
                 int8_part=summed(bits["rows_i"][key], over="int8 part"),
                 **summed(bits["rows_b"][key], over="1-bit part"),
             )
+        # float tiles and the fused aggregate+GEMM (phases 22-27)
+        ft = fl["times"]
+        kernels[0]["float"] = dict(
+            path="paths 1-3: weighted GCN forward (gcn_norm_val, float32 tiles) and its training steps; "
+                 "bench.py --tile-dtype bf16 forward; the updateval chain (hybrid_sddmm -> tileplan_with_values)",
+            launches=fl["fwd_counts"][1], launches_per_forward=3, training_launches=fl["train_float"],
+            launches_per_step=6, bf16_launches=fl["bf16_counts"][1], chain_launches=fl["chain_counts"]["B1"],
+            max_abs_err=max(fl["max_err"]["f32"], fl["max_err"]["bf16"]), bf16_max_abs_err=fl["max_err"]["bf16"],
+            forward_ms=ft["weighted_forward_ms"], step_ms=ft["weighted_step_ms"], bf16_forward_ms=ft["bf16_forward_ms"],
+            chain_ms=ft["chain_ms"], plan_build_s=fl["build_s"], losses=fl["train_losses"],
+            bf16=summed(fl["rows_bf16"], over="bfloat16 count tiles [512, 256] t48, f=128, 64, 32"),
+            transposed=summed(fl["rows_t"], over="transposed float32 tiles, f=128, 64, 32"),
+            chain=summed(fl["rows_chain"], over="the updateval chain's float32 tiles, f=32"),
+            **summed(fl["rows_f32"], over="float32 tiles [512, 256] t48 (gcn_norm_val), f=128, 64, 32"),
+        )
+        kernels[0]["epilogue"] = dict(
+            path=f"hybrid_spmm_nn over fig10b_pallas's schedule (int8 [256, 128] t24, residual "
+                 f"{RESIDUAL_BLOCK}), f={FUSED_F}, W [{FUSED_F}, {FUSED_F}]; {FUSED_CALLS} calls",
+            launches=fl["fused_counts"][1], launches_per_call=len(fl["rows_epi"]),
+            max_abs_err=fl["max_err"]["epilogue"], fused_ms=ft["fused_ms"], split_ms=ft["split_ms"],
+            **summed(fl["rows_epi"], over="int8 [256, 128] t24, (f, f_out) = (32, 32)"),
+        )
+        kernels[1]["repair"] = dict(
+            what="C1: one source's as at 120 on the GAT plan, B2/B3/B4 vs plain (stabilize=True and 'bound')",
+            max_abs_err=repair["max_err"],
+        )
         print(json.dumps({"training": dict(
             times=tt, layers=train["layers"], gcn_losses=train["gcn_losses"], gat_losses=train["gat_losses"],
             bits=dict(times=bt_times, gcn_losses=bits["gcn_losses"], gat_losses=bits["gat_losses"],

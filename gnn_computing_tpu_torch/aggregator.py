@@ -1,14 +1,17 @@
 """Aggregator: the user-facing handle bundling a scheduled graph.
 
-Port of the hybrid part of ``gnn_computing_tpu/aggregator.py``: dense int8
-count tiles (schedule.tiles) plus a neighbor-grouping plan for the residual
-edges, run by ops.bcsr.hybrid_spmm (``run``) and ops.bcsr_gat.hybrid_gat
-(``run_gat``).  ``with_transpose=True`` adds the transposed tile plan, the
+Port of the hybrid part of ``gnn_computing_tpu/aggregator.py``: dense
+adjacency tiles (schedule.tiles; float32 edge values by default, as in the
+JAX package, or int8 counts or bfloat16 values) plus a neighbor-grouping
+plan for the residual edges, run by ops.bcsr.hybrid_spmm (``run``) and
+ops.bcsr_gat.hybrid_gat (``run_gat``).  ``with_transpose=True`` (the
+default, as in the JAX package) adds the transposed tile plan, the
 transposed residual plan and the edge map that the ops' backwards stream.
-``bit_tiles=True`` splits the tiles into a 1-bit part (``tile_bits``) and an
-int8 part (``tile``); with ``with_transpose=True`` each part gets its own
+``bit_tiles=True`` splits int8 count tiles into a 1-bit part (``tile_bits``)
+and an int8 part (``tile``); with ``with_transpose=True`` each part gets its own
 transposed plan (``tile_bits_t``, ``tile_t``), the configuration of bench.py
-``--train``.  Every tile kernel reads both formats.  Unlike the JAX package,
+``--train``.  Every tile kernel reads both count formats; B1 also reads
+float32 and bfloat16 tiles.  Unlike the JAX package,
 a transposed 1-bit part stays 1-bit whatever its R: the JAX package unpacks
 it below R = 256, the minimum int8 sublane tile of its Mosaic kernel; the
 CUDA kernels need only R % 8 == 0.  Both store the same counts, so the
@@ -30,7 +33,7 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import hybrid_gat
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
-from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify, split_bit_tiles
+from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify, split_bit_tiles, tile_format
 
 
 @dataclasses.dataclass
@@ -46,6 +49,7 @@ class Aggregator:
     edge_map_t: Optional[object] = None  # transposed residual edge -> residual edge
     tile_bits: Optional[TilePlan] = None  # 1-bit part (bit_tiles=True)
     tile_bits_t: Optional[TilePlan] = None  # its transposed plan (with_transpose=True)
+    in_degree: Optional[object] = None  # int32 [n]: every row's in-edges (tiles and residual)
 
     def tile_parts(self) -> tuple:
         """The non-empty tile parts: the 1-bit part first, as in the JAX
@@ -65,14 +69,15 @@ class Aggregator:
         tile_cols: int = 128,
         threshold: Optional[int] = None,
         residual_block: int = 8,
-        tile_dtype=np.int8,
-        with_transpose: bool = False,
+        tile_dtype=None,
+        with_transpose: bool = True,
         pack: int = 8,
         bit_tiles: bool = False,
         device="cuda",
         **densify_kw,
     ) -> "Aggregator":
-        """Dense count tiles + a neighbor-grouping plan (block
+        """Dense tiles of ``tile_dtype`` (None: float32 edge values; np.int8:
+        edge counts; torch.bfloat16) + a neighbor-grouping plan (block
         ``residual_block``) for the edges left outside them, placed on
         ``device``.  ``pack`` pads tile-row runs to a multiple of that many
         tiles as the TPU kernel needs; the CUDA kernel takes any run length,
@@ -80,9 +85,12 @@ class Aggregator:
         also builds what the backward streams: the transposed tile plan
         (from the unpadded plan, then padded), a neighbor-grouping plan of
         the transposed residual with the same block, and its edge map.
-        ``bit_tiles`` splits the tiles by content (split_bit_tiles) before
-        padding each part, and each part is transposed on its own."""
+        ``bit_tiles`` splits int8 count tiles by content (split_bit_tiles)
+        before padding each part, and each part is transposed on its own;
+        it raises ValueError over float tiles, as the JAX package asserts."""
         dev = resolve_device(device)
+        if bit_tiles and tile_format(tile_dtype) != "int8":
+            raise ValueError("bit_tiles needs integer count tiles (tile_dtype=np.int8)")
         tile, res = densify(
             g, val=val, tile_rows=tile_rows, tile_cols=tile_cols,
             threshold=threshold, dtype=tile_dtype, **densify_kw,
@@ -109,6 +117,7 @@ class Aggregator:
             edge_map_t=edge_map,
             tile_bits=None if tile_b is None else tile_b.pad_runs(pack),
             tile_bits_t=tile_bt,
+            in_degree=g.degrees,
         )
         return agg.to(dev)
 
@@ -127,6 +136,7 @@ class Aggregator:
             edge_map_t=None if self.edge_map_t is None else torch.as_tensor(self.edge_map_t).to(dev, torch.int64),
             tile_bits=put(self.tile_bits),
             tile_bits_t=put(self.tile_bits_t),
+            in_degree=None if self.in_degree is None else torch.as_tensor(self.in_degree).to(dev, torch.int32),
         )
 
     def _plans_t(self):
@@ -174,4 +184,5 @@ class Aggregator:
             att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype,
             stabilize=stabilize, dot_mode=dot_mode,
             tp_t=tp_t, plan_t=plan_t, edge_map_t=self.edge_map_t,
+            has_edges=None if self.in_degree is None else self.in_degree > 0,
         )

@@ -11,31 +11,32 @@
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination
 // row i and tile column j of the run's tiles,
-//   s_ij  = cnt_ij > 0 ? cnt_ij * max(u1_i * v1_j, u2_i * v2_j) : 0
+//   z_ij  = ad_i + as_j
+//   s_ij  = cnt_ij > 0 ? cnt_ij * exp(max(z_ij, slope*z_ij) - M_i) : 0
 //   num_i = sum_j s_ij * h_j          den_i = sum_j s_ij
-// with per-node exponentials, formed by the caller in O(n):
-//   u12_i = (exp(ad_i - shift_i), exp(slope*ad_i - shift_i))
-//   v12_j = (exp(as_j), exp(slope*as_j)).
-// exp is monotone, so max(u1 v1, u2 v2) = exp(max(z, slope*z) - shift) =
-// exp(leaky_relu(z) - shift) with z = ad_i + as_j: the edge's attention
-// score, exact for any slope.  The softmax row shift folds into u12 in the
-// wrapper; the kernel never sees it.
+// with dm_i = (ad_i, M_i) (M the softmax row shift, 0 unstabilized) and
+// as_j the src half of att: exp(leaky_relu(z) - M), the edge's attention
+// score.  With the exact or the bound shift every score is <= 1.
 //
 // Numerics: cnt is an exact integer (<= 127; 0 or 1 in a 1-bit tile) and
-// each branch product is one float32 rounding, so s_ij carries float32
-// precision; num and den are float32 sums.  That meets the TPU's 'split2' dot (score and h rounded to ~16
-// mantissa bits, error ~2^-16) and its 'exact' f32 dot alike.  Two traps,
-// both designed around:
+// the score is one __expf (the MUFU ex2 unit: relative error ~2^-21 plus
+// |x| * 2^-24 for the argument x <= 0 of a shifted score, results below
+// float32's normal range flushed to 0) of a float32 argument; num and den
+// are float32 sums.  That meets the TPU's 'split2'
+// dot (score and h rounded to ~16 mantissa bits, error ~2^-16) and its
+// 'exact' f32 dot alike.  Two traps, both designed around:
 //   - select, never multiply, on cnt == 0: in the unstabilized form the
-//     branch product of a non-edge can overflow to inf, and 0 * inf = NaN;
-//   - both branch products are formed directly.  The TPU kernel factors u1
-//     out (q = u2/u1), which is NaN once u1 underflows under a loose shift.
+//     score of a non-edge can overflow to inf, and 0 * inf = NaN;
+//   - the score is formed from ad, as and M, never from per-node factors.
+//     The TPU kernel multiplies u1_i = exp(ad_i - M_i) by v1_j = exp(as_j),
+//     and v1_j is inf once as_j > ~88.7 whatever the shift; its q = u2/u1
+//     is NaN once u1 underflows under a loose shift.
 //
 // Design (the shape of B1, csrc/bcsr_spmm.cu): one block owns a slab of BR
 // rows of one row-tile run and BF feature columns.  It walks the run's tiles;
 // per staged [BR, BK] piece each thread scores 8 cells of one row into shared
-// memory (8 count bytes in one load, u of its row in registers, v read only
-// for cells with a count), the block stages the H tile [BK, BF], and FFMAs form the tile's
+// memory (8 count bytes in one load, dm of its row in registers, as read
+// and one __expf taken only for cells with a count), the block stages the H tile [BK, BF], and FFMAs form the tile's
 // product in registers.  Each tile's partial (num and the thread's den slice)
 // is added to the run's sum when the tile is done: a single float32 sum over
 // a hub run of ~10^5 columns drifts ~1e-5.  Outputs are written once at the
@@ -43,8 +44,8 @@
 // blockIdx.y == 0 writes den.
 //
 // Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
-// cores): the function reads A (T*R*C bytes), h (n_src*f*4), u12 and v12
-// (8 bytes a node) and writes num and den (n*(f+1)*4), against 2*nnz*(f+1)
+// cores): the function reads A (T*R*C bytes), h (n_src*f*4), dm and as
+// (12 bytes a node) and writes num and den (n*(f+1)*4), against 2*nnz*(f+1)
 // FLOPs for the nnz nonzero cells.  At the quick scale (4,024 tiles of
 // [512, 256], f = 128) that is about 0.18 ms, bytes-bound.  A 1-bit part
 // reads R/8*C A bytes a tile.
@@ -74,10 +75,10 @@ gat_bcsr_kernel(const uint8_t* __restrict__ a,
                 const int32_t* __restrict__ tile_col,
                 const int32_t* __restrict__ run_start,
                 const float* __restrict__ h,
-                const float2* __restrict__ u12,
-                const float2* __restrict__ v12,
+                const float2* __restrict__ dm,
+                const float* __restrict__ asrc,
                 float* __restrict__ num, float* __restrict__ den,
-                int R, int C, int n, int n_src, int f, int slabs_per_run) {
+                int R, int C, int n, int n_src, int f, float slope, int slabs_per_run) {
   constexpr int TN = BF / 16;
   // +4 pad keeps rows 16-byte aligned and the transposing stores free of
   // bank conflicts (32 consecutive rows per warp, one k)
@@ -95,7 +96,7 @@ gat_bcsr_kernel(const uint8_t* __restrict__ a,
   const bool vec_a = (C % 8) == 0;
   const int srow = r0 + ai;
   const int64_t sgrow = (int64_t)run * R + srow;
-  const float2 u = (srow < R && sgrow < n) ? u12[sgrow] : make_float2(0.f, 0.f);
+  const float2 u = (srow < R && sgrow < n) ? dm[sgrow] : make_float2(0.f, 0.f);
   int shift = 0;
   const int64_t row_off = srow < R ? Fmt::row_offset(srow, R, C, &shift) : 0;
 
@@ -133,8 +134,8 @@ gat_bcsr_kernel(const uint8_t* __restrict__ a,
         const int64_t src = col0 + kk + q;
         float s = 0.f;
         if (cnt[q] > 0 && src < n_src) {
-          const float2 v = v12[src];
-          s = (float)cnt[q] * fmaxf(u.x * v.x, u.y * v.y);
+          const float z = u.x + asrc[src];
+          s = (float)cnt[q] * __expf(fmaxf(z, slope * z) - u.y);
         }
         ss[aj + q][ai] = s;
         den_part += s;
@@ -199,9 +200,9 @@ gat_bcsr_kernel(const uint8_t* __restrict__ a,
 }
 
 template <class Fmt>
-int launch(const void* a, const void* tile_col, const void* run_start, const void* h, const void* u12,
-           const void* v12, void* num, void* den, int num_row_tiles, int R, int C, int n, int n_src, int f,
-           int device, void* stream) {
+int launch(const void* a, const void* tile_col, const void* run_start, const void* h, const void* dm,
+           const void* asrc, void* num, void* den, int num_row_tiles, int R, int C, int n, int n_src, int f,
+           float slope, int device, void* stream) {
   if (num_row_tiles == 0 || n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
   // card in it before launching on the caller's stream
@@ -214,17 +215,17 @@ int launch(const void* a, const void* tile_col, const void* run_start, const voi
   const int32_t* col = static_cast<const int32_t*>(tile_col);
   const int32_t* rs = static_cast<const int32_t*>(run_start);
   const float* hf = static_cast<const float*>(h);
-  const float2* u = static_cast<const float2*>(u12);
-  const float2* v = static_cast<const float2*>(v12);
+  const float2* u = static_cast<const float2*>(dm);
+  const float* v = static_cast<const float*>(asrc);
   float* o = static_cast<float*>(num);
   float* d = static_cast<float*>(den);
   // at least one f-slice, so den is written even for f == 0
   if (f <= 32) {
     const dim3 grid(num_row_tiles * slabs, 1);
-    gat_bcsr_kernel<32, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slabs);
+    gat_bcsr_kernel<32, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slope, slabs);
   } else {
     const dim3 grid(num_row_tiles * slabs, (f + 63) / 64);
-    gat_bcsr_kernel<64, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slabs);
+    gat_bcsr_kernel<64, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, u, v, o, d, R, C, n, n_src, f, slope, slabs);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -232,16 +233,16 @@ int launch(const void* a, const void* tile_col, const void* run_start, const voi
 }  // namespace
 
 extern "C" int gat_bcsr_i8_f32(const void* a, const void* tile_col, const void* run_start, const void* h,
-                               const void* u12, const void* v12, void* num, void* den, int num_row_tiles,
-                               int R, int C, int n, int n_src, int f, int device, void* stream) {
-  return launch<CountTiles>(a, tile_col, run_start, h, u12, v12, num, den, num_row_tiles, R, C, n, n_src, f,
-                            device, stream);
+                               const void* dm, const void* asrc, void* num, void* den, int num_row_tiles,
+                               int R, int C, int n, int n_src, int f, float slope, int device, void* stream) {
+  return launch<CountTiles>(a, tile_col, run_start, h, dm, asrc, num, den, num_row_tiles, R, C, n, n_src, f,
+                            slope, device, stream);
 }
 
 extern "C" int gat_bcsr_b1_f32(const void* a, const void* tile_col, const void* run_start, const void* h,
-                               const void* u12, const void* v12, void* num, void* den, int num_row_tiles,
-                               int R, int C, int n, int n_src, int f, int device, void* stream) {
+                               const void* dm, const void* asrc, void* num, void* den, int num_row_tiles,
+                               int R, int C, int n, int n_src, int f, float slope, int device, void* stream) {
   if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<BitTiles>(a, tile_col, run_start, h, u12, v12, num, den, num_row_tiles, R, C, n, n_src, f,
-                          device, stream);
+  return launch<BitTiles>(a, tile_col, run_start, h, dm, asrc, num, den, num_row_tiles, R, C, n, n_src, f,
+                          slope, device, stream);
 }

@@ -11,19 +11,20 @@
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination row
 // i, over the cells (i, j) of its run's tiles that hold a count,
-//   b1 = u1_i v1_j,  b2 = u2_i v2_j,  s_ij = cnt_ij * max(b1, b2)
-//   lrelu'_ij = b1 >= b2 ? 1 : slope
+//   z_ij = ad_i + as_j,  s_ij = cnt_ij * exp(max(z_ij, slope z_ij) - M_i)
+//   lrelu'_ij = z_ij >= 0 ? 1 : slope
 //   d_ad_i = sum_j lrelu'_ij * s_ij * (<gbar_i, h_j> - c_i)
-// with u12/v12 the per-node exponentials of the forward (the softmax shift
-// already folded into u12 by the caller), gbar_i = ct_i / den_i and
-// c_i = <ct_i, out_i> / den_i.  Cells without a count are skipped, never
-// multiplied: a non-edge's branch product can be inf, and 0 * inf = NaN.
+// with the forward's scores: dm_i = (ad_i, M_i), M the softmax row shift,
+// as_j the src half of att (gat_bcsr.cu), gbar_i = ct_i / den_i and
+// c_i = <ct_i, out_i> / den_i; the score is one __expf, as in B2.  Cells
+// without a count are skipped, never scored: a non-edge's unstabilized
+// score can be inf, and 0 * inf = NaN.
 //
 // Design: sampled dense-dense product reduced to one value per row, done
 // only where a cell holds an edge (~0.7% of the cells at the training
 // plan).  One warp owns one row of one run; a block holds 8 such rows of
 // one run.  The warp keeps gbar_i (4 features a lane, f <= 128; wider f
-// reads the rest from memory), u12_i and c_i in registers and walks the
+// reads the rest from memory), dm_i and c_i in registers and walks the
 // run's tiles: per tile it loads the row's counts (8 bytes a lane),
 // compacts the nonzero cells into a list in shared memory (tile_cells.cuh),
 // and takes them 8 at a time, so 8 rows of h are in flight at once: lanes
@@ -35,7 +36,7 @@
 //
 // Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
 // cores): the function reads A (T*R*C bytes), h and gbar (n*f*4 each),
-// u12/v12 (8 bytes a node) and c, and writes d_ad (n*4), against 2*cells*f
+// dm and as (12 bytes a node) and c, and writes d_ad (n*4), against 2*cells*f
 // FLOPs for the nonzero cells.  At the quick training plan (7,090 tiles of
 // [256, 256], 3.3M nonzero cells, f = 128) that is about 0.16 ms,
 // bytes-bound (A alone is 0.14 ms); a 1-bit part reads R/8*C bytes a tile.
@@ -70,8 +71,8 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
                    const float* __restrict__ h,
                    const float* __restrict__ gbar,
                    const float* __restrict__ c,
-                   const float2* __restrict__ u12,
-                   const float2* __restrict__ v12,
+                   const float2* __restrict__ dm,
+                   const float* __restrict__ asrc,
                    float* __restrict__ out,
                    int R, int C, int n, int n_src, int f, float slope, int slabs_per_run) {
   __shared__ int lists[kWarps][kChunk];
@@ -85,7 +86,7 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
   int shift = 0;
   const int64_t row_off = Fmt::row_offset(r, R, C, &shift);
 
-  const float2 u = u12[i];
+  const float2 u = dm[i];
   const float ci = c[i];
   const float* gi = gbar + i * f;
   float gr[kKPL];
@@ -111,10 +112,10 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
           if (src[g] >= n_src) cn[g] = 0;
         }
         float hv[kG][kKPL];
-        float2 vv[kG];
+        float vv[kG];
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          vv[g] = cn[g] ? v12[src[g]] : make_float2(0.f, 0.f);
+          vv[g] = cn[g] ? asrc[src[g]] : 0.f;
 #pragma unroll
           for (int m = 0; m < kKPL; ++m)
             hv[g][m] = cn[g] && lane + 32 * m < f ? h[src[g] * f + lane + 32 * m] : 0.f;
@@ -136,9 +137,9 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
           if (!cn[g]) continue;
-          const float b1 = u.x * vv[g].x, b2 = u.y * vv[g].y;
-          const float s = (float)cn[g] * fmaxf(b1, b2);
-          const float lp = b1 >= b2 ? 1.f : slope;
+          const float z = u.x + vv[g];
+          const float s = (float)cn[g] * __expf(fmaxf(z, slope * z) - u.y);
+          const float lp = z >= 0.f ? 1.f : slope;
           part += lp * s * (pd[g] - ci);
         }
       }
@@ -150,7 +151,7 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
 
 template <class Fmt>
 int launch(const void* a, const void* tile_col, const void* run_start, const void* h, const void* gbar,
-           const void* c, const void* u12, const void* v12, void* out, int num_row_tiles, int R, int C,
+           const void* c, const void* dm, const void* asrc, void* out, int num_row_tiles, int R, int C,
            int n, int n_src, int f, float slope, int device, void* stream) {
   if (num_row_tiles == 0 || n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
@@ -161,26 +162,26 @@ int launch(const void* a, const void* tile_col, const void* run_start, const voi
   gat_bwd_dad_kernel<Fmt><<<dim3(num_row_tiles * slabs), dim3(kThreads), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const int32_t*>(tile_col),
       static_cast<const int32_t*>(run_start), static_cast<const float*>(h),
-      static_cast<const float*>(gbar), static_cast<const float*>(c), static_cast<const float2*>(u12),
-      static_cast<const float2*>(v12), static_cast<float*>(out), R, C, n, n_src, f, slope, slabs);
+      static_cast<const float*>(gbar), static_cast<const float*>(c), static_cast<const float2*>(dm),
+      static_cast<const float*>(asrc), static_cast<float*>(out), R, C, n, n_src, f, slope, slabs);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int gat_bwd_dad_i8_f32(const void* a, const void* tile_col, const void* run_start,
-                                  const void* h, const void* gbar, const void* c, const void* u12,
-                                  const void* v12, void* out, int num_row_tiles, int R, int C, int n,
+                                  const void* h, const void* gbar, const void* c, const void* dm,
+                                  const void* asrc, void* out, int num_row_tiles, int R, int C, int n,
                                   int n_src, int f, float slope, int device, void* stream) {
-  return launch<CountTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, out, num_row_tiles, R, C, n,
+  return launch<CountTiles>(a, tile_col, run_start, h, gbar, c, dm, asrc, out, num_row_tiles, R, C, n,
                             n_src, f, slope, device, stream);
 }
 
 extern "C" int gat_bwd_dad_b1_f32(const void* a, const void* tile_col, const void* run_start,
-                                  const void* h, const void* gbar, const void* c, const void* u12,
-                                  const void* v12, void* out, int num_row_tiles, int R, int C, int n,
+                                  const void* h, const void* gbar, const void* c, const void* dm,
+                                  const void* asrc, void* out, int num_row_tiles, int R, int C, int n,
                                   int n_src, int f, float slope, int device, void* stream) {
   if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<BitTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, out, num_row_tiles, R, C, n,
+  return launch<BitTiles>(a, tile_col, run_start, h, gbar, c, dm, asrc, out, num_row_tiles, R, C, n,
                           n_src, f, slope, device, stream);
 }

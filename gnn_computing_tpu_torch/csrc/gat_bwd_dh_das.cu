@@ -12,22 +12,22 @@
 // source row-tile, the tiles of row-tile r being run_start[r] ..
 // run_start[r+1].  For every source row j, over the cells (j, i) of its
 // run's tiles that hold a count,
-//   b1 = v1_j u1_i,  b2 = v2_j u2_i,  s_ij = cnt_ij * max(b1, b2)
-//   lrelu'_ij = b1 >= b2 ? 1 : slope
+//   z_ij = ad_i + as_j,  s_ij = cnt_ij * exp(max(z_ij, slope z_ij) - M_i)
+//   lrelu'_ij = z_ij >= 0 ? 1 : slope
 //   dh_j   = sum_i s_ij * gbar_i
 //   d_as_j = sum_i lrelu'_ij * s_ij * (<gbar_i, h_j> - c_i)
-// with u12/v12 the per-node exponentials of the forward (the softmax shift
-// already folded into u12 by the caller; the kernel never sees it),
-// gbar_i = ct_i / den_i and c_i = <ct_i, out_i> / den_i.  Cells without a
-// count are skipped, never multiplied: a non-edge's branch product can be
-// inf, and 0 * inf = NaN.
+// with the forward's scores: dm_i = (ad_i, M_i) over the destinations (this
+// plan's columns), as_j over the sources (its rows), gbar_i = ct_i / den_i
+// and c_i = <ct_i, out_i> / den_i; the score is one __expf, as in B2.
+// Cells without a count are skipped, never scored: a non-edge's unstabilized score can be inf, and 0 * inf =
+// NaN.
 //
 // Design: B3's (gat_bwd_dad.cu) with the roles swapped.  One warp owns one
 // source row of one run and a 128-wide slice of f (blockIdx.y); a block
-// holds 8 such rows.  The warp keeps v12_j and h_j in registers (4
+// holds 8 such rows.  The warp keeps as_j and h_j in registers (4
 // features a lane) and walks the run's tiles: per tile it compacts the
 // row's nonzero cells (tile_cells.cuh) and takes them 8 at a time, loading
-// the 8 gbar_i rows at once.  Each lane adds s_ij * gbar_i into its 4 dh
+// the 8 gbar_i rows and dm_i at once.  Each lane adds s_ij * gbar_i into its 4 dh
 // features; the slice with blockIdx.y == 0 also forms the full-f dot
 // <gbar_i, h_j> (features past 128 read from memory), sums it over the warp
 // and adds the d_as term.  One launch computes both outputs.  Each tile's
@@ -37,7 +37,7 @@
 //
 // Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
 // cores): the function reads A_t (T*R*C bytes), h and gbar (n*f*4 each),
-// u12/v12 (8 bytes a node) and c, and writes dh (n_src*f*4) and d_as
+// dm and as (12 bytes a node) and c, and writes dh (n_src*f*4) and d_as
 // (n_src*4), against 4*cells*f FLOPs for the nonzero cells.  At the quick
 // training plan (7,125 transposed tiles of [256, 256], 3.3M nonzero cells,
 // f = 128) that is about 0.18 ms, bytes-bound; a 1-bit part reads R/8*C
@@ -73,8 +73,8 @@ gat_bwd_dh_das_kernel(const uint8_t* __restrict__ a,
                       const float* __restrict__ h,
                       const float* __restrict__ gbar,
                       const float* __restrict__ c,
-                      const float2* __restrict__ u12,
-                      const float2* __restrict__ v12,
+                      const float2* __restrict__ dm,
+                      const float* __restrict__ asrc,
                       float* __restrict__ dh, float* __restrict__ d_as,
                       int R, int C, int n, int n_cols, int f, float slope, int slabs_per_run) {
   __shared__ int lists[kWarps][kChunk];
@@ -90,7 +90,7 @@ gat_bwd_dh_das_kernel(const uint8_t* __restrict__ a,
   const bool with_das = blockIdx.y == 0;
   const int f0 = blockIdx.y * kSlice;
 
-  const float2 v = v12[j];
+  const float v = asrc[j];
   const float* hj = h + j * f;
   float hr[kKPL];  // h_j over the first slice, for the d_as dot
 #pragma unroll
@@ -122,7 +122,7 @@ gat_bwd_dh_das_kernel(const uint8_t* __restrict__ a,
         float2 uu[kG];
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          uu[g] = cn[g] ? u12[dst[g]] : make_float2(0.f, 0.f);
+          uu[g] = cn[g] ? dm[dst[g]] : make_float2(0.f, 0.f);
 #pragma unroll
           for (int m = 0; m < kKPL; ++m) {
             const int k = f0 + lane + 32 * m;
@@ -132,9 +132,9 @@ gat_bwd_dh_das_kernel(const uint8_t* __restrict__ a,
         float s[kG], lp[kG];
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          const float b1 = v.x * uu[g].x, b2 = v.y * uu[g].y;
-          s[g] = cn[g] ? (float)cn[g] * fmaxf(b1, b2) : 0.f;
-          lp[g] = b1 >= b2 ? 1.f : slope;
+          const float z = uu[g].x + v;
+          s[g] = cn[g] ? (float)cn[g] * __expf(fmaxf(z, slope * z) - uu[g].y) : 0.f;
+          lp[g] = z >= 0.f ? 1.f : slope;
 #pragma unroll
           for (int m = 0; m < kKPL; ++m) part_h[m] = fmaf(s[g], gv[g][m], part_h[m]);
         }
@@ -172,7 +172,7 @@ gat_bwd_dh_das_kernel(const uint8_t* __restrict__ a,
 
 template <class Fmt>
 int launch(const void* a, const void* tile_col, const void* run_start, const void* h, const void* gbar,
-           const void* c, const void* u12, const void* v12, void* dh, void* d_as, int num_row_tiles, int R,
+           const void* c, const void* dm, const void* asrc, void* dh, void* d_as, int num_row_tiles, int R,
            int C, int n, int n_cols, int f, float slope, int device, void* stream) {
   if (num_row_tiles == 0 || n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
@@ -185,8 +185,8 @@ int launch(const void* a, const void* tile_col, const void* run_start, const voi
   gat_bwd_dh_das_kernel<Fmt><<<grid, dim3(kThreads), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const int32_t*>(tile_col),
       static_cast<const int32_t*>(run_start), static_cast<const float*>(h),
-      static_cast<const float*>(gbar), static_cast<const float*>(c), static_cast<const float2*>(u12),
-      static_cast<const float2*>(v12), static_cast<float*>(dh), static_cast<float*>(d_as), R, C, n,
+      static_cast<const float*>(gbar), static_cast<const float*>(c), static_cast<const float2*>(dm),
+      static_cast<const float*>(asrc), static_cast<float*>(dh), static_cast<float*>(d_as), R, C, n,
       n_cols, f, slope, slabs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -194,20 +194,20 @@ int launch(const void* a, const void* tile_col, const void* run_start, const voi
 }  // namespace
 
 extern "C" int gat_bwd_dh_das_i8_f32(const void* a, const void* tile_col, const void* run_start,
-                                     const void* h, const void* gbar, const void* c, const void* u12,
-                                     const void* v12, void* dh, void* d_as, int num_row_tiles, int R,
+                                     const void* h, const void* gbar, const void* c, const void* dm,
+                                     const void* asrc, void* dh, void* d_as, int num_row_tiles, int R,
                                      int C, int n, int n_cols, int f, float slope, int device,
                                      void* stream) {
-  return launch<CountTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, dh, d_as, num_row_tiles, R, C,
+  return launch<CountTiles>(a, tile_col, run_start, h, gbar, c, dm, asrc, dh, d_as, num_row_tiles, R, C,
                             n, n_cols, f, slope, device, stream);
 }
 
 extern "C" int gat_bwd_dh_das_b1_f32(const void* a, const void* tile_col, const void* run_start,
-                                     const void* h, const void* gbar, const void* c, const void* u12,
-                                     const void* v12, void* dh, void* d_as, int num_row_tiles, int R,
+                                     const void* h, const void* gbar, const void* c, const void* dm,
+                                     const void* asrc, void* dh, void* d_as, int num_row_tiles, int R,
                                      int C, int n, int n_cols, int f, float slope, int device,
                                      void* stream) {
   if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<BitTiles>(a, tile_col, run_start, h, gbar, c, u12, v12, dh, d_as, num_row_tiles, R, C, n,
+  return launch<BitTiles>(a, tile_col, run_start, h, gbar, c, dm, asrc, dh, d_as, num_row_tiles, R, C, n,
                           n_cols, f, slope, device, stream);
 }

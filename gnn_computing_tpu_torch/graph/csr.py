@@ -83,6 +83,15 @@ class CSRGraph:
         np.cumsum(counts, out=indptr[1:])
         return cls(indptr=indptr.astype(np.int32), indices=src, val=val, n_src=n_src)
 
+    def gcn_norm_val(self) -> np.ndarray:
+        """Symmetric GCN normalization 1/sqrt(deg_dst * deg_src) per edge,
+        float32 (degrees below 1 count as 1), as the JAX package computes
+        it."""
+        out_deg = np.bincount(self.indices, minlength=self.n_src).astype(np.float32)
+        in_deg = self.degrees.astype(np.float32)
+        denom = np.sqrt(np.maximum(in_deg[self.dst_per_edge], 1.0) * np.maximum(out_deg[self.indices], 1.0))
+        return (1.0 / denom).astype(np.float32)
+
     def transpose(self) -> "CSRGraph":
         """Reverse every edge (dst <-> src), for backward aggregation."""
         return self.transpose_with_map()[0]

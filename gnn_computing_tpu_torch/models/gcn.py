@@ -2,7 +2,8 @@
 
 Port of ``gnn_computing_tpu/models/gcn.py`` for hybrid aggregators: each
 layer transforms first (a float32 matmul, TF32 off — the JAX code's
-Precision.HIGHEST), aggregates over the scheduled graph, then applies ReLU.
+Precision.HIGHEST), aggregates over the scheduled graph, then applies ReLU;
+``LayerOpts.aggregate_first`` aggregates first and transforms after.
 The benchmark model is the 3-layer 512 -> 128 -> 64 -> 32 stack.
 """
 
@@ -24,10 +25,15 @@ BENCH_DIMS = (512, 128, 64, 32)
 class LayerOpts:
     """Per-layer numeric modes for hybrid aggregators (defaults are exact).
 
+    aggregate_first: relu(agg(h) @ W) instead of relu(agg(h @ W)), equal by
+      the aggregation's linearity; the aggregation then runs on the previous
+      layer's (nonnegative, post-ReLU) activations at the layer's input
+      width, so 16-bit operand modes do not cancel there.
     residual_gather_dtype: see ops.spmm.weighted_task_sums.
     tile_h_mode: see ops.bcsr.round_h.
     """
 
+    aggregate_first: bool = False
     residual_gather_dtype: object = None
     tile_h_mode: str = "auto"
 
@@ -46,9 +52,14 @@ def fast_layer_opts(dims: Sequence[int] = BENCH_DIMS) -> list:
 
 
 def gcn_layer(agg, h: torch.Tensor, w: torch.Tensor, opts: Optional[LayerOpts] = None) -> torch.Tensor:
-    """relu(agg.run(h @ w)) for a hybrid Aggregator."""
+    """relu(agg.run(h @ w)) for a hybrid Aggregator, or relu(agg.run(h) @ w)
+    with ``opts.aggregate_first``."""
     opts = LayerOpts() if opts is None else opts
-    z = agg.run(h @ w, residual_gather_dtype=opts.residual_gather_dtype, tile_h_mode=opts.tile_h_mode)
+
+    def aggregate(x):
+        return agg.run(x, residual_gather_dtype=opts.residual_gather_dtype, tile_h_mode=opts.tile_h_mode)
+
+    z = aggregate(h) @ w if opts.aggregate_first else aggregate(h @ w)
     return torch.relu(z)
 
 

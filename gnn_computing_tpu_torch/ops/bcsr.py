@@ -1,7 +1,8 @@
 """Block-sparse aggregation over dense count tiles + the hybrid op.
 
 Port of ``gnn_computing_tpu/ops/bcsr.py``.  ``bcsr_spmm``
-computes out = A_tiles @ h over int8 or 1-bit tiles: on a CUDA tensor it
+computes out = A_tiles @ h over int8, 1-bit, float32 or bfloat16 tiles
+(schedule.tiles): on a CUDA tensor it
 launches the hand-written kernel (ops.cuda_bcsr, the port of the TPU kernel
 ``bcsr_spmm_pallas``); on a CPU tensor it runs ``bcsr_spmm_plain``, the
 counterpart of the JAX package's ``bcsr_spmm_xla``.  There is no fallback
@@ -12,17 +13,23 @@ The ``h_mode`` rounding is applied here, outside the kernel, exactly as the
 JAX package emulates it on its portable path: 'split' rounds h to hi + lo
 bf16 chunks (16 mantissa bits), 'bf16' to one bf16 chunk; 'split3', 'auto'
 and 'native' keep float32 as it is.  Integer count tiles times a split
-operand are exact products, so only the float32 sums round.  Factored
+operand are exact products, so only the float32 sums round.  Over float
+tiles 'auto' is the JAX package's 'split3' for bfloat16 tiles and
+'native' for float32 tiles; on the card both are float32 FFMA (a bf16
+value widens exactly), the exactness class of both.  Factored
 plans scale h by ``scale_src`` before the tiles and the result by
 ``scale_dst`` after them.
 
 ``bcsr_rowmax`` is the per-row max over the same tiles (the GAT softmax
 stabilizer's dense part): the B5 kernel (ops.cuda_rowmax) on a CUDA
-tensor, ``bcsr_rowmax_plain`` on a CPU tensor; int8 or 1-bit tiles.
+tensor, ``bcsr_rowmax_plain`` on a CPU tensor; B5 reads int8 or 1-bit
+tiles (float tiles raise NotImplementedError on the card), the plain
+version any format.
 
 ``hybrid_spmm`` is a ``torch.autograd.Function`` (the JAX op's custom VJP):
 its backward aggregates the cotangent over the transposed plans, B1 over
-the transposed tiles plus the transposed residual.  The kernel wrappers
+the transposed tiles (of the forward's format) plus the transposed
+residual.  The kernel wrappers
 refuse tensors that require grad with grad enabled, so no kernel output
 ever stands in a graph without its Function's backward.
 """

@@ -1,15 +1,18 @@
 """GAT attention aggregation over dense count tiles, hybrid with the residual.
 
-Port of ``gnn_computing_tpu/ops/bcsr_gat.py``.  Leaky-relu is
-piecewise linear, so each attention score factors into per-node
-exponentials on each branch:
+Port of ``gnn_computing_tpu/ops/bcsr_gat.py``.  A tile cell (i, j) with
+count c scores
 
-  exp(lrelu(ad_i + as_j) - M_i) = max(u1_i v1_j, u2_i v2_j)
-  u12_i = (exp(ad_i - M_i), exp(s ad_i - M_i)),  v12_j = (exp(as_j), exp(s as_j))
+  s_ij = c * exp(lrelu(ad_i + as_j) - M_i),   lrelu(z) = max(z, slope z),
 
-(exp is monotone and lrelu(z) = max(z, s z)).  A tile cell with count c
-scores c * max(u1 v1, u2 v2); num and den are the score-weighted sums of h
-and of 1 over the tiles.  ``gat_bcsr`` launches the B2 kernel
+with ad / as the dst / src halves of att and M a per-destination shift
+(0 unstabilized).  num and den are the score-weighted sums of h and of 1
+over the tiles.  The score is formed from ad, as and M for every cell that
+holds a count (a non-edge is never scored), so with the exact or the bound
+shift every score is <= 1 and nothing overflows.  The JAX package factors
+it into per-node exponentials u12_i = exp((ad_i, s ad_i) - M_i) and
+v12_j = exp((as_j, s as_j)); v1_j overflows once as_j > ~88.7 whatever the
+shift, a fault the port does not copy.  ``gat_bcsr`` launches the B2 kernel
 (ops.cuda_gat) on a CUDA tensor and runs ``gat_bcsr_plain`` on a CPU
 tensor; there is no fallback between the two.  ``hybrid_gat`` adds the
 residual part (ops.gat.gat_aggregate_parts) and divides.
@@ -26,28 +29,36 @@ denominators still merge exactly; it cancels in num/den):
   stabilize=True / 'exact': M_i = lrelu(ad_i + max over in-neighbors of as_j),
       over the tiles (bcsr_rowmax, kernel B5) and the residual;
   stabilize='bound': M_i = max(ad_i + A, s (ad_i + A)), A = max_j as_j: O(n),
-      no pass over the adjacency.
+      no pass over the adjacency.  A row whose neighbor max lies far below
+      A sees every score shrink: past ~44 logits den < 2^-64 (the backward's
+      ct / den can overflow), past ~100 every score underflows and den is
+      0.  Such rows (den < 2^-64 with in-edges) are found after the pass and
+      get the exact shift, and the pass is redone (``_bound_rescue``).
+      Finding them costs one device-to-host read of a flag a call; the
+      rescue itself runs only when a row needs it.
 
 Backward (``hybrid_gat`` is a ``torch.autograd.Function``, the JAX op's
-custom VJP).  out_i = num_i / den_i with s_ij = cnt_ij exp(lrelu(ad_i + as_j)
-- M_i) and M a constant (it cancels in num/den).  With gbar_i = ct_i / den_i
-and c_i = <ct_i, out_i> / den_i:
+custom VJP).  out_i = num_i / den_i with M a constant (it cancels in
+num/den).  With gbar_i = ct_i / den_i and c_i = <ct_i, out_i> / den_i:
 
   dh_j   = sum_i s_ij gbar_i                               (transposed SpMM)
   d ad_i = sum_j lrelu'(z_ij) s_ij (<gbar_i, h_j> - c_i)   (row sums)
   d as_j = sum_i lrelu'(z_ij) s_ij (<gbar_i, h_j> - c_i)   (column sums)
 
-and on the factored scores the branch test z > 0 is u1 v1 >= u2 v2.  d_ad
-streams the forward tile plan (``gat_bwd_dad``: the B3 kernel on CUDA),
-(dh, d_as) the transposed one (``gat_bwd_dh_das``: B4), and the residual
-has a flat hand-written backward over the forward and transposed residual
-plans (``_residual_bwd_flat``).  The JAX package's fallback of AD through
-the forward when no transposed plans exist is not ported: the backward
-raises and asks for them.
+with lrelu'(z) = 1 for z >= 0, else slope.  d_ad streams the forward tile
+plan (``gat_bwd_dad``: the B3 kernel on CUDA), (dh, d_as) the transposed
+one (``gat_bwd_dh_das``: B4); both score the cells as the forward does, from
+(ad, M) per destination and as per source.  The residual has a flat
+hand-written backward over the forward and transposed residual plans
+(``_residual_bwd_flat``).  The JAX package's fallback of AD through the
+forward when no transposed plans exist is not ported: the backward raises
+and asks for them.
 
 Every function here takes int8 count tiles and 1-bit tiles alike: the plain
-versions read a chunk of counts at a time through ``TilePlan.counts``, the
-kernels decode the 1-bit format themselves (csrc/bit_tiles.cuh).
+versions read a chunk of counts at a time through ``TilePlan.counts`` (and
+so also take float tiles, as the JAX XLA paths do), the kernels decode the
+1-bit format themselves (csrc/bit_tiles.cuh) and refuse float tiles (B2-B5
+over float A are not ported yet).
 """
 
 from __future__ import annotations
@@ -71,19 +82,22 @@ from gnn_computing_tpu_torch.schedule.tiles import TilePlan
 DOT_MODES = ("exact", "split2")
 
 
-def _node_factors(att: torch.Tensor, slope: float, row_shift: Optional[torch.Tensor] = None):
-    """(u1, u2, v1, v2): exponentials of the dst and src attention halves on
-    both branches; ``row_shift`` folds into the dst side only."""
+def _score_terms(att: torch.Tensor, row_shift: Optional[torch.Tensor] = None):
+    """(dm [n, 2] = (ad_i, M_i) per destination, as [n] per source): what a
+    cell's score is formed from (module doc); M is 0 without a shift."""
     ad = att[:, 0].float()
-    asrc = att[:, 1].float()
-    sh = 0.0 if row_shift is None else row_shift.float()
-    return torch.exp(ad - sh), torch.exp(slope * ad - sh), torch.exp(asrc), torch.exp(slope * asrc)
+    m = torch.zeros_like(ad) if row_shift is None else row_shift.float()
+    return torch.stack([ad, m], dim=1), att[:, 1].float().contiguous()
 
 
-def _branch_factors(att: torch.Tensor, slope: float, row_shift: Optional[torch.Tensor] = None):
-    """([n, 2] dst-branch exponentials u12, [n, 2] src-branch v12)."""
-    u1, u2, v1, v2 = _node_factors(att, slope, row_shift)
-    return torch.stack([u1, u2], dim=1), torch.stack([v1, v2], dim=1)
+def _cell_scores(a_c, ad, m, asrc, relu_slope: float):
+    """(s, z) of a chunk of tiles: z = ad + as and s = cnt * exp(lrelu(z) -
+    M) where the cell holds a count, else 0; ``ad``, ``m`` and ``asrc``
+    broadcast to the chunk's [ch, R, C].  Select on the count: a non-edge's
+    exp can be inf, and 0 * inf = NaN."""
+    z = ad + asrc
+    s = torch.where(a_c > 0, a_c * torch.exp(leaky_relu(z, relu_slope) - m), 0.0)
+    return s, z
 
 
 def _pad_to(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -103,33 +117,27 @@ def gat_bcsr_plain(
     chunk: int = 256,
 ):
     """Plain PyTorch (num [n, f], den [n]) of the tile edges, the counterpart
-    of ``gat_bcsr_xla``: per chunk of tiles, split each count tile by the
-    branch test (ad + as) > 0, batched matmuls against the gathered
-    [v*h | v] operands (den packed in as the last column), scale by the row
-    exponentials and add into the destination row-tiles."""
+    of ``gat_bcsr_xla``: per chunk of tiles, every cell's score (module
+    doc), then one batched matmul against the gathered [h | 1] operands (den
+    packed in as the last column), added into the destination row-tiles."""
     tr, tc = tp.tile_rows, tp.tile_cols
     f = h.shape[-1]
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
-    u1, u2, v1, v2 = _node_factors(att, relu_slope, row_shift)
-    ad = _pad_to(att[:, 0].float(), nrt * tr).reshape(nrt, tr)
-    asrc = _pad_to(att[:, 1].float(), nct * tc).reshape(nct, tc)
-    u1 = _pad_to(u1, nrt * tr).reshape(nrt, tr)
-    u2 = _pad_to(u2, nrt * tr).reshape(nrt, tr)
+    dm, asrc = _score_terms(att, row_shift)
+    dmp = _pad_to(dm, nrt * tr).reshape(nrt, tr, 2)
+    asp = _pad_to(asrc, nct * tc).reshape(nct, tc)
     hp = _pad_to(h.float(), nct * tc)
-    v1p, v2p = _pad_to(v1, nct * tc)[:, None], _pad_to(v2, nct * tc)[:, None]
-    hv1 = torch.cat([hp * v1p, v1p], dim=1).reshape(nct, tc, f + 1)
-    hv2 = torch.cat([hp * v2p, v2p], dim=1).reshape(nct, tc, f + 1)
+    h1 = torch.cat([hp, torch.ones_like(hp[:, :1])], dim=1).reshape(nct, tc, f + 1)
     out_t = torch.zeros((nrt, tr, f + 1), dtype=torch.float32, device=h.device)
-    for s in range(0, tp.num_tiles, chunk):
-        col = tp.tile_col[s : s + chunk].long()
-        row = tp.tile_row[s : s + chunk].long()
-        a_c = tp.counts(s, s + chunk).float()
-        pos = (ad.index_select(0, row)[:, :, None] + asrc.index_select(0, col)[:, None, :]) > 0
-        a1 = torch.where(pos, a_c, 0.0)
-        a2 = a_c - a1
-        p = u1.index_select(0, row)[:, :, None] * torch.bmm(a1, hv1.index_select(0, col))
-        p += u2.index_select(0, row)[:, :, None] * torch.bmm(a2, hv2.index_select(0, col))
-        out_t.index_add_(0, row, p)
+    for s0 in range(0, tp.num_tiles, chunk):
+        col = tp.tile_col[s0 : s0 + chunk].long()
+        row = tp.tile_row[s0 : s0 + chunk].long()
+        d = dmp.index_select(0, row)
+        s, _ = _cell_scores(
+            tp.counts(s0, s0 + chunk).float(), d[:, :, 0, None], d[:, :, 1, None],
+            asp.index_select(0, col)[:, None, :], relu_slope,
+        )
+        out_t.index_add_(0, row, torch.bmm(s, h1.index_select(0, col)))
     out = out_t.reshape(nrt * tr, f + 1)[: tp.num_nodes]
     return out[:, :f], out[:, f]
 
@@ -156,8 +164,10 @@ def gat_bcsr(
     if h.device.type == "cuda":
         if h.dtype != torch.float32:
             raise ValueError(f"the CUDA GAT tile kernel takes float32 h, got {h.dtype}")
-        u12, v12 = _branch_factors(att, relu_slope, row_shift)
-        return cuda_gat.gat_bcsr_cuda(tp, h.contiguous(), u12[: tp.num_nodes].contiguous(), v12[: tp.n_src].contiguous())
+        dm, asrc = _score_terms(att, row_shift)
+        return cuda_gat.gat_bcsr_cuda(
+            tp, h.contiguous(), dm[: tp.num_nodes].contiguous(), asrc[: tp.n_src].contiguous(), relu_slope
+        )
     if h.device.type == "cpu":
         return gat_bcsr_plain(tp, h, att, relu_slope, row_shift)
     raise ValueError(f"no GAT tile aggregation for device {h.device}")
@@ -170,52 +180,55 @@ def _check_dot_mode(dot_mode: str):
         raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
 
 
-def _branch_scores(a_c, u, v, relu_slope: float):
-    """(s, lrelu') of a chunk of tiles from the row-side factors u [ch, R, 2]
-    and the column-side v [ch, C, 2].  Select on the count before scaling:
-    a non-edge's branch product can be inf, and 0 * inf = NaN."""
-    b1 = u[:, :, None, 0] * v[:, None, :, 0]
-    b2 = u[:, :, None, 1] * v[:, None, :, 1]
-    s = torch.where(a_c > 0, a_c * torch.maximum(b1, b2), 0.0)
-    lp = torch.where(b1 >= b2, 1.0, relu_slope)
-    return s, lp
+def _branch_scores(a_c, ad, m, asrc, relu_slope: float):
+    """(s, lrelu') of a chunk of tiles (see _cell_scores); lrelu'(z) is 1
+    for z >= 0, else the slope."""
+    s, z = _cell_scores(a_c, ad, m, asrc, relu_slope)
+    return s, torch.where(z >= 0, 1.0, relu_slope)
 
 
-def gat_bwd_dad_plain(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float, chunk: int = 256) -> torch.Tensor:
+def gat_bwd_dad_plain(tp: TilePlan, h, gbar, c, dm, asrc, relu_slope: float, chunk: int = 256) -> torch.Tensor:
     """d_att_dst [num_nodes] over the forward tile plan, the counterpart of
     ``gat_bwd_dad_xla``: per chunk of tiles, the cells' scores and branch
-    slopes, the [R, C] products <gbar_i, h_j> by bmm, and the row sums of
-    lrelu' s (<gbar_i, h_j> - c_i) added into the destination row-tiles."""
+    slopes from ``dm`` = (ad, M) per destination and ``asrc`` per source
+    (_score_terms), the [R, C] products <gbar_i, h_j> by bmm, and the row
+    sums of lrelu' s (<gbar_i, h_j> - c_i) added into the destination
+    row-tiles."""
     tr, tc = tp.tile_rows, tp.tile_cols
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
     f = h.shape[-1]
-    u12p = _pad_to(u12.float(), nrt * tr).reshape(nrt, tr, 2)
+    dmp = _pad_to(dm.float(), nrt * tr).reshape(nrt, tr, 2)
     cp = _pad_to(c.float(), nrt * tr).reshape(nrt, tr)
     gb = _pad_to(gbar.float(), nrt * tr).reshape(nrt, tr, f)
-    v12p = _pad_to(v12.float(), nct * tc).reshape(nct, tc, 2)
+    asp = _pad_to(asrc.float(), nct * tc).reshape(nct, tc)
     hp = _pad_to(h.float(), nct * tc).reshape(nct, tc, f)
     acc = torch.zeros((nrt, tr), dtype=torch.float32, device=h.device)
     for s0 in range(0, tp.num_tiles, chunk):
         col = tp.tile_col[s0 : s0 + chunk].long()
         row = tp.tile_row[s0 : s0 + chunk].long()
-        s, lp = _branch_scores(tp.counts(s0, s0 + chunk).float(), u12p.index_select(0, row), v12p.index_select(0, col), relu_slope)
+        d = dmp.index_select(0, row)
+        s, lp = _branch_scores(
+            tp.counts(s0, s0 + chunk).float(), d[:, :, 0, None], d[:, :, 1, None],
+            asp.index_select(0, col)[:, None, :], relu_slope,
+        )
         p = torch.bmm(gb.index_select(0, row), hp.index_select(0, col).transpose(1, 2))
         tt = lp * s * (p - cp.index_select(0, row)[:, :, None])
         acc.index_add_(0, row, tt.sum(dim=2))
     return acc.reshape(nrt * tr)[: tp.num_nodes]
 
 
-def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float, chunk: int = 256):
+def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, dm, asrc, relu_slope: float, chunk: int = 256):
     """(dh [n_src, f], d_att_src [n_src]) over the transposed tile plan (rows
     are sources j, columns destinations i), the counterpart of
     ``gat_bwd_dh_das_xla``: dh_j = sum_i s_ij gbar_i and the row sums of
-    lrelu' s (<gbar_i, h_j> - c_i)."""
+    lrelu' s (<gbar_i, h_j> - c_i); ``dm`` is over the destinations (the
+    plan's columns), ``asrc`` over the sources (its rows)."""
     tr, tc = tp_t.tile_rows, tp_t.tile_cols
     nct, nrt = tp_t.num_col_tiles, tp_t.num_row_tiles
     f = h.shape[-1]
-    v12p = _pad_to(v12.float(), nrt * tr).reshape(nrt, tr, 2)
+    asp = _pad_to(asrc.float(), nrt * tr).reshape(nrt, tr)
     hp = _pad_to(h.float(), nrt * tr).reshape(nrt, tr, f)
-    u12p = _pad_to(u12.float(), nct * tc).reshape(nct, tc, 2)
+    dmp = _pad_to(dm.float(), nct * tc).reshape(nct, tc, 2)
     cp = _pad_to(c.float(), nct * tc).reshape(nct, tc)
     gb = _pad_to(gbar.float(), nct * tc).reshape(nct, tc, f)
     acch = torch.zeros((nrt, tr, f), dtype=torch.float32, device=h.device)
@@ -223,7 +236,11 @@ def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float
     for s0 in range(0, tp_t.num_tiles, chunk):
         col = tp_t.tile_col[s0 : s0 + chunk].long()
         row = tp_t.tile_row[s0 : s0 + chunk].long()
-        s, lp = _branch_scores(tp_t.counts(s0, s0 + chunk).float(), v12p.index_select(0, row), u12p.index_select(0, col), relu_slope)
+        d = dmp.index_select(0, col)
+        s, lp = _branch_scores(
+            tp_t.counts(s0, s0 + chunk).float(), d[:, None, :, 0], d[:, None, :, 1],
+            asp.index_select(0, row)[:, :, None], relu_slope,
+        )
         gbc = gb.index_select(0, col)
         acch.index_add_(0, row, torch.bmm(s, gbc))
         p = torch.bmm(hp.index_select(0, row), gbc.transpose(1, 2))
@@ -233,59 +250,61 @@ def gat_bwd_dh_das_plain(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float
     return acch.reshape(nrt * tr, f)[:n], accs.reshape(nrt * tr)[:n]
 
 
-def gat_bwd_dad(tp: TilePlan, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tensor:
+def gat_bwd_dad(tp: TilePlan, h, gbar, c, dm, asrc, relu_slope: float) -> torch.Tensor:
     """d_att_dst over the forward tile plan: the B3 kernel on CUDA tensors,
     the plain version on CPU tensors."""
     if h.device.type == "cuda":
         return cuda_gat_bwd.gat_bwd_dad_cuda(
             tp, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),
-            u12[: tp.num_nodes].float().contiguous(), v12[: tp.n_src].float().contiguous(), relu_slope,
+            dm[: tp.num_nodes].float().contiguous(), asrc[: tp.n_src].float().contiguous(), relu_slope,
         )
     if h.device.type == "cpu":
-        return gat_bwd_dad_plain(tp, h, gbar, c, u12, v12, relu_slope)
+        return gat_bwd_dad_plain(tp, h, gbar, c, dm, asrc, relu_slope)
     raise ValueError(f"no GAT tile backward for device {h.device}")
 
 
-def gat_bwd_dh_das(tp_t: TilePlan, h, gbar, c, u12, v12, relu_slope: float):
+def gat_bwd_dh_das(tp_t: TilePlan, h, gbar, c, dm, asrc, relu_slope: float):
     """(dh, d_att_src) over the transposed tile plan: the B4 kernel on CUDA
     tensors, the plain version on CPU tensors."""
     if h.device.type == "cuda":
         return cuda_gat_bwd.gat_bwd_dh_das_cuda(
             tp_t, h.float().contiguous(), gbar.float().contiguous(), c.float().contiguous(),
-            u12[: tp_t.n_src].float().contiguous(), v12[: tp_t.num_nodes].float().contiguous(), relu_slope,
+            dm[: tp_t.n_src].float().contiguous(), asrc[: tp_t.num_nodes].float().contiguous(), relu_slope,
         )
     if h.device.type == "cpu":
-        return gat_bwd_dh_das_plain(tp_t, h, gbar, c, u12, v12, relu_slope)
+        return gat_bwd_dh_das_plain(tp_t, h, gbar, c, dm, asrc, relu_slope)
     raise ValueError(f"no GAT tile backward for device {h.device}")
 
 
-def _hybrid_row_shift(tp, plan: Optional[AggregationPlan], att: torch.Tensor, relu_slope: float) -> torch.Tensor:
-    """Exact per-destination stabilizer shared by every part:
-    M_i = lrelu(ad_i + max over in-neighbors j of as_j), over the tiles
+def _row_max(tp, plan: Optional[AggregationPlan], att: torch.Tensor) -> torch.Tensor:
+    """max over in-neighbors j of as_j per destination, over the tiles
     (bcsr_rowmax) and the residual plan (a max per task, then per row);
-    0 for rows without edges, so their exponentials stay finite."""
+    -inf for rows without in-edges."""
     asrc = att[:, 1].float()
-    parts = tp if isinstance(tp, (tuple, list)) else (tp,)
-    mx = None
-    for p in parts:
-        if p is None or not p.num_tiles:
-            continue
-        r = bcsr_rowmax(p, asrc)
-        mx = r if mx is None else torch.maximum(mx, r)
+    mx = torch.full((att.shape[0],), float("-inf"), dtype=torch.float32, device=asrc.device)
+    for p in _parts(tp):
+        mx = torch.maximum(mx, bcsr_rowmax(p, asrc))
     if plan is not None and plan.num_edges:
         nt, b = plan.num_tasks_padded, plan.block_size
         slots = torch.where(slot_mask(plan), asrc.index_select(0, plan.src_flat()), float("-inf"))
         task_max = slots.reshape(nt, b).amax(dim=1)
         rm = torch.full((plan.num_nodes,), float("-inf"), dtype=torch.float32, device=asrc.device)
         rm.scatter_reduce_(0, plan.dst, task_max, "amax")
-        mx = rm if mx is None else torch.maximum(mx, rm)
-    m = leaky_relu(att[:, 0].float() + mx, relu_slope)
+        mx = torch.maximum(mx, rm)
+    return mx
+
+
+def _hybrid_row_shift(tp, plan: Optional[AggregationPlan], att: torch.Tensor, relu_slope: float) -> torch.Tensor:
+    """Exact per-destination stabilizer shared by every part:
+    M_i = lrelu(ad_i + max over in-neighbors j of as_j) (_row_max); 0 for
+    rows without edges, so their scores stay finite."""
+    m = leaky_relu(att[:, 0].float() + _row_max(tp, plan, att), relu_slope)
     return torch.where(torch.isfinite(m), m, 0.0)
 
 
 def _global_bound_shift(att: torch.Tensor, relu_slope: float) -> torch.Tensor:
     """O(n) overflow bound: M_i = max(ad_i + A, s (ad_i + A)), A = max_j as_j,
-    keeps every branch product <= 1 without a pass over the adjacency.
+    keeps every score <= 1 without a pass over the adjacency.
     Rows whose own neighbor max lies far below A under-scale num and den
     alike (the shift cancels) until den underflows, at a logit gap of ~80."""
     ad = att[:, 0].float()
@@ -300,6 +319,45 @@ def _resolve_shift(tp, plan, att, relu_slope, stabilize) -> torch.Tensor:
     if stabilize is True or stabilize == "exact":
         return _hybrid_row_shift(tp, plan, att, relu_slope)
     raise ValueError(f"stabilize must be False, True, 'exact' or 'bound', got {stabilize!r}")
+
+
+# a 'bound'-shifted den below this is rescued with the exact shift
+BOUND_DEN_MIN = 2.0**-64
+
+
+def _bound_rescue(tp, plan, att, relu_slope, shift, den, has_edges) -> Optional[torch.Tensor]:
+    """The 'bound' shift with the exact one on the rows whose den fell below
+    BOUND_DEN_MIN although they have in-edges, or None when no row needs
+    it.  ``has_edges`` (bool [n], from the aggregator's in-degrees) makes
+    the check one device-to-host read; without it such rows are checked
+    against the tiles' and residual's row max (B5) first."""
+    need = den < BOUND_DEN_MIN
+    if has_edges is not None:
+        need = need & has_edges
+    if not bool(need.any()):
+        return None
+    mx = _row_max(tp, plan, att)
+    need = need & torch.isfinite(mx)
+    if has_edges is None and not bool(need.any()):
+        return None
+    exact = leaky_relu(att[:, 0].float() + mx, relu_slope)
+    return torch.where(need, exact, shift)
+
+
+def _tile_and_residual_sums(tp, plan, h, att, relu_slope, att_gather_dtype, h_gather_dtype, shift, dot_mode):
+    """(num, den, flat residual slot scores or None) of every part under
+    ``shift``."""
+    num, den = gat_bcsr(tp, h, att, relu_slope, row_shift=shift, dot_mode=dot_mode)
+    score = None
+    if plan is not None and plan.num_edges:
+        nr, dr, score = gat_aggregate_parts(
+            plan, h, att, relu_slope=relu_slope,
+            att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype, row_shift=shift,
+        )
+        num = num + nr
+        den = den + dr
+        score = score.reshape(-1)
+    return num, den, score
 
 
 def _residual_bwd_flat(plan, plan_t, edge_map_t, h, gbar, c, score_flat, shift, relu_slope: float):
@@ -330,23 +388,21 @@ def _parts(tp) -> list:
 
 class HybridGat(torch.autograd.Function):
     """The GAT aggregation over tiles + residual with the hand-written
-    backward of the module doc.  The forward resolves the shift once and
-    saves it with out, den and the residual's slot scores."""
+    backward of the module doc.  The forward resolves the shift (the
+    'bound' shift with its rescued rows) and saves it with out, den and the
+    residual's slot scores."""
 
     @staticmethod
     def forward(ctx, h, att, tp, plan, tp_t, plan_t, edge_map_t, relu_slope, att_gather_dtype, h_gather_dtype,
-                stabilize, dot_mode):
+                stabilize, dot_mode, has_edges):
         shift = _resolve_shift(tp, plan, att, relu_slope, stabilize) if stabilize else None
-        num, den = gat_bcsr(tp, h, att, relu_slope, row_shift=shift, dot_mode=dot_mode)
-        score = None
-        if plan is not None and plan.num_edges:
-            nr, dr, score = gat_aggregate_parts(
-                plan, h, att, relu_slope=relu_slope,
-                att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype, row_shift=shift,
-            )
-            num = num + nr
-            den = den + dr
-            score = score.reshape(-1)
+        sums = (tp, plan, h, att, relu_slope, att_gather_dtype, h_gather_dtype)
+        num, den, score = _tile_and_residual_sums(*sums, shift, dot_mode)
+        if stabilize == "bound":
+            rescued = _bound_rescue(tp, plan, att, relu_slope, shift, den, has_edges)
+            if rescued is not None:
+                shift = rescued
+                num, den, score = _tile_and_residual_sums(*sums, shift, dot_mode)
         safe = torch.where(den == 0.0, 1.0, den)
         out = (num / safe[:, None]).to(h.dtype)
         ctx.save_for_backward(h, att, out, safe, shift, score)
@@ -368,14 +424,14 @@ class HybridGat(torch.autograd.Function):
         ctf = ct.float()
         gbar = ctf / safe[:, None]
         c = (ctf * out.float()).sum(dim=1) / safe
-        u12, v12 = _branch_factors(att, slope, shift)
+        dm, asrc = _score_terms(att, shift)
         dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
         d_ad = torch.zeros((att.shape[0],), dtype=torch.float32, device=h.device)
         d_as = torch.zeros((att.shape[0],), dtype=torch.float32, device=h.device)
         for p in _parts(tp):
-            d_ad = d_ad + gat_bwd_dad(p, h, gbar, c, u12, v12, slope)
+            d_ad = d_ad + gat_bwd_dad(p, h, gbar, c, dm, asrc, slope)
         for p in _parts(tp_t):
-            dht, dast = gat_bwd_dh_das(p, h, gbar, c, u12, v12, slope)
+            dht, dast = gat_bwd_dh_das(p, h, gbar, c, dm, asrc, slope)
             dh = dh + dht
             d_as = d_as + dast
         if has_residual:
@@ -384,7 +440,7 @@ class HybridGat(torch.autograd.Function):
             d_ad = d_ad + dad_r
             d_as = d_as + das_r
         datt = torch.stack([d_ad, d_as], dim=1).to(att.dtype)
-        return (dh.to(h.dtype), datt) + (None,) * 10
+        return (dh.to(h.dtype), datt) + (None,) * 11
 
 
 def hybrid_gat(
@@ -400,6 +456,7 @@ def hybrid_gat(
     tp_t=None,
     plan_t: Optional[AggregationPlan] = None,
     edge_map_t=None,
+    has_edges: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """GAT forward over a hybrid schedule: (num, den) of the tiles plus those
     of the residual, then num / den (rows with den 0 give 0).  The tiles must
@@ -410,11 +467,14 @@ def hybrid_gat(
     ``tp_t`` and, where there is a residual, the transposed residual plan
     ``plan_t`` and ``edge_map_t`` (Aggregator.schedule_hybrid
     with_transpose=True); the backward computes 'exact' and 'split2' alike,
-    in float32."""
+    in float32.  ``has_edges`` (bool [n]: the row has an in-edge) lets
+    stabilize='bound' find the rows to rescue without a pass over the
+    adjacency (module doc)."""
     for p in tp if isinstance(tp, (tuple, list)) else (tp,):
         if p.scale_dst is not None or p.scale_src is not None:
             raise ValueError("hybrid GAT needs raw count tiles (no factored scales)")
     _check_dot_mode(dot_mode)
     return HybridGat.apply(
         h, att, tp, plan, tp_t, plan_t, edge_map_t, relu_slope, att_gather_dtype, h_gather_dtype, stabilize, dot_mode,
+        has_edges,
     )

@@ -20,10 +20,16 @@ float32 dot of the float32 operands, which meets each mode's error class.
 
 The op is forward-only, as the TPU kernel is (it has no VJP): on either
 device it raises on an input that requires grad while grad is enabled.
+
+``tileplan_with_values`` turns a part's cell values into float32 tile
+weights (count x value), the hybrid analog of the reference's
+``updateval``: the SDDMM's output becomes the edge weights of a following
+weighted aggregation (B1 over float32 tiles).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -37,10 +43,12 @@ from gnn_computing_tpu_torch.schedule.tiles import TilePlan
 DOT_MODES = ("exact", "split23", "split33")
 
 
-def _check_forward_only(*tensors):
+def check_forward_only(what: str, *tensors):
+    """Raise if grad is enabled and a tensor requires it: ``what`` has no
+    VJP, as its TPU kernel has none, on either device."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "the SDDMM is forward-only (the TPU kernel has no VJP): call it under "
+            f"{what} is forward-only (the TPU kernel has no VJP): call it under "
             "torch.no_grad() or on tensors that do not require grad"
         )
 
@@ -75,7 +83,7 @@ def sddmm_bcsr(
         raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
     if dot_mode == "split33" and 4 * a.shape[-1] > 128:
         dot_mode = "exact"  # as the JAX package demotes it (4f > 128); the port computes both alike
-    _check_forward_only(a, b)
+    check_forward_only("the SDDMM", a, b)
     if a.device.type == "cuda":
         return cuda_sddmm.sddmm_bcsr_cuda(tp, a.float().contiguous(), b.float().contiguous(), out_dtype)
     if a.device.type == "cpu":
@@ -98,10 +106,22 @@ def hybrid_sddmm(
     part's ``a``.  The residual values are flat [num_tasks_padded * B]
     (None without residual edges), gathered per ``gather_dtype`` (None or
     'f16_split2')."""
-    _check_forward_only(a, b)
+    check_forward_only("the SDDMM", a, b)
     parts = [p for p in (tp if isinstance(tp, (tuple, list)) else (tp,)) if p is not None and p.num_tiles]
     cells = tuple(sddmm_bcsr(p, a, b, out_dtype=out_dtype, dot_mode=dot_mode) for p in parts)
     res = None
     if plan is not None and plan.num_edges:
         res = sddmm_slots(plan, a, b, gather_dtype=gather_dtype)
     return cells, res
+
+
+def tileplan_with_values(tp: TilePlan, cell_vals: torch.Tensor) -> TilePlan:
+    """Weighted TilePlan from per-cell values: a'[t, i, j] = count[t, i, j] *
+    cell_vals[t, i, j] as float32 tiles (a 1-bit plan's counts unpacked, so
+    the result has ``bits=False``), on ``cell_vals``' device.  Duplicate
+    edges of a cell share its value, so count * value is the cell's sum of
+    per-edge weights."""
+    cnt = torch.as_tensor(tp.counts()).to(cell_vals.device)
+    if tuple(cnt.shape) != tuple(cell_vals.shape):
+        raise ValueError(f"cell values {tuple(cell_vals.shape)} do not match the tiles {tuple(cnt.shape)}")
+    return dataclasses.replace(tp, a=cnt.float() * cell_vals.float(), bits=False)

@@ -1,13 +1,16 @@
 """Launch the B1 CUDA kernel (``csrc/bcsr_spmm.cu``).
 
 The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:bcsr_spmm_pallas``
-for int8 count tiles and 1-bit tiles (one template on the A format) and a
-float32 operand.  ops.cuda_build compiles it at first use and binds it with
-ctypes.
+for int8 count tiles, 1-bit tiles, float32 and bfloat16 tiles (one template
+on the A format) and a float32 operand, with or without its ``w_epilogue``
+(``bcsr_spmm_nn_cuda``: the aggregate and its product with W from one
+launch).  ops.cuda_build compiles it at first use and binds it with ctypes.
 
-``launches`` counts kernel launches and ``bits_launches`` the 1-bit ones
-among them; each rises only where the kernel is launched, so a run can show
-that its main path went through the kernel and its 1-bit variant.
+``launches`` counts kernel launches; ``bits_launches``, ``float_launches``
+(float32 or bfloat16 tiles) and ``epilogue_launches`` (the w_epilogue
+variant) count those among them.  Each rises only where the kernel is
+launched, so a run can show that its main path went through the kernel
+and the variant it names.
 """
 
 from __future__ import annotations
@@ -19,39 +22,91 @@ import torch
 from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "bcsr_spmm"
+TAGS = ("i8", "b1", "f32", "bf16")
+_P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    for fn in ("bcsr_spmm_i8_f32", "bcsr_spmm_b1_f32")
+    **{f"bcsr_spmm_{tag}_f32": [_P] * 5 + [_I] * 7 + [_P] for tag in TAGS},
+    **{f"bcsr_spmm_nn_{tag}_f32": [_P] * 8 + [_I] * 8 + [_P] for tag in TAGS},
 }
+# the epilogue variant's block holds all f columns of its rows
+MAX_EPILOGUE_F = 128
 
 launches = 0
 bits_launches = 0
+float_launches = 0
+epilogue_launches = 0
+
+
+def _check_h(tp, h: torch.Tensor, name: str):
+    check_no_grad(h)
+    dev = h.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    if h.dim() != 2:
+        raise ValueError(f"h must be [n_src, f], got {tuple(h.shape)}")
+    check_tensor(h, "h", torch.float32, (tp.n_src, h.shape[1]), dev)
+    return dev, h.shape[1], check_plan(tp, dev, kernel="B1 (bcsr_spmm)", tags=TAGS)
+
+
+def _count(tag: str, epilogue: bool):
+    global launches, bits_launches, float_launches, epilogue_launches
+    launches += 1
+    bits_launches += tag == "b1"
+    float_launches += tag in ("f32", "bf16")
+    epilogue_launches += epilogue
 
 
 def bcsr_spmm_cuda(tp, h: torch.Tensor) -> torch.Tensor:
     """out[num_nodes, f] = A @ h over the plan's tiles, with ``h`` already
     rounded and scaled (see ops.bcsr.bcsr_spmm).  Launches the kernel or
     raises; it never falls back."""
-    global launches, bits_launches
-    check_no_grad(h)
-    dev = h.device
-    if dev.type != "cuda":
-        raise ValueError(f"bcsr_spmm_cuda takes CUDA tensors, got {dev}")
-    if h.dim() != 2:
-        raise ValueError(f"h must be [n_src, f], got {tuple(h.shape)}")
-    f = h.shape[1]
-    check_tensor(h, "h", torch.float32, (tp.n_src, f), dev)
-    fmt = check_plan(tp, dev)
+    dev, f, tag = _check_h(tp, h, "bcsr_spmm_cuda")
     out = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    err = getattr(load(NAME, SIGNATURES), f"bcsr_spmm_{fmt}_f32")(
+    err = getattr(load(NAME, SIGNATURES), f"bcsr_spmm_{tag}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
         h.data_ptr(), out.data_ptr(), tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f,
         *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"bcsr_spmm kernel launch failed: cudaError {err}")
-    launches += 1
-    bits_launches += tp.bits
+    _count(tag, False)
     return out
+
+
+def bcsr_spmm_nn_cuda(tp, h: torch.Tensor, w: torch.Tensor):
+    """(agg [num_nodes, f], trans [num_nodes, f_out] = agg @ w) over the
+    plan's tiles from one launch of the w_epilogue variant, with ``h``
+    already rounded and scaled by the plan's ``scale_src``; the kernel
+    applies ``scale_dst`` to the accumulator before both outputs.  f is at
+    most MAX_EPILOGUE_F.  Launches the kernel or raises; it never falls
+    back."""
+    dev, f, tag = _check_h(tp, h, "bcsr_spmm_nn_cuda")
+    check_no_grad(w)
+    if f > MAX_EPILOGUE_F:
+        raise ValueError(f"the w_epilogue kernel holds f <= {MAX_EPILOGUE_F} columns a row, got f = {f}")
+    if w.dim() != 2:
+        raise ValueError(f"w must be [f, f_out], got {tuple(w.shape)}")
+    f_out = w.shape[1]
+    if f_out == 0:
+        raise ValueError("w must have at least one column")
+    check_tensor(w, "w", torch.float32, (f, f_out), dev)
+    scale_dst = tp.scale_dst
+    if scale_dst is not None:
+        check_tensor(scale_dst, "scale_dst", torch.float32, (tp.num_nodes,), dev)
+    agg = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
+    trans = torch.empty((tp.num_nodes, f_out), dtype=torch.float32, device=dev)
+    if tp.num_nodes == 0:
+        return agg, trans
+    if f == 0:
+        return agg, trans.zero_()
+    err = getattr(load(NAME, SIGNATURES), f"bcsr_spmm_nn_{tag}_f32")(
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(), h.data_ptr(), w.data_ptr(),
+        None if scale_dst is None else scale_dst.data_ptr(), agg.data_ptr(), trans.data_ptr(),
+        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, f_out, *stream_args(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"bcsr_spmm_nn kernel launch failed: cudaError {err}")
+    _count(tag, True)
+    return agg, trans

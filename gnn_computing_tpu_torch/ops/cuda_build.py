@@ -120,21 +120,43 @@ def check_tensor(x, name: str, dtype, shape, device):
         )
 
 
-def check_plan(tp, device) -> str:
+# TilePlan.format -> the tag of a kernel's entry point for that A format
+FORMAT_TAGS = {"int8": "i8", "bits": "b1", "float32": "f32", "bfloat16": "bf16"}
+COUNT_TAGS = ("i8", "b1")
+
+
+def format_tag(tp, kernel: str, tags=COUNT_TAGS) -> str:
+    """The tag of the plan's A format among ``tags``; raises
+    NotImplementedError for another format: float tiles are read by B1 only
+    so far (the other kernels over float A are queued in ROADMAP.md, "B2-B6
+    over float A")."""
+    tag = FORMAT_TAGS[tp.format]
+    if tag not in tags:
+        raise NotImplementedError(
+            f"{kernel} over {tp.format} tiles is not ported yet (ROADMAP.md: B2-B6 over float A); "
+            f"it reads {', '.join(tags)} tiles"
+        )
+    return tag
+
+
+def check_plan(tp, device, kernel: str = "the tile kernel", tags=COUNT_TAGS) -> str:
     """Raise unless the plan's tiles, ``tile_col`` and ``run_start`` are what
-    a run-walking tile kernel takes on ``device``: int8 [T, R, C] counts, or
-    1-bit uint8 [T, R/8, C] with R % 8 == 0.  Returns the tag of the A
-    format's entry point: 'b1' or 'i8'."""
+    a run-walking tile kernel takes on ``device``: int8 [T, R, C] counts,
+    1-bit uint8 [T, R/8, C] with R % 8 == 0, or (where ``tags`` holds
+    'f32' / 'bf16') float32 / bfloat16 [T, R, C] values.  Returns the tag of
+    the A format's entry point ('i8', 'b1', 'f32' or 'bf16'); a format
+    outside ``tags`` raises NotImplementedError."""
     t, r, c = tp.num_tiles, tp.tile_rows, tp.tile_cols
+    tag = format_tag(tp, kernel, tags)
     if tp.bits:
         if r % 8:
             raise ValueError(f"1-bit tiles need R % 8 == 0, got R = {r}")
         check_tensor(tp.a, "a", torch.uint8, (t, r // 8, c), device)
     else:
-        check_tensor(tp.a, "a", torch.int8, (t, r, c), device)
+        check_tensor(tp.a, "a", {"i8": torch.int8, "f32": torch.float32, "bf16": torch.bfloat16}[tag], (t, r, c), device)
     check_tensor(tp.tile_col, "tile_col", torch.int32, (t,), device)
     check_tensor(tp.run_start, "run_start", torch.int32, (tp.num_row_tiles + 1,), device)
-    return "b1" if tp.bits else "i8"
+    return tag
 
 
 def check_no_grad(*tensors):

@@ -2,7 +2,7 @@
 
 The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bcsr_pallas``
 in mode 'maxdot' for int8 count tiles and 1-bit tiles (one template on the A
-format).  ops.cuda_build compiles it at first use and binds it with ctypes.
+format), scoring each cell from (ad, M) per destination and as per source.  ops.cuda_build compiles it at first use and binds it with ctypes.
 
 ``launches`` counts kernel launches and ``bits_launches`` the 1-bit ones
 among them; each rises only where the kernel is launched, so a run can show
@@ -19,7 +19,7 @@ from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_plan, ch
 
 NAME = "gat_bcsr"
 SIGNATURES = {
-    fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     for fn in ("gat_bcsr_i8_f32", "gat_bcsr_b1_f32")
 }
 
@@ -27,13 +27,13 @@ launches = 0
 bits_launches = 0
 
 
-def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
-    """(num [num_nodes, f], den [num_nodes]) over the plan's tiles, from the
-    per-node exponentials ``u12`` [num_nodes, 2] and ``v12`` [n_src, 2] (see
-    ops.bcsr_gat._branch_factors).  Launches the kernel or raises; it never
-    falls back."""
+def gat_bcsr_cuda(tp, h: torch.Tensor, dm: torch.Tensor, asrc: torch.Tensor, relu_slope: float):
+    """(num [num_nodes, f], den [num_nodes]) over the plan's tiles, each cell
+    scored from ``dm`` [num_nodes, 2] = (ad, row shift) and ``asrc``
+    [n_src] (see ops.bcsr_gat._score_terms).  Launches the kernel or raises;
+    it never falls back."""
     global launches, bits_launches
-    check_no_grad(h, u12, v12)
+    check_no_grad(h, dm, asrc)
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"gat_bcsr_cuda takes CUDA tensors, got {dev}")
@@ -41,17 +41,18 @@ def gat_bcsr_cuda(tp, h: torch.Tensor, u12: torch.Tensor, v12: torch.Tensor):
         raise ValueError(f"h must be [n_src, f], got {tuple(h.shape)}")
     f = h.shape[1]
     check_tensor(h, "h", torch.float32, (tp.n_src, f), dev)
-    check_tensor(u12, "u12", torch.float32, (tp.num_nodes, 2), dev)
-    check_tensor(v12, "v12", torch.float32, (tp.n_src, 2), dev)
-    fmt = check_plan(tp, dev)
+    check_tensor(dm, "dm", torch.float32, (tp.num_nodes, 2), dev)
+    check_tensor(asrc, "asrc", torch.float32, (tp.n_src,), dev)
+    fmt = check_plan(tp, dev, kernel="B2 (gat_bcsr)")
     num = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
     den = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return num, den
     err = getattr(load(NAME, SIGNATURES), f"gat_bcsr_{fmt}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
-        h.data_ptr(), u12.data_ptr(), v12.data_ptr(), num.data_ptr(), den.data_ptr(),
-        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, *stream_args(dev),
+        h.data_ptr(), dm.data_ptr(), asrc.data_ptr(), num.data_ptr(), den.data_ptr(),
+        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, float(relu_slope),
+        *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"gat_bcsr kernel launch failed: cudaError {err}")

@@ -3,7 +3,8 @@
 
 They replace ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bwd_dad_pallas`` and
 ``gat_bwd_dh_das_pallas`` for int8 count tiles and 1-bit tiles (each one
-template on the A format).  ops.cuda_build compiles each at first use and
+template on the A format), scoring each cell from (ad, M) per destination
+and as per source as the forward does.  ops.cuda_build compiles each at first use and
 binds it with ctypes.
 
 ``dad_launches`` and ``dh_das_launches`` count kernel launches (one per
@@ -34,12 +35,12 @@ dad_bits_launches = 0
 dh_das_bits_launches = 0
 
 
-def _check_inputs(name, tp, h, gbar, c, u12, v12, rows_h, rows_gbar):
+def _check_inputs(name, tp, h, gbar, c, dm, asrc, rows_h, rows_gbar):
     """Device, dtype, shape and contiguity of the backward's inputs: h has
-    ``rows_h`` rows, gbar, c and u12 ``rows_gbar`` (the forward's
-    destinations), v12 ``rows_h`` (its sources).  Returns (device, f, the
+    ``rows_h`` rows, gbar, c and dm ``rows_gbar`` (the forward's
+    destinations), asrc ``rows_h`` (its sources).  Returns (device, f, the
     A format's entry-point tag)."""
-    check_no_grad(h, gbar, c, u12, v12)
+    check_no_grad(h, gbar, c, dm, asrc)
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {dev}")
@@ -49,24 +50,24 @@ def _check_inputs(name, tp, h, gbar, c, u12, v12, rows_h, rows_gbar):
     check_tensor(h, "h", torch.float32, (rows_h, f), dev)
     check_tensor(gbar, "gbar", torch.float32, (rows_gbar, f), dev)
     check_tensor(c, "c", torch.float32, (rows_gbar,), dev)
-    check_tensor(u12, "u12", torch.float32, (rows_gbar, 2), dev)
-    check_tensor(v12, "v12", torch.float32, (rows_h, 2), dev)
-    return dev, f, check_plan(tp, dev)
+    check_tensor(dm, "dm", torch.float32, (rows_gbar, 2), dev)
+    check_tensor(asrc, "asrc", torch.float32, (rows_h,), dev)
+    return dev, f, check_plan(tp, dev, kernel=name)
 
 
-def gat_bwd_dad_cuda(tp, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tensor:
+def gat_bwd_dad_cuda(tp, h, gbar, c, dm, asrc, relu_slope: float) -> torch.Tensor:
     """d_att_dst [num_nodes] over the forward plan ``tp`` from h [n_src, f],
-    gbar [num_nodes, f], c [num_nodes], u12 [num_nodes, 2] and v12
-    [n_src, 2] (see ops.bcsr_gat).  Launches the kernel or raises; it never
+    gbar [num_nodes, f], c [num_nodes], dm [num_nodes, 2] and asrc [n_src]
+    (see ops.bcsr_gat._score_terms).  Launches the kernel or raises; it never
     falls back."""
     global dad_launches, dad_bits_launches
-    dev, f, fmt = _check_inputs("gat_bwd_dad_cuda", tp, h, gbar, c, u12, v12, tp.n_src, tp.num_nodes)
+    dev, f, fmt = _check_inputs("gat_bwd_dad_cuda", tp, h, gbar, c, dm, asrc, tp.n_src, tp.num_nodes)
     out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return out
     err = getattr(load(DAD, DAD_SIGNATURES), f"gat_bwd_dad_{fmt}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
-        c.data_ptr(), u12.data_ptr(), v12.data_ptr(), out.data_ptr(),
+        c.data_ptr(), dm.data_ptr(), asrc.data_ptr(), out.data_ptr(),
         tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, float(relu_slope),
         *stream_args(dev),
     )
@@ -77,21 +78,21 @@ def gat_bwd_dad_cuda(tp, h, gbar, c, u12, v12, relu_slope: float) -> torch.Tenso
     return out
 
 
-def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, u12, v12, relu_slope: float):
+def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, dm, asrc, relu_slope: float):
     """(dh [num_nodes, f], d_att_src [num_nodes]) over the transposed plan
     ``tp_t`` (rows: the forward's sources) from h [num_nodes, f], gbar
-    [n_src, f], c [n_src], u12 [n_src, 2] and v12 [num_nodes, 2].  One
+    [n_src, f], c [n_src], dm [n_src, 2] and asrc [num_nodes].  One
     launch computes both.  Launches the kernel or raises; it never falls
     back."""
     global dh_das_launches, dh_das_bits_launches
-    dev, f, fmt = _check_inputs("gat_bwd_dh_das_cuda", tp_t, h, gbar, c, u12, v12, tp_t.num_nodes, tp_t.n_src)
+    dev, f, fmt = _check_inputs("gat_bwd_dh_das_cuda", tp_t, h, gbar, c, dm, asrc, tp_t.num_nodes, tp_t.n_src)
     dh = torch.empty((tp_t.num_nodes, f), dtype=torch.float32, device=dev)
     d_as = torch.empty((tp_t.num_nodes,), dtype=torch.float32, device=dev)
     if tp_t.num_nodes == 0:
         return dh, d_as
     err = getattr(load(DH_DAS, DH_DAS_SIGNATURES), f"gat_bwd_dh_das_{fmt}_f32")(
         tp_t.a.data_ptr(), tp_t.tile_col.data_ptr(), tp_t.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
-        c.data_ptr(), u12.data_ptr(), v12.data_ptr(), dh.data_ptr(), d_as.data_ptr(),
+        c.data_ptr(), dm.data_ptr(), asrc.data_ptr(), dh.data_ptr(), d_as.data_ptr(),
         tp_t.num_row_tiles, tp_t.tile_rows, tp_t.tile_cols, tp_t.num_nodes, tp_t.n_src, f, float(relu_slope),
         *stream_args(dev),
     )

@@ -37,7 +37,7 @@ def rowmax_bcsr_cuda(tp, col_vals: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"rowmax_bcsr_cuda takes CUDA tensors, got {dev}")
     check_tensor(col_vals, "col_vals", torch.float32, (tp.n_src,), dev)
-    fmt = check_plan(tp, dev)
+    fmt = check_plan(tp, dev, kernel="B5 (rowmax_bcsr)")
     out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return out

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_tensor, load, format_tag, stream_args
 
 NAME = "sddmm_bcsr"
 SIGNATURES = {"sddmm_bcsr_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
@@ -39,6 +39,7 @@ def sddmm_bcsr_cuda(tp, a: torch.Tensor, b: torch.Tensor, out_dtype=torch.bfloat
         raise ValueError(f"a must be [n_src, f], got {tuple(a.shape)}")
     f = a.shape[1]
     t, r, c = tp.num_tiles, tp.tile_rows, tp.tile_cols
+    format_tag(tp, "B6 (sddmm_bcsr)")
     if tp.bits and r % 8:
         raise ValueError(f"1-bit tiles need R % 8 == 0, got R = {r}")
     check_tensor(a, "a", torch.float32, (tp.n_src, f), dev)

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from gnn_computing_tpu_torch.ops.spmm import f16_split2, weighted_task_sums
+from gnn_computing_tpu_torch.ops.spmm import f16_split2_rows, weighted_task_sums
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 
 DEFAULT_SLOPE = 0.2  # the reference's run() calls, aggr_gat.h:339,347
@@ -46,13 +46,14 @@ def _att_slots_flat(plan: AggregationPlan, att: torch.Tensor, gather_dtype=None)
 
     gather_dtype 'f16_split2' gathers the src half from an [n, 2] float16
     table of (hi, lo) residue chunks (21 mantissa bits), as the JAX package
-    does; like it, |att| > 65504 does not fit the table."""
+    does; a value beyond float16's range is stored scaled by a power of two
+    (ops.spmm.f16_split2_rows), where the JAX package's table holds inf."""
     a_dst = att[:, 0].index_select(0, plan.dst).repeat_interleave(plan.block_size)
     src = plan.src_flat()
     if gather_dtype == "f16_split2":
-        tbl = torch.stack(f16_split2(att[:, 1]), dim=1)  # [n, 2] float16
+        tbl, scale = f16_split2_rows(att[:, 1:2])  # [n, 2] float16, [n]
         g = tbl.index_select(0, src)
-        a_src = g[:, 0].float() + g[:, 1].float()
+        a_src = (g[:, 0].float() + g[:, 1].float()) * scale.index_select(0, src)
     elif gather_dtype is None:
         a_src = att[:, 1].index_select(0, src)
     else:

@@ -28,6 +28,21 @@ def f16_split2(h: torch.Tensor):
     return hi, lo
 
 
+def f16_split2_rows(h: torch.Tensor):
+    """([n, 2f] float16 table of (hi, lo) residue chunks, [n] float32 row
+    scale) for gathering rows of 2-D ``h`` at 21 mantissa bits: row i is
+    stored as h[i] / scale[i] and rebuilt as (hi + lo) * scale[i].  The
+    scale is 1 for a row whose |h| <= 65504 (float16's range; the table is
+    then the JAX package's) and a power of two that brings the row within
+    range otherwise, so a value float16 cannot hold is never inf.  The
+    choice is made on the device: no host sync."""
+    hf = h.float()
+    big = hf.abs().amax(dim=1) if hf.shape[1] else hf.new_zeros(hf.shape[0])
+    e = torch.where(big > F16_MAX, torch.ceil(torch.log2(big / F16_MAX)) + 1.0, 0.0)
+    scale = torch.exp2(e)
+    return torch.cat(f16_split2(hf / scale[:, None]), dim=1), scale
+
+
 def weighted_task_sums(
     plan: AggregationPlan, h: torch.Tensor, v: torch.Tensor, gather_dtype=None
 ) -> torch.Tensor:
@@ -38,22 +53,21 @@ def weighted_task_sums(
       None         — gather h as it is.
       'f16_split2' — gather one [n, 2f] float16 table of residue chunks
                      (hi, lo) and rebuild hi + lo in float32: 21 mantissa
-                     bits, exact for signed sums too; h beyond float16's
-                     range is gathered as float32 rows.
+                     bits, exact for signed sums too.  A row beyond
+                     float16's range is stored scaled by a power of two
+                     (f16_split2_rows): the JAX package's table turns it
+                     into inf and the sum into NaN; deep unnormalized GCN
+                     layers reach it (at the bench's quick scale layer 3
+                     sees |z| up to 5.3e5).
     """
     nt, b = plan.num_tasks_padded, plan.block_size
     f = h.shape[-1]
     src = plan.src_flat()
     v = v.reshape(-1)
-    if gather_dtype == "f16_split2" and h.numel() and h.abs().max() > F16_MAX:
-        # float16 chunks cannot hold |h| > 65504 (hi becomes inf and the sum
-        # NaN); the JAX package has that fault, the port gathers exact
-        # float32 rows instead.  Deep unnormalized GCN layers reach it: at
-        # the bench's quick scale layer 3 sees |z| up to 5.3e5.
-        gather_dtype = None
     if gather_dtype == "f16_split2":
-        g = torch.cat(f16_split2(h), dim=1).index_select(0, src)
-        msg = (g[:, :f].float() + g[:, f:].float()) * v.float()[:, None]
+        table, scale = f16_split2_rows(h)
+        g = table.index_select(0, src)
+        msg = (g[:, :f].float() + g[:, f:].float()) * (scale.index_select(0, src) * v.float())[:, None]
     elif gather_dtype is None:
         msg = h.index_select(0, src) * v.to(h.dtype)[:, None]
     else:
@@ -114,18 +128,16 @@ def sddmm_slots(
     ``sddmm_slots_chunked``, in chunks of whole tasks so the gathered
     [slots, f] block stays bounded).  ``gather_dtype`` as in
     weighted_task_sums: 'f16_split2' gathers the [n, 2f] float16 (hi, lo)
-    table and rebuilds hi + lo in float32 before the dot; a beyond
-    float16's range is gathered as float32 rows."""
+    table and rebuilds (hi + lo) * scale in float32 before the dot
+    (f16_split2_rows)."""
     bsz = plan.block_size
     f = a.shape[-1]
     src = plan.src_flat()
     dst = plan.dst
     cnt = plan.count.long()
     nt = plan.num_tasks_padded
-    if gather_dtype == "f16_split2" and a.numel() and a.abs().max() > F16_MAX:
-        gather_dtype = None
     if gather_dtype == "f16_split2":
-        table = torch.cat(f16_split2(a), dim=1)
+        table, scale = f16_split2_rows(a)
     elif gather_dtype is None:
         table = a
     else:
@@ -134,9 +146,10 @@ def sddmm_slots(
     step = max(1, chunk_slots // bsz)
     for t0 in range(0, nt, step):
         t1 = min(nt, t0 + step)
-        g = table.index_select(0, src[t0 * bsz : t1 * bsz])
+        src_c = src[t0 * bsz : t1 * bsz]
+        g = table.index_select(0, src_c)
         if gather_dtype == "f16_split2":
-            g = g[:, :f].float() + g[:, f:].float()
+            g = (g[:, :f].float() + g[:, f:].float()) * scale.index_select(0, src_c)[:, None]
         ga = g.reshape(t1 - t0, bsz, f).to(b.dtype)
         gb = b.index_select(0, dst[t0:t1])
         dots = (ga * gb[:, None, :]).sum(dim=-1)

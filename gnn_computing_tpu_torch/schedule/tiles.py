@@ -1,18 +1,26 @@
-"""Tile densification: dense int8 count tiles + a sparse residual graph.
+"""Tile densification: dense adjacency tiles + a sparse residual graph.
 
-Port of the integer count path of ``gnn_computing_tpu/schedule/tiles.py``
-(``TilePlan``, ``densify``, ``pad_runs``, ``transpose``, the 1-bit format
-``pack_bit_tiles`` / ``unpack_bit_tiles`` / ``split_bit_tiles``).  Edges falling in [R x C]
-adjacency blocks that hold at least ``threshold`` edges become dense tiles
-holding exact edge counts; the rest stay in a residual CSR graph for the
-gather path.  Factored edge values val[e] = scale_dst[dst] * scale_src[src]
-keep the tiles exact counts and carry the scales beside them.
+Port of ``gnn_computing_tpu/schedule/tiles.py`` (``TilePlan``, ``densify``,
+``densify_gcn_norm``, ``pad_runs``, ``transpose``, ``astype``, the 1-bit
+format ``pack_bit_tiles`` / ``unpack_bit_tiles`` / ``split_bit_tiles``).
+Edges falling in [R x C] adjacency blocks that hold at least ``threshold``
+edges become dense tiles; the rest stay in a residual CSR graph for the
+gather path.
 
-The counts are written straight from the sorted cell keys: no float
-[T, R, C] staging array (the JAX package's numpy fallback builds one, 34 GB
-at reddit scale).  A cell holds at most 127 edges; in each cell the first
-127 edges in edge order stay in the tile and later ones spill to the
-residual, the rule of the JAX package's native fill.
+Tile value formats (``TilePlan.a``):
+  int8     exact edge counts (unweighted graphs, or factored edge values
+           val[e] = scale_dst[dst] * scale_src[src] with the scales beside
+           the tiles).  Written straight from the sorted cell keys, with no
+           float staging array.  A cell holds at most 127 edges; in each
+           cell the first 127 edges in edge order stay in the tile and
+           later ones spill to the residual, the rule of the JAX package's
+           native fill.
+  float32  edge values (after the scales), duplicate edges of a cell
+           summed in float32 in edge order, as the JAX package's fill does;
+           the JAX package's default.  No cap, no spill.
+  bfloat16 the float32 sums rounded to nearest even.  numpy has no
+           bfloat16, so a host plan holds its uint16 bit pattern and ``to``
+           turns it into a torch.bfloat16 tensor.
 
 1-bit tiles (``TilePlan.bits``): a tile whose every cell holds 0 or 1 is
 stored as uint8 [R/8, C], plane-major along rows: bit b of a[t, i, c] is
@@ -35,6 +43,48 @@ from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.graph.csr import CSRGraph
 
 INT8_CAP = 127
+# tile value format -> (host numpy storage, device torch dtype)
+TILE_FORMATS = {
+    "int8": (np.int8, torch.int8),
+    "float32": (np.float32, torch.float32),
+    "bfloat16": (np.uint16, torch.bfloat16),
+}
+
+
+def tile_format(dtype) -> str:
+    """The tile value format a dtype names: int8, float32 (also None, the
+    JAX package's default) or bfloat16 (torch.bfloat16 or "bfloat16")."""
+    if dtype is None:
+        return "float32"
+    if dtype == "bfloat16":
+        return "bfloat16"
+    for fmt, (np_dtype, torch_dtype) in TILE_FORMATS.items():
+        if isinstance(dtype, torch.dtype):
+            if dtype == torch_dtype:
+                return fmt
+        elif fmt != "bfloat16" and np.dtype(dtype) == np_dtype:  # np.uint16 holds bfloat16's bits only
+            return fmt
+    raise NotImplementedError(f"tile dtype {dtype!r}: the port builds int8, float32 and bfloat16 tiles")
+
+
+def _host_values(a: np.ndarray, fmt: str) -> np.ndarray:
+    """Host tile values (int8 counts or float32) in the host storage of
+    ``fmt``; float32 -> bfloat16 rounds to nearest even."""
+    if fmt == "bfloat16":
+        bf = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+        return bf.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(a).astype(TILE_FORMATS[fmt][0], copy=False)
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """Tile values as a tensor of their device dtype (a host bfloat16 bit
+    pattern becomes torch.bfloat16)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
 
 
 def run_offsets(tile_row: np.ndarray, num_row_tiles: int) -> np.ndarray:
@@ -49,8 +99,9 @@ def run_offsets(tile_row: np.ndarray, num_row_tiles: int) -> np.ndarray:
 class TilePlan:
     """Dense adjacency tiles, sorted by destination row-tile.
 
-    a:         int8 [num_tiles, R, C]; a[t, i, j] counts the edges
-               (src = tile_col[t]*C + j) -> (dst = tile_row[t]*R + i);
+    a:         [num_tiles, R, C] tile values (module doc): a[t, i, j] is
+               the int8 count, or the float32 / bfloat16 summed value, of
+               the edges (src = tile_col[t]*C + j) -> (dst = tile_row[t]*R + i);
                with ``bits``, uint8 [num_tiles, R/8, C] in the 1-bit
                format (module doc), every count 0 or 1.
     tile_col:  int32[num_tiles] source-tile index per tile.
@@ -86,7 +137,20 @@ class TilePlan:
     def num_col_tiles(self) -> int:
         return -(-self.n_src // self.tile_cols)
 
+    @property
+    def format(self) -> str:
+        """'bits' for a 1-bit plan, else the tile value format (module doc)."""
+        if self.bits:
+            return "bits"
+        dt = _as_tensor(self.a[:0]).dtype
+        for fmt, (_, torch_dtype) in TILE_FORMATS.items():
+            if dt == torch_dtype:
+                return fmt
+        raise ValueError(f"tiles of dtype {dt} are no tile format")
+
     def to(self, device) -> "TilePlan":
+        """The plan on ``device``; the tiles keep their format (uint8 1-bit
+        bytes, int8 counts, float32 or bfloat16 values)."""
         dev = resolve_device(device)
 
         def put(x, dtype):
@@ -94,8 +158,7 @@ class TilePlan:
 
         return dataclasses.replace(
             self,
-            # bytes of a 1-bit plan go above 127: they stay uint8
-            a=put(self.a, torch.uint8 if self.bits else torch.int8),
+            a=_as_tensor(self.a).to(dev),
             tile_col=put(self.tile_col, torch.int32),
             tile_row=put(self.tile_row, torch.int32),
             run_start=put(self.run_start, torch.int32),
@@ -104,10 +167,28 @@ class TilePlan:
         )
 
     def counts(self, start: int = 0, stop: Optional[int] = None):
-        """The edge counts [stop - start, R, C] of tiles start..stop (the
-        1-bit format unpacked), for the plain versions."""
+        """The tile values [stop - start, R, C] of tiles start..stop (edge
+        counts, the 1-bit format unpacked; a float plan's values, a host
+        bfloat16 plan's as float32), for the plain versions."""
         a = self.a[start:stop]
-        return unpack_bit_tiles(a) if self.bits else a
+        if self.bits:
+            return unpack_bit_tiles(a)
+        if isinstance(a, np.ndarray) and a.dtype == np.uint16:
+            return (a.astype(np.uint32) << 16).view(np.float32)
+        return a
+
+    def astype(self, dtype) -> "TilePlan":
+        """The plan with its tiles in another value format (int8, float32 or
+        bfloat16; see tile_format).  A 1-bit plan has a fixed layout and
+        refuses, as in the JAX package."""
+        if self.bits:
+            raise ValueError("1-bit tiles have a fixed uint8 layout: unpack_bits() first")
+        fmt = tile_format(dtype)
+        if isinstance(self.a, torch.Tensor):
+            a = self.a.to(TILE_FORMATS[fmt][1])
+        else:
+            a = _host_values(self.counts(), fmt)
+        return dataclasses.replace(self, a=a)
 
     def unpack_bits(self) -> "TilePlan":
         """The same plan with int8 count tiles."""
@@ -226,7 +307,7 @@ def split_bit_tiles(tp: TilePlan) -> Tuple[Optional[TilePlan], Optional[TilePlan
     Each part gets all-zero filler tiles (column 0) for the row-tiles it
     lacks, a stable sort by row and its own ``num_dense_edges``.  Runs
     before pad_runs, as in the JAX package."""
-    if tp.bits or tp.pack != 1:
+    if tp.bits or tp.pack != 1 or np.asarray(tp.a).dtype != np.int8:
         raise ValueError("split_bit_tiles takes an unpadded int8 plan (split before pad_runs)")
     a = np.asarray(tp.a)
     t = a.shape[0]
@@ -277,19 +358,22 @@ def densify(
     tile_cols: int = 128,
     threshold: Optional[int] = None,
     ensure_row_coverage: bool = True,
-    dtype=np.int8,
+    dtype=np.float32,
     scale_dst: Optional[np.ndarray] = None,
     scale_src: Optional[np.ndarray] = None,
 ) -> Tuple[TilePlan, CSRGraph]:
-    """Split a graph into (int8 count tile plan, residual sparse graph).
+    """Split a graph into (tile plan, residual sparse graph).
 
-    The default threshold scales with tile area: 48 edges per 128x128.
-    ``ensure_row_coverage`` adds one all-zero tile for every destination
-    row-tile that has no dense tile.  The residual keeps the original edge
-    values.
+    ``dtype`` picks the tile value format (module doc; see tile_format):
+    float32 by default, as in the JAX package, int8 counts or bfloat16.
+    With ``scale_dst``/``scale_src`` the tiles hold val[e] / (scale_dst[dst]
+    * scale_src[src]) and the scales ride along in the plan; int8 tiles
+    need those to be 1.  The default threshold scales with tile area: 48
+    edges per 128x128.  ``ensure_row_coverage`` adds one all-zero tile for
+    every destination row-tile that has no dense tile.  The residual keeps
+    the original edge values.
     """
-    if np.dtype(dtype) != np.int8:
-        raise NotImplementedError("the port builds int8 count tiles only")
+    fmt = tile_format(dtype)
     tr, tc = tile_rows, tile_cols
     if threshold is None:
         threshold = max(1, (48 * tr * tc) // (128 * 128))
@@ -327,7 +411,7 @@ def densify(
         tile_val = tile_val / np.asarray(scale_dst, np.float32)[de_dst]
     if scale_src is not None:
         tile_val = tile_val / np.asarray(scale_src, np.float32)[de_src]
-    if not np.allclose(tile_val, 1.0):
+    if fmt == "int8" and not np.allclose(tile_val, 1.0):
         raise ValueError(
             "int8 tiles hold edge counts: tile edge values (after the scales) "
             "must all be 1"
@@ -342,25 +426,32 @@ def densify(
     slot = np.empty(num_tiles, np.int64)  # dense tile id -> final position
     slot[order] = np.arange(num_tiles)
 
-    # per-cell counts from the sorted cell keys; rank edges within a cell in
-    # edge order (stable sort) and spill those past the int8 cap
     cell = tile_of_edge * (tr * tc) + (de_dst % tr) * tc + (de_src % tc)
-    by_cell = np.argsort(cell, kind="stable")
-    sc = cell[by_cell]
-    new_cell = np.ones(len(sc), bool)
-    new_cell[1:] = sc[1:] != sc[:-1]
-    first = np.flatnonzero(new_cell)
-    per_cell = np.diff(np.append(first, len(sc)))
-    rank = np.arange(len(sc)) - np.repeat(first, per_cell)
-    spill = np.zeros(len(cell), bool)
-    spill[by_cell] = rank >= INT8_CAP
-    cells = sc[first]
+    if fmt == "int8":
+        # per-cell counts from the sorted cell keys; rank edges within a
+        # cell in edge order (stable sort) and spill those past the int8 cap
+        by_cell = np.argsort(cell, kind="stable")
+        sc = cell[by_cell]
+        new_cell = np.ones(len(sc), bool)
+        new_cell[1:] = sc[1:] != sc[:-1]
+        first = np.flatnonzero(new_cell)
+        per_cell = np.diff(np.append(first, len(sc)))
+        rank = np.arange(len(sc)) - np.repeat(first, per_cell)
+        spill = np.zeros(len(cell), bool)
+        spill[by_cell] = rank >= INT8_CAP
+        cells = sc[first]
 
-    a = np.zeros((num_tiles, tr, tc), np.int8)
-    a.reshape(-1)[slot[cells // (tr * tc)] * (tr * tc) + cells % (tr * tc)] = np.minimum(
-        per_cell, INT8_CAP
-    )
-    edge_dense[np.flatnonzero(edge_dense)[spill]] = False
+        a = np.zeros((num_tiles, tr, tc), np.int8)
+        a.reshape(-1)[slot[cells // (tr * tc)] * (tr * tc) + cells % (tr * tc)] = np.minimum(
+            per_cell, INT8_CAP
+        )
+        edge_dense[np.flatnonzero(edge_dense)[spill]] = False
+    else:
+        # float32 sums in edge order (np.add.at adds one index at a time),
+        # the JAX package's fill; bfloat16 rounds the sums
+        a = np.zeros((num_tiles, tr, tc), np.float32)
+        np.add.at(a.reshape(-1), slot[cell // (tr * tc)] * (tr * tc) + cell % (tr * tc), tile_val)
+        a = _host_values(a, fmt)
 
     tile_row = tile_row[order]
     plan = TilePlan(
@@ -387,3 +478,16 @@ def densify(
         n_src=g.n_src,
     )
     return plan, res
+
+
+def densify_gcn_norm(g: CSRGraph, **kw) -> Tuple[TilePlan, CSRGraph]:
+    """densify with the symmetric GCN normalization factored out:
+    val[e] = 1/sqrt(deg_dst * deg_src) = scale_dst[dst] * scale_src[src],
+    so the tiles hold the edge counts (exact in float32 and bfloat16) and
+    the scales ride beside them."""
+    out_deg = np.bincount(g.indices, minlength=g.n_src).astype(np.float32)
+    in_deg = g.degrees.astype(np.float32)
+    s_dst = 1.0 / np.sqrt(np.maximum(in_deg, 1.0))
+    s_src = 1.0 / np.sqrt(np.maximum(out_deg, 1.0))
+    val = s_dst[g.dst_per_edge] * s_src[g.indices]
+    return densify(g, val=val, scale_dst=s_dst, scale_src=s_src, **kw)

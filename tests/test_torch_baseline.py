@@ -31,7 +31,7 @@ def test_gcn_matches_torch_both_styles():
         for i in range(2)
     ]
     agg = Aggregator.schedule_hybrid(
-        g, tile_rows=64, tile_cols=64, threshold=4, with_transpose=False
+        g, tile_dtype=np.int8, tile_rows=64, tile_cols=64, threshold=4, with_transpose=False
     )
     ours = gcn_forward_bench(
         agg, [jnp.asarray(w) for w in ws], jnp.asarray(h), strategy="xla"

@@ -54,7 +54,7 @@ def test_tile_product_matches_jax(h_mode, pack, factored):
         val = sd[gp.dst_per_edge] * ss[gp.indices]
         kw.update(scale_dst=sd, scale_src=ss)
     tj, _ = j_densify(gj, val=val, dtype=np.int8, **kw)
-    tp, _ = densify(gp, val=val, **kw)
+    tp, _ = densify(gp, dtype=np.int8, val=val, **kw)
     tj, tp = tj.pad_runs(pack), tp.pad_runs(pack).to("cpu")
     h = np.random.default_rng(4).standard_normal((gp.n_src, 24)).astype(np.float32)
 
@@ -81,7 +81,7 @@ def test_tile_product_matches_jax(h_mode, pack, factored):
 
 def test_tiles_plus_residual_is_whole_graph():
     _, gp = _graphs()
-    tp, res = densify(gp, tile_rows=64, tile_cols=64, threshold=6)
+    tp, res = densify(gp, dtype=np.int8, tile_rows=64, tile_cols=64, threshold=6)
     h = np.random.default_rng(5).standard_normal((gp.n_src, 8)).astype(np.float32)
     got = bcsr_spmm(tp.pad_runs(4).to("cpu"), torch.from_numpy(h)).double().numpy()
     ref = spmm_dense(gp, h) - spmm_dense(res, h)

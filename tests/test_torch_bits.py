@@ -100,7 +100,7 @@ def test_pack_unpack_round_trip_equals_jax(r):
 def test_split_bit_tiles_equals_jax(tr, tc, thr):
     gj, gp = _graphs()
     tj, _ = j_densify_int8(gj, tile_rows=tr, tile_cols=tc, threshold=thr)
-    tp, _ = densify(gp, tile_rows=tr, tile_cols=tc, threshold=thr)
+    tp, _ = densify(gp, dtype=np.int8, tile_rows=tr, tile_cols=tc, threshold=thr)
     jb, ji = j_tiles.split_bit_tiles(tj)
     pb, pi = split_bit_tiles(tp)
     assert pb is not None and pi is not None
@@ -153,7 +153,7 @@ def test_schedule_hybrid_bit_tiles_equals_jax(pack):
     gj, gp = _graphs()
     kw = dict(tile_rows=64, tile_cols=64, threshold=6, residual_block=4, pack=pack, bit_tiles=True)
     ja = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=False, device_put=False, **kw)
-    pa = Aggregator.schedule_hybrid(gp, device="cpu", **kw)
+    pa = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=False, device="cpu", **kw)
     assert pa.tile_bits.bits and not pa.tile.bits
     assert pa.tile_bits.a.dtype == torch.uint8 and pa.tile.a.dtype == torch.int8
     cpu = lambda p: dataclasses.replace(  # noqa: E731
@@ -168,7 +168,7 @@ def test_schedule_hybrid_bit_tiles_equals_jax(pack):
 
 def test_to_and_pad_runs_keep_uint8():
     _, gp = _graphs()
-    bits, _ = split_bit_tiles(densify(gp, tile_rows=64, tile_cols=64, threshold=6)[0])
+    bits, _ = split_bit_tiles(densify(gp, dtype=np.int8, tile_rows=64, tile_cols=64, threshold=6)[0])
     assert (bits.a > 127).any()
     padded = bits.pad_runs(4)
     assert padded.a.dtype == np.uint8 and padded.num_tiles % 4 == 0
@@ -185,7 +185,7 @@ def test_tile_product_over_bits_matches_jax(pack):
     gj, gp = _graphs()
     kw = dict(tile_rows=64, tile_cols=64, threshold=6)
     jb, ji = j_tiles.split_bit_tiles(j_densify_int8(gj, **kw)[0])
-    pb, pi = split_bit_tiles(densify(gp, **kw)[0])
+    pb, pi = split_bit_tiles(densify(gp, dtype=np.int8, **kw)[0])
     h = np.random.default_rng(4).standard_normal((gp.n_src, 24)).astype(np.float32)
     ht = torch.from_numpy(h)
     a = dense_adjacency(gp)
@@ -204,14 +204,14 @@ def test_tile_product_over_bits_matches_jax(pack):
         assert_matches_jax(got.numpy(), jax.device_get(want), ref, what=f"bits={pp.bits} pack{pack}")
     # the two parts together are the int8 plan's tiles
     both = bcsr_spmm((pb.to("cpu"), pi.to("cpu")), ht)
-    whole = bcsr_spmm(densify(gp, **kw)[0].to("cpu"), ht)
+    whole = bcsr_spmm(densify(gp, dtype=np.int8, **kw)[0].to("cpu"), ht)
     assert (both - whole).abs().max() <= 1e-5 * whole.abs().max()
     assert cuda_bcsr.launches == 0
 
 
 def _bit_part():
     _, gp = _graphs()
-    bits, _ = split_bit_tiles(densify(gp, tile_rows=64, tile_cols=64, threshold=6)[0])
+    bits, _ = split_bit_tiles(densify(gp, dtype=np.int8, tile_rows=64, tile_cols=64, threshold=6)[0])
     return gp, bits.to("cpu")
 
 
@@ -224,10 +224,10 @@ def _bit_calls():
         "gat_bcsr_parts": lambda tp, h, g, c, v: gat_bcsr((tp,), h, v),
         "bcsr_rowmax_plain": lambda tp, h, g, c, v: bcsr_rowmax_plain(tp, c),
         "bcsr_rowmax": lambda tp, h, g, c, v: bcsr_rowmax(tp, c),
-        "gat_bwd_dad_plain": lambda tp, h, g, c, v: gat_bwd_dad_plain(tp, h, g, c, v, v, 0.2),
-        "gat_bwd_dad": lambda tp, h, g, c, v: gat_bwd_dad(tp, h, g, c, v, v, 0.2),
-        "gat_bwd_dh_das_plain": lambda tp, h, g, c, v: gat_bwd_dh_das_plain(tp, h, g, c, v, v, 0.2),
-        "gat_bwd_dh_das": lambda tp, h, g, c, v: gat_bwd_dh_das(tp, h, g, c, v, v, 0.2),
+        "gat_bwd_dad_plain": lambda tp, h, g, c, v: gat_bwd_dad_plain(tp, h, g, c, v, v[:, 1], 0.2),
+        "gat_bwd_dad": lambda tp, h, g, c, v: gat_bwd_dad(tp, h, g, c, v, v[:, 1], 0.2),
+        "gat_bwd_dh_das_plain": lambda tp, h, g, c, v: gat_bwd_dh_das_plain(tp, h, g, c, v, v[:, 1], 0.2),
+        "gat_bwd_dh_das": lambda tp, h, g, c, v: gat_bwd_dh_das(tp, h, g, c, v, v[:, 1], 0.2),
         "transpose": lambda tp, h, g, c, v: tp.transpose().counts(),
     }
 
@@ -262,7 +262,7 @@ def test_bit_aggregator_gat_and_training_run():
     rng = np.random.default_rng(4)
     h = torch.from_numpy(rng.random((n, 8)).astype(np.float32))
     v = torch.from_numpy(rng.random((n, 2)).astype(np.float32))
-    agg = Aggregator.schedule_hybrid(gp, tile_rows=64, tile_cols=64, threshold=6, bit_tiles=True,
+    agg = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, tile_rows=64, tile_cols=64, threshold=6, bit_tiles=True,
                                      with_transpose=True, device="cpu")
     assert [p.bits for p in agg.tile_parts_t()] == [True, False]
     unpacked = dataclasses.replace(agg, tile_bits=agg.tile_bits.unpack_bits(),
@@ -270,10 +270,10 @@ def test_bit_aggregator_gat_and_training_run():
     assert torch.equal(agg.run_gat(h, v), unpacked.run_gat(h, v))
     assert torch.equal(agg.run(h), unpacked.run(h))
     for call in (
-        lambda: cuda_gat.gat_bcsr_cuda(tp, h, v, v),
+        lambda: cuda_gat.gat_bcsr_cuda(tp, h, v, v[:, 1].contiguous(), 0.2),
         lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, v[:, 1].contiguous()),
-        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(tp, h, h, v[:, 0].contiguous(), v, v, 0.2),
-        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp, h, h, v[:, 0].contiguous(), v, v, 0.2),
+        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(tp, h, h, v[:, 0].contiguous(), v, v[:, 1].contiguous(), 0.2),
+        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp, h, h, v[:, 0].contiguous(), v, v[:, 1].contiguous(), 0.2),
     ):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
@@ -296,7 +296,7 @@ def test_entry_configuration_matches_jax():
 
     g = rmat_graph(4096, 65536, seed=123, with_val=False)
     agg = Aggregator.schedule_hybrid(
-        g, tile_rows=512, tile_cols=128, threshold=24, residual_block=4, bit_tiles=True, pack=8, device="cpu",
+        g, tile_dtype=np.int8, with_transpose=False, tile_rows=512, tile_cols=128, threshold=24, residual_block=4, bit_tiles=True, pack=8, device="cpu",
     )
     assert [p.num_tiles for p in agg.tile_parts()] == [p.num_tiles for p in jagg.tile_parts()]
     assert [p.bits for p in agg.tile_parts()] == [True, False]

@@ -27,6 +27,7 @@ from gnn_computing_tpu.graph.reorder import degree_sort as j_degree_sort
 from gnn_computing_tpu.graph.synthetic import rmat_graph as j_rmat_graph
 from gnn_computing_tpu.ops.bcsr import _bcsr_rowmax_xla
 from gnn_computing_tpu.ops.bcsr import hybrid_spmm as j_hybrid_spmm
+from gnn_computing_tpu.ops.bcsr_gat import _branch_factors as j_branch_factors
 from gnn_computing_tpu.ops.bcsr_gat import gat_bcsr_xla, gat_bwd_dad_xla, gat_bwd_dh_das_xla
 from gnn_computing_tpu.ops.bcsr_gat import hybrid_gat as j_hybrid_gat
 from gnn_computing_tpu.schedule import tiles as j_tiles
@@ -36,8 +37,8 @@ from gnn_computing_tpu_torch.graph import degree_sort, normal_features, rmat_gra
 from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
-    _branch_factors,
     _global_bound_shift,
+    _score_terms,
     gat_bcsr,
     gat_bcsr_plain,
     gat_bwd_dad,
@@ -79,7 +80,7 @@ def _bit_parts(setting):
     gj, gp = _graphs(n, m)
     kw = dict(tile_rows=tr, tile_cols=tc, threshold=thr)
     jb, _ = j_tiles.split_bit_tiles(j_tiles.densify(gj, dtype=np.int8, **kw)[0])
-    pb, _ = split_bit_tiles(densify(gp, **kw)[0])
+    pb, _ = split_bit_tiles(densify(gp, dtype=np.int8, **kw)[0])
     assert jb is not None and pb is not None and pb.bits
     return jb, pb, gp
 
@@ -128,7 +129,7 @@ def test_bit_transpose_equals_jax(setting, pack):
 
 def test_bit_transpose_needs_c_multiple_of_8():
     _, gp = _graphs(700, 22000)
-    pb, _ = split_bit_tiles(densify(gp, tile_rows=16, tile_cols=12, threshold=2)[0])
+    pb, _ = split_bit_tiles(densify(gp, dtype=np.int8, tile_rows=16, tile_cols=12, threshold=2)[0])
     assert pb is not None
     with pytest.raises(ValueError, match="C = 12 is not a multiple of 8"):
         pb.transpose()
@@ -140,7 +141,7 @@ def test_schedule_hybrid_bits_with_transpose_equals_jax(setting, pack):
     gj, gp = _graphs(n, m)
     kw = dict(tile_rows=tr, tile_cols=tc, threshold=thr, residual_block=4, pack=pack, bit_tiles=True)
     ja = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=True, device_put=False, **kw)
-    pa = Aggregator.schedule_hybrid(gp, with_transpose=True, device="cpu", **kw)
+    pa = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=True, device="cpu", **kw)
     # the transposed parts in the JAX order, the 1-bit part first; the port
     # keeps it 1-bit at every R, the JAX package unpacks it below R = 256
     assert [p.bits for p in pa.tile_parts_t()] == [True, False]
@@ -192,9 +193,10 @@ def test_bit_plain_versions_match_jax(setting, att_scale, shift):
     assert_matches_jax(num.numpy(), _np(jnum), what=f"B2 num {what}")
     assert_matches_jax(den.numpy(), _np(jden), what=f"B2 den {what}")
 
-    u12, v12 = _branch_factors(att, 0.2, row_shift)
-    args = (h, gbar, c, u12, v12, 0.2)
-    jargs = tuple(jnp.asarray(x.numpy()) for x in args[:5]) + (0.2,)
+    dm, asrc = _score_terms(att, row_shift)
+    args = (h, gbar, c, dm, asrc, 0.2)
+    ju12, jv12 = j_branch_factors(jnp.asarray(att.numpy()), 0.2, jrow_shift)
+    jargs = tuple(jnp.asarray(x.numpy()) for x in args[:3]) + (ju12, jv12, 0.2)
     dad = gat_bwd_dad_plain(tp, *args)
     assert torch.equal(gat_bwd_dad(tp, *args), dad)
     assert torch.equal(gat_bwd_dad_plain(tp.unpack_bits(), *args), dad)
@@ -223,7 +225,7 @@ def _bit_aggs(setting="r64c64"):
     gj, gp = _graphs(n, m)
     kw = dict(tile_rows=tr, tile_cols=tc, threshold=thr, residual_block=4, pack=2, bit_tiles=True)
     jagg = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=True, **kw)
-    agg = Aggregator.schedule_hybrid(gp, with_transpose=True, device="cpu", **kw)
+    agg = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=True, device="cpu", **kw)
     assert len(agg.tile_parts()) == len(agg.tile_parts_t()) == 2
     return jagg, agg, gp
 

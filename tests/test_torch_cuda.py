@@ -6,7 +6,7 @@ width, R not a multiple of the row slab (and, for 1-bit tiles, not a power
 of two), empty runs, filler-only runs, rows without tile edges, factored
 plans (B1), transposed plans (B1, B4), every feature-width branch, f up to
 300 (B6's column chunks), cells on both leaky-relu branches, and a non-edge
-whose GAT branch product or SDDMM dot overflows to inf (B2, B3, B4, B6);
+whose unstabilized GAT score or SDDMM dot overflows to inf (B2, B3, B4, B6);
 and the training Functions' gradients on the card against the same
 Functions on the CPU, over int8 and over bit-tile aggregators.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
@@ -33,9 +33,9 @@ from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, rmat_graph
 from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax, cuda_sddmm
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
-    _branch_factors,
     _global_bound_shift,
     _hybrid_row_shift,
+    _score_terms,
     gat_bcsr,
     gat_bcsr_plain,
     gat_bwd_dad,
@@ -73,7 +73,7 @@ def test_kernel_matches_plain(cuda_dev, tr, tc, pack, f, factored):
         sd = rng.uniform(0.5, 2.0, g.num_nodes).astype(np.float32)
         ss = rng.uniform(0.5, 2.0, g.n_src).astype(np.float32)
         kw.update(val=sd[g.dst_per_edge] * ss[g.indices], scale_dst=sd, scale_src=ss)
-    tp = densify(g, **kw)[0].pad_runs(pack).to(cuda_dev)
+    tp = densify(g, dtype=np.int8, **kw)[0].pad_runs(pack).to(cuda_dev)
     gen = torch.Generator(device=cuda_dev).manual_seed(f)
     for signed in (False, True):
         h = (torch.randn if signed else torch.rand)((g.n_src, f), generator=gen, device=cuda_dev)
@@ -96,7 +96,7 @@ def _gat_plan(dev, tr, tc, pack):
     d, s = g.dst_per_edge, g.indices
     keep = ((d < 800) | (d >= 1100)) & ((d < 1237 - tr) | (s % 97 == 0))
     g = CSRGraph.from_edges(d[keep], s[keep], g.num_nodes)
-    tp = densify(g, tile_rows=tr, tile_cols=tc, threshold=3)[0].pad_runs(pack)
+    tp = densify(g, dtype=np.int8, tile_rows=tr, tile_cols=tc, threshold=3)[0].pad_runs(pack)
     return g, tp.to(dev)
 
 
@@ -132,7 +132,7 @@ def test_gat_kernel_matches_plain(cuda_dev, tr, tc, pack, f):
 
 
 def test_gat_kernel_non_edge_overflow_is_not_nan(cuda_dev):
-    """Un-stabilized, the branch product of a non-edge (cnt == 0) can be inf;
+    """Un-stabilized, the score of a non-edge (cnt == 0) can be inf;
     the kernel must select on the count, not multiply by it."""
     g, tp = _gat_plan(cuda_dev, 64, 64, 1)
     a = tp.a.cpu().numpy()
@@ -177,7 +177,7 @@ def _bwd_plans(dev, tr, tc, pack):
     d, s = g.dst_per_edge, g.indices
     keep = ((d < 800) | (d >= 1100)) & ((d < 1237 - tr) | (s % 97 == 0)) & ((s < 500) | (s >= 500 + 2 * tc))
     g = CSRGraph.from_edges(d[keep], s[keep], g.num_nodes)
-    tp = densify(g, tile_rows=tr, tile_cols=tc, threshold=3)[0]
+    tp = densify(g, dtype=np.int8, tile_rows=tr, tile_cols=tc, threshold=3)[0]
     tp_t = tp.transpose()
     return g, tp.pad_runs(pack).to(dev), tp_t.pad_runs(pack).to(dev)
 
@@ -187,13 +187,13 @@ def _close(got, want, what):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max(), what
 
 
-def _bwd_check(tp, tp_t, h, gbar, c, u12, v12, what):
+def _bwd_check(tp, tp_t, h, gbar, c, dm, asrc, what):
     before = (cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches)
-    dad = gat_bwd_dad(tp, h, gbar, c, u12, v12, 0.2)
-    dh, das = gat_bwd_dh_das(tp_t, h, gbar, c, u12, v12, 0.2)
+    dad = gat_bwd_dad(tp, h, gbar, c, dm, asrc, 0.2)
+    dh, das = gat_bwd_dh_das(tp_t, h, gbar, c, dm, asrc, 0.2)
     assert (cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches) == (before[0] + 1, before[1] + 1)
-    want_dad = gat_bwd_dad_plain(tp, h, gbar, c, u12, v12, 0.2)
-    want_dh, want_das = gat_bwd_dh_das_plain(tp_t, h, gbar, c, u12, v12, 0.2)
+    want_dad = gat_bwd_dad_plain(tp, h, gbar, c, dm, asrc, 0.2)
+    want_dh, want_das = gat_bwd_dh_das_plain(tp_t, h, gbar, c, dm, asrc, 0.2)
     torch.cuda.synchronize()
     _close(dad, want_dad, f"{what} d_ad")
     _close(dh, want_dh, f"{what} dh")
@@ -214,17 +214,17 @@ def test_gat_bwd_kernels_match_plain(cuda_dev, tr, tc, pack, f):
     c = torch.randn(n, generator=gen, device=cuda_dev)
     for scale, shift in ((0.1, False), (1.0, False), (15.0, True)):
         att = torch.randn((n, 2), generator=gen, device=cuda_dev) * scale
-        u12, v12 = _branch_factors(att, 0.2, _global_bound_shift(att, 0.2) if shift else None)
+        dm, asrc = _score_terms(att, _global_bound_shift(att, 0.2) if shift else None)
         z = att[:, 0:1] + att[:, 1][None, :200]
         assert bool((z > 0).any()) and bool((z < 0).any())  # both branches
-        dad, dh, das = _bwd_check(tp, tp_t, h, gbar, c, u12, v12, f"r{tr} c{tc} f{f} scale{scale}")
+        dad, dh, das = _bwd_check(tp, tp_t, h, gbar, c, dm, asrc, f"r{tr} c{tc} f{f} scale{scale}")
     # rows without tile edges give 0
     assert bool((dad[800:1100] == 0).all())
     assert bool((dh[500 : 500 + 2 * tc] == 0).all()) and bool((das[500 : 500 + 2 * tc] == 0).all())
 
 
 def test_gat_bwd_kernels_non_edge_overflow_is_not_nan(cuda_dev):
-    """Un-stabilized, the branch product of a non-edge (cnt == 0) can be inf;
+    """Un-stabilized, the score of a non-edge (cnt == 0) can be inf;
     B3 and B4 must select on the count, not multiply by it."""
     g, tp, tp_t = _bwd_plans(cuda_dev, 64, 64, 1)
     a = tp.a.cpu().numpy()
@@ -239,12 +239,12 @@ def test_gat_bwd_kernels_non_edge_overflow_is_not_nan(cuda_dev):
     att = torch.zeros((n, 2), device=cuda_dev)
     att[rows[t, i], 0] = 50.0
     att[cols[t, j], 1] = 50.0  # exp(50) * exp(50) overflows float32
-    u12, v12 = _branch_factors(att, 0.2)
-    assert bool(torch.isinf(u12[rows[t, i], 0] * v12[cols[t, j], 0]))
+    dm, asrc = _score_terms(att)
+    assert bool(torch.isinf(torch.exp(att[rows[t, i], 0] + att[cols[t, j], 1])))
     gen = torch.Generator(device=cuda_dev).manual_seed(0)
     h, gbar = (torch.randn((n, 8), generator=gen, device=cuda_dev) for _ in range(2))
     c = torch.randn(n, generator=gen, device=cuda_dev)
-    _bwd_check(tp, tp_t, h, gbar, c, u12, v12, "non-edge overflow")
+    _bwd_check(tp, tp_t, h, gbar, c, dm, asrc, "non-edge overflow")
 
 
 @pytest.mark.parametrize("pack", [1, 16])
@@ -273,7 +273,7 @@ def test_training_grads_on_card_match_cpu(cuda_dev, stabilize):
     backward; B2, B3, B4) against the same Functions on the CPU."""
     g = rmat_graph(1237, 60000, seed=3, with_val=False)
     g = g.reorder(degree_sort(g))
-    cpu = Aggregator.schedule_hybrid(g, tile_rows=64, tile_cols=64, threshold=3, residual_block=4, pack=1,
+    cpu = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, tile_rows=64, tile_cols=64, threshold=3, residual_block=4, pack=1,
                                      with_transpose=True, device="cpu")
     card = cpu.to(cuda_dev)
     rng = np.random.default_rng(0)
@@ -307,7 +307,7 @@ def _split_plans(dev, tr, tc, pack):
     d, s = g.dst_per_edge, g.indices
     keep = ((d < 800) | (d >= 1100)) & ((d < 1237 - tr) | (s % 97 == 0))
     g = CSRGraph.from_edges(d[keep], s[keep], g.num_nodes)
-    tp = densify(g, tile_rows=tr, tile_cols=tc, threshold=3)[0]
+    tp = densify(g, dtype=np.int8, tile_rows=tr, tile_cols=tc, threshold=3)[0]
     bits, ints = split_bit_tiles(tp)
     assert bits is not None and ints is not None
     return g, [p.pad_runs(pack).to(dev) for p in (tp, bits, ints)]
@@ -379,7 +379,7 @@ def test_hybrid_sddmm_on_card_matches_cpu(cuda_dev):
     on the card (B6 once per part) against the same op on the CPU."""
     g = rmat_graph(2048, 65536, seed=123, with_val=False)
     g = g.reorder(degree_sort(g))
-    cpu = Aggregator.schedule_hybrid(g, tile_rows=256, tile_cols=128, threshold=24, residual_block=4,
+    cpu = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, tile_rows=256, tile_cols=128, threshold=24, residual_block=4,
                                      bit_tiles=True, pack=1, device="cpu")
     card = cpu.to(cuda_dev)
     rng = np.random.default_rng(0)
@@ -459,8 +459,8 @@ def test_bit_gat_kernels_match_plain(cuda_dev, tr, tc, pack, f):
         torch.cuda.synchronize()
         assert torch.equal(got[0], same[0]) and torch.equal(got[1], same[1]), what
         _gat_check(got, want, f"B2 {what}")
-        u12, v12 = _branch_factors(att, 0.2, row_shift)
-        args = (h, gbar, c, u12, v12, 0.2)
+        dm, asrc = _score_terms(att, row_shift)
+        args = (h, gbar, c, dm, asrc, 0.2)
         dad = gat_bwd_dad(bits, *args)
         assert torch.equal(dad, gat_bwd_dad(bits.unpack_bits(), *args)), what
         _close(dad, gat_bwd_dad_plain(bits, *args), f"B3 {what}")
@@ -482,7 +482,7 @@ def test_bit_gat_kernels_match_plain(cuda_dev, tr, tc, pack, f):
 
 
 def test_bit_gat_kernels_non_edge_overflow_is_not_nan(cuda_dev):
-    """A non-edge of a 1-bit tile whose branch product is inf: B2, B3 and
+    """A non-edge of a 1-bit tile whose unstabilized score is inf: B2, B3 and
     B4 select on the bit, never multiply by it."""
     g, (_, bits, _) = _split_plans(cuda_dev, 64, 64, 1)
     bits_t = dataclasses.replace(bits, a=bits.a.cpu().numpy(), tile_row=bits.tile_row.cpu().numpy(),
@@ -500,8 +500,8 @@ def test_bit_gat_kernels_non_edge_overflow_is_not_nan(cuda_dev):
     att = torch.zeros((n, 2), device=cuda_dev)
     att[rows[t, i], 0] = 50.0
     att[cols[t, j], 1] = 50.0  # exp(50) * exp(50) overflows float32
-    u12, v12 = _branch_factors(att, 0.2)
-    assert bool(torch.isinf(u12[rows[t, i], 0] * v12[cols[t, j], 0]))
+    dm, asrc = _score_terms(att)
+    assert bool(torch.isinf(torch.exp(att[rows[t, i], 0] + att[cols[t, j], 1])))
     gen = torch.Generator(device=cuda_dev).manual_seed(0)
     h, gbar = (torch.randn((n, 8), generator=gen, device=cuda_dev) for _ in range(2))
     c = torch.randn(n, generator=gen, device=cuda_dev)
@@ -509,7 +509,7 @@ def test_bit_gat_kernels_non_edge_overflow_is_not_nan(cuda_dev):
     want = gat_bcsr_plain(bits, h, att)
     torch.cuda.synchronize()
     _gat_check(got, want, "1-bit non-edge overflow")
-    _bwd_check(bits, bits_t, h, gbar, c, u12, v12, "1-bit non-edge overflow")
+    _bwd_check(bits, bits_t, h, gbar, c, dm, asrc, "1-bit non-edge overflow")
 
 
 def test_bit_wrappers_refuse_r_not_multiple_of_8(cuda_dev):
@@ -527,10 +527,10 @@ def test_bit_wrappers_refuse_r_not_multiple_of_8(cuda_dev):
               cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches)
     for call in (
         lambda: cuda_bcsr.bcsr_spmm_cuda(odd, h),
-        lambda: cuda_gat.gat_bcsr_cuda(odd, h, v, v),
+        lambda: cuda_gat.gat_bcsr_cuda(odd, h, v, c, 0.2),
         lambda: cuda_rowmax.rowmax_bcsr_cuda(odd, c),
-        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(odd, h, h, c, v, v, 0.2),
-        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(odd, h, h, c, v, v, 0.2),
+        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(odd, h, h, c, v, c, 0.2),
+        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(odd, h, h, c, v, c, 0.2),
     ):
         with pytest.raises(ValueError, match="R % 8 == 0"):
             call()
@@ -545,7 +545,7 @@ def test_bit_training_grads_on_card_match_cpu(cuda_dev, stabilize):
     against the same Functions on the CPU."""
     g = rmat_graph(1237, 60000, seed=3, with_val=False)
     g = g.reorder(degree_sort(g))
-    cpu = Aggregator.schedule_hybrid(g, tile_rows=64, tile_cols=64, threshold=3, residual_block=4, pack=1,
+    cpu = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, tile_rows=64, tile_cols=64, threshold=3, residual_block=4, pack=1,
                                      with_transpose=True, bit_tiles=True, device="cpu")
     assert [p.bits for p in cpu.tile_parts_t()] == [True, False]
     card = cpu.to(cuda_dev)
@@ -569,3 +569,136 @@ def test_bit_training_grads_on_card_match_cpu(cuda_dev, stabilize):
     torch.cuda.synchronize()
     for got, want, what in zip(grads["cuda"], grads["cpu"], ("hybrid_spmm dh", "hybrid_gat dh", "hybrid_gat datt")):
         _close(got, want, f"1-bit {what}")
+
+
+# ------------------------------------------------------- float tiles, epilogue
+def _float_plan(dev, tr, tc, pack, fmt, factored):
+    """_gat_plan's graph with random edge values as float32 or bfloat16
+    tiles (factored: count tiles of float dtype with the scales beside)."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    d, s = g.dst_per_edge, g.indices
+    keep = ((d < 800) | (d >= 1100)) & ((d < 1237 - tr) | (s % 97 == 0))
+    g = CSRGraph.from_edges(d[keep], s[keep], g.num_nodes)
+    rng = np.random.default_rng(5)
+    if factored:
+        sd = rng.uniform(0.5, 2.0, g.num_nodes).astype(np.float32)
+        ss = rng.uniform(0.5, 2.0, g.n_src).astype(np.float32)
+        kw = dict(val=sd[g.dst_per_edge] * ss[g.indices], scale_dst=sd, scale_src=ss)
+    else:
+        kw = dict(val=rng.uniform(-1.0, 2.0, g.num_edges).astype(np.float32))
+    tp = densify(g, dtype=fmt, tile_rows=tr, tile_cols=tc, threshold=3, **kw)[0].pad_runs(pack)
+    return g, tp.to(dev)
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (96, 40, 4), (72, 13, 1), (512, 256, 16)])
+@pytest.mark.parametrize("f", [1, 24, 33, 64, 100, 128])
+@pytest.mark.parametrize("fmt", [np.float32, torch.bfloat16])
+@pytest.mark.parametrize("factored", [False, True])
+def test_float_tile_kernel_matches_plain(cuda_dev, tr, tc, pack, f, fmt, factored):
+    """B1 over float32 and bfloat16 tiles (signed edge values, or factored
+    counts) against bcsr_spmm_plain; each launch adds one to launches and
+    float_launches; rows without tile edges give 0."""
+    g, tp = _float_plan(cuda_dev, tr, tc, pack, fmt, factored)
+    assert tp.a.dtype == (torch.float32 if fmt is np.float32 else torch.bfloat16)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    for signed in (False, True):
+        h = (torch.randn if signed else torch.rand)((g.n_src, f), generator=gen, device=cuda_dev)
+        before = (cuda_bcsr.launches, cuda_bcsr.float_launches)
+        got = bcsr_spmm(tp, h)
+        assert (cuda_bcsr.launches, cuda_bcsr.float_launches) == (before[0] + 1, before[1] + 1)
+        want = bcsr_spmm_plain(tp, h)
+        torch.cuda.synchronize()
+        _close(got, want, f"{fmt} r{tr} c{tc} f{f} signed {signed}")
+    assert bool((got[800:1100] == 0).all())
+
+
+@pytest.mark.parametrize("fmt", ["i8", "b1", "f32", "bf16"])
+@pytest.mark.parametrize("f,f_out", [(1, 1), (32, 32), (33, 70), (64, 32), (100, 17), (128, 64), (128, 130)])
+@pytest.mark.parametrize("factored", [False, True])
+def test_epilogue_matches_plain(cuda_dev, fmt, f, f_out, factored):
+    """B1's w_epilogue variant over every A format against bcsr_spmm_nn_plain
+    (bcsr_spmm_plain, then torch.matmul): agg and trans within 1e-5 *
+    max|plain|; one launch, counted in epilogue_launches."""
+    from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn, bcsr_spmm_nn_plain
+
+    if fmt in ("i8", "b1"):
+        if factored and fmt == "b1":
+            pytest.skip("a factored plan's 1-bit part is covered by i8 (the same counts)")
+        g = rmat_graph(1237, 60000, seed=3, with_val=False)
+        g = g.reorder(degree_sort(g))
+        kw = dict(tile_rows=64, tile_cols=64, threshold=3)
+        if factored:
+            rng = np.random.default_rng(0)
+            sd = rng.uniform(0.5, 2.0, g.num_nodes).astype(np.float32)
+            ss = rng.uniform(0.5, 2.0, g.n_src).astype(np.float32)
+            kw.update(val=sd[g.dst_per_edge] * ss[g.indices], scale_dst=sd, scale_src=ss)
+        tp = densify(g, dtype=np.int8, **kw)[0]
+        if fmt == "b1":
+            tp = split_bit_tiles(tp)[0]
+        tp = tp.to(cuda_dev)
+    else:
+        g, tp = _float_plan(cuda_dev, 96, 40, 1, np.float32 if fmt == "f32" else torch.bfloat16, factored)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    h = torch.randn((g.n_src, f), generator=gen, device=cuda_dev)
+    w = torch.randn((f, f_out), generator=gen, device=cuda_dev) * 0.1
+    before = (cuda_bcsr.launches, cuda_bcsr.epilogue_launches)
+    agg, trans = bcsr_spmm_nn(tp, h, w)
+    assert (cuda_bcsr.launches, cuda_bcsr.epilogue_launches) == (before[0] + 1, before[1] + 1)
+    want_agg, want_trans = bcsr_spmm_nn_plain(tp, h, w)
+    torch.cuda.synchronize()
+    _close(agg, want_agg, f"{fmt} f{f} agg")
+    _close(trans, want_trans, f"{fmt} f{f}->{f_out} trans")
+
+
+def test_epilogue_refuses_wide_f(cuda_dev):
+    g, tp = _float_plan(cuda_dev, 64, 64, 1, np.float32, False)
+    h = torch.rand((g.n_src, 129), device=cuda_dev)
+    with pytest.raises(ValueError, match="f <= 128"):
+        cuda_bcsr.bcsr_spmm_nn_cuda(tp, h, torch.rand((129, 8), device=cuda_dev))
+
+
+def test_count_kernels_refuse_float_tiles(cuda_dev):
+    """B2-B6 over float A are not ported: their wrappers raise
+    NotImplementedError naming the ROADMAP item, before any launch."""
+    g, tp = _float_plan(cuda_dev, 64, 64, 1, np.float32, False)
+    n = g.num_nodes
+    h, c = torch.rand((n, 8), device=cuda_dev), torch.rand(n, device=cuda_dev)
+    dm = torch.rand((n, 2), device=cuda_dev)
+    for call in (
+        lambda: cuda_gat.gat_bcsr_cuda(tp, h, dm, c, 0.2),
+        lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, c),
+        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(tp, h, h, c, dm, c, 0.2),
+        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp, h, h, c, dm, c, 0.2),
+        lambda: cuda_sddmm.sddmm_bcsr_cuda(tp, h, h),
+    ):
+        with pytest.raises(NotImplementedError, match="B2-B6 over float A"):
+            call()
+
+
+@pytest.mark.parametrize("big", [95.0, 120.0])
+@pytest.mark.parametrize("stabilize", [True, "bound"])
+def test_gat_kernels_wide_logits(cuda_dev, big, stabilize):
+    """One source's as at 95 or 120 (exp(as) overflows float32): B2, B3 and
+    B4 through hybrid_gat's forward and backward on the card equal the same
+    Function on the CPU, finite, for both stabilizers."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    cpu = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, tile_rows=64, tile_cols=64, threshold=3,
+                                     residual_block=4, pack=1, device="cpu")
+    card = cpu.to(cuda_dev)
+    rng = np.random.default_rng(1)
+    h0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 24)).astype(np.float32))
+    a0 = torch.from_numpy((rng.standard_normal((g.num_nodes, 2)) * 0.1).astype(np.float32))
+    a0[5, 1] = big
+    w0 = torch.cos(torch.arange(g.num_nodes * 24, dtype=torch.float32)).reshape(g.num_nodes, 24)
+    res = {}
+    for agg, dev in ((cpu, "cpu"), (card, cuda_dev)):
+        h = h0.to(dev, copy=True).requires_grad_(True)
+        att = a0.to(dev, copy=True).requires_grad_(True)
+        out = agg.run_gat(h, att, stabilize=stabilize)
+        (out * w0.to(dev)).sum().backward()
+        res[str(dev)] = (out.detach().cpu(), h.grad.cpu(), att.grad.cpu())
+    torch.cuda.synchronize()
+    for got, want, what in zip(res["cuda"], res["cpu"], ("out", "dh", "datt")):
+        _close(got, want, f"as={big} {stabilize} {what}")

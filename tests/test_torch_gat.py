@@ -41,6 +41,7 @@ from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain
 from gnn_computing_tpu_torch.ops.bcsr_gat import _hybrid_row_shift, gat_bcsr, gat_bcsr_plain, hybrid_gat
 from gnn_computing_tpu_torch.ops.gat import gat_aggregate_parts
 from gnn_computing_tpu_torch.ops.reference import gat_aggregate_dense
+from gnn_computing_tpu_torch.ops.validate import assert_valid
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.tiles import densify
 
@@ -80,7 +81,7 @@ def _as_np(x):
 def test_gat_bcsr_plain_matches_jax(pack, shift):
     gj, gp = _graphs()
     tj, _ = j_densify(gj, dtype=np.int8, **TILES)
-    tp, _ = densify(gp, **TILES)
+    tp, _ = densify(gp, dtype=np.int8, **TILES)
     tj, tp = tj.pad_runs(pack).device_put(), tp.pad_runs(pack).to("cpu")
     h = np.random.default_rng(4).standard_normal((gp.n_src, 24)).astype(np.float32)
     att = _att(gp.num_nodes, 1.0)
@@ -117,7 +118,7 @@ def test_rowmax_plain_equals_jax(pack):
     gj, gp = _graphs(band=(300, 420))
     kw = dict(TILES, ensure_row_coverage=True)
     tj, _ = j_densify(gj, dtype=np.int8, **kw)
-    tp, _ = densify(gp, **kw)
+    tp, _ = densify(gp, dtype=np.int8, **kw)
     tj, tp = tj.pad_runs(pack).device_put(), tp.pad_runs(pack).to("cpu")
     vals = np.random.default_rng(6).standard_normal(gp.n_src).astype(np.float32)
     want = np.asarray(j_rowmax(tj, jnp.asarray(vals)))
@@ -173,7 +174,7 @@ def _stabilize_setting(att_scale):
     att = j_normal_features(gp.num_nodes, 2, seed=2) * att_scale
     kw = dict(tile_rows=64, tile_cols=128, threshold=4, residual_block=4)
     jagg = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=False, **kw)
-    agg = Aggregator.schedule_hybrid(gp, device="cpu", **kw)
+    agg = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=False, device="cpu", **kw)
     return gp, np.asarray(h, np.float32), np.asarray(att, np.float32), jagg, agg
 
 
@@ -199,7 +200,7 @@ def _forward_setting(dims, pack, heads=1):
     gj, gp = gj.reorder(j_degree_sort(gj)), gp.reorder(degree_sort(gp))
     kw = dict(tile_rows=64, tile_cols=64, threshold=4, residual_block=4, pack=pack)
     jagg = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=False, **kw)
-    agg = Aggregator.schedule_hybrid(gp, device="cpu", **kw)
+    agg = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=False, device="cpu", **kw)
     weights = glorot_gat_weights(dims, seed=0, heads=heads)
     h = normal_features(gp.num_nodes, dims[0], seed=123) * 0.1
     return gp, jagg, agg, weights, h
@@ -290,10 +291,94 @@ def test_unported_gat_options_raise():
     rng = np.random.default_rng(0)
     sd = rng.uniform(0.5, 2.0, gp.num_nodes).astype(np.float32)
     ss = rng.uniform(0.5, 2.0, gp.n_src).astype(np.float32)
-    scaled, _ = densify(gp, val=sd[gp.dst_per_edge] * ss[gp.indices], scale_dst=sd, scale_src=ss,
+    scaled, _ = densify(gp, dtype=np.int8, val=sd[gp.dst_per_edge] * ss[gp.indices], scale_dst=sd, scale_src=ss,
                         tile_rows=64, tile_cols=128, threshold=4)
     with pytest.raises(ValueError, match="raw count"):
         hybrid_gat(scaled.to("cpu"), None, ht, at)
     # no tiles: the gather-only path is not ported
     with pytest.raises(NotImplementedError):
         dataclasses.replace(agg, tile=None).run_gat(ht, at)
+
+
+# ------------------------------------------------------- wide logits (C1, C2)
+def _wide_case():
+    """64 rows, 16x16 tiles: a dense 16x16 block (rows and sources 0..15)
+    plus sparse random edges (tiles and residual); att ~ 0.1 N(0, 1)."""
+    rng = np.random.default_rng(3)
+    bd, bs = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    dst = np.concatenate([bd.reshape(-1), rng.integers(0, 64, 600)])
+    src = np.concatenate([bs.reshape(-1), rng.integers(0, 64, 600)])
+    g = CSRGraph.from_edges(dst, src, 64)
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, tile_rows=16, tile_cols=16, threshold=60,
+                                     residual_block=4, pack=1, device="cpu")
+    assert agg.tile.num_dense_edges and agg.plan.num_edges
+    h = rng.standard_normal((64, 8))
+    att = rng.standard_normal((64, 2)) * 0.1
+    return g, agg, h, att
+
+
+def _softmax_oracle(g, h, att, slope=0.2):
+    """float64 GAT aggregation over the edge list, with autograd: the
+    softmax over each row's in-edges of exp(lrelu(ad_i + as_j)), shifted by
+    each row's max logit."""
+    dst = torch.from_numpy(g.dst_per_edge.astype(np.int64))
+    src = torch.from_numpy(g.indices.astype(np.int64))
+    h64 = torch.tensor(h, dtype=torch.float64, requires_grad=True)
+    a64 = torch.tensor(att, dtype=torch.float64, requires_grad=True)
+    z = a64[dst, 0] + a64[src, 1]
+    lz = torch.maximum(z, slope * z)
+    mx = torch.full((g.num_nodes,), -torch.inf, dtype=torch.float64).scatter_reduce(0, dst, lz, "amax")
+    s = torch.exp(lz - mx[dst].detach())
+    den = torch.zeros(g.num_nodes, dtype=torch.float64).index_add(0, dst, s)
+    num = torch.zeros((g.num_nodes, h.shape[1]), dtype=torch.float64).index_add(0, dst, s[:, None] * h64[src])
+    return num / torch.where(den == 0, 1.0, den)[:, None], h64, a64
+
+
+@pytest.mark.parametrize("big", [95.0, 120.0])
+@pytest.mark.parametrize("stabilize", [True, "bound"])
+def test_gat_wide_logits_match_softmax_oracle(big, stabilize):
+    """One source's as at 95 or 120, beyond exp's float32 range: the
+    stabilized forward and its gradients are finite and pass the gate
+    against a float64 softmax oracle (the JAX package returns NaN here, so
+    it is no oracle); the rows reading that source are ~its h."""
+    g, agg, h, att = _wide_case()
+    att[5, 1] = big
+    want, h64, a64 = _softmax_oracle(g, h, att)
+    w = np.cos(np.arange(64 * 8)).reshape(64, 8)
+    (want * torch.from_numpy(w)).sum().backward()
+    ht = torch.tensor(h, dtype=torch.float32, requires_grad=True)
+    at = torch.tensor(att, dtype=torch.float32, requires_grad=True)
+    got = agg.run_gat(ht, at, stabilize=stabilize)
+    (got * torch.from_numpy(w).float()).sum().backward()
+    for x, ref, what in ((got, want, "out"), (ht.grad, h64.grad, "dh"), (at.grad, a64.grad, "datt")):
+        assert bool(torch.isfinite(x).all()), what
+        assert_valid(x.detach().numpy(), ref.detach().numpy(), what=f"as={big} {stabilize} {what}")
+    assert np.abs(got[:16].detach().numpy() - h[5]).max() < 1e-5
+    assert cuda_gat.launches == 0
+
+
+def test_gat_bound_far_below_matches_softmax_oracle():
+    """C2: row 0's in-neighbors all have as = -100 and a source of another
+    row has as = +100, so under the global bound every score of row 0
+    underflows; the 'bound' forward rescues such rows with the exact shift
+    and equals the softmax (here the mean of h over row 0's neighbors), and
+    so do its gradients, with and without the aggregator's in-degrees."""
+    g, agg, h, att = _wide_case()
+    nbrs = np.unique(g.indices[g.indptr[0] : g.indptr[1]])
+    far = next(j for j in range(16, 64) if j not in nbrs and (g.indices == j).any())
+    att[:, 1] = np.clip(att[:, 1], -1.0, 1.0)
+    att[nbrs, 1] = -100.0
+    att[far, 1] = 100.0
+    want, h64, a64 = _softmax_oracle(g, h, att)
+    w = np.cos(np.arange(64 * 8)).reshape(64, 8)
+    (want * torch.from_numpy(w)).sum().backward()
+    for sched in (agg, dataclasses.replace(agg, in_degree=None)):
+        ht = torch.tensor(h, dtype=torch.float32, requires_grad=True)
+        at = torch.tensor(att, dtype=torch.float32, requires_grad=True)
+        got = sched.run_gat(ht, at, stabilize="bound")
+        (got * torch.from_numpy(w).float()).sum().backward()
+        for x, ref, what in ((got, want, "out"), (ht.grad, h64.grad, "dh"), (at.grad, a64.grad, "datt")):
+            assert bool(torch.isfinite(x).all()), what
+            assert_valid(x.detach().numpy(), ref.detach().numpy(), what=f"far below: {what}")
+        counts = np.bincount(g.indices[g.indptr[0] : g.indptr[1]], minlength=64)
+        assert np.abs(got[0].detach().numpy() - counts @ h / counts.sum()).max() < 1e-5

@@ -46,7 +46,7 @@ def test_gcn_forward_matches_jax(dims, pack):
         layer_opts=j_fast_layer_opts(dims),
     )
 
-    agg = Aggregator.schedule_hybrid(gp, pack=pack, device="cpu", **SCHEDULE)
+    agg = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=False, pack=pack, device="cpu", **SCHEDULE)
     assert agg.tile.num_tiles == jagg.tile.num_tiles
     model = gcn_params_from_jax(weights, device="cpu")
     assert [tuple(w.shape) for w in model.weights] == list(zip(dims[:-1], dims[1:]))
@@ -68,6 +68,8 @@ def test_fast_layer_opts_match_jax():
 
 
 def test_unported_options_raise():
+    """What the JAX package refuses too: 1-bit tiles split integer count
+    tiles only, and the default tiles are float32."""
     g = rmat_graph(100, 800, seed=1, with_val=False)
-    with pytest.raises(NotImplementedError):
-        Aggregator.schedule_hybrid(g, tile_dtype=np.float32, device="cpu")
+    with pytest.raises(ValueError, match="bit_tiles"):
+        Aggregator.schedule_hybrid(g, bit_tiles=True, device="cpu")

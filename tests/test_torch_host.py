@@ -71,7 +71,7 @@ def test_neighbor_grouping_plan_equal(block):
 
 def _compare_densify(gj, gp, pack, **kw):
     tj, rj = j_densify(gj, dtype=np.int8, **kw)
-    tp, rp = densify(gp, **kw)
+    tp, rp = densify(gp, dtype=np.int8, **kw)
     tj, tp = tj.pad_runs(pack), tp.pad_runs(pack)
     for k in ("a", "tile_col", "tile_row"):
         got, want = getattr(tp, k), np.asarray(getattr(tj, k))

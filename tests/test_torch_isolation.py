@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,7 +56,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     g = rmat_graph(64, 400, seed=3, with_val=False)
     weights = glorot_weights((8, 4), seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
-        Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32)
+        Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, tile_rows=32, tile_cols=32)
     with pytest.raises(RuntimeError, match="cuda"):
         GCN(weights)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -67,7 +68,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         gat_params_from_jax(gat_weights)
     with pytest.raises(RuntimeError, match="CUDA"):
         cuda_time_ms(lambda: None)
-    agg = Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, device="cpu")
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, tile_rows=32, tile_cols=32, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         agg.to("cuda")
     with pytest.raises(ValueError):
@@ -75,11 +76,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # run_gat on a CUDA request: the aggregator cannot be placed on the card,
     # and the kernel wrappers take CUDA tensors only
     with pytest.raises(RuntimeError, match="cuda"):
-        Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, device="cpu").to("cuda").run_gat(
+        Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, tile_rows=32, tile_cols=32, device="cpu").to("cuda").run_gat(
             torch.zeros(64, 8), torch.zeros(64, 2)
         )
     with pytest.raises(ValueError):
-        gat_bcsr_cuda(agg.tile, torch.zeros(64, 8), torch.ones(64, 2), torch.ones(64, 2))
+        gat_bcsr_cuda(agg.tile, torch.zeros(64, 8), torch.ones(64, 2), torch.ones(64), 0.2)
     with pytest.raises(ValueError):
         rowmax_bcsr_cuda(agg.tile, torch.zeros(64))
     assert agg.run_gat(torch.zeros(64, 8), torch.zeros(64, 2)).shape == (64, 8)
@@ -95,8 +96,8 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = rmat_graph(64, 400, seed=3, with_val=False)
     with pytest.raises(RuntimeError, match="cuda"):
-        Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, with_transpose=True)
-    agg = Aggregator.schedule_hybrid(g, tile_rows=32, tile_cols=32, with_transpose=True, device="cpu")
+        Aggregator.schedule_hybrid(g, tile_dtype=np.int8, tile_rows=32, tile_cols=32, with_transpose=True)
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, tile_rows=32, tile_cols=32, with_transpose=True, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         agg.to("cuda")
     model = GCN(glorot_weights((8, 4), seed=0), device="cpu")
@@ -109,8 +110,8 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     step = make_train_step(lambda h: model(agg, h), opt, device="cpu")
     assert torch.isfinite(step((torch.rand(64, 8),), torch.zeros(64, dtype=torch.long)))
     # the backward kernels' wrappers take CUDA tensors only
-    z, v = torch.zeros(64, 8), torch.ones(64, 2)
+    z, dm = torch.zeros(64, 8), torch.ones(64, 2)
     with pytest.raises(ValueError):
-        gat_bwd_dad_cuda(agg.tile, z, z, torch.zeros(64), v, v, 0.2)
+        gat_bwd_dad_cuda(agg.tile, z, z, torch.zeros(64), dm, torch.ones(64), 0.2)
     with pytest.raises(ValueError):
-        gat_bwd_dh_das_cuda(agg.tile_t, z, z, torch.zeros(64), v, v, 0.2)
+        gat_bwd_dh_das_cuda(agg.tile_t, z, z, torch.zeros(64), dm, torch.ones(64), 0.2)

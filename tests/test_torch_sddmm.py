@@ -92,7 +92,7 @@ def test_tile_sddmm_matches_jax(tr, f, out):
     gj, gp = _graphs()
     kw = dict(tile_rows=tr, tile_cols=128, threshold=24 if tr == 256 else 3)
     tj, _ = j_tiles.densify(gj, dtype=np.int8, **kw)
-    tp, _ = densify(gp, **kw)
+    tp, _ = densify(gp, dtype=np.int8, **kw)
     a, b = _inputs(gp.num_nodes, f)
     jb, ji = j_tiles.split_bit_tiles(tj)
     pb, pi = split_bit_tiles(tp)
@@ -113,7 +113,7 @@ def test_tile_sddmm_matches_jax(tr, f, out):
 
 def _schedules(gj, gp, pack=1):
     ja = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=False, pack=pack, **BENCH)
-    pa = Aggregator.schedule_hybrid(gp, pack=pack, device="cpu", **BENCH)
+    pa = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=False, pack=pack, device="cpu", **BENCH)
     return ja, pa
 
 
@@ -212,7 +212,7 @@ def test_bench_sddmm_configuration_matches_jax_and_oracle():
     assert_valid(vals[from_cells], ref[from_cells], what="dense edges vs f64 oracle")
     # the residual: its own edges, from the plan's slots in CSR order of the
     # residual graph, against the oracle over that graph
-    _, res_graph = densify(gp, tile_rows=256, tile_cols=128, threshold=24)
+    _, res_graph = densify(gp, dtype=np.int8, tile_rows=256, tile_cols=128, threshold=24)
     res_vals = edge_values_from_slots_flat(pa.plan, pr).numpy()
     assert_valid(res_vals, sddmm_dense(res_graph, a, b), what="residual edges vs f64 oracle")
     dense_edges = sum(p.num_dense_edges for p in pa.tile_parts())
@@ -226,7 +226,7 @@ def test_bench_sddmm_configuration_matches_jax_and_oracle():
 
 def test_forward_only_raises_on_grad():
     gj, gp = _graphs(n=600, m=12000, seed=5)
-    pa = Aggregator.schedule_hybrid(gp, pack=1, device="cpu", **dict(BENCH, tile_rows=64, tile_cols=64, threshold=4))
+    pa = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=False, pack=1, device="cpu", **dict(BENCH, tile_rows=64, tile_cols=64, threshold=4))
     a, b = (torch.from_numpy(x) for x in _inputs(gp.num_nodes, 8))
     a.requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward-only"):

@@ -62,8 +62,11 @@ def test_residual_rejects_unported_gather_dtype():
 
 def test_f16_split2_beyond_float16_range():
     """|h| > 65504 does not fit float16 chunks (the JAX package's table
-    turns it into inf/NaN); the port gathers float32 rows there, so the
-    result equals the exact mode of both packages."""
+    turns it into inf/NaN); the port stores that row scaled by a power of
+    two, chosen on the device, so the result stays within the gate of the
+    float64 oracle and of the exact mode of both packages (tolerance:
+    assert_matches_jax), and every output row that reads no such row is
+    bit-equal to the f16_split2 result without it."""
     gj = j_rmat_graph(300, 5000, seed=17, with_val=True, device="cpu")
     gp = rmat_graph(300, 5000, seed=17, with_val=True)
     h = np.random.default_rng(2).standard_normal((300, 12)).astype(np.float32)
@@ -71,5 +74,55 @@ def test_f16_split2_beyond_float16_range():
     want = spmm_xla(make_plan(gj, Schedule.neighbor_grouping, block_size=4).device_put(), jnp.asarray(h))
     plan = neighbor_grouping_plan(gp, block_size=4).to("cpu")
     got = spmm_plain(plan, torch.from_numpy(h), gather_dtype="f16_split2")
-    assert torch.equal(got, spmm_plain(plan, torch.from_numpy(h)))
     assert_matches_jax(got.numpy(), jax.device_get(want), spmm_dense(gp, h), what="f16_split2 overflow")
+    in_range = h.copy()
+    in_range[7, 3] = 0.0
+    base = spmm_plain(plan, torch.from_numpy(in_range), gather_dtype="f16_split2")
+    reads_7 = np.zeros(300, bool)
+    reads_7[gp.dst_per_edge[gp.indices == 7]] = True
+    assert reads_7.any() and not reads_7.all()
+    assert torch.equal(got[~reads_7], base[~reads_7])
+
+
+@pytest.mark.parametrize("fn", ["weighted_task_sums", "sddmm_slots", "att_slots_flat"])
+def test_f16_split2_rows_past_float16_range(fn):
+    """The f16_split2 gathers choose each row's scale on the device: rows
+    within float16's range are gathered exactly as the JAX package's table
+    does (bit-equal to the same call with the wide rows zeroed), rows past
+    65504 stay finite and within the gate of the float64 result."""
+    from gnn_computing_tpu_torch.ops.gat import _att_slots_flat
+    from gnn_computing_tpu_torch.ops.spmm import f16_split2_rows, sddmm_slots, weighted_task_sums
+
+    gp = rmat_graph(300, 5000, seed=17, with_val=True)
+    plan = neighbor_grouping_plan(gp, block_size=4).to("cpu")
+    rng = np.random.default_rng(4)
+    h = rng.standard_normal((300, 12)).astype(np.float32)
+    wide = [7, 41]
+    h[7, 3] = 3.0e5
+    h[41] *= 2.0e5
+    _, scale = f16_split2_rows(torch.from_numpy(h))
+    assert torch.equal(scale == 1.0, torch.from_numpy(~np.isin(np.arange(300), wide)))
+    b = torch.from_numpy(rng.standard_normal((300, 12)).astype(np.float32))
+    calls = {
+        "weighted_task_sums": lambda x, g: weighted_task_sums(plan, x, plan.val, gather_dtype=g),
+        "sddmm_slots": lambda x, g: sddmm_slots(plan, x, b, gather_dtype=g),
+        "att_slots_flat": lambda x, g: _att_slots_flat(plan, x[:, :2], gather_dtype=g),
+    }
+    call = calls[fn]
+    got = call(torch.from_numpy(h), "f16_split2")
+    exact = call(torch.from_numpy(h).double(), None)
+    assert bool(torch.isfinite(got).all())
+    assert_valid(got.double().numpy(), exact.numpy(), what=f"{fn} past 65504")
+    in_range = h.copy()
+    if fn == "att_slots_flat":
+        in_range[wide, 1] = 0.0  # the gathered src half only
+    else:
+        in_range[wide] = 0.0
+    base = call(torch.from_numpy(in_range), "f16_split2")
+    # the slots (and tasks) that read no wide row are unchanged
+    src = plan.src.reshape(-1)
+    reads = torch.from_numpy(np.isin(src.numpy(), wide))
+    if fn == "weighted_task_sums":
+        reads = reads.reshape(-1, 4).any(dim=1)
+    assert bool(reads.any()) and not bool(reads.all())
+    assert torch.equal(got[~reads], base[~reads])

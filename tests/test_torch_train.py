@@ -54,7 +54,7 @@ from gnn_computing_tpu_torch.models.training import (
 )
 from gnn_computing_tpu_torch.ops import bcsr, bcsr_gat, cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
-    _branch_factors,
+    _score_terms,
     gat_bwd_dad,
     gat_bwd_dad_plain,
     gat_bwd_dh_das,
@@ -102,11 +102,12 @@ def _graphs(n=700, m=22000, seed=5, with_val=False, src_gap=None):
     return gj, gp
 
 
-def _aggs(gj, gp, **kw):
-    """The same hybrid schedule with transposed plans in both packages."""
+def _aggs(gj, gp, tile_dtype=np.int8, **kw):
+    """The same hybrid schedule with transposed plans in both packages
+    (int8 count tiles unless ``tile_dtype`` says otherwise)."""
     kw = dict(SCHEDULE, **kw)
-    jagg = JAggregator.schedule_hybrid(gj, tile_dtype=np.int8, with_transpose=True, **kw)
-    agg = Aggregator.schedule_hybrid(gp, with_transpose=True, device="cpu", **kw)
+    jagg = JAggregator.schedule_hybrid(gj, tile_dtype=tile_dtype, with_transpose=True, **kw)
+    agg = Aggregator.schedule_hybrid(gp, tile_dtype=tile_dtype, with_transpose=True, device="cpu", **kw)
     return jagg, agg
 
 
@@ -136,7 +137,7 @@ def test_tile_transpose_equals_jax(tiles, pack):
     gj, gp = _graphs(src_gap=(256, 520))
     kw = dict(tile_rows=tr, tile_cols=tc, threshold=4)
     tj, _ = j_densify(gj, dtype=np.int8, **kw)
-    tp, _ = densify(gp, **kw)
+    tp, _ = densify(gp, dtype=np.int8, **kw)
     ttj, ttp = tj.transpose(), tp.transpose()
     # source tiles without a tile of their own get zero coverage fillers
     missing = np.setdiff1d(np.arange(ttp.num_row_tiles), np.asarray(tp.tile_col))
@@ -162,7 +163,7 @@ def test_factored_transpose_swaps_scales():
     rng = np.random.default_rng(0)
     sd = rng.uniform(0.5, 2.0, gp.num_nodes).astype(np.float32)
     ss = rng.uniform(0.5, 2.0, gp.n_src).astype(np.float32)
-    tp, _ = densify(gp, val=sd[gp.dst_per_edge] * ss[gp.indices], scale_dst=sd, scale_src=ss,
+    tp, _ = densify(gp, dtype=np.int8, val=sd[gp.dst_per_edge] * ss[gp.indices], scale_dst=sd, scale_src=ss,
                     tile_rows=16, tile_cols=128, threshold=4)
     tt = tp.transpose()
     assert np.array_equal(tt.scale_dst, ss) and np.array_equal(tt.scale_src, sd)
@@ -249,12 +250,10 @@ def test_gat_bwd_plain_matches_xla(att_scale, shift):
     n = gp.num_nodes
     h, gbar, c, att, row_shift = _bwd_inputs(n, 16, att_scale, shift)
     ju12, jv12 = j_branch_factors(jnp.asarray(att), 0.2, None if row_shift is None else jnp.asarray(row_shift))
-    u12, v12 = _branch_factors(_t(att), 0.2, None if row_shift is None else _t(row_shift))
-    # exp of the two libraries may differ in the last bit: feed both the same factors
-    np.testing.assert_allclose(u12.numpy(), np.asarray(ju12), rtol=1e-6)
-    np.testing.assert_allclose(v12.numpy(), np.asarray(jv12), rtol=1e-6)
-    args = (_t(h), _t(gbar), _t(c), u12, v12, 0.2)
-    jargs = (jnp.asarray(h), jnp.asarray(gbar), jnp.asarray(c), jnp.asarray(u12.numpy()), jnp.asarray(v12.numpy()), 0.2)
+    # the port scores each cell from (ad, M) and as (no per-node factors)
+    dm, asrc = _score_terms(_t(att), None if row_shift is None else _t(row_shift))
+    args = (_t(h), _t(gbar), _t(c), dm, asrc, 0.2)
+    jargs = (jnp.asarray(h), jnp.asarray(gbar), jnp.asarray(c), ju12, jv12, 0.2)
 
     dad = gat_bwd_dad_plain(agg.tile, *args)
     assert torch.equal(gat_bwd_dad(agg.tile, *args), dad)
@@ -271,10 +270,10 @@ def test_gat_bwd_plain_matches_xla(att_scale, shift):
     t, i, j = np.nonzero(tp.a.numpy())
     rows = tp.tile_row.numpy()[t].astype(np.int64) * 16 + i
     cols = tp.tile_col.numpy()[t].astype(np.int64) * 128 + j
-    u, v = u12.double().numpy(), v12.double().numpy()
-    b1, b2 = u[rows, 0] * v[cols, 0], u[rows, 1] * v[cols, 1]
-    s = tp.a.numpy()[t, i, j] * np.maximum(b1, b2)
-    term = np.where(b1 >= b2, 1.0, 0.2) * s * ((gbar[rows].astype(np.float64) * h[cols]).sum(1) - c[rows])
+    z = att[rows, 0].astype(np.float64) + att[cols, 1]
+    m = 0.0 if row_shift is None else row_shift[rows].astype(np.float64)
+    s = tp.a.numpy()[t, i, j] * np.exp(np.maximum(z, 0.2 * z) - m)
+    term = np.where(z >= 0, 1.0, 0.2) * s * ((gbar[rows].astype(np.float64) * h[cols]).sum(1) - c[rows])
     assert_matches_jax(dad.numpy(), _np(gat_bwd_dad_xla(jagg.tile, *jargs)),
                        np.bincount(rows, weights=term, minlength=n), what="d_ad vs f64")
     assert_matches_jax(das.numpy(), _np(want_das), np.bincount(cols, weights=term, minlength=n), what="d_as vs f64")
@@ -417,7 +416,7 @@ def test_functions_run_their_own_backward(monkeypatch):
 
 def test_backward_without_transposes_raises():
     gj, gp = _graphs()
-    agg = Aggregator.schedule_hybrid(gp, device="cpu", **SCHEDULE)
+    agg = Aggregator.schedule_hybrid(gp, tile_dtype=np.int8, with_transpose=False, device="cpu", **SCHEDULE)
     assert agg.tile_t is None and agg.plan_t is None
     h = torch.from_numpy(normal_features(gp.num_nodes, 8, seed=1)).requires_grad_(True)
     att = torch.from_numpy(normal_features(gp.num_nodes, 2, seed=2))
@@ -441,33 +440,41 @@ def test_kernel_wrappers_refuse_grad():
     _, agg = _aggs(gj, gp)
     n = gp.num_nodes
     h = torch.zeros((n, 8), requires_grad=True)
-    v = torch.ones((n, 2))
+    dm = torch.ones((n, 2))
+    v = torch.ones(n)
     c = torch.zeros(n)
     for call in (
         lambda: bcsr_spmm_cuda(agg.tile, h),
-        lambda: gat_bcsr_cuda(agg.tile, h, v, v),
+        lambda: gat_bcsr_cuda(agg.tile, h, dm, v, 0.2),
         lambda: rowmax_bcsr_cuda(agg.tile, c.requires_grad_(True)),
-        lambda: gat_bwd_dad_cuda(agg.tile, h, h, c, v, v, 0.2),
-        lambda: gat_bwd_dh_das_cuda(agg.tile_t, h, h, c, v, v, 0.2),
+        lambda: gat_bwd_dad_cuda(agg.tile, h, h, c, dm, v, 0.2),
+        lambda: gat_bwd_dh_das_cuda(agg.tile_t, h, h, c, dm, v, 0.2),
     ):
         with pytest.raises(RuntimeError, match="requires grad"):
             call()
     # with grad off they get as far as the device check
     with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA"):
-            gat_bwd_dad_cuda(agg.tile, h, h, c, v, v, 0.2)
+            gat_bwd_dad_cuda(agg.tile, h, h, c, dm, v, 0.2)
         with pytest.raises(ValueError, match="CUDA"):
-            gat_bwd_dh_das_cuda(agg.tile_t, h, h, c, v, v, 0.2)
+            gat_bwd_dh_das_cuda(agg.tile_t, h, h, c, dm, v, 0.2)
 
 
 # ------------------------------------------------------- training steps
 DIMS = (64, 32, 16, 8)
 
 
-def _train_setting(bit_tiles=False):
+def _train_setting(tiles="int8"):
+    """tiles: 'int8' count tiles, 'bits' (bench.py --train's 1-bit and int8
+    parts) or 'f32' (float32 tiles of the GCN-normalized edge values, the
+    JAX package's default schedule)."""
     gj, gp = _graphs(n=480, m=9000, seed=29)
     gj, gp = gj.reorder(j_degree_sort(gj)), gp.reorder(degree_sort(gp))
-    jagg, agg = _aggs(gj, gp, tile_rows=64, tile_cols=64, residual_block=4, pack=1, bit_tiles=bit_tiles)
+    kw = dict(tile_rows=64, tile_cols=64, residual_block=4, pack=1, bit_tiles=tiles == "bits")
+    if tiles == "f32":
+        kw.update(tile_dtype=None, val=gp.gcn_norm_val())
+    jagg, agg = _aggs(gj, gp, **kw)
+    bit_tiles = tiles == "bits"
     assert len(agg.tile_parts_t()) == (2 if bit_tiles else 1)
     h = normal_features(gp.num_nodes, DIMS[0], seed=123) * 0.1
     labels = np.random.default_rng(7).integers(0, DIMS[-1], gp.num_nodes)
@@ -500,14 +507,17 @@ def _check_training(losses, jlosses, model, jleaves):
 
 
 @pytest.mark.parametrize(
-    "model_kind,bit_tiles",
-    [("gcn", False), ("gat", False), ("gcn", True), ("gat", True)],
-    ids=["gcn", "gat", "gcn-bit_tiles", "gat-bit_tiles"],
+    "model_kind,tiles",
+    [("gcn", "int8"), ("gat", "int8"), ("gcn", "bits"), ("gat", "bits"), ("gcn", "f32")],
+    ids=["gcn", "gat", "gcn-bit_tiles", "gat-bit_tiles", "gcn-f32_tiles"],
 )
-def test_training_steps_match_optax(model_kind, bit_tiles):
-    """3 Adam steps against optax, over int8 tiles and over bench.py
-    --train's default split into a 1-bit and an int8 part."""
-    jagg, agg, h, labels = _train_setting(bit_tiles)
+def test_training_steps_match_optax(model_kind, tiles):
+    """3 Adam steps against optax, over int8 tiles, over bench.py --train's
+    default split into a 1-bit and an int8 part, and (GCN) over float32
+    tiles of the GCN-normalized weighted graph."""
+    jagg, agg, h, labels = _train_setting(tiles)
+    if tiles == "f32":
+        assert agg.tile.format == "float32" and agg.tile_t.format == "float32"
     if model_kind == "gcn":
         weights = glorot_weights(DIMS, seed=0)
         jparams = [jnp.asarray(w) for w in weights]
