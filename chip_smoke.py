@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--scale quick|reddit]
 Phases (any failure exits non-zero; nothing is caught):
   1. card name and power limit; build every kernel with nvcc (sm_90a), one
      nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr, B5 rowmax_bcsr,
-     B3 gat_bwd_dad, B4 gat_bwd_dh_das, B6 sddmm_bcsr; each with an int8
-     and a 1-bit entry point).
+     B3 gat_bwd_dad, B4 gat_bwd_dh_das, B6 sddmm_bcsr; each with an int8,
+     a 1-bit, a float32 and a bfloat16 entry point).
   2. kernel phase: the B1 kernel against its plain PyTorch version on the
      card, at the main path's shapes (f = 128, 64, 32; 'split' and float32
      operands; pack 1 and 16), plus a ragged n with runs made only of filler
@@ -170,10 +170,44 @@ Phases (any failure exits non-zero; nothing is caught):
      the f16_split2 gathers (weighted_task_sums, sddmm_slots,
      _att_slots_flat) with rows past 65504 under
      torch.cuda.set_sync_debug_mode("error"), within the gate of float64.
- 21. (printed last) one "kernels" JSON line, the card line, then
-     {"ok": true, ...}.
+ 29. float-tile GAT and SDDMM kernel phase (quick scale): B2, B5, B3 and B4
+     over float32 and bfloat16 tiles against their plain versions at
+     f = 128, 64, 32, att at scale 0.1 unshifted and at scale 15 with the
+     exact and the 'bound' shift, on the plans of phases 30-33 (pack 1 and
+     8; the training plans pack 1 and 16), the gcn_norm_val plan, a ragged
+     float plan with filler-only runs and a signed-value plan (U(-1, 3):
+     every nonzero cell is scored, C6), with their transposes; B6 over the
+     same plans at f = 32 and 128 (cells whose value is not > 0 exactly
+     +0); a zero cell whose unstabilized score is inf; one source's as at
+     95 and 120 on G1's plan (B2-B4 against plain, forward and gradients
+     against the float64 softmax).  Check: max|d| <= 1e-5 * max|plain|,
+     B5 exactly equal, B6's bf16 cells within one ulp.
+ 30. G1, the GAT forward over the JAX package's default schedule
+     (schedule_hybrid(g, pack=1): float32 count tiles [256, 128], the
+     default threshold, residual block 8, transposed plans), fast=True,
+     split2: five forwards, B2 3 float launches a forward; phase 6's
+     per-layer gates (0 bad); stabilize=True (B5 3 float launches) and
+     'bound' against the un-stabilized output.
+ 31. G2, bench.py --model gat --tile-dtype bf16: bfloat16 count tiles on
+     phase 6's plan; as phase 30, but each layer held to PURE_BAD_FRACTION
+     against the float64 oracle (bfloat16 rounds an odd count above 256 in
+     a hub cell, as the JAX package's bfloat16 tiles do; phase 25).
+ 32. T, GAT training over float tiles: phase 10 (gradient gates, five Adam
+     steps, stabilize='bound') on bench.py --train's [256, 256] t24 plan as
+     bfloat16 tiles (bench.py --train --model gat --tile-dtype bf16) and as
+     float32 tiles (the JAX default dtype), each with its transpose; B2, B3
+     and B4 3 float launches a step each.
+ 33. S, hybrid_sddmm over float32 plans (G1's and the gcn_norm_val [512,
+     256] t48 plan, whose values are not integers), f = 32, five calls, B6
+     one float launch a call: every cell whose value is > 0 and every
+     residual slot against the float64 dot.  Then the timing of phases
+     30-33: G1 and G2 forward and per-layer ms with B2 and B5 rows, the T
+     steps with B3, B4, B1 transposed and B2 rows, the S passes' ms and
+     edges/s with B6 rows (and B6 over G2's bfloat16 plan).
+ 21. (printed last) a "float_gat" JSON line, the total seconds, one
+     "kernels" JSON line, the card line, then {"ok": true, ...}.
 
-With --scale reddit, phases 8-11, 16-20 and 22-28 are replaced by one GCN
+With --scale reddit, phases 8-11, 16-20 and 22-33 are replaced by one GCN
 bit-tile training phase at reddit scale (bench.py --train's headline
 configuration): the [256, 256] t24 bit-tile plan with its transposes and
 its build time, the first step's weight gradients within BITS_REL_L2 of
@@ -185,11 +219,13 @@ Launch counts: every count is set to 0 just before a path is driven and
 read just after it (the GCN forward for B1, the GAT forward for B2, the
 stabilized GAT forward for B5, five GCN training steps for B1, five GAT
 training steps for B2, B3 and B4, five SDDMM calls for B6, five 1-bit GCN
-forwards for B1, the bit-tile phases' steps and forwards, and phases
-23-27's forwards, steps, chain and fused calls); launches made to compare a
-kernel with its plain version are not counted.  Each wrapper also counts
-its 1-bit launches apart (``bits_launches``); B1 its float-tile launches
-(``float_launches``) and its w_epilogue launches (``epilogue_launches``).  The
+forwards for B1, the bit-tile phases' steps and forwards, phases 23-27's
+forwards, steps, chain and fused calls, and phases 30-33's forwards, steps
+and SDDMM calls); launches made to compare a kernel with its plain version
+are not counted.  Each wrapper also counts its 1-bit launches apart
+(``bits_launches``) and its float-tile launches (``float_launches``; B3/B4
+``dad_float_launches`` / ``dh_das_float_launches``); B1 its w_epilogue
+launches (``epilogue_launches``).  The
 training phases run at the quick scale only (their float64 oracles hold
 the whole edge list in memory).
 
@@ -359,6 +395,8 @@ def reset_counts():
     cuda_bcsr.bits_launches = cuda_gat.bits_launches = cuda_rowmax.bits_launches = 0
     cuda_gat_bwd.dad_bits_launches = cuda_gat_bwd.dh_das_bits_launches = 0
     cuda_bcsr.float_launches = cuda_bcsr.epilogue_launches = 0
+    cuda_gat.float_launches = cuda_rowmax.float_launches = cuda_sddmm.float_launches = 0
+    cuda_gat_bwd.dad_float_launches = cuda_gat_bwd.dh_das_float_launches = 0
 
 
 def counts() -> dict:
@@ -373,6 +411,14 @@ def bit_counts() -> dict:
     return dict(
         B1=cuda_bcsr.bits_launches, B2=cuda_gat.bits_launches, B3=cuda_gat_bwd.dad_bits_launches,
         B4=cuda_gat_bwd.dh_das_bits_launches, B5=cuda_rowmax.bits_launches,
+    )
+
+
+def float_counts() -> dict:
+    """The float32 / bfloat16-tile launches among counts()."""
+    return dict(
+        B1=cuda_bcsr.float_launches, B2=cuda_gat.float_launches, B3=cuda_gat_bwd.dad_float_launches,
+        B4=cuda_gat_bwd.dh_das_float_launches, B5=cuda_rowmax.float_launches, B6=cuda_sddmm.float_launches,
     )
 
 
@@ -506,20 +552,87 @@ def gat_edge_oracle(feat, att, dst, src, slope=DEFAULT_SLOPE):
     return num / torch.where(den == 0, 1.0, den)[:, None]
 
 
-def b5_rows(tp, tp16, xs, params) -> list:
-    """Phase 7's B5 timing rows over ``tp`` (ms a launch, pack 16, plain,
-    the scatter_reduce yardstick, bound) from each GAT layer's att."""
+def gat_gates(agg, params, h0, out, g, what: str, layer_limit: float = 0.0) -> list:
+    """Phase 6's checks of a GAT forward (fast=True, split2) over ``agg``:
+    each layer, from its own float32 input, against the float64 edge-list
+    oracle (the softmax over each row's in-edges, with multiplicity) misses
+    the gate on at most ``layer_limit`` of its elements (0: none), and the
+    whole chain ``out`` on at most PURE_BAD_FRACTION.  Returns the layer
+    inputs and outputs."""
+    g_dst, g_src = edge_lists(g, h0.device)
+    xs, chain = [h0], h0.double()
+    for i, p in enumerate(params):
+        xs.append(gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2"))
+        feat = xs[i].double() @ p.w.double()
+        ref = gat_edge_oracle(feat, feat @ p.w_att.double(), g_dst, g_src)
+        bad = relative_error_count(xs[-1], ref)
+        log(f"  {what}layer {i + 1} (same input) vs f64 oracle: gate_bad={bad} of {ref.numel()}")
+        check(bad <= layer_limit * ref.numel(), f"{what}GAT layer {i + 1} fails the gate against the f64 oracle")
+        feat = chain @ p.w.double()
+        chain = gat_edge_oracle(feat, feat @ p.w_att.double(), g_dst, g_src)
+    bad = relative_error_count(out, chain)
+    log(f"  {what}forward vs f64 oracle chain: gate_bad={bad} of {chain.numel()}")
+    check(bad <= PURE_BAD_FRACTION * chain.numel(), f"{what}GAT forward: too many elements off the f64 oracle chain")
+    return xs
+
+
+def b2_rows(agg, tp, tp_pack, pack, xs, params) -> list:
+    """Phase 7's B2 timing rows over ``tp``, one a GAT layer from its own
+    input: the layer's ms, B2 ms a launch (and over ``tp_pack``, padded to
+    ``pack``), the plain version, the library yardstick (torch.sparse.mm of
+    the tile cells' score CSR, built outside the timed call, against
+    [h | 1]) and the bound (A's bytes, h read, dm and as, num and den
+    written; 2 (f + 1) FLOPs a nonzero cell)."""
     dev = tp.a.device
     n = tp.num_nodes
     c_dst, c_src, c_cnt = tile_cells(tp)
-    move_plan = tp.a.numel() + 4 * (tp.num_tiles + tp.num_row_tiles + 1)
+    nnz = c_cnt.numel()
+    move_plan = tp.a.numel() * tp.a.element_size() + 4 * (tp.num_tiles + tp.num_row_tiles + 1)
+    rows = []
+    for i, p in enumerate(params):
+        layer_ms = cuda_time_ms(lambda: gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2"))
+        feat = (xs[i] @ p.w).contiguous()
+        att = feat @ p.w_att
+        f = feat.shape[1]
+        dm, asrc = _score_terms(att)
+        ms = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, feat, dm, asrc, DEFAULT_SLOPE))
+        ms_pack = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp_pack, feat, dm, asrc, DEFAULT_SLOPE))
+        plain_ms = cuda_time_ms(lambda: gat_bcsr_plain(tp, feat, att))
+        z = att[c_dst, 0] + att[c_src, 1]
+        score = c_cnt.float() * torch.exp(torch.maximum(z, DEFAULT_SLOPE * z))
+        csr = torch.sparse_coo_tensor(torch.stack([c_dst, c_src]), score, (n, tp.n_src)).coalesce().to_sparse_csr()
+        hx = torch.cat([feat, torch.ones((feat.shape[0], 1), device=dev)], dim=1)
+        library_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, hx))
+        rows.append(dict(
+            f=f, layer_ms=layer_ms, ms=ms, plain_ms=plain_ms, library_ms=library_ms, tiles=tp.num_tiles, nnz_cells=nnz,
+            **{f"ms_pack{pack}": ms_pack},
+            **bound(move_plan + 4 * f * tp.n_src + 8 * n + 4 * tp.n_src + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)),
+        ))
+        r = rows[-1]
+        log(
+            f"  layer {i + 1} f={f}: layer {layer_ms:.3f} ms | B2 over {part_name(tp)} tiles {ms:.3f} ms/launch "
+            f"(pack{pack} {ms_pack:.3f}) bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | plain {plain_ms:.3f} | "
+            f"torch.sparse.mm {library_ms:.3f}"
+        )
+        del csr, hx, z, score
+    return rows
+
+
+def b5_rows(tp, tp16, xs, params, pack=16) -> list:
+    """Phase 7's B5 timing rows over ``tp`` (ms a launch, over ``tp16`` padded
+    to ``pack``, plain, the scatter_reduce yardstick, bound) from each GAT
+    layer's att."""
+    dev = tp.a.device
+    n = tp.num_nodes
+    c_dst, c_src, c_cnt = tile_cells(tp)
+    move_plan = tp.a.numel() * tp.a.element_size() + 4 * (tp.num_tiles + tp.num_row_tiles + 1)
     rows = []
     for i, p in enumerate(params):
         asrc = ((xs[i] @ p.w) @ p.w_att)[:, 1].contiguous()
         rows.append(dict(
             layer=i + 1, tiles=tp.num_tiles, nnz_cells=c_cnt.numel(),
             ms=cuda_time_ms(lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, asrc)),
-            ms_pack16=cuda_time_ms(lambda: cuda_rowmax.rowmax_bcsr_cuda(tp16, asrc)),
+            **{f"ms_pack{pack}": cuda_time_ms(lambda: cuda_rowmax.rowmax_bcsr_cuda(tp16, asrc))},
             plain_ms=cuda_time_ms(lambda: bcsr_rowmax_plain(tp, asrc)),
             library_ms=cuda_time_ms(
                 lambda: torch.full((n,), float("-inf"), device=dev).scatter_reduce_(
@@ -531,7 +644,7 @@ def b5_rows(tp, tp16, xs, params) -> list:
         r = rows[-1]
         log(
             f"  layer {i + 1}: B5 over {tp.num_tiles} {part_name(tp)} tiles {r['ms']:.3f} ms/launch "
-            f"(pack16 {r['ms_pack16']:.3f}) bound "
+            f"(pack{pack} {r[f'ms_pack{pack}']:.3f}) bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) | plain {r['plain_ms']:.3f} | scatter_reduce {r['library_ms']:.3f}"
         )
     return rows
@@ -593,21 +706,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
         check(only("B2"), "the GAT forward launched another kernel")
         check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "GAT forward output")
 
-        g_dst, g_src = edge_lists(g, dev)
-        xs, chain = [h0], h0.double()
-        for i, p in enumerate(params):
-            xs.append(gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2"))
-            feat = xs[i].double() @ p.w.double()
-            ref = gat_edge_oracle(feat, feat @ p.w_att.double(), g_dst, g_src)
-            bad = relative_error_count(xs[-1], ref)
-            log(f"  layer {i + 1} (same input) vs f64 oracle: gate_bad={bad} of {ref.numel()}")
-            check(bad == 0, f"GAT layer {i + 1} fails the gate against the f64 oracle")
-            feat = chain @ p.w.double()
-            chain = gat_edge_oracle(feat, feat @ p.w_att.double(), g_dst, g_src)
-        bad = relative_error_count(out, chain)
-        log(f"  forward vs f64 oracle chain: gate_bad={bad} of {chain.numel()}")
-        check(bad <= PURE_BAD_FRACTION * chain.numel(), "GAT forward: too many elements off the f64 oracle chain")
-        del g_dst, g_src, chain, feat, ref
+        xs = gat_gates(agg, params, h0, out, g, "")
 
         # the stabilized forward is its own path: B5 runs only there
         reset_counts()
@@ -631,39 +730,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
         stab_ms = cuda_time_ms(lambda: fwd(stabilize=True))
         bound_fwd_ms = cuda_time_ms(lambda: fwd(stabilize="bound"))
         log(f"  forward: {fwd_ms:.3f} ms; stabilize=True {stab_ms:.3f} ms; stabilize='bound' {bound_fwd_ms:.3f} ms")
-        c_dst, c_src, c_cnt = tile_cells(tp)
-        nnz = c_cnt.numel()
-        move_plan = tp.a.numel() + 4 * (tp.num_tiles + tp.num_row_tiles + 1)
-        b2_rows = []
-        for i, p in enumerate(params):
-            layer_ms = cuda_time_ms(lambda: gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2"))
-            feat = (xs[i] @ p.w).contiguous()
-            att = feat @ p.w_att
-            f = feat.shape[1]
-            dm, asrc = _score_terms(att)
-            ms = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, feat, dm, asrc, DEFAULT_SLOPE))
-            ms16 = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tile16, feat, dm, asrc, DEFAULT_SLOPE))
-            plain_ms = cuda_time_ms(lambda: gat_bcsr_plain(tp, feat, att))
-            # library yardstick: the cells' scores as one CSR, built outside
-            # the timed call, times [h | 1]
-            z = att[c_dst, 0] + att[c_src, 1]
-            score = c_cnt.float() * torch.exp(torch.maximum(z, DEFAULT_SLOPE * z))
-            csr = torch.sparse_coo_tensor(torch.stack([c_dst, c_src]), score, (n, tp.n_src)).coalesce().to_sparse_csr()
-            hx = torch.cat([feat, torch.ones((feat.shape[0], 1), device=dev)], dim=1)
-            library_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, hx))
-            bytes_ms = (move_plan + 4 * f * tp.n_src + 8 * n + 4 * tp.n_src + 4 * (f + 1) * n) / HBM_BYTES_PER_S * 1e3
-            ops_ms = 2.0 * nnz * (f + 1) / FP32_FLOPS * 1e3
-            b2_rows.append(dict(
-                f=f, layer_ms=layer_ms, ms=ms, ms_pack16=ms16, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                tiles=tp.num_tiles, nnz_cells=nnz,
-            ))
-            log(
-                f"  layer {i + 1} f={f}: layer {layer_ms:.3f} ms | B2 {ms:.3f} ms/launch (pack16 {ms16:.3f}) "
-                f"bound {b2_rows[-1]['bound_ms']:.4f} ms ({b2_rows[-1]['bound_by']}) | plain {plain_ms:.3f} | "
-                f"torch.sparse.mm {library_ms:.3f}"
-            )
-            del csr, hx, z, score
+        b2 = b2_rows(agg, tp, tile16, 16, xs, params)
         rows5 = b5_rows(tp, tile16, xs, params)
 
     def total(rows, k):
@@ -680,7 +747,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
         )
 
     return [
-        entry("gat_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:436", b2_rows, launches, max_err,
+        entry("gat_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:436", b2, launches, max_err,
               path="GAT forward (fast, split2)", forward_ms=fwd_ms, build_s=libs["gat_bcsr"][1]),
         entry("rowmax_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:1251", rows5, rowmax_launches, 0.0,
               path="GAT forward (fast, split2, stabilize=True)", forward_ms=stab_ms,
@@ -812,6 +879,7 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
     nnz = c_cnt.numel()
     idx = 4 * (tp.num_tiles + tp.num_row_tiles + 1)
     idx_t = 4 * (tp_t.num_tiles + tp_t.num_row_tiles + 1)
+    a_bytes, a_bytes_t = tp.a.numel() * tp.a.element_size(), tp_t.a.numel() * tp_t.a.element_size()
     csr_t = tile_csr(tp_t)
     rows = {"B3": [], "B4": [], "B1_t": [], "B2": []}
     for f in BENCH_DIMS[1:]:
@@ -850,21 +918,21 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
             ms_pack16=cuda_time_ms(lambda: gat_bwd_dad(tile16, *args)),
             plain_ms=cuda_time_ms(lambda: gat_bwd_dad_plain(tp, *args)),
             library_ms=cuda_time_ms(lib_dad), nnz_cells=nnz,
-            **bound(tp.a.numel() + idx + io + 4 * n, 2.0 * nnz * f),
+            **bound(a_bytes + idx + io + 4 * n, 2.0 * nnz * f),
         )
         r4 = dict(
             f=f, ms=cuda_time_ms(lambda: gat_bwd_dh_das(tp_t, *args)),
             ms_pack16=cuda_time_ms(lambda: gat_bwd_dh_das(tile_t16, *args)),
             plain_ms=cuda_time_ms(lambda: gat_bwd_dh_das_plain(tp_t, *args)),
             library_ms=cuda_time_ms(lib_dh_das), nnz_cells=nnz,
-            **bound(tp_t.a.numel() + idx_t + io + 4 * n * (f + 1), 4.0 * nnz * f),
+            **bound(a_bytes_t + idx_t + io + 4 * n * (f + 1), 4.0 * nnz * f),
         )
         r1 = dict(
             f=f, ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp_t, gbar)),
             ms_pack16=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tile_t16, gbar)),
             plain_ms=cuda_time_ms(lambda: bcsr_spmm_plain(tp_t, gbar)),
             library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr_t, gbar)), nnz_cells=nnz,
-            **bound(tp_t.a.numel() + idx_t + 8 * f * n, 2.0 * nnz * f),
+            **bound(a_bytes_t + idx_t + 8 * f * n, 2.0 * nnz * f),
         )
         att = torch.randn((n, 2), generator=gen, device=dev)
         dma, asa = _score_terms(att)
@@ -873,7 +941,7 @@ def train_kernel_times(tp, tp_t, tile16, tile_t16, gen) -> dict:
             ms_pack16=cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tile16, h, dma, asa, DEFAULT_SLOPE)),
             plain_ms=cuda_time_ms(lambda: gat_bcsr_plain(tp, h, att)),
             library_ms=cuda_time_ms(lambda: torch.sparse.mm(s_fwd, h1)), nnz_cells=nnz,
-            **bound(tp.a.numel() + idx + 4 * f * n + 12 * n + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)),
+            **bound(a_bytes + idx + 4 * f * n + 12 * n + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)),
         )
         for k, r in (("B3", r3), ("B4", r4), ("B1_t", r1), ("B2", r2)):
             r["tiles"] = (tp_t if k in ("B4", "B1_t") else tp).num_tiles
@@ -1155,7 +1223,7 @@ def host_plan(tp):
 
 
 def part_name(tp) -> str:
-    return "1-bit" if tp.bits else "int8"
+    return "1-bit" if tp.bits else tp.format
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1184,14 +1252,14 @@ def cells_agree(got, want, cnt, what: str) -> float:
 
 def sddmm_vs_plain(tp, f: int, gen, what: str) -> float:
     """B6 against sddmm_bcsr_plain on N(0, 1) a and b, float32 and bfloat16
-    cells, CHECK_TILES tiles at a time.  Returns max|d| of the float32
-    cells."""
+    cells, CHECK_TILES tiles at a time (any tile format: the cells whose
+    value is not > 0 must be +0).  Returns max|d| of the float32 cells."""
     a = torch.randn((tp.n_src, f), generator=gen, device="cuda")
     b = torch.randn((tp.num_nodes, f), generator=gen, device="cuda")
     err, worst = 0.0, {}
     for s in range(0, tp.num_tiles, CHECK_TILES):
         sub = tile_slice(tp, s, s + CHECK_TILES)
-        cnt = sub.counts()
+        cnt = sub.counts() > 0  # a cell holds an edge where its value is > 0
         for out in (torch.float32, torch.bfloat16):
             got = sddmm_bcsr(sub, a, b, out_dtype=out, dot_mode="split23")
             want = sddmm_bcsr_plain(sub, a, b, out)
@@ -1301,20 +1369,26 @@ def sddmm_path_checks(g, agg, cells, res, a, b):
     # edges outside every tile, and those past a cell's int8 cap, are the residual
     check(m - in_tiles + (in_tiles - dense_edges) == agg.plan.num_edges, "the residual is not the edges left outside the cells")
 
-    plan = agg.plan
+    residual_checks(agg.plan, res, a64, b64, "")
+
+
+def residual_checks(plan, res, a64, b64, what: str):
+    """Every residual slot of an SDDMM pass passes the gate against the
+    float64 dot of its edge, and every pad slot is 0."""
+    dev = a64.device
     bsz = plan.block_size
     valid = torch.arange(bsz, device=dev)[None, :] < plan.count.long()[:, None]
     valid = valid.reshape(-1)
-    check(int(valid.sum()) == plan.num_edges, "residual slots != residual edges")
-    check(bool((res[~valid] == 0).all()), "a residual pad slot is not 0")
+    check(int(valid.sum()) == plan.num_edges, f"{what}residual slots != residual edges")
+    check(bool((res[~valid] == 0).all()), f"{what}a residual pad slot is not 0")
     src, dst = plan.src_flat(), plan.dst.repeat_interleave(bsz)
     bad = 0
     for s in range(0, src.shape[0], CHECK_EDGES):
         v = valid[s : s + CHECK_EDGES]
         ref = (a64.index_select(0, src[s : s + CHECK_EDGES]) * b64.index_select(0, dst[s : s + CHECK_EDGES])).sum(dim=1)
         bad += relative_error_count(res[s : s + CHECK_EDGES][v], ref[v])
-    log(f"  residual edges vs f64 dots: gate_bad={bad} of {plan.num_edges}")
-    check(bad == 0, "residual edges fail the gate against the f64 dots")
+    log(f"  {what}residual edges vs f64 dots: gate_bad={bad} of {plan.num_edges}")
+    check(bad == 0, f"{what}residual edges fail the gate against the f64 dots")
 
 
 def sddmm_phases(args, g, gen) -> dict:
@@ -1520,10 +1594,11 @@ def timing_phase(g, sd, bt) -> tuple:
 
 
 def bits_inf_non_edge(tp, tp_t, gen, what: str):
-    """A non-edge of a 1-bit part whose unstabilized score overflows to inf:
-    its row and its column hold edges in the same tile, so B2 scores the
-    row and B3/B4 walk the row and the column; each must select on the
-    bit, never multiply by it.  B2, B3 and B4 against their plain versions
+    """A non-edge (a zero cell of a 1-bit part, phase 16, or of a float plan,
+    phase 29) whose unstabilized score overflows to inf: its row and its
+    column hold edges in the same tile, so B2 scores the row and B3/B4 walk
+    the row and the column; each must select on the cell, never multiply
+    by it.  B2, B3 and B4 against their plain versions
     on the part, outputs finite."""
     r, c = tp.tile_rows, tp.tile_cols
     dev = tp.a.device
@@ -2168,6 +2243,346 @@ def repair_phase(g, gen) -> dict:
     return dict(max_err=err)
 
 
+def float_gat_kernels_vs_plain(tp, tp_t, f: int, gen, what: str) -> dict:
+    """B2 and B5 over ``tp``, B3 over ``tp`` and B4 over ``tp_t`` (where
+    given) against their plain versions: signed N(0, 1) h, gbar and c; att
+    at scale 0.1 unshifted, at scale 15 with the exact row shift and with
+    the 'bound' shift.  max|d| <= KERNEL_TOL * max|plain| for each output
+    (den also under the gate where the plan's values are nonnegative), B5
+    exactly equal.  Returns max|d| per kernel."""
+    dev = tp.a.device
+    n = tp.num_nodes
+    nonneg = not bool((tp.a < 0).any())
+    err = dict(B2=0.0, B3=0.0, B4=0.0)
+    h = torch.randn((n, f), generator=gen, device=dev)
+    gbar = torch.randn((n, f), generator=gen, device=dev)
+    c = torch.randn(n, generator=gen, device=dev)
+    for scale, shift in ((0.1, None), (15.0, "exact"), (15.0, "bound")):
+        att = torch.randn((n, 2), generator=gen, device=dev) * scale
+        rmax, want = bcsr_rowmax(tp, att[:, 1].contiguous()), bcsr_rowmax_plain(tp, att[:, 1].contiguous())
+        torch.cuda.synchronize()
+        check(torch.equal(rmax, want), f"{what} B5 differs from bcsr_rowmax_plain (scale {scale})")
+        row_shift = {None: None, "exact": lambda: _hybrid_row_shift(tp, None, att, DEFAULT_SLOPE),
+                     "bound": lambda: _global_bound_shift(att, DEFAULT_SLOPE)}[shift]
+        row_shift = row_shift() if row_shift else None
+        num, den = gat_bcsr(tp, h, att, row_shift=row_shift, dot_mode="split2")
+        ref_num, ref_den = gat_bcsr_plain(tp, h, att, row_shift=row_shift)
+        dm, asrc = _score_terms(att, row_shift)
+        args = (h, gbar, c, dm, asrc, DEFAULT_SLOPE)
+        outs = [(num, ref_num, "B2", "num", False), (den, ref_den, "B2", "den", nonneg),
+                (gat_bwd_dad(tp, *args), gat_bwd_dad_plain(tp, *args), "B3", "d_ad", False)]
+        if tp_t is not None:
+            (dh, das), (want_dh, want_das) = gat_bwd_dh_das(tp_t, *args), gat_bwd_dh_das_plain(tp_t, *args)
+            outs += [(dh, want_dh, "B4", "dh", False), (das, want_das, "B4", "d_as", False)]
+        torch.cuda.synchronize()
+        label = f"{what} f={f} scale {scale}{'' if shift is None else f' {shift}-shifted'}"
+        for got, ref, k, name, gate in outs:
+            err[k] = max(err[k], compare(got, ref, f"{label} {k} {name}", gate=gate))
+    return err
+
+
+def float_gat_kernel_phase(gen, plans: dict) -> dict:
+    """Phase 29: B2, B5, B3 and B4 over float32 and bfloat16 tiles against
+    their plain versions at every float path's shapes (``plans``: name ->
+    (plan, transposed plan or None), pack 1 and padded), f = 128, 64, 32;
+    the gcn_norm_val plan; a ragged float plan with a filler-only run and
+    its transpose; a signed-value plan (U(-1, 3), C6); a non-edge whose
+    unstabilized score is inf.  B6 over the same float plans (f = 32 and
+    128; cells whose value is not > 0 are +0).  Returns max|d| per kernel
+    and format over the pack-1 path plans."""
+    dev = gen.device
+    log("phase 29: B2-B6 over float32 / bfloat16 A vs their plain versions")
+    max_err = {}
+    with torch.no_grad():
+        for name, (tp, tp_t) in plans.items():
+            fmt = cuda_build.FORMAT_TAGS[tp.format]
+            for f in BENCH_DIMS[1:]:
+                errs = float_gat_kernels_vs_plain(tp, tp_t, f, gen, name)
+                if "pack" not in name:
+                    for k, e in errs.items():
+                        max_err[f"{k}_{fmt}"] = max(max_err.get(f"{k}_{fmt}", 0.0), e)
+            for f in (SDDMM_F, BENCH_DIMS[1]):
+                e = sddmm_vs_plain(tp, f, gen, f"{name} B6")
+                if "pack" not in name:
+                    max_err[f"B6_{fmt}"] = max(max_err.get(f"B6_{fmt}", 0.0), e)
+        ng, rng = ragged_graph()
+        for label, val in (("ragged", rng.uniform(0.2, 2.0, ng.num_edges)), ("signed", rng.uniform(-1.0, 3.0, ng.num_edges))):
+            host = densify(ng, val=val.astype(np.float32), **GAT_SCHEDULE)[0]
+            rp, rp_t = host.pad_runs(16), host.transpose().pad_runs(16)
+            check(bool(filler_only_runs(rp)) and bool(filler_only_runs(rp_t)), f"{label} float plan lacks a filler-only run")
+            vals = rp.counts()
+            log(f"  {label} float plan: n={ng.num_nodes} tiles={rp.num_tiles} (transposed {rp_t.num_tiles}), "
+                f"filler-only runs {filler_only_runs(rp)}; cells < 0: {int((vals < 0).sum())}, > 0: {int((vals > 0).sum())}")
+            for fmt in (np.float32, torch.bfloat16):
+                p, p_t = rp.astype(fmt).to(dev), rp_t.astype(fmt).to(dev)
+                for f in (BENCH_DIMS[1], BENCH_DIMS[3]):
+                    float_gat_kernels_vs_plain(p, p_t, f, gen, f"{label} {p.format}")
+                    sddmm_vs_plain(p, f, gen, f"{label} {p.format} B6")
+        for name, (tp, tp_t) in plans.items():
+            if "pack" not in name and not bool((tp.a < 0).any()):
+                bits_inf_non_edge(tp, tp_t, gen, name)
+                break
+    return max_err
+
+
+def float_sddmm_checks(agg, cells, res, a, b, what: str):
+    """Phase 32's checks of hybrid_sddmm over float tiles: every cell whose
+    value is > 0 passes the gate against the float64 dot <b[row], a[col]>,
+    every other cell is +0; every residual slot passes the gate and pad
+    slots are 0 (residual_checks)."""
+    dev = a.device
+    a64, b64 = a.double(), b.double()
+    bad, edges = 0, 0
+    for p, c in zip(agg.tile_parts(), cells):
+        check(c.shape == (p.num_tiles, p.tile_rows, p.tile_cols), f"{what}: cell array shape")
+        for s in range(0, p.num_tiles, CHECK_TILES):
+            on = p.counts(s, s + CHECK_TILES) > 0
+            cs = c[s : s + CHECK_TILES]
+            raw = cs.view(torch.int16) if cs.dtype == torch.bfloat16 else cs.view(torch.int32)
+            check(not bool(((raw != 0) & ~on).any()), f"{what}: a cell whose value is not > 0 is not +0")
+            check(bool(torch.isfinite(cs.float()).all()), f"{what}: non-finite cell")
+            t, i, j = on.nonzero(as_tuple=True)
+            rows = p.tile_row.long()[s + t] * p.tile_rows + i
+            cols = p.tile_col.long()[s + t] * p.tile_cols + j
+            ref = (b64.index_select(0, rows) * a64.index_select(0, cols)).sum(dim=1)
+            bad += relative_error_count(cs[t, i, j].float(), ref)
+            edges += int(t.numel())
+    log(f"  {what} cells vs f64 dots: gate_bad={bad} of {edges}")
+    check(bad == 0, f"{what}: cells fail the gate against the f64 dots")
+    residual_checks(agg.plan, res, a64, b64, f"{what} ")
+
+
+def float_gat_phases(g, h0, gen, forwards: int) -> dict:
+    """Phases 29-33 (quick scale): GAT and SDDMM over float tiles.  Phase 29
+    the kernels against their plain versions; 30 (G1) the GAT forward over
+    the JAX default schedule; 31 (G2) bench.py --model gat --tile-dtype
+    bf16; 32 (T) GAT training over float tiles; 33 (S) hybrid_sddmm over
+    float32 plans; then their timing.  Returns what the report needs."""
+    dev = h0.device
+    n, m = g.num_nodes, g.num_edges
+    model = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
+    params = model.layer_params()
+    t0 = time.perf_counter()
+    # G1: the JAX package's defaults (float32 count tiles [256, 128], the
+    # default threshold, residual block 8, transposed plans), pack 1
+    agg1 = Aggregator.schedule_hybrid(g, pack=1, device=dev)
+    g1_s = time.perf_counter() - t0
+    host1 = densify(g)[0]
+    g1_8, g1_t8 = host1.pad_runs(8).to(dev), host1.transpose().pad_runs(8).to(dev)
+    del host1
+    # G2: bench.py --model gat --tile-dtype bf16
+    agg2 = Aggregator.schedule_hybrid(g, tile_dtype=torch.bfloat16, with_transpose=False, residual_block=RESIDUAL_BLOCK,
+                                      pack=1, device=dev, **GAT_SCHEDULE)
+    g2_8 = densify(g, dtype=torch.bfloat16, **GAT_SCHEDULE)[0].pad_runs(8).to(dev)
+    # T: bench.py --train --model gat --tile-dtype bf16's plan, built as that
+    # command builds it (host bfloat16 densify and transpose), and the same
+    # plan in float32 (the JAX default dtype); the bf16 tiles must be the
+    # float32 sums rounded to nearest even
+    aggt = Aggregator.schedule_hybrid(g, tile_dtype=np.float32, residual_block=RESIDUAL_BLOCK, pack=1,
+                                      with_transpose=True, device=dev, **TRAIN_SCHEDULE)
+    aggt_bf = Aggregator.schedule_hybrid(g, tile_dtype=torch.bfloat16, residual_block=RESIDUAL_BLOCK, pack=1,
+                                         with_transpose=True, device=dev, **TRAIN_SCHEDULE)
+    for got, want in ((aggt_bf.tile, aggt.tile), (aggt_bf.tile_t, aggt.tile_t)):
+        check(got.format == "bfloat16" and torch.equal(got.a, want.a.to(torch.bfloat16))
+              and torch.equal(got.tile_col, want.tile_col) and torch.equal(got.run_start, want.run_start),
+              "T's bf16 plan (schedule_hybrid tile_dtype=bfloat16) is not its float32 plan rounded to bf16")
+    hostt = densify(g, dtype=np.float32, **TRAIN_SCHEDULE)[0]
+    t16, t_t16 = hostt.pad_runs(16).to(dev), hostt.transpose().pad_runs(16).to(dev)
+    del hostt
+    # the weighted plan of phases 22-24: gcn_norm_val, float32 [512, 256] t48
+    aggn = Aggregator.schedule_hybrid(g, val=g.gcn_norm_val(), residual_block=RESIDUAL_BLOCK, pack=1, device=dev,
+                                      **SCHEDULE)
+    for name, a in (("G1 (JAX defaults)", agg1), ("G2 (bf16 [512, 256] t32)", agg2), ("T (f32 [256, 256] t24)", aggt),
+                    ("gcn_norm_val (f32 [512, 256] t48)", aggn)):
+        tp = a.tile
+        log(f"{name} plan: {tp.format} [{tp.tile_rows}, {tp.tile_cols}] tiles={tp.num_tiles}"
+            + (f" (transposed {a.tile_t.num_tiles})" if a.tile_t is not None else "")
+            + f" A bytes={tp.a.numel() * tp.a.element_size()} dense_edges={tp.num_dense_edges} "
+            f"residual_edges={a.plan.num_edges} (block {a.plan.block_size}) longest run={int(tp.run_start.diff().max())}")
+    check(agg1.tile.format == "float32" and agg1.tile_t.format == "float32" and agg1.plan.block_size == 8,
+          "schedule_hybrid's defaults are not float32 tiles with transposes and residual block 8")
+    log(f"  G1 plan built in {g1_s:.1f} s; all float plans in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 29: the kernels against their plain versions
+    packed = {"T_f32": (t16, t_t16), "T_bf16": (t16.astype(torch.bfloat16), t_t16.astype(torch.bfloat16))}
+    max_err = float_gat_kernel_phase(gen, {
+        "G1 f32": (agg1.tile, agg1.tile_t), "G1 f32 pack8": (g1_8, g1_t8),
+        "G2 bf16": (agg2.tile, None), "G2 bf16 pack8": (g2_8, None),
+        "T f32": (aggt.tile, aggt.tile_t), "T f32 pack16": packed["T_f32"],
+        "T bf16": (aggt_bf.tile, aggt_bf.tile_t), "T bf16 pack16": packed["T_bf16"],
+        "gcn_norm_val f32": (aggn.tile, aggn.tile_t),
+    })
+    packed.update(G1=g1_8, G2=g2_8)
+    # wide logits (C1) through B2-B4 over float tiles: one source's as at
+    # 95 and 120, kernels against their plain versions, forward and
+    # gradients against the float64 softmax
+    hw = torch.randn((n, 32), generator=gen, device=dev)
+    hub = int(torch.bincount(torch.from_numpy(g.indices.astype(np.int64)), minlength=n).argmax())
+    with torch.no_grad():
+        for big in (95.0, 120.0):
+            att = torch.randn((n, 2), generator=gen, device=dev)
+            att[hub, 1] = big
+            gbar, c = torch.randn((n, 32), generator=gen, device=dev), torch.randn(n, generator=gen, device=dev)
+            for stabilize in (True, "bound"):
+                shift = _resolve_shift(agg1.tile_parts(), agg1.plan, att, DEFAULT_SLOPE, stabilize)
+                num, den = gat_bcsr(agg1.tile, hw, att, row_shift=shift)
+                want = gat_bcsr_plain(agg1.tile, hw, att, row_shift=shift)
+                dm, asrc = _score_terms(att, shift)
+                args = (hw, gbar, c, dm, asrc, DEFAULT_SLOPE)
+                dad, (dh, das) = gat_bwd_dad(agg1.tile, *args), gat_bwd_dh_das(agg1.tile_t, *args)
+                wb = (gat_bwd_dad_plain(agg1.tile, *args),) + gat_bwd_dh_das_plain(agg1.tile_t, *args)
+                torch.cuda.synchronize()
+                for got, ref, name in ((num, want[0], "B2 num"), (den, want[1], "B2 den"), (dad, wb[0], "B3 d_ad"),
+                                       (dh, wb[1], "B4 dh"), (das, wb[2], "B4 d_as")):
+                    compare(got, ref, f"G1 f32 as_{hub}={big} stabilize={stabilize!r} {name}", gate=False)
+    att = torch.randn((n, 2), generator=gen, device=dev)
+    att[hub, 1] = 120.0
+    for stabilize in (True, "bound"):
+        wide_logit_check(agg1, g, hw, att, stabilize, f"C1 G1 f32 plan as_{hub}=120")
+    del g1_t8, hw, att
+    torch.cuda.empty_cache()
+
+    def fwd(agg, **kw):
+        return model(agg, h0, fast=True, dot_mode="split2", **kw)
+
+    res = {"max_err": max_err}
+    for key, agg, label, layer_limit in (
+        ("G1", agg1, "phase 30: G1, the GAT forward over the JAX default schedule (float32 tiles)", 0.0),
+        # bfloat16 rounds an odd count above 256 in a hub cell, as the JAX
+        # package's bfloat16 tiles do (phase 25): held to PURE_BAD_FRACTION
+        ("G2", agg2, "phase 31: G2, bench.py --model gat --tile-dtype bf16 (bfloat16 count tiles)", PURE_BAD_FRACTION),
+    ):
+        log(f"{label}, fast=True, split2")
+        with torch.no_grad():
+            reset_counts()
+            for _ in range(forwards):
+                out = fwd(agg)
+            torch.cuda.synchronize()
+            c_fwd = (cuda_gat.launches, cuda_gat.float_launches)
+            log(f"  B2 launches in {forwards} forwards: {c_fwd[0]}, float tiles: {c_fwd[1]}")
+            check(only("B2") and c_fwd == (3 * forwards, 3 * forwards), f"{key}: B2 not 3 float launches a forward")
+            check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), f"{key} forward output")
+            vals = agg.tile.a
+            log(f"  cells above 256 (bfloat16 rounds odd counts there): {int((vals > 256).sum())}")
+            del vals
+            xs = gat_gates(agg, params, h0, out, g, f"{key} ", layer_limit)
+            reset_counts()
+            out_exact = fwd(agg, stabilize=True)
+            torch.cuda.synchronize()
+            c_stab = (cuda_rowmax.launches, cuda_rowmax.float_launches, cuda_gat.launches, cuda_gat.float_launches)
+            log(f"  stabilize=True: B5 launches {c_stab[0]} ({c_stab[1]} float), B2 {c_stab[2]} ({c_stab[3]} float)")
+            check(c_stab == (3, 3, 3, 3), f"{key} stabilize=True: B5 and B2 not 3 float launches each")
+            reset_counts()
+            out_bound = fwd(agg, stabilize="bound")
+            torch.cuda.synchronize()
+            check(cuda_gat.float_launches == 3, f"{key} stabilize='bound': B2 not 3 float launches")
+            for lbl, o in (("stabilize=True", out_exact), ("stabilize='bound'", out_bound)):
+                bad = relative_error_count(o, out)
+                log(f"  {lbl} vs un-stabilized: gate_bad={bad}")
+                check(bool(torch.isfinite(o).all()) and bad == 0, f"{key} {lbl} differs from the un-stabilized forward")
+        res[key] = dict(agg=agg, xs=xs, launches=c_fwd[1], stab_launches=c_stab[1])
+
+    # ---- phase 32: T, GAT training over float tiles
+    for key, agg in (("T_bf16", aggt_bf), ("T_f32", aggt)):
+        log(f"phase 32: {key}: GAT training over {agg.tile.format} tiles [256, 256] t24 and their transpose, "
+            f"{TRAIN_STEPS} steps (fast=False, stabilize='bound', split2, Adam 1e-3)")
+        tr = gat_training(agg, g, h0, f"{key} ")
+        fc = float_counts()
+        for k in ("B2", "B3", "B4"):
+            check(tr["counts"][k] == 3 * TRAIN_STEPS and fc[k] == 3 * TRAIN_STEPS,
+                  f"{key}: {k} not 3 float launches a step")
+        check(tr["counts"]["B1"] == 0 and tr["counts"]["B5"] == 0, f"{key} launched B1 or B5")
+        res[key] = dict(agg=agg, train=tr, float_counts=fc)
+
+    # ---- phase 33: S, hybrid_sddmm over float32 plans
+    a = torch.from_numpy(normal_features(n, SDDMM_F, seed=3) * 0.1).to(dev)
+    b = torch.from_numpy(normal_features(n, SDDMM_F, seed=4) * 0.1).to(dev)
+    for key, agg in (("S_G1", agg1), ("S_gcn_norm", aggn)):
+        log(f"phase 33: {key}: hybrid_sddmm over {agg.tile.format} tiles [{agg.tile.tile_rows}, {agg.tile.tile_cols}], "
+            f"f={SDDMM_F}, {SDDMM_CALLS} calls")
+        parts = agg.tile_parts()
+        plan = agg.plan if agg.plan.num_edges else None
+        with torch.no_grad():
+            reset_counts()
+            for _ in range(SDDMM_CALLS):
+                cells, r = hybrid_sddmm(parts, plan, a, b)
+            torch.cuda.synchronize()
+            c6 = (cuda_sddmm.launches, cuda_sddmm.float_launches)
+            log(f"  B6 launches in {SDDMM_CALLS} calls: {c6[0]}, float tiles: {c6[1]}")
+            check(only("B6") and c6 == (SDDMM_CALLS * len(parts),) * 2, f"{key}: B6 not one float launch a part a call")
+            float_sddmm_checks(agg, cells, r, a, b, key)
+            del cells, r
+        res[key] = dict(agg=agg, launches=c6[1])
+
+    # ---- timing
+    log("phases 30-33 timing (CUDA events, median of 10 after 3 warm-up)")
+    with torch.no_grad():
+        for key in ("G1", "G2"):
+            agg, xs, tp_pack = res[key]["agg"], res[key]["xs"], packed.pop(key)
+            res[key]["forward_ms"] = cuda_time_ms(lambda: fwd(agg))
+            res[key]["stab_ms"] = cuda_time_ms(lambda: fwd(agg, stabilize=True))
+            res[key]["bound_ms"] = cuda_time_ms(lambda: fwd(agg, stabilize="bound"))
+            log(f"  {key} GAT forward {res[key]['forward_ms']:.3f} ms; stabilize=True {res[key]['stab_ms']:.3f}; "
+                f"'bound' {res[key]['bound_ms']:.3f}")
+            res[key]["rows2"] = b2_rows(agg, agg.tile, tp_pack, 8, xs, params)
+            res[key]["rows5"] = b5_rows(agg.tile, tp_pack, xs, params, 8)
+            del tp_pack
+    for key in ("T_bf16", "T_f32"):
+        agg, tr = res[key]["agg"], res[key]["train"]
+        times = dict(step_ms=cuda_time_ms(tr["step"]), forward_ms=cuda_time_ms(lambda: tr["fwd"](h0)))
+        times["backward_adam_ms"] = times["step_ms"] - times["forward_ms"]
+        log(f"  {key} GAT step {times['step_ms']:.3f} ms = forward {times['forward_ms']:.3f} "
+            f"+ backward and Adam {times['backward_adam_ms']:.3f}")
+        p16, p_t16 = packed.pop(key)
+        with torch.no_grad():
+            res[key]["rows"] = train_kernel_times(agg.tile, agg.tile_t, p16, p_t16, gen)
+        res[key]["times"] = times
+        del p16, p_t16
+    with torch.no_grad():
+        for key in ("S_G1", "S_gcn_norm"):
+            agg = res[key]["agg"]
+            parts = agg.tile_parts()
+            plan = agg.plan if agg.plan.num_edges else None
+            path_ms = cuda_time_ms(lambda: hybrid_sddmm(parts, plan, a, b))
+            res_ms = cuda_time_ms(lambda: sddmm_slots(plan, a, b)) if plan is not None else 0.0
+            log(f"  {key} SDDMM pass {path_ms:.3f} ms, {m / (path_ms / 1e3):.4e} edges/s; residual {res_ms:.3f} ms")
+            res[key].update(path_ms=path_ms, edges_per_s=m / (path_ms / 1e3), residual_ms=res_ms,
+                            rows=[b6_row(p, a, b, key) for p in parts])
+        res["S_bf16"] = dict(rows=[b6_row(agg2.tile, a, b, "G2 bf16 plan")])
+    return res
+
+
+def b6_row(p, a, b, what: str) -> dict:
+    """B6's timing row over one part at f = a.shape[1]: ms a launch, the
+    plain version, torch.sparse.sampled_addmm of b a^T on the cells' CSR
+    (built outside the timed call) and the bound (A's bytes read, bf16
+    cells written, a and b read; 2 f FLOPs a cell with an edge)."""
+    n, f = b.shape
+    at = a.t().contiguous()
+    c_dst, c_src, c_val = tile_cells(p)
+    on = c_val > 0
+    c_dst, c_src = c_dst[on], c_src[on]
+    nnz = int(c_dst.numel())
+    csr = cells_csr(c_dst, c_src, torch.ones(nnz, device=a.device), (n, p.n_src))
+    lib = torch.sparse.sampled_addmm(csr, b, at, beta=0.0)
+    r, c = csr_rows(lib), lib.col_indices()
+    ref = (b.index_select(0, r) * a.index_select(0, c)).sum(dim=1)
+    check((lib.values() - ref).abs().max() <= 1e-4 * ref.abs().max(), "sampled_addmm yardstick disagrees")
+    t = p.num_tiles
+    row = dict(
+        part=part_name(p), f=f, tiles=t, nnz_cells=nnz,
+        ms=cuda_time_ms(lambda: cuda_sddmm.sddmm_bcsr_cuda(p, a, b)),
+        plain_ms=cuda_time_ms(lambda: sddmm_bcsr_plain(p, a, b)),
+        library_ms=cuda_time_ms(lambda: torch.sparse.sampled_addmm(csr, b, at, beta=0.0)),
+        **bound(p.a.numel() * p.a.element_size() + 2 * t * p.tile_rows * p.tile_cols + 8 * t + 4 * f * (p.n_src + n),
+                2.0 * nnz * f),
+    )
+    log(f"  B6 {what} ({row['part']}, {t} tiles): {row['ms']:.3f} ms/launch bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}) | plain {row['plain_ms']:.3f} | sampled_addmm {row['library_ms']:.3f}")
+    del csr, lib, ref
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -2176,6 +2591,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing to check", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # ---- phase 1: card and build
     name = torch.cuda.get_device_name(0)
@@ -2314,9 +2730,13 @@ def main() -> int:
         fl = float_phases(g, h0, gen, gcn_out, forwards)
         torch.cuda.empty_cache()
         repair = repair_phase(g, gen)
+        torch.cuda.empty_cache()
+        fg = float_gat_phases(g, h0, gen, forwards)
+        torch.cuda.empty_cache()
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
-        log("phases 22-28 (float tiles, the fused aggregate+GEMM, the repairs) run at the quick scale only")
+        log("phases 22-33 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles) "
+            "run at the quick scale only")
 
     # ---- phase 21: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
@@ -2428,6 +2848,37 @@ def main() -> int:
             max_abs_err=fl["max_err"]["epilogue"], fused_ms=ft["fused_ms"], split_ms=ft["split_ms"],
             **summed(fl["rows_epi"], over="int8 [256, 128] t24, (f, f_out) = (32, 32)"),
         )
+        # GAT and SDDMM over float tiles (phases 29-33): the float32 and
+        # bfloat16 entry points of B2-B5 here, B6's below
+        gt, tf, tb_ = fg["T_f32"], fg["T_f32"]["train"], fg["T_bf16"]["train"]
+        kernels[1]["float"] = dict(
+            path="G1: GAT forward over the JAX default schedule (float32 count tiles [256, 128], default threshold, "
+                 "residual 8), fast, split2; G2: bench.py --model gat --tile-dtype bf16 (bfloat16 [512, 256] t32)",
+            launches=fg["G1"]["launches"], launches_per_forward=3, bf16_launches=fg["G2"]["launches"],
+            training_launches=fg["T_f32"]["float_counts"]["B2"], bf16_training_launches=fg["T_bf16"]["float_counts"]["B2"],
+            max_abs_err=fg["max_err"]["B2_f32"], bf16_max_abs_err=fg["max_err"]["B2_bf16"],
+            forward_ms=fg["G1"]["forward_ms"], bf16_forward_ms=fg["G2"]["forward_ms"],
+            bf16=summed(fg["G2"]["rows2"], over="G2 bfloat16 [512, 256] t32, f=128, 64, 32"),
+            **summed(fg["G1"]["rows2"], over="G1 float32 [256, 128] (JAX defaults), f=128, 64, 32"),
+        )
+        kernels[2]["float"] = dict(
+            path="G1 and G2 forwards with stabilize=True", launches=fg["G1"]["stab_launches"], launches_per_forward=3,
+            bf16_launches=fg["G2"]["stab_launches"], max_abs_err=0.0,
+            forward_ms=fg["G1"]["stab_ms"], bound_forward_ms=fg["G1"]["bound_ms"], bf16_forward_ms=fg["G2"]["stab_ms"],
+            bf16=summed(fg["G2"]["rows5"], over="G2 bfloat16 [512, 256] t32"),
+            **summed(fg["G1"]["rows5"], over="G1 float32 [256, 128]"),
+        )
+        for k, key in ((kernels[-2], "B3"), (kernels[-1], "B4")):
+            k["float"] = dict(
+                path=f"T: GAT training step over float32 [256, 256] t24 tiles and their transpose (bfloat16: bench.py "
+                     f"--train --model gat --tile-dtype bf16), stabilize='bound', {TRAIN_STEPS} steps each",
+                launches=fg["T_f32"]["float_counts"][key], bf16_launches=fg["T_bf16"]["float_counts"][key],
+                launches_per_step=3, max_abs_err=fg["max_err"][f"{key}_f32"],
+                bf16_max_abs_err=fg["max_err"][f"{key}_bf16"], step_ms=gt["times"]["step_ms"],
+                bf16_step_ms=fg["T_bf16"]["times"]["step_ms"], losses=tf["losses"], bf16_losses=tb_["losses"],
+                bf16=summed(fg["T_bf16"]["rows"][key], over="bfloat16 [256, 256] t24"),
+                **summed(gt["rows"][key], over="float32 [256, 256] t24"),
+            )
         kernels[1]["repair"] = dict(
             what="C1: one source's as at 120 on the GAT plan, B2/B3/B4 vs plain (stabilize=True and 'bound')",
             max_abs_err=repair["max_err"],
@@ -2452,6 +2903,28 @@ def main() -> int:
         path_ms=b6["path_ms"], edges_per_s=b6["edges_per_s"], residual_ms=b6["residual_ms"],
         build_s=libs["sddmm_bcsr"][1], scale=args.scale,
     ))
+    if train is not None:
+        kernels[-1]["float"] = dict(
+            path=f"S: hybrid_sddmm over G1's float32 plan and the gcn_norm_val float32 [512, 256] t48 plan, "
+                 f"f={SDDMM_F}, bf16 cells; {SDDMM_CALLS} calls each",
+            launches=fg["S_G1"]["launches"], gcn_norm_launches=fg["S_gcn_norm"]["launches"], launches_per_call=1,
+            max_abs_err=fg["max_err"]["B6_f32"], bf16_max_abs_err=fg["max_err"]["B6_bf16"],
+            path_ms=fg["S_G1"]["path_ms"], edges_per_s=fg["S_G1"]["edges_per_s"], residual_ms=fg["S_G1"]["residual_ms"],
+            gcn_norm_path_ms=fg["S_gcn_norm"]["path_ms"], gcn_norm_edges_per_s=fg["S_gcn_norm"]["edges_per_s"],
+            gcn_norm=summed(fg["S_gcn_norm"]["rows"], over="gcn_norm_val float32 [512, 256] t48"),
+            bf16=summed(fg["S_bf16"]["rows"], over="G2's bfloat16 [512, 256] t32 plan (a kernel timing, no path)"),
+            **summed(fg["S_G1"]["rows"], over="G1 float32 [256, 128]"),
+        )
+        print(json.dumps({"float_gat": dict(
+            G1=dict(forward_ms=fg["G1"]["forward_ms"], stabilized_ms=fg["G1"]["stab_ms"], bound_ms=fg["G1"]["bound_ms"],
+                    layer_ms=[r["layer_ms"] for r in fg["G1"]["rows2"]]),
+            G2=dict(forward_ms=fg["G2"]["forward_ms"], stabilized_ms=fg["G2"]["stab_ms"], bound_ms=fg["G2"]["bound_ms"],
+                    layer_ms=[r["layer_ms"] for r in fg["G2"]["rows2"]]),
+            T=dict(f32=fg["T_f32"]["times"], bf16=fg["T_bf16"]["times"]),
+            S={k: dict(path_ms=fg[k]["path_ms"], edges_per_s=fg[k]["edges_per_s"], residual_ms=fg[k]["residual_ms"])
+               for k in ("S_G1", "S_gcn_norm")},
+        )}), flush=True)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

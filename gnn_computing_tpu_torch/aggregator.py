@@ -10,8 +10,8 @@ transposed residual plan and the edge map that the ops' backwards stream.
 ``bit_tiles=True`` splits int8 count tiles into a 1-bit part (``tile_bits``)
 and an int8 part (``tile``); with ``with_transpose=True`` each part gets its own
 transposed plan (``tile_bits_t``, ``tile_t``), the configuration of bench.py
-``--train``.  Every tile kernel reads both count formats; B1 also reads
-float32 and bfloat16 tiles.  Unlike the JAX package,
+``--train``.  Every tile kernel reads all four tile formats (int8,
+1-bit, float32, bfloat16).  Unlike the JAX package,
 a transposed 1-bit part stays 1-bit whatever its R: the JAX package unpacks
 it below R = 256, the minimum int8 sublane tile of its Mosaic kernel; the
 CUDA kernels need only R % 8 == 0.  Both store the same counts, so the

@@ -13,9 +13,12 @@
 // the values of 8 consecutive cells c..c+7 of a row as floats with
 // load8(row, c, shift, v) (C % 8 == 0 and c % 8 == 0: one 8-byte load for
 // the byte formats, 16 bytes for bf16, 32 for f32) and one cell with
-// load1(row, c, shift).  The count formats also read a cell's count as
-// count(byte at column c, shift): a row of either is C consecutive bytes,
-// which the kernels that skip zero cells scan byte-wise.
+// load1(row, c, shift); tile_fmt::load8_tail does either, up to column C.
+// The kernels that skip zero cells keep the cells whose value is nonzero
+// (v != 0; a non-edge cell is exactly 0), or, for the SDDMM, > 0.  The
+// count formats also read a cell's count as count(byte at column c, shift):
+// a row of either is C consecutive bytes, which B5 scans a 4-byte word at a
+// time, skipping zero words; the float formats (kValued) have no count.
 
 #pragma once
 
@@ -33,9 +36,23 @@ __device__ __forceinline__ void load8_bytes(const uint8_t* row, int c, int shift
   for (int q = 0; q < 8; ++q) v[q] = static_cast<float>(Fmt::count(b[q], shift));
 }
 
+// Values of cells c..c+7 of a row, 0 past column C: one load8 where the
+// row is vector-aligned (vec: C % 8 == 0; c % 8 == 0) and all 8 lie
+// inside it, else load1 per cell
+template <class Fmt>
+__device__ __forceinline__ void load8_tail(const uint8_t* row, int c, int C, bool vec, int shift, float* v) {
+  if (vec && c + 8 <= C) {
+    Fmt::load8(row, c, shift, v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = c + q < C ? Fmt::load1(row, c + q, shift) : 0.f;
+  }
+}
+
 }  // namespace tile_fmt
 
 struct CountTiles {
+  static constexpr bool kValued = false;
   static __host__ __device__ __forceinline__ int64_t tile_bytes(int R, int C) {
     return static_cast<int64_t>(R) * C;
   }
@@ -55,6 +72,7 @@ struct CountTiles {
 };
 
 struct BitTiles {
+  static constexpr bool kValued = false;
   static __host__ __device__ __forceinline__ int64_t tile_bytes(int R, int C) {
     return static_cast<int64_t>(R / 8) * C;
   }
@@ -75,6 +93,7 @@ struct BitTiles {
 };
 
 struct F32Tiles {
+  static constexpr bool kValued = true;
   static __host__ __device__ __forceinline__ int64_t tile_bytes(int R, int C) {
     return static_cast<int64_t>(R) * C * 4;
   }
@@ -95,6 +114,7 @@ struct F32Tiles {
 
 // bfloat16 is the high half of a float32: widening is a 16-bit shift
 struct Bf16Tiles {
+  static constexpr bool kValued = true;
   static __host__ __device__ __forceinline__ int64_t tile_bytes(int R, int C) {
     return static_cast<int64_t>(R) * C * 2;
   }

@@ -1,31 +1,35 @@
-// GAT attention aggregation over count tiles (B2), hand-written for Hopper.
+// GAT attention aggregation over dense tiles (B2), hand-written for Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/pallas_bcsr.py:
-// gat_bcsr_pallas in mode 'maxdot' (int8 and 1-bit tile formats, dot_mode
-// 'exact' and 'split2'; both are computed here in float32, see below).  The
-// A format is a template argument (bit_tiles.cuh), as in B1: a scoring
-// thread finds its row's bytes at Fmt::row_offset and reads a cell's count
-// as Fmt::count(byte, shift).  A 64-row slab of a 1-bit tile with R = 256
-// spans two bit planes, so the shift comes from each thread's own row.
+// gat_bcsr_pallas in mode 'maxdot' (int8, 1-bit, float32 and bfloat16 tile
+// formats, dot_mode 'exact' and 'split2'; both are computed here in
+// float32, see below).  The A format is a template argument
+// (bit_tiles.cuh), as in B1: a scoring thread finds its row's bytes at
+// Fmt::row_offset and reads 8 cells' values (counts, or float values) with
+// tile_fmt::load8_tail, one load for all four formats.  A 64-row slab of a 1-bit
+// tile with R = 256 spans two bit planes, so the shift comes from each
+// thread's own row.
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination
-// row i and tile column j of the run's tiles,
+// row i and tile column j of the run's tiles, with v_ij the cell's value
+// (its edge count, or a float tile's summed edge values, any sign),
 //   z_ij  = ad_i + as_j
-//   s_ij  = cnt_ij > 0 ? cnt_ij * exp(max(z_ij, slope*z_ij) - M_i) : 0
+//   s_ij  = v_ij != 0 ? v_ij * exp(max(z_ij, slope*z_ij) - M_i) : 0
 //   num_i = sum_j s_ij * h_j          den_i = sum_j s_ij
 // with dm_i = (ad_i, M_i) (M the softmax row shift, 0 unstabilized) and
 // as_j the src half of att: exp(leaky_relu(z) - M), the edge's attention
-// score.  With the exact or the bound shift every score is <= 1.
+// score.  With the exact or the bound shift every |s_ij| <= |v_ij|.
 //
-// Numerics: cnt is an exact integer (<= 127; 0 or 1 in a 1-bit tile) and
-// the score is one __expf (the MUFU ex2 unit: relative error ~2^-21 plus
-// |x| * 2^-24 for the argument x <= 0 of a shifted score, results below
-// float32's normal range flushed to 0) of a float32 argument; num and den
-// are float32 sums.  That meets the TPU's 'split2'
-// dot (score and h rounded to ~16 mantissa bits, error ~2^-16) and its
-// 'exact' f32 dot alike.  Two traps, both designed around:
-//   - select, never multiply, on cnt == 0: in the unstabilized form the
+// Numerics: a count is an exact integer (<= 127; 0 or 1 in a 1-bit tile),
+// a float cell its float32 value (a bfloat16 widens exactly, and neither
+// passes through an integer), and the score is one __expf (the MUFU ex2
+// unit: relative error ~2^-21 plus |x| * 2^-24 for the argument x <= 0 of a
+// shifted score, results below float32's normal range flushed to 0) of a
+// float32 argument; num and den are float32 sums.  That meets the TPU's
+// 'split2' dot (score and h rounded to ~16 mantissa bits, error ~2^-16) and
+// its 'exact' f32 dot alike.  Two traps, both designed around:
+//   - select, never multiply, on v == 0: in the unstabilized form the
 //     score of a non-edge can overflow to inf, and 0 * inf = NaN;
 //   - the score is formed from ad, as and M, never from per-node factors.
 //     The TPU kernel multiplies u1_i = exp(ad_i - M_i) by v1_j = exp(as_j),
@@ -35,8 +39,9 @@
 // Design (the shape of B1, csrc/bcsr_spmm.cu): one block owns a slab of BR
 // rows of one row-tile run and BF feature columns.  It walks the run's tiles;
 // per staged [BR, BK] piece each thread scores 8 cells of one row into shared
-// memory (8 count bytes in one load, dm of its row in registers, as read
-// and one __expf taken only for cells with a count), the block stages the H tile [BK, BF], and FFMAs form the tile's
+// memory (8 cells in one load: 8 count bytes, 16 bytes of bfloat16 or 32 of
+// float32; dm of its row in registers, as read and one __expf taken only
+// for nonzero cells), the block stages the H tile [BK, BF], and FFMAs form the tile's
 // product in registers.  Each tile's partial (num and the thread's den slice)
 // is added to the run's sum when the tile is done: a single float32 sum over
 // a hub run of ~10^5 columns drifts ~1e-5.  Outputs are written once at the
@@ -48,7 +53,8 @@
 // (12 bytes a node) and writes num and den (n*(f+1)*4), against 2*nnz*(f+1)
 // FLOPs for the nnz nonzero cells.  At the quick scale (4,024 tiles of
 // [512, 256], f = 128) that is about 0.18 ms, bytes-bound.  A 1-bit part
-// reads R/8*C A bytes a tile.
+// reads R/8*C A bytes a tile, a bfloat16 or float32 tile 2 or 4 bytes a
+// cell.
 //
 // What the simple design leaves on the table: the tiles are ~1% full, so
 // almost all FFMAs multiply zero scores (compacting each slab's nonzeros
@@ -119,23 +125,22 @@ gat_bcsr_kernel(const uint8_t* __restrict__ a,
     float den_part = 0.f;
     for (int k0 = 0; k0 < C; k0 += kBK) {
       const int kk = k0 + aj;
-      int cnt[8];
-      if (vec_a && srow < R && kk + 8 <= C) {
-        const int2 v = *reinterpret_cast<const int2*>(arow + kk);
-        const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) cnt[q] = Fmt::count(b[q], shift);
+      // the cells' values (counts widened exactly; a float never passes
+      // through an integer), 0 past the row or the tile
+      float val[8];
+      if (srow < R) {
+        tile_fmt::load8_tail<Fmt>(arow, kk, C, vec_a, shift, val);
       } else {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) cnt[q] = (srow < R && kk + q < C) ? Fmt::count(arow[kk + q], shift) : 0;
+        for (int q = 0; q < 8; ++q) val[q] = 0.f;
       }
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int64_t src = col0 + kk + q;
         float s = 0.f;
-        if (cnt[q] > 0 && src < n_src) {
+        if (val[q] != 0.f && src < n_src) {
           const float z = u.x + asrc[src];
-          s = (float)cnt[q] * __expf(fmaxf(z, slope * z) - u.y);
+          s = val[q] * __expf(fmaxf(z, slope * z) - u.y);
         }
         ss[aj + q][ai] = s;
         den_part += s;
@@ -245,4 +250,18 @@ extern "C" int gat_bcsr_b1_f32(const void* a, const void* tile_col, const void* 
   if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
   return launch<BitTiles>(a, tile_col, run_start, h, dm, asrc, num, den, num_row_tiles, R, C, n, n_src, f,
                           slope, device, stream);
+}
+
+extern "C" int gat_bcsr_f32_f32(const void* a, const void* tile_col, const void* run_start, const void* h,
+                                const void* dm, const void* asrc, void* num, void* den, int num_row_tiles,
+                                int R, int C, int n, int n_src, int f, float slope, int device, void* stream) {
+  return launch<F32Tiles>(a, tile_col, run_start, h, dm, asrc, num, den, num_row_tiles, R, C, n, n_src, f,
+                          slope, device, stream);
+}
+
+extern "C" int gat_bcsr_bf16_f32(const void* a, const void* tile_col, const void* run_start, const void* h,
+                                 const void* dm, const void* asrc, void* num, void* den, int num_row_tiles,
+                                 int R, int C, int n, int n_src, int f, float slope, int device, void* stream) {
+  return launch<Bf16Tiles>(a, tile_col, run_start, h, dm, asrc, num, den, num_row_tiles, R, C, n, n_src, f,
+                           slope, device, stream);
 }

@@ -1,23 +1,26 @@
-// GAT backward, d_att_dst over the forward count tiles (B3), hand-written
-// for Hopper.
+// GAT backward, d_att_dst over the forward tiles (B3), hand-written for
+// Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/pallas_bcsr.py:
-// gat_bwd_dad_pallas (int8 and 1-bit tile formats, dot_mode 'exact' and
-// 'split2'; both are computed here in float32, as B2 computes the forward).
-// The A format is a template argument (bit_tiles.cuh): the row's bytes are
-// found at Fmt::row_offset and tile_cells::compact_row keeps the cells whose
-// count (a byte, or one bit of it) is nonzero.
+// gat_bwd_dad_pallas (int8, 1-bit, float32 and bfloat16 tile formats,
+// dot_mode 'exact' and 'split2'; both are computed here in float32, as B2
+// computes the forward).  The A format is a template argument
+// (bit_tiles.cuh): the row's bytes are found at Fmt::row_offset and
+// tile_cells.cuh keeps the cells whose value is nonzero (compact_row for
+// the count formats: a byte, or one bit of it; compact_row_vals for the
+// float formats, which keeps each cell's float value beside its column).
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination row
-// i, over the cells (i, j) of its run's tiles that hold a count,
-//   z_ij = ad_i + as_j,  s_ij = cnt_ij * exp(max(z_ij, slope z_ij) - M_i)
+// i, over the cells (i, j) of its run's tiles whose value v_ij (a count, or
+// a float tile's summed edge values, any sign) is nonzero,
+//   z_ij = ad_i + as_j,  s_ij = v_ij * exp(max(z_ij, slope z_ij) - M_i)
 //   lrelu'_ij = z_ij >= 0 ? 1 : slope
 //   d_ad_i = sum_j lrelu'_ij * s_ij * (<gbar_i, h_j> - c_i)
 // with the forward's scores: dm_i = (ad_i, M_i), M the softmax row shift,
 // as_j the src half of att (gat_bcsr.cu), gbar_i = ct_i / den_i and
 // c_i = <ct_i, out_i> / den_i; the score is one __expf, as in B2.  Cells
-// without a count are skipped, never scored: a non-edge's unstabilized
+// whose value is 0 are skipped, never scored: a non-edge's unstabilized
 // score can be inf, and 0 * inf = NaN.
 //
 // Design: sampled dense-dense product reduced to one value per row, done
@@ -25,8 +28,10 @@
 // plan).  One warp owns one row of one run; a block holds 8 such rows of
 // one run.  The warp keeps gbar_i (4 features a lane, f <= 128; wider f
 // reads the rest from memory), dm_i and c_i in registers and walks the
-// run's tiles: per tile it loads the row's counts (8 bytes a lane),
-// compacts the nonzero cells into a list in shared memory (tile_cells.cuh),
+// run's tiles: per tile it loads the row's cells (8 a lane: 8 count bytes,
+// 16 bytes of bfloat16 or 32 of float32), compacts the nonzero cells into
+// a list in shared memory (tile_cells.cuh; a float format adds a parallel
+// list of values, 8 KB a block),
 // and takes them 8 at a time, so 8 rows of h are in flight at once: lanes
 // across f form the 8 dot products, a butterfly sums them, and every lane
 // adds the cells' terms to the tile's partial.  Each tile's partial is
@@ -39,7 +44,8 @@
 // dm and as (12 bytes a node) and c, and writes d_ad (n*4), against 2*cells*f
 // FLOPs for the nonzero cells.  At the quick training plan (7,090 tiles of
 // [256, 256], 3.3M nonzero cells, f = 128) that is about 0.16 ms,
-// bytes-bound (A alone is 0.14 ms); a 1-bit part reads R/8*C bytes a tile.
+// bytes-bound (A alone is 0.14 ms); a 1-bit part reads R/8*C bytes a tile,
+// a bfloat16 or float32 plan 2 or 4 bytes a cell.
 //
 // What the simple design leaves on the table: a hub row's cells (14,305 at
 // the quick training plan, against a mean of 50) are one warp's serial
@@ -76,12 +82,14 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
                    float* __restrict__ out,
                    int R, int C, int n, int n_src, int f, float slope, int slabs_per_run) {
   __shared__ int lists[kWarps][kChunk];
+  __shared__ float vlists[Fmt::kValued ? kWarps : 1][kChunk];  // float cells' values
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int run = blockIdx.x / slabs_per_run;
   const int r = (blockIdx.x % slabs_per_run) * kWarps + warp;
   const int64_t i = (int64_t)run * R + r;
   if (r >= R || i >= n) return;  // the whole warp leaves together
   int* list = lists[warp];
+  float* vlist = vlists[Fmt::kValued ? warp : 0];
   const bool vec = (C % 8) == 0;
   int shift = 0;
   const int64_t row_off = Fmt::row_offset(r, R, C, &shift);
@@ -100,25 +108,36 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
     const int64_t col0 = (int64_t)tile_col[t] * C;
     float part = 0.f;
     for (int c0 = 0; c0 < C; c0 += kChunk) {
-      const int total = tile_cells::compact_row<Fmt>(row_a, shift, C, c0, vec, lane, list);
+      int total;
+      if constexpr (Fmt::kValued) {
+        total = tile_cells::compact_row_vals<Fmt>(row_a, shift, C, c0, vec, lane, list, vlist);
+      } else {
+        total = tile_cells::compact_row<Fmt>(row_a, shift, C, c0, vec, lane, list);
+      }
       for (int b0 = 0; b0 < total; b0 += kG) {
-        int cn[kG];
+        float cv[kG];  // the cell's value: its count, or a float cell's value; 0 for none
         int64_t src[kG];
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          const int e = b0 + g < total ? list[b0 + g] : 0;
-          cn[g] = e & 0xff;
-          src[g] = col0 + (e >> 8);
-          if (src[g] >= n_src) cn[g] = 0;
+          const bool in = b0 + g < total;
+          if constexpr (Fmt::kValued) {
+            cv[g] = in ? vlist[b0 + g] : 0.f;
+            src[g] = col0 + (in ? list[b0 + g] : 0);
+          } else {
+            const int e = in ? list[b0 + g] : 0;
+            cv[g] = (float)(e & 0xff);
+            src[g] = col0 + (e >> 8);
+          }
+          if (src[g] >= n_src) cv[g] = 0.f;
         }
         float hv[kG][kKPL];
         float vv[kG];
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          vv[g] = cn[g] ? asrc[src[g]] : 0.f;
+          vv[g] = cv[g] != 0.f ? asrc[src[g]] : 0.f;
 #pragma unroll
           for (int m = 0; m < kKPL; ++m)
-            hv[g][m] = cn[g] && lane + 32 * m < f ? h[src[g] * f + lane + 32 * m] : 0.f;
+            hv[g][m] = cv[g] != 0.f && lane + 32 * m < f ? h[src[g] * f + lane + 32 * m] : 0.f;
         }
         float pd[kG];
 #pragma unroll
@@ -126,7 +145,7 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
           float p = 0.f;
 #pragma unroll
           for (int m = 0; m < kKPL; ++m) p = fmaf(gr[m], hv[g][m], p);
-          if (cn[g])
+          if (cv[g] != 0.f)
             for (int k = 32 * kKPL + lane; k < f; k += 32) p = fmaf(gi[k], h[src[g] * f + k], p);
           pd[g] = p;
         }
@@ -136,9 +155,9 @@ gat_bwd_dad_kernel(const uint8_t* __restrict__ a,
           for (int g = 0; g < kG; ++g) pd[g] += __shfl_xor_sync(kFull, pd[g], d);
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
-          if (!cn[g]) continue;
+          if (cv[g] == 0.f) continue;
           const float z = u.x + vv[g];
-          const float s = (float)cn[g] * __expf(fmaxf(z, slope * z) - u.y);
+          const float s = cv[g] * __expf(fmaxf(z, slope * z) - u.y);
           const float lp = z >= 0.f ? 1.f : slope;
           part += lp * s * (pd[g] - ci);
         }
@@ -184,4 +203,20 @@ extern "C" int gat_bwd_dad_b1_f32(const void* a, const void* tile_col, const voi
   if (R % 8) return static_cast<int>(cudaErrorInvalidValue);
   return launch<BitTiles>(a, tile_col, run_start, h, gbar, c, dm, asrc, out, num_row_tiles, R, C, n,
                           n_src, f, slope, device, stream);
+}
+
+extern "C" int gat_bwd_dad_f32_f32(const void* a, const void* tile_col, const void* run_start,
+                                   const void* h, const void* gbar, const void* c, const void* dm,
+                                   const void* asrc, void* out, int num_row_tiles, int R, int C, int n,
+                                   int n_src, int f, float slope, int device, void* stream) {
+  return launch<F32Tiles>(a, tile_col, run_start, h, gbar, c, dm, asrc, out, num_row_tiles, R, C, n,
+                          n_src, f, slope, device, stream);
+}
+
+extern "C" int gat_bwd_dad_bf16_f32(const void* a, const void* tile_col, const void* run_start,
+                                    const void* h, const void* gbar, const void* c, const void* dm,
+                                    const void* asrc, void* out, int num_row_tiles, int R, int C, int n,
+                                    int n_src, int f, float slope, int device, void* stream) {
+  return launch<Bf16Tiles>(a, tile_col, run_start, h, gbar, c, dm, asrc, out, num_row_tiles, R, C, n,
+                           n_src, f, slope, device, stream);
 }

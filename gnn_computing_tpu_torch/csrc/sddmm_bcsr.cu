@@ -1,12 +1,16 @@
-// SDDMM over count tiles (B6), hand-written for Hopper.
+// SDDMM over dense tiles (B6), hand-written for Hopper.
 //
 // Replaces the TPU kernel gnn_computing_tpu/ops/bcsr_sddmm.py:
-// sddmm_bcsr_pallas (its 'exact', 'split23' and 'split33' dot modes; int8
-// and 1-bit tile formats, as template arguments from bit_tiles.cuh).
+// sddmm_bcsr_pallas (its 'exact', 'split23' and 'split33' dot modes; int8,
+// 1-bit, float32 and bfloat16 tile formats, as template arguments from
+// bit_tiles.cuh).
 //
 // What it computes: for every tile t and cell (i, j) of its [R, C] block,
 //   out[t, i, j] = <b[tile_row[t]*R + i, :], a[tile_col[t]*C + j, :]>
-// where the cell holds an edge (count > 0), and +0 where it holds none.
+// where the cell holds an edge, and +0 where it holds none.  A cell holds an
+// edge where its value is > 0, the JAX package's rule (bcsr_sddmm.py): a
+// count > 0, or a float cell's value > 0 (so a negative-valued cell of a
+// signed float plan comes out +0, as the JAX package gives it).
 // The output is float32 or bfloat16 [T, R, C] (round to nearest even, as
 // torch and JAX round).  Every dot mode is one sequential f32 FFMA dot of
 // the f32 operands: exact f32 products, within the error class of the TPU's
@@ -17,16 +21,18 @@
 // no order between blocks).  The block stages the tile's a rows k-major
 // ([f][C + pad]) and its b rows ([R][f]) in shared memory, in column and
 // row chunks that fit the shared-memory budget.  A warp takes one tile row
-// at a time, a lane two neighbouring columns: it reads their two counts,
+// at a time, a lane two neighbouring columns: it reads their two cells'
+// values by Fmt::load1 (a count widened exactly, or a float value),
 // computes the two dots only if either holds an edge (b broadcast, a as one
-// float2 a step), selects on the count (a non-edge's dot may be inf, and
+// float2 a step), selects on the value (a non-edge's dot may be inf, and
 // 0 * inf is NaN) and writes both cells, zeros included, as one 64-bit
 // (float32) or 32-bit (bfloat16) store: a warp writes 64 contiguous cells.
 // Filler tiles come out all zero.
 //
 // Bound on the H100 SXM (3.35 TB/s; 67 TFLOP/s f32 outside the tensor
 // cores): bytes.  The function must write every cell (T*R*C*2 bytes in
-// bf16) and read A once (T*R*C, or T*R*C/8 for 1-bit tiles) plus a and b;
+// bf16) and read A once (T*R*C, T*R*C/8 for 1-bit tiles, 2 or 4 times
+// T*R*C for bfloat16 or float32 tiles) plus a and b;
 // the dots are 2*nnz*f FLOPs, ~1% of the cells.  The dot loop runs only
 // where a lane has an edge, so sparse tiles cost little more than their
 // stores; dense (hub) tiles run it on every lane.
@@ -107,12 +113,13 @@ sddmm_bcsr_kernel(const uint8_t* __restrict__ a_tiles, const int32_t* __restrict
       __syncthreads();
       for (int i = r0 + warp; i < r0 + rh; i += kWarps) {
         int shift;
-        const uint8_t* cnt = at + Fmt::row_offset(i, R, C, &shift);
+        const uint8_t* arow = at + Fmt::row_offset(i, R, C, &shift);
         const float* brow = bs + (i - r0) * f;
         for (int j = c0 + 2 * lane; j < c0 + cw; j += 64) {
           const bool pair = j + 1 < c0 + cw;
-          const bool e0 = Fmt::count(cnt[j], shift) > 0;
-          const bool e1 = pair && Fmt::count(cnt[j + 1], shift) > 0;
+          // the JAX rule: a cell holds an edge where its value is > 0
+          const bool e0 = Fmt::load1(arow, j, shift) > 0.f;
+          const bool e1 = pair && Fmt::load1(arow, j + 1, shift) > 0.f;
           float d0 = 0.f, d1 = 0.f;
           if (e0 || e1) {
             // column j - c0 is even and ccp is even: an aligned float2
@@ -168,23 +175,32 @@ int launch(const void* a_tiles, const void* tile_row, const void* tile_col, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// out_bf16: 0 for a float32 output, 1 for bfloat16
+template <class Fmt>
+int launch_out(const void* a_tiles, const void* tile_row, const void* tile_col, const void* a, const void* b,
+               void* out, int num_tiles, int R, int C, int n, int n_src, int f, int out_bf16, int device,
+               void* stream) {
+  return out_bf16 ? launch<Fmt, __nv_bfloat16>(a_tiles, tile_row, tile_col, a, b, out, num_tiles, R, C, n, n_src,
+                                               f, device, stream)
+                  : launch<Fmt, float>(a_tiles, tile_row, tile_col, a, b, out, num_tiles, R, C, n, n_src, f,
+                                       device, stream);
+}
+
 }  // namespace
 
-// bits: 0 for int8 count tiles, 1 for 1-bit tiles (R % 8 == 0);
-// out_bf16: 0 for a float32 output, 1 for bfloat16.
-extern "C" int sddmm_bcsr_f32(const void* a_tiles, const void* tile_row, const void* tile_col,
-                              const void* a, const void* b, void* out, int num_tiles, int R,
-                              int C, int n, int n_src, int f, int bits, int out_bf16, int device,
-                              void* stream) {
-  if (bits && R % 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (bits) {
-    return out_bf16 ? launch<BitTiles, __nv_bfloat16>(a_tiles, tile_row, tile_col, a, b, out, num_tiles,
-                                                     R, C, n, n_src, f, device, stream)
-                    : launch<BitTiles, float>(a_tiles, tile_row, tile_col, a, b, out, num_tiles, R,
-                                              C, n, n_src, f, device, stream);
+// One entry point per A format: int8 counts, 1-bit (R % 8 == 0), float32,
+// bfloat16.
+#define SDDMM_ENTRY(tag, Fmt, check)                                                                         \
+  extern "C" int sddmm_bcsr_##tag##_f32(const void* a_tiles, const void* tile_row, const void* tile_col,    \
+                                        const void* a, const void* b, void* out, int num_tiles, int R,      \
+                                        int C, int n, int n_src, int f, int out_bf16, int device,           \
+                                        void* stream) {                                                      \
+    if (check) return static_cast<int>(cudaErrorInvalidValue);                                               \
+    return launch_out<Fmt>(a_tiles, tile_row, tile_col, a, b, out, num_tiles, R, C, n, n_src, f, out_bf16,   \
+                           device, stream);                                                                  \
   }
-  return out_bf16 ? launch<CountTiles, __nv_bfloat16>(a_tiles, tile_row, tile_col, a, b, out,
-                                                     num_tiles, R, C, n, n_src, f, device, stream)
-                  : launch<CountTiles, float>(a_tiles, tile_row, tile_col, a, b, out, num_tiles, R,
-                                              C, n, n_src, f, device, stream);
-}
+
+SDDMM_ENTRY(i8, CountTiles, false)
+SDDMM_ENTRY(b1, BitTiles, R % 8 != 0)
+SDDMM_ENTRY(f32, F32Tiles, false)
+SDDMM_ENTRY(bf16, Bf16Tiles, false)

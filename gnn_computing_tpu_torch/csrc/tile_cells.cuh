@@ -1,14 +1,16 @@
-// Nonzero cells of one row of a count tile, compacted by one warp.
+// Nonzero cells of one row of a tile, compacted by one warp.
 //
 // Shared by the GAT backward kernels (gat_bwd_dad.cu, gat_bwd_dh_das.cu),
 // which walk a row's tiles with one warp and do work only for the cells
-// that hold an edge (the tiles are ~99% zero).  Each pass scans kChunk
-// columns, 8 per lane (one 8-byte load where C is a multiple of 8), and
-// writes the nonzero ones, in ascending column order, to the warp's list as
-// (column << 8) | count.  The A format is a template argument
-// (bit_tiles.cuh): a row's bytes are C consecutive bytes in both formats,
-// so the load is the same, and a 1-bit row keeps the cells whose bit is set,
-// with count 1.
+// whose value is nonzero (the tiles are ~99% zero).  Each pass scans kChunk
+// columns, 8 per lane, and writes the nonzero ones, in ascending column
+// order, to the warp's list.  The A format is a template argument
+// (bit_tiles.cuh), read 8 cells a lane by tile_fmt::load8_tail (8 count
+// bytes, 16 bytes of bfloat16 or 32 of float32; a 1-bit row's cells are
+// 0 or 1).  compact_row takes the count formats, each entry (column << 8)
+// | count; compact_row_vals takes the float formats (kValued), each entry a
+// column in one list and its value in a parallel float list, so a value
+// never passes through an integer.
 
 #pragma once
 
@@ -31,42 +33,54 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Compacts the nonzero cells among columns [c0, c0 + kChunk) of the tile
-// row whose C bytes start at row_a (shift: the row's bit plane, from
-// Fmt::row_offset) into list and returns their number, the same in every
-// lane.  vec: C % 8 == 0, so each lane's 8 bytes are one aligned 8-byte
-// word.  The leading __syncwarp lets the warp finish reading the previous
-// list before it is overwritten.
-template <class Fmt>
-__device__ __forceinline__ int compact_row(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
-                                           bool vec, int lane, int* list) {
+// row whose bytes start at row_a (shift: the row's bit plane, from
+// Fmt::row_offset) and returns their number, the same in every lane.  Each
+// lane reads its 8 cells' values with tile_fmt::load8_tail (vec: C % 8 ==
+// 0, so they are one aligned load), and the warp's scan of the lanes'
+// nonzero counts gives each lane its place in the list; emit(pos, column,
+// value) writes one cell there.  The leading __syncwarp lets the warp
+// finish reading the previous list before it is overwritten.
+template <class Fmt, class Emit>
+__device__ __forceinline__ int compact_cells(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
+                                             bool vec, int lane, Emit emit) {
   const int base = c0 + lane * 8;
-  int cnt[8];
-  if (vec && base + 8 <= C) {
-    const int2 v = *reinterpret_cast<const int2*>(row_a + base);
-    const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) cnt[q] = Fmt::count(b[q], shift);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) cnt[q] = base + q < C ? Fmt::count(row_a[base + q], shift) : 0;
-  }
+  float v[8];
+  tile_fmt::load8_tail<Fmt>(row_a, base, C, vec, shift, v);
   int nz = 0;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) nz += cnt[q] > 0;
+  for (int q = 0; q < 8; ++q) nz += v[q] != 0.f;
   int incl = nz;  // inclusive scan of the lanes' counts
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += v;
+    const int x = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += x;
   }
   const int total = __shfl_sync(kFull, incl, 31);
   int pos = incl - nz;
   __syncwarp();
 #pragma unroll
   for (int q = 0; q < 8; ++q)
-    if (cnt[q] > 0) list[pos++] = ((base + q) << 8) | cnt[q];
+    if (v[q] != 0.f) emit(pos++, base + q, v[q]);
   __syncwarp();
   return total;
+}
+
+// The count formats: each entry of list is (column << 8) | count.
+template <class Fmt>
+__device__ __forceinline__ int compact_row(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
+                                           bool vec, int lane, int* list) {
+  return compact_cells<Fmt>(row_a, shift, C, c0, vec, lane,
+                            [=](int p, int col, float v) { list[p] = (col << 8) | static_cast<int>(v); });
+}
+
+// The float formats: the columns go to cols and the values to vals.
+template <class Fmt>
+__device__ __forceinline__ int compact_row_vals(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
+                                                bool vec, int lane, int* cols, float* vals) {
+  return compact_cells<Fmt>(row_a, shift, C, c0, vec, lane, [=](int p, int col, float v) {
+    cols[p] = col;
+    vals[p] = v;
+  });
 }
 
 }  // namespace tile_cells

@@ -21,10 +21,9 @@ plans scale h by ``scale_src`` before the tiles and the result by
 ``scale_dst`` after them.
 
 ``bcsr_rowmax`` is the per-row max over the same tiles (the GAT softmax
-stabilizer's dense part): the B5 kernel (ops.cuda_rowmax) on a CUDA
-tensor, ``bcsr_rowmax_plain`` on a CPU tensor; B5 reads int8 or 1-bit
-tiles (float tiles raise NotImplementedError on the card), the plain
-version any format.
+stabilizer's dense part) over the cells whose value is nonzero (the GAT
+scoring rule, ops.bcsr_gat): the B5 kernel (ops.cuda_rowmax) on a CUDA
+tensor, ``bcsr_rowmax_plain`` on a CPU tensor; both read every format.
 
 ``hybrid_spmm`` is a ``torch.autograd.Function`` (the JAX op's custom VJP):
 its backward aggregates the cotangent over the transposed plans, B1 over
@@ -128,8 +127,10 @@ def bcsr_spmm(tp, h: torch.Tensor, h_mode: str = "auto") -> torch.Tensor:
 def bcsr_rowmax_plain(tp: TilePlan, col_vals: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     """Plain PyTorch per-row max, the counterpart of the JAX package's
     ``_bcsr_rowmax_xla``: out[i] = max of col_vals[j] over tile cells (i, j)
-    with count > 0; -inf where the tiles give row i no edge.  A 1-bit plan
-    is read through ``counts`` a chunk at a time."""
+    with a nonzero value (for counts the same as count > 0, the JAX rule;
+    a signed float plan's negative cells count too, as GAT scores them);
+    -inf where the tiles give row i no edge.  A 1-bit plan is read through
+    ``counts`` a chunk at a time."""
     tr, tc = tp.tile_rows, tp.tile_cols
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
     v = torch.full((nct * tc,), float("-inf"), dtype=torch.float32, device=col_vals.device)
@@ -138,7 +139,7 @@ def bcsr_rowmax_plain(tp: TilePlan, col_vals: torch.Tensor, chunk: int = 256) ->
     out_t = torch.full((nrt, tr), float("-inf"), dtype=torch.float32, device=col_vals.device)
     for s in range(0, tp.num_tiles, chunk):
         vc = v.index_select(0, tp.tile_col[s : s + chunk].long())
-        tmax = torch.where(tp.counts(s, s + chunk) > 0, vc, float("-inf")).amax(dim=2)
+        tmax = torch.where(tp.counts(s, s + chunk) != 0, vc, float("-inf")).amax(dim=2)
         rows = tp.tile_row[s : s + chunk].long()[:, None].expand(-1, tr)
         out_t.scatter_reduce_(0, rows, tmax, "amax")
     return out_t.reshape(nrt * tr)[: tp.num_nodes]
@@ -146,8 +147,8 @@ def bcsr_rowmax_plain(tp: TilePlan, col_vals: torch.Tensor, chunk: int = 256) ->
 
 def bcsr_rowmax(tp: TilePlan, col_vals: torch.Tensor) -> torch.Tensor:
     """Per-destination-row max of ``col_vals`` [n_src] over the tile cells
-    with count > 0 (-inf for rows without one).  CUDA tensors go through the
-    B5 kernel, CPU tensors through the plain version."""
+    with a nonzero value (-inf for rows without one).  CUDA tensors go
+    through the B5 kernel, CPU tensors through the plain version."""
     v = col_vals.float().contiguous()
     if v.device.type == "cuda":
         return cuda_rowmax.rowmax_bcsr_cuda(tp, v)

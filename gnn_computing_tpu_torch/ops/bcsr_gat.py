@@ -1,15 +1,23 @@
-"""GAT attention aggregation over dense count tiles, hybrid with the residual.
+"""GAT attention aggregation over dense tiles, hybrid with the residual.
 
 Port of ``gnn_computing_tpu/ops/bcsr_gat.py``.  A tile cell (i, j) with
-count c scores
+value v (an edge count, or a float tile's summed edge values) scores
 
-  s_ij = c * exp(lrelu(ad_i + as_j) - M_i),   lrelu(z) = max(z, slope z),
+  s_ij = v * exp(lrelu(ad_i + as_j) - M_i),   lrelu(z) = max(z, slope z),
 
 with ad / as the dst / src halves of att and M a per-destination shift
 (0 unstabilized).  num and den are the score-weighted sums of h and of 1
-over the tiles.  The score is formed from ad, as and M for every cell that
-holds a count (a non-edge is never scored), so with the exact or the bound
-shift every score is <= 1 and nothing overflows.  The JAX package factors
+over the tiles.  The score is formed from ad, as and M for every cell whose
+value is nonzero, and a cell whose value is 0 is never scored: a non-edge
+cell is exactly 0, and its exp can overflow (0 * inf = NaN).  Selecting on
+v != 0 rather than v > 0 keeps the negative cells of a signed float plan,
+which the JAX forward multiplies in like any other (``gat_bcsr_xla`` has
+no mask); so the forward equals the JAX package's on every plan, and the
+backward below is the true gradient of that forward (the JAX backward masks
+v > 0, so on a signed plan its gradient is not its forward's).  The row
+max of ``stabilize=True`` (B5) runs over the same cells, so every scored
+cell has |s| <= |v|.  With the exact or the bound shift every score is then
+bounded by its cell's value and nothing overflows.  The JAX package factors
 it into per-node exponentials u12_i = exp((ad_i, s ad_i) - M_i) and
 v12_j = exp((as_j, s as_j)); v1_j overflows once as_j > ~88.7 whatever the
 shift, a fault the port does not copy.  ``gat_bcsr`` launches the B2 kernel
@@ -19,9 +27,9 @@ residual part (ops.gat.gat_aggregate_parts) and divides.
 
 dot_mode: the TPU kernel offers 'exact' (a float32-grade MXU dot) and
 'split2' (score and h as ~16-bit bf16 chunks, error ~2^-16, a speed trade of
-the TPU's matrix unit).  The port computes both alike in float32: exact
-integer counts times float32 scores, summed in float32, which meets both
-error classes.  'default' (single-rounded bf16, timing-only on the TPU) is
+the TPU's matrix unit).  The port computes both alike in float32: the
+cell value (an exact count, or a float32 / widened bfloat16 value) times a
+float32 score, summed in float32, which meets both error classes.  'default' (single-rounded bf16, timing-only on the TPU) is
 not ported.
 
 Stabilizers (one shift M shared by every part, so the partial
@@ -32,7 +40,8 @@ denominators still merge exactly; it cancels in num/den):
       no pass over the adjacency.  A row whose neighbor max lies far below
       A sees every score shrink: past ~44 logits den < 2^-64 (the backward's
       ct / den can overflow), past ~100 every score underflows and den is
-      0.  Such rows (den < 2^-64 with in-edges) are found after the pass and
+      0.  Such rows (|den| < 2^-64 with in-edges; the magnitude, since a
+      signed plan's den may be negative) are found after the pass and
       get the exact shift, and the pass is redone (``_bound_rescue``).
       Finding them costs one device-to-host read of a flag a call; the
       rescue itself runs only when a row needs it.
@@ -54,11 +63,12 @@ hand-written backward over the forward and transposed residual plans
 forward when no transposed plans exist is not ported: the backward raises
 and asks for them.
 
-Every function here takes int8 count tiles and 1-bit tiles alike: the plain
-versions read a chunk of counts at a time through ``TilePlan.counts`` (and
-so also take float tiles, as the JAX XLA paths do), the kernels decode the
-1-bit format themselves (csrc/bit_tiles.cuh) and refuse float tiles (B2-B5
-over float A are not ported yet).
+Every function here takes every tile format alike (int8 counts, 1-bit,
+float32 and bfloat16 values): the plain versions read a chunk of values at
+a time through ``TilePlan.counts``, the kernels read each format themselves
+(csrc/bit_tiles.cuh).  Over a weighted plan the tiles weight each edge's
+score by its value while the residual ignores the residual plan's values,
+as in the JAX package: only count-valued plans give a well-defined GAT.
 """
 
 from __future__ import annotations
@@ -91,12 +101,12 @@ def _score_terms(att: torch.Tensor, row_shift: Optional[torch.Tensor] = None):
 
 
 def _cell_scores(a_c, ad, m, asrc, relu_slope: float):
-    """(s, z) of a chunk of tiles: z = ad + as and s = cnt * exp(lrelu(z) -
-    M) where the cell holds a count, else 0; ``ad``, ``m`` and ``asrc``
-    broadcast to the chunk's [ch, R, C].  Select on the count: a non-edge's
-    exp can be inf, and 0 * inf = NaN."""
+    """(s, z) of a chunk of tiles: z = ad + as and s = v * exp(lrelu(z) - M)
+    where the cell's value v is nonzero, else 0; ``ad``, ``m`` and ``asrc``
+    broadcast to the chunk's [ch, R, C].  Select on v != 0 (module doc): a
+    non-edge's exp can be inf, and 0 * inf = NaN."""
     z = ad + asrc
-    s = torch.where(a_c > 0, a_c * torch.exp(leaky_relu(z, relu_slope) - m), 0.0)
+    s = torch.where(a_c != 0, a_c * torch.exp(leaky_relu(z, relu_slope) - m), 0.0)
     return s, z
 
 
@@ -326,12 +336,12 @@ BOUND_DEN_MIN = 2.0**-64
 
 
 def _bound_rescue(tp, plan, att, relu_slope, shift, den, has_edges) -> Optional[torch.Tensor]:
-    """The 'bound' shift with the exact one on the rows whose den fell below
-    BOUND_DEN_MIN although they have in-edges, or None when no row needs
+    """The 'bound' shift with the exact one on the rows whose |den| fell
+    below BOUND_DEN_MIN although they have in-edges, or None when no row needs
     it.  ``has_edges`` (bool [n], from the aggregator's in-degrees) makes
     the check one device-to-host read; without it such rows are checked
     against the tiles' and residual's row max (B5) first."""
-    need = den < BOUND_DEN_MIN
+    need = den.abs() < BOUND_DEN_MIN
     if has_edges is not None:
         need = need & has_edges
     if not bool(need.any()):
@@ -460,7 +470,7 @@ def hybrid_gat(
 ) -> torch.Tensor:
     """GAT forward over a hybrid schedule: (num, den) of the tiles plus those
     of the residual, then num / den (rows with den 0 give 0).  The tiles must
-    hold raw counts (no factored scales): attention provides the edge
+    hold raw values (no factored scales): attention provides the edge
     weights.  stabilize=False is the reference's un-stabilized form, whose
     wide logits overflow as the reference's do.  Differentiable in (h, att)
     through HybridGat, whose backward needs the transposed tile parts

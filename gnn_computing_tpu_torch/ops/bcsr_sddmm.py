@@ -3,15 +3,18 @@
 Port of ``gnn_computing_tpu/ops/bcsr_sddmm.py``.  For every edge (src ->
 dst) the value is <a[src], b[dst]>.  Edges inside a dense tile get it as one
 cell of the tile's [R, C] block of dots, P = B_rows @ A_cols^T masked by
-the tile's counts: the output is per cell, [num_tiles, R, C] parallel to
+the tile's values: the output is per cell, [num_tiles, R, C] parallel to
 ``TilePlan.a``, 0 where the tile has no edge; duplicate edges of a cell
-share its value.  Residual edges get theirs in the neighbor-grouping plan's
+share its value.  A cell holds an edge where its value is > 0, the JAX
+package's rule: a count > 0, or a float tile's value > 0 (so a negative
+cell of a signed float plan gives +0 in both packages, unlike the GAT
+scoring rule of ops.bcsr_gat, which scores every nonzero cell).  Residual edges get theirs in the neighbor-grouping plan's
 flat slot layout (ops.spmm.sddmm_slots).
 
 ``sddmm_bcsr`` launches the B6 kernel (ops.cuda_sddmm, the port of the TPU
 kernel ``sddmm_bcsr_pallas``) on CUDA tensors and runs ``sddmm_bcsr_plain``,
 the counterpart of ``sddmm_bcsr_xla``, on CPU tensors; there is no fallback
-between the two.  Both take int8 and 1-bit tiles.
+between the two.  Both take int8, 1-bit, float32 and bfloat16 tiles.
 
 dot_mode: the TPU kernel offers 'exact' (a HIGHEST f32 dot), 'split23' and
 'split33' (bf16 residue chunks of both operands, 16 and 24 mantissa bits, a
@@ -59,7 +62,7 @@ def sddmm_bcsr_plain(
     """Plain PyTorch per-cell dots [num_tiles, R, C] in ``out_dtype``, the
     counterpart of ``sddmm_bcsr_xla``: per chunk of tiles, gather the [R, f]
     b block and the [C, f] a block of each tile, bmm, then keep the cells
-    with count > 0 (1-bit tiles unpacked a chunk at a time)."""
+    whose value is > 0 (1-bit tiles unpacked a chunk at a time)."""
     tr, tc = tp.tile_rows, tp.tile_cols
     f = a.shape[-1]
     a_t = _pad_to(a.float(), tp.num_col_tiles * tc).reshape(-1, tc, f)

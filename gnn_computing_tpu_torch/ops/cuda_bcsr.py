@@ -19,10 +19,9 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_plan, check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import TAGS, check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "bcsr_spmm"
-TAGS = ("i8", "b1", "f32", "bf16")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     **{f"bcsr_spmm_{tag}_f32": [_P] * 5 + [_I] * 7 + [_P] for tag in TAGS},
@@ -45,7 +44,7 @@ def _check_h(tp, h: torch.Tensor, name: str):
     if h.dim() != 2:
         raise ValueError(f"h must be [n_src, f], got {tuple(h.shape)}")
     check_tensor(h, "h", torch.float32, (tp.n_src, h.shape[1]), dev)
-    return dev, h.shape[1], check_plan(tp, dev, kernel="B1 (bcsr_spmm)", tags=TAGS)
+    return dev, h.shape[1], check_plan(tp, dev)
 
 
 def _count(tag: str, epilogue: bool):

@@ -122,32 +122,17 @@ def check_tensor(x, name: str, dtype, shape, device):
 
 # TilePlan.format -> the tag of a kernel's entry point for that A format
 FORMAT_TAGS = {"int8": "i8", "bits": "b1", "float32": "f32", "bfloat16": "bf16"}
-COUNT_TAGS = ("i8", "b1")
+TAGS = tuple(FORMAT_TAGS.values())
 
 
-def format_tag(tp, kernel: str, tags=COUNT_TAGS) -> str:
-    """The tag of the plan's A format among ``tags``; raises
-    NotImplementedError for another format: float tiles are read by B1 only
-    so far (the other kernels over float A are queued in ROADMAP.md, "B2-B6
-    over float A")."""
-    tag = FORMAT_TAGS[tp.format]
-    if tag not in tags:
-        raise NotImplementedError(
-            f"{kernel} over {tp.format} tiles is not ported yet (ROADMAP.md: B2-B6 over float A); "
-            f"it reads {', '.join(tags)} tiles"
-        )
-    return tag
-
-
-def check_plan(tp, device, kernel: str = "the tile kernel", tags=COUNT_TAGS) -> str:
+def check_plan(tp, device) -> str:
     """Raise unless the plan's tiles, ``tile_col`` and ``run_start`` are what
     a run-walking tile kernel takes on ``device``: int8 [T, R, C] counts,
-    1-bit uint8 [T, R/8, C] with R % 8 == 0, or (where ``tags`` holds
-    'f32' / 'bf16') float32 / bfloat16 [T, R, C] values.  Returns the tag of
-    the A format's entry point ('i8', 'b1', 'f32' or 'bf16'); a format
-    outside ``tags`` raises NotImplementedError."""
+    1-bit uint8 [T, R/8, C] with R % 8 == 0, or float32 / bfloat16
+    [T, R, C] values.  Returns the tag of the A format's entry point ('i8',
+    'b1', 'f32' or 'bf16')."""
     t, r, c = tp.num_tiles, tp.tile_rows, tp.tile_cols
-    tag = format_tag(tp, kernel, tags)
+    tag = FORMAT_TAGS[tp.format]
     if tp.bits:
         if r % 8:
             raise ValueError(f"1-bit tiles need R % 8 == 0, got R = {r}")

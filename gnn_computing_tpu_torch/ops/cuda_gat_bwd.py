@@ -2,15 +2,17 @@
 (``csrc/gat_bwd_dh_das.cu``).
 
 They replace ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bwd_dad_pallas`` and
-``gat_bwd_dh_das_pallas`` for int8 count tiles and 1-bit tiles (each one
-template on the A format), scoring each cell from (ad, M) per destination
-and as per source as the forward does.  ops.cuda_build compiles each at first use and
-binds it with ctypes.
+``gat_bwd_dh_das_pallas`` for int8 count tiles, 1-bit tiles and float32 and
+bfloat16 value tiles (each one template on the A format), scoring each
+nonzero cell from (ad, M) per destination and as per source as the forward
+does.  ops.cuda_build compiles each at first use and binds it with ctypes.
 
 ``dad_launches`` and ``dh_das_launches`` count kernel launches (one per
-wrapper call), ``dad_bits_launches`` and ``dh_das_bits_launches`` the 1-bit
-ones among them; each rises only where its kernel is launched, so a run can
-show that its path went through the kernels and their 1-bit variants.
+wrapper call); ``dad_bits_launches`` / ``dh_das_bits_launches`` (1-bit
+tiles) and ``dad_float_launches`` / ``dh_das_float_launches`` (float32 or
+bfloat16 tiles) count those among them.  Each rises only where its kernel
+is launched, so a run can show that its path went through the kernels and
+the variant it names.
 """
 
 from __future__ import annotations
@@ -19,20 +21,22 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad, check_plan, check_tensor, load, stream_args
+from gnn_computing_tpu_torch.ops.cuda_build import TAGS, check_no_grad, check_plan, check_tensor, load, stream_args
 
 DAD = "gat_bwd_dad"
 DH_DAS = "gat_bwd_dh_das"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-DAD_SIGNATURES = {f"gat_bwd_dad_{fmt}_f32": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in ("i8", "b1")}
+DAD_SIGNATURES = {f"gat_bwd_dad_{fmt}_f32": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in TAGS}
 DH_DAS_SIGNATURES = {
-    f"gat_bwd_dh_das_{fmt}_f32": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in ("i8", "b1")
+    f"gat_bwd_dh_das_{fmt}_f32": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in TAGS
 }
 
 dad_launches = 0
 dh_das_launches = 0
 dad_bits_launches = 0
 dh_das_bits_launches = 0
+dad_float_launches = 0
+dh_das_float_launches = 0
 
 
 def _check_inputs(name, tp, h, gbar, c, dm, asrc, rows_h, rows_gbar):
@@ -52,7 +56,7 @@ def _check_inputs(name, tp, h, gbar, c, dm, asrc, rows_h, rows_gbar):
     check_tensor(c, "c", torch.float32, (rows_gbar,), dev)
     check_tensor(dm, "dm", torch.float32, (rows_gbar, 2), dev)
     check_tensor(asrc, "asrc", torch.float32, (rows_h,), dev)
-    return dev, f, check_plan(tp, dev, kernel=name)
+    return dev, f, check_plan(tp, dev)
 
 
 def gat_bwd_dad_cuda(tp, h, gbar, c, dm, asrc, relu_slope: float) -> torch.Tensor:
@@ -60,7 +64,7 @@ def gat_bwd_dad_cuda(tp, h, gbar, c, dm, asrc, relu_slope: float) -> torch.Tenso
     gbar [num_nodes, f], c [num_nodes], dm [num_nodes, 2] and asrc [n_src]
     (see ops.bcsr_gat._score_terms).  Launches the kernel or raises; it never
     falls back."""
-    global dad_launches, dad_bits_launches
+    global dad_launches, dad_bits_launches, dad_float_launches
     dev, f, fmt = _check_inputs("gat_bwd_dad_cuda", tp, h, gbar, c, dm, asrc, tp.n_src, tp.num_nodes)
     out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
@@ -74,7 +78,8 @@ def gat_bwd_dad_cuda(tp, h, gbar, c, dm, asrc, relu_slope: float) -> torch.Tenso
     if err != 0:
         raise RuntimeError(f"gat_bwd_dad kernel launch failed: cudaError {err}")
     dad_launches += 1
-    dad_bits_launches += tp.bits
+    dad_bits_launches += fmt == "b1"
+    dad_float_launches += fmt in ("f32", "bf16")
     return out
 
 
@@ -84,7 +89,7 @@ def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, dm, asrc, relu_slope: float):
     [n_src, f], c [n_src], dm [n_src, 2] and asrc [num_nodes].  One
     launch computes both.  Launches the kernel or raises; it never falls
     back."""
-    global dh_das_launches, dh_das_bits_launches
+    global dh_das_launches, dh_das_bits_launches, dh_das_float_launches
     dev, f, fmt = _check_inputs("gat_bwd_dh_das_cuda", tp_t, h, gbar, c, dm, asrc, tp_t.num_nodes, tp_t.n_src)
     dh = torch.empty((tp_t.num_nodes, f), dtype=torch.float32, device=dev)
     d_as = torch.empty((tp_t.num_nodes,), dtype=torch.float32, device=dev)
@@ -99,5 +104,6 @@ def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, dm, asrc, relu_slope: float):
     if err != 0:
         raise RuntimeError(f"gat_bwd_dh_das kernel launch failed: cudaError {err}")
     dh_das_launches += 1
-    dh_das_bits_launches += tp_t.bits
+    dh_das_bits_launches += fmt == "b1"
+    dh_das_float_launches += fmt in ("f32", "bf16")
     return dh, d_as

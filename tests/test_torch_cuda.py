@@ -1,14 +1,17 @@
 """The CUDA kernels (B1 tile product, B2 GAT tile aggregation, B3 and B4 GAT
-tile backward, B5 tile row max and B6 tile SDDMM, each over int8 and 1-bit
-tiles) against their plain PyTorch versions on the card, at small shapes that
+tile backward, B5 tile row max and B6 tile SDDMM, each over int8, 1-bit,
+float32 and bfloat16 tiles) against their plain PyTorch versions on the
+card, at small shapes that
 stress the edges: ragged n, C odd or not a multiple of 8 or of the staging
 width, R not a multiple of the row slab (and, for 1-bit tiles, not a power
 of two), empty runs, filler-only runs, rows without tile edges, factored
 plans (B1), transposed plans (B1, B4), every feature-width branch, f up to
 300 (B6's column chunks), cells on both leaky-relu branches, and a non-edge
-whose unstabilized GAT score or SDDMM dot overflows to inf (B2, B3, B4, B6);
-and the training Functions' gradients on the card against the same
-Functions on the CPU, over int8 and over bit-tile aggregators.  Needs a CUDA card and nvcc; skips
+whose unstabilized GAT score or SDDMM dot overflows to inf (B2, B3, B4, B6),
+signed float cell values (every nonzero cell scored, C6; B6 keeps the cells
+> 0); the training Functions' gradients on the card against the same
+Functions on the CPU, over int8, bit-tile and float-tile aggregators; and
+wrappers that raise, rather than fall back, on a malformed plan.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
@@ -23,6 +26,7 @@ are equal to the same kernel over the part unpacked to int8 (the same
 operations in the same order)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -658,22 +662,199 @@ def test_epilogue_refuses_wide_f(cuda_dev):
         cuda_bcsr.bcsr_spmm_nn_cuda(tp, h, torch.rand((129, 8), device=cuda_dev))
 
 
-def test_count_kernels_refuse_float_tiles(cuda_dev):
-    """B2-B6 over float A are not ported: their wrappers raise
-    NotImplementedError naming the ROADMAP item, before any launch."""
-    g, tp = _float_plan(cuda_dev, 64, 64, 1, np.float32, False)
+def _float_bwd_plans(dev, tr, tc, pack, fmt, values):
+    """_bwd_plans' graph as float32 or bfloat16 tiles of its edge counts
+    ('counts', the JAX default schedule's values) or of signed edge values
+    U(-1, 3) ('signed'), the forward plan and its transpose, both padded."""
+    g, tp, tp_t = _float_host_plans(tr, tc, pack, fmt, values)
+    return g, tp.to(dev), tp_t.to(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _float_host_plans(tr, tc, pack, fmt, values):
+    """The host plans of _float_bwd_plans, built once per setting (the cases
+    of one setting differ in f only)."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    d, s = g.dst_per_edge, g.indices
+    keep = ((d < 800) | (d >= 1100)) & ((d < 1237 - tr) | (s % 97 == 0)) & ((s < 500) | (s >= 500 + 2 * tc))
+    g = CSRGraph.from_edges(d[keep], s[keep], g.num_nodes)
+    val = None
+    if values == "signed":
+        val = np.random.default_rng(5).uniform(-1.0, 3.0, g.num_edges).astype(np.float32)
+    tp = densify(g, dtype=fmt, val=val, tile_rows=tr, tile_cols=tc, threshold=3)[0]
+    return g, tp.pad_runs(pack), tp.transpose().pad_runs(pack)
+
+
+def _float_counts():
+    return (cuda_gat.float_launches, cuda_rowmax.float_launches, cuda_gat_bwd.dad_float_launches,
+            cuda_gat_bwd.dh_das_float_launches, cuda_sddmm.float_launches)
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (96, 40, 4), (72, 13, 1), (256, 256, 16), (40, 300, 1)])
+@pytest.mark.parametrize("f", [1, 24, 33, 100, 128, 160])
+@pytest.mark.parametrize("fmt", [np.float32, torch.bfloat16])
+@pytest.mark.parametrize("values", ["counts", "signed"])
+def test_float_gat_kernels_match_plain(cuda_dev, tr, tc, pack, f, fmt, values):
+    """B2, B5, B3 and B4 over float32 and bfloat16 tiles (count values, and
+    signed values: every nonzero cell is scored, C6) against their plain
+    versions, unshifted, with the exact row shift and with the 'bound'
+    shift; each launch counts in launches and float_launches; rows and
+    sources without tile edges give 0 (B5: -inf)."""
+    g, tp, tp_t = _float_bwd_plans(cuda_dev, tr, tc, pack, fmt, values)
+    assert tp.format == ("float32" if fmt is np.float32 else "bfloat16")
+    if values == "signed":
+        assert bool((tp.a < 0).any())
     n = g.num_nodes
-    h, c = torch.rand((n, 8), device=cuda_dev), torch.rand(n, device=cuda_dev)
-    dm = torch.rand((n, 2), device=cuda_dev)
-    for call in (
-        lambda: cuda_gat.gat_bcsr_cuda(tp, h, dm, c, 0.2),
-        lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, c),
-        lambda: cuda_gat_bwd.gat_bwd_dad_cuda(tp, h, h, c, dm, c, 0.2),
-        lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp, h, h, c, dm, c, 0.2),
-        lambda: cuda_sddmm.sddmm_bcsr_cuda(tp, h, h),
-    ):
-        with pytest.raises(NotImplementedError, match="B2-B6 over float A"):
-            call()
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    h = torch.randn((n, f), generator=gen, device=cuda_dev)
+    gbar = torch.randn((n, f), generator=gen, device=cuda_dev)
+    c = torch.randn(n, generator=gen, device=cuda_dev)
+    for scale, shift in ((0.1, None), (15.0, "exact"), (15.0, "bound")):
+        att = torch.randn((n, 2), generator=gen, device=cuda_dev) * scale
+        before = _float_counts()
+        rmax = bcsr_rowmax(tp, att[:, 1].contiguous())
+        row_shift = None
+        if shift == "exact":
+            row_shift = _hybrid_row_shift(tp, None, att, 0.2)
+        elif shift == "bound":
+            row_shift = _global_bound_shift(att, 0.2)
+        got = gat_bcsr(tp, h, att, row_shift=row_shift)
+        dm, asrc = _score_terms(att, row_shift)
+        dad = gat_bwd_dad(tp, h, gbar, c, dm, asrc, 0.2)
+        dh, das = gat_bwd_dh_das(tp_t, h, gbar, c, dm, asrc, 0.2)
+        b5 = 1 + (shift == "exact")  # B5 once more inside the exact shift
+        assert tuple(x - y for x, y in zip(_float_counts(), before)) == (1, b5, 1, 1, 0)
+        want = gat_bcsr_plain(tp, h, att, row_shift=row_shift)
+        torch.cuda.synchronize()
+        what = f"{values} {tp.format} r{tr} c{tc} f{f} scale{scale} {shift}"
+        assert torch.equal(rmax, bcsr_rowmax_plain(tp, att[:, 1].contiguous())), what
+        _close(got[0], want[0], f"{what} num")
+        _close(got[1], want[1], f"{what} den")
+        _close(dad, gat_bwd_dad_plain(tp, h, gbar, c, dm, asrc, 0.2), f"{what} d_ad")
+        want_dh, want_das = gat_bwd_dh_das_plain(tp_t, h, gbar, c, dm, asrc, 0.2)
+        _close(dh, want_dh, f"{what} dh")
+        _close(das, want_das, f"{what} d_as")
+    assert bool((got[0][800:1100] == 0).all()) and bool((got[1][800:1100] == 0).all())
+    assert bool((dad[800:1100] == 0).all()) and bool(torch.isneginf(rmax[800:1100]).all())
+    assert bool((dh[500 : 500 + 2 * tc] == 0).all()) and bool((das[500 : 500 + 2 * tc] == 0).all())
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (96, 40, 4), (72, 13, 1), (256, 128, 16), (40, 300, 1)])
+@pytest.mark.parametrize("f", [1, 24, 32, 33, 100, 128, 300])
+@pytest.mark.parametrize("fmt", [np.float32, torch.bfloat16])
+@pytest.mark.parametrize("values", ["counts", "signed"])
+def test_float_sddmm_kernel_matches_plain(cuda_dev, tr, tc, pack, f, fmt, values):
+    """B6 over float32 and bfloat16 tiles against sddmm_bcsr_plain: a cell
+    holds its dot where its value is > 0 (the JAX rule), +0 elsewhere,
+    negative cells of a signed plan included; float_launches counts it."""
+    g, tp, _ = _float_bwd_plans(cuda_dev, tr, tc, pack, fmt, values)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    a = torch.randn((g.n_src, f), generator=gen, device=cuda_dev)
+    b = torch.randn((g.num_nodes, f), generator=gen, device=cuda_dev)
+    edge = tp.counts() > 0
+    for out in (torch.float32, torch.bfloat16):
+        before = (cuda_sddmm.launches, cuda_sddmm.float_launches)
+        got = sddmm_bcsr(tp, a, b, out_dtype=out, dot_mode="split23")
+        assert (cuda_sddmm.launches, cuda_sddmm.float_launches) == (before[0] + 1, before[1] + 1)
+        want = sddmm_bcsr_plain(tp, a, b, out)
+        torch.cuda.synchronize()
+        _sddmm_check(got, want, edge, f"{values} {tp.format} r{tr} c{tc} f{f} {out}")
+
+
+def test_float_gat_kernels_non_edge_overflow_is_not_nan(cuda_dev):
+    """Over float tiles, a cell whose value is 0 and whose unstabilized score
+    is inf: B2, B3 and B4 select on the value, never multiply by it."""
+    for fmt in (np.float32, torch.bfloat16):
+        g, tp, tp_t = _float_bwd_plans(cuda_dev, 64, 64, 1, fmt, "counts")
+        a = tp.counts().float().cpu().numpy()
+        rows = tp.tile_row.cpu().numpy()[:, None] * 64 + np.arange(64)[None, :]
+        cols = tp.tile_col.cpu().numpy()[:, None] * 64 + np.arange(64)[None, :]
+        t, i, j = next(
+            (t, i, j) for t, i, j in np.argwhere(a == 0)
+            if a[t, i].any() and a[t, :, j].any() and rows[t, i] != cols[t, j]
+            and rows[t, i] < g.num_nodes and cols[t, j] < g.n_src
+        )
+        n = g.num_nodes
+        att = torch.zeros((n, 2), device=cuda_dev)
+        att[rows[t, i], 0] = 50.0
+        att[cols[t, j], 1] = 50.0  # exp(50) * exp(50) overflows float32
+        dm, asrc = _score_terms(att)
+        gen = torch.Generator(device=cuda_dev).manual_seed(0)
+        h, gbar = (torch.randn((n, 8), generator=gen, device=cuda_dev) for _ in range(2))
+        c = torch.randn(n, generator=gen, device=cuda_dev)
+        got = gat_bcsr(tp, h, att)
+        want = gat_bcsr_plain(tp, h, att)
+        torch.cuda.synchronize()
+        _gat_check(got, want, f"{tp.format} non-edge overflow")
+        _bwd_check(tp, tp_t, h, gbar, c, dm, asrc, f"{tp.format} non-edge overflow")
+
+
+@pytest.mark.parametrize("fmt", [None, torch.bfloat16])
+@pytest.mark.parametrize("stabilize", [False, True, "bound"])
+def test_float_training_grads_on_card_match_cpu(cuda_dev, fmt, stabilize):
+    """The JAX default schedule (float32 count tiles, transposed plans) and
+    its bfloat16 form: hybrid_gat's forward and gradients on the card (B2,
+    B3, B4 and, for stabilize=True, B5, each over float tiles) against the
+    same Function on the CPU; hybrid_sddmm's cells the same."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    cpu = Aggregator.schedule_hybrid(g, tile_dtype=fmt, tile_rows=64, tile_cols=64, threshold=3, residual_block=4,
+                                     pack=1, device="cpu")
+    card = cpu.to(cuda_dev)
+    assert card.tile.format == ("float32" if fmt is None else "bfloat16")
+    rng = np.random.default_rng(0)
+    h0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 24)).astype(np.float32))
+    a0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 2)).astype(np.float32))
+    w0 = torch.cos(torch.arange(g.num_nodes * 24, dtype=torch.float32)).reshape(g.num_nodes, 24)
+    res = {}
+    for agg, dev in ((cpu, "cpu"), (card, cuda_dev)):
+        h = h0.to(dev, copy=True).requires_grad_(True)
+        att = a0.to(dev, copy=True).requires_grad_(True)
+        before = _float_counts()
+        out = agg.run_gat(h, att, stabilize=stabilize)
+        (out * w0.to(dev)).sum().backward()
+        with torch.no_grad():
+            cells, _ = hybrid_sddmm(agg.tile_parts(), agg.plan, h, h)
+        want = (1, 1 if stabilize is True else 0, 1, 1, 1) if dev != "cpu" else (0,) * 5
+        assert tuple(x - y for x, y in zip(_float_counts(), before)) == want
+        res[str(dev)] = (out.detach().cpu(), h.grad.cpu(), att.grad.cpu(), cells[0].cpu())
+    torch.cuda.synchronize()
+    for got, want, what in zip(res["cuda"][:3], res["cpu"][:3], ("out", "dh", "datt")):
+        _close(got, want, f"{fmt} stabilize={stabilize} {what}")
+    _sddmm_check(res["cuda"][3], res["cpu"][3], cpu.tile.counts() > 0, f"{fmt} hybrid_sddmm")
+
+
+def test_wrappers_refuse_malformed_float_plans(cuda_dev):
+    """Every float-tile wrapper raises ValueError, before any launch, on a
+    plan whose tiles are not what its format says (float16, the wrong
+    shape, not contiguous) or lie on another device: no fallback."""
+    g, tp, tp_t = _float_bwd_plans(cuda_dev, 64, 64, 1, np.float32, "counts")
+    n = g.num_nodes
+    h = torch.rand((n, 8), device=cuda_dev)
+    v = torch.rand((n, 2), device=cuda_dev)
+    c = torch.rand(n, device=cuda_dev)
+    bad_plans = [
+        dataclasses.replace(tp, a=tp.a.half()),
+        dataclasses.replace(tp, a=tp.a[:, :, :32]),
+        dataclasses.replace(tp, a=tp.a.transpose(1, 2).contiguous().transpose(1, 2)),
+        dataclasses.replace(tp, a=tp.a.cpu()),
+        dataclasses.replace(tp.astype(torch.bfloat16), a=tp.a[:, :32].to(torch.bfloat16)),
+    ]
+    before = (cuda_gat.launches, cuda_rowmax.launches, cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches,
+              cuda_sddmm.launches)
+    for bad in bad_plans:
+        for call in (
+            lambda: cuda_gat.gat_bcsr_cuda(bad, h, v, c, 0.2),
+            lambda: cuda_rowmax.rowmax_bcsr_cuda(bad, c),
+            lambda: cuda_gat_bwd.gat_bwd_dad_cuda(bad, h, h, c, v, c, 0.2),
+            lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(bad, h, h, c, v, c, 0.2),
+            lambda: cuda_sddmm.sddmm_bcsr_cuda(bad, h, h),
+        ):
+            with pytest.raises(ValueError):
+                call()
+    assert before == (cuda_gat.launches, cuda_rowmax.launches, cuda_gat_bwd.dad_launches,
+                      cuda_gat_bwd.dh_das_launches, cuda_sddmm.launches)
 
 
 @pytest.mark.parametrize("big", [95.0, 120.0])
