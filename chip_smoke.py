@@ -5,9 +5,10 @@ Run from the repository root:  python3 chip_smoke.py [--scale quick|reddit]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card name and power limit; build every kernel with nvcc (sm_90a), one
-     nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr, B5 rowmax_bcsr,
-     B3 gat_bwd_dad, B4 gat_bwd_dh_das, B6 sddmm_bcsr; each with an int8,
-     a 1-bit, a float32 and a bfloat16 entry point).
+     nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr and
+     gat_bcsr_factored, B5 rowmax_bcsr, B3 gat_bwd_dad, B4 gat_bwd_dh_das,
+     B6 sddmm_bcsr, each with an int8, a 1-bit, a float32 and a bfloat16
+     entry point; P1 task_sums; P2 fused_hybrid).
   2. kernel phase: the B1 kernel against its plain PyTorch version on the
      card, at the main path's shapes (f = 128, 64, 32; 'split' and float32
      operands; pack 1 and 16), plus a ragged n with runs made only of filler
@@ -204,10 +205,48 @@ Phases (any failure exits non-zero; nothing is caught):
      30-33: G1 and G2 forward and per-layer ms with B2 and B5 rows, the T
      steps with B3, B4, B1 transposed and B2 rows, the S passes' ms and
      edges/s with B6 rows (and B6 over G2's bfloat16 plan).
- 21. (printed last) a "float_gat" JSON line, the total seconds, one
-     "kernels" JSON line, the card line, then {"ok": true, ...}.
+ 34. B2's other modes (quick scale): on the GAT plan of phase 6, its 1-bit
+     part and G1's float32 plan, f = 128, 64, 32, att at scale 0.3
+     unshifted and with the exact and the 'bound' shift: B2 'default'
+     against gat_bcsr_plain(dot_mode='default') (num within 1e-5 *
+     max|plain| plus one bf16 ulp of each rounded score times |h|, den
+     within 1e-5 and the gate, and nearer to it than to the exact plain
+     version by DEFAULT_ROUNDING_RATIO in L2) and the factored kernel ('twodot' and
+     'merged', hv_chunks 2 and 1) against _factored_sums over the same
+     per-node operands (1e-5 * max|plain|), no row rescued.  Wide logits:
+     the hub's as at 95 and 120 on the GAT plan, stabilize=True and
+     'bound' (with hybrid_gat's C2 rescue): every factored mode through
+     gat_bcsr_tiles finite and within WIDE_TOL of the float64 softmax over
+     the tile cells (twodot with two chunks within the gate), against the
+     same on the plain versions, the rescued rows printed.  Figure 10a's
+     ablation path: gat_bcsr_tiles in each factored mode over the GAT
+     plan, one call a layer (twodot and merged 6 launches each); its
+     timing beside B2 maxdot and 'default' on all three plans.
+ 35. --gat-dot-mode default (quick scale): five forwards of bench.py
+     --model gat's path with dot_mode='default' (B2 3 'default' launches a
+     forward, no other kernel), its share of elements outside the gate
+     against the split2 forward (and per layer from the split2 forward's
+     inputs); five GAT training steps (stabilize='bound', bench.py --train
+     --model gat --gat-dot-mode default's int8 plan): finite losses, B2
+     ('default'), B3 and B4 3 launches a step, per-layer (dh, datt)
+     against float64 autograd and first-step gradients of w and w_att
+     within GRAD_REL_L2 of the float64 chain, each layer's oracle taking
+     the port's rounded output and its backward's rule; two planted
+     backward faults must miss that bound.
+ 36. the residual-DMA probe at --small size (quick graph, f = 128, int8
+     [256, 128] t24, residual 4): P1 against weighted_task_sums, P2's
+     (dense_out, task_sums) against bcsr_spmm_plain and weighted_task_sums
+     (1e-5 * max|plain|); the probe's --mode standalone and --mode fused
+     through its own measure() (P1 and P2 launched); P1, embedding_bag
+     (the library yardstick), the plain residual, P2, B1, B1 then P1 and
+     B1 then spmm_plain timed.
+ 21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
+     34-36: the ablation's times, the rescues, the 'default' off-gate
+     share, losses and gradient errors, the probe's runs), the total
+     seconds, one "kernels" JSON line, the card line, then
+     {"ok": true, ...}.
 
-With --scale reddit, phases 8-11, 16-20 and 22-33 are replaced by one GCN
+With --scale reddit, phases 8-11, 16-20 and 22-36 are replaced by one GCN
 bit-tile training phase at reddit scale (bench.py --train's headline
 configuration): the [256, 256] t24 bit-tile plan with its transposes and
 its build time, the first step's weight gradients within BITS_REL_L2 of
@@ -220,12 +259,16 @@ read just after it (the GCN forward for B1, the GAT forward for B2, the
 stabilized GAT forward for B5, five GCN training steps for B1, five GAT
 training steps for B2, B3 and B4, five SDDMM calls for B6, five 1-bit GCN
 forwards for B1, the bit-tile phases' steps and forwards, phases 23-27's
-forwards, steps, chain and fused calls, and phases 30-33's forwards, steps
-and SDDMM calls); launches made to compare a kernel with its plain version
-are not counted.  Each wrapper also counts its 1-bit launches apart
+forwards, steps, chain and fused calls, phases 30-33's forwards, steps
+and SDDMM calls, phase 34's ablation path, phase 35's forwards and steps
+and phase 36's probe runs); launches made to compare a kernel with its
+plain version are not counted.  Each wrapper also counts its 1-bit launches apart
 (``bits_launches``) and its float-tile launches (``float_launches``; B3/B4
 ``dad_float_launches`` / ``dh_das_float_launches``); B1 its w_epilogue
-launches (``epilogue_launches``).  The
+launches (``epilogue_launches``), B2 its 'default' ones
+(``default_launches``); the factored kernel counts ``twodot_launches`` and
+``merged_launches``, the probe's kernels ``task_sums_launches`` and
+``fused_launches``.  The
 training phases run at the quick scale only (their float64 oracles hold
 the whole edge list in memory).
 
@@ -236,6 +279,7 @@ so the TPU kernel's filler tiles would only add work (their cost is printed).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -251,15 +295,31 @@ from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, normal_features
 from gnn_computing_tpu_torch.models.gat import gat_forward, glorot_gat_weights
 from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, fast_layer_opts, gcn_layer, glorot_weights
 from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xent
-from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_build, cuda_gat, cuda_gat_bwd, cuda_rowmax, cuda_sddmm
+from gnn_computing_tpu_torch.ops import (
+    bcsr_gat,
+    cuda_bcsr,
+    cuda_build,
+    cuda_gat,
+    cuda_gat_bwd,
+    cuda_residual,
+    cuda_rowmax,
+    cuda_sddmm,
+)
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
+    _bound_rescue,
+    _factored_sums,
     _global_bound_shift,
     _hybrid_row_shift,
     _resolve_shift,
     _score_terms,
+    factored_terms,
     gat_bcsr,
+    gat_bcsr_factored,
+    gat_bcsr_merged_plain,
     gat_bcsr_plain,
+    gat_bcsr_tiles,
+    gat_bcsr_twodot_plain,
     gat_bwd_dad,
     gat_bwd_dad_plain,
     gat_bwd_dh_das,
@@ -268,7 +328,8 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain, tileplan_with_values
 from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn, bcsr_spmm_nn_plain, hybrid_spmm_nn
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, _att_slots_flat
-from gnn_computing_tpu_torch.ops.spmm import sddmm_slots, weighted_task_sums
+from gnn_computing_tpu_torch.ops.spmm import sddmm_slots, spmm_plain, weighted_task_sums
+from gnn_computing_tpu_torch.probes import overlap_dma_residual as probe
 from gnn_computing_tpu_torch.ops.validate import relative_error_count
 from gnn_computing_tpu_torch.schedule.tiles import densify, densify_gcn_norm, split_bit_tiles
 from gnn_computing_tpu_torch.utils.timing import cuda_time_ms
@@ -397,12 +458,18 @@ def reset_counts():
     cuda_bcsr.float_launches = cuda_bcsr.epilogue_launches = 0
     cuda_gat.float_launches = cuda_rowmax.float_launches = cuda_sddmm.float_launches = 0
     cuda_gat_bwd.dad_float_launches = cuda_gat_bwd.dh_das_float_launches = 0
+    cuda_gat.default_launches = cuda_gat.twodot_launches = cuda_gat.merged_launches = 0
+    cuda_residual.task_sums_launches = cuda_residual.fused_launches = 0
 
 
 def counts() -> dict:
+    """Every kernel's launches (B2's 'twodot' and 'merged' kernel, P1 and P2
+    apart; B2's 'default' launches are among B2's)."""
     return dict(
         B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
         B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches, B6=cuda_sddmm.launches,
+        B2_twodot=cuda_gat.twodot_launches, B2_merged=cuda_gat.merged_launches,
+        P1=cuda_residual.task_sums_launches, P2=cuda_residual.fused_launches,
     )
 
 
@@ -424,7 +491,12 @@ def float_counts() -> dict:
 
 def only(name: str) -> bool:
     """No kernel other than ``name`` launched since the counts were reset."""
-    return all(v == 0 for k, v in counts().items() if k != name)
+    return only_of((name,))
+
+
+def only_of(names) -> bool:
+    """No kernel outside ``names`` launched since the counts were reset."""
+    return all(v == 0 for k, v in counts().items() if k not in names)
 
 
 def ragged_graph():
@@ -764,17 +836,31 @@ def edge_sum_ad(z: torch.Tensor, dst, src, weight=None) -> torch.Tensor:
     return torch.zeros_like(z).index_add(0, dst, msg)
 
 
-def gat_edge_oracle_ad(feat, att, dst, src, kink_pos=None, slope=DEFAULT_SLOPE):
+def gat_edge_oracle_ad(feat, att, dst, src, kink_pos=None, slope=DEFAULT_SLOPE, rounded=None):
     """gat_edge_oracle in a differentiable form (float64 autograd oracle).
     ``kink_pos`` (per edge) gives the side of leaky-relu's kink for the
-    edges whose logit lies within KINK of it."""
+    edges whose logit lies within KINK of it.
+
+    ``rounded`` (dot_mode 'default'): the port's forward output on the same
+    inputs, whose numerator took bf16-rounded scores and h.  The oracle's
+    value is then ``rounded`` and its gradient the rule of the backward of a
+    'default' forward (the JAX package's): the exact formulas, with the
+    row term c_i = <ct_i, out_i> / den_i taken from the rounded output:
+    d/dz_ij = s_ij lrelu'_ij (<ct_i, h_j> - <ct_i, rounded_i>) / den_i."""
     z = att[dst, 0] + att[src, 1]
     pos = z > 0
     if kink_pos is not None:
         pos = torch.where(z.abs() < KINK, kink_pos, pos)
     score = torch.exp(torch.where(pos, z, slope * z))
     den = torch.zeros(feat.shape[0], dtype=feat.dtype, device=feat.device).index_add(0, dst, score)
-    return edge_sum_ad(feat, dst, src, score) / torch.where(den == 0, 1.0, den)[:, None]
+    safe = torch.where(den == 0, 1.0, den)[:, None]
+    num = edge_sum_ad(feat, dst, src, score)
+    if rounded is None:
+        return num / safe
+    p, sd = rounded.detach().double(), safe.detach()
+    # value p (den / sd is 1, or 0 on a row without edges, whose p is 0);
+    # gradient d num / den - p d den / den
+    return num / sd - p * (den[:, None] / sd) + (2.0 * p - num.detach() / sd)
 
 
 def cotangent(shape, device) -> torch.Tensor:
@@ -1022,22 +1108,27 @@ def gcn_training(agg, g, h0, what: str, val=None) -> dict:
                 bit_counts=cb, losses=losses)
 
 
-def gat_training(agg, g, h0, what: str) -> dict:
+def gat_training(agg, g, h0, what: str, dot_mode: str = "split2") -> dict:
     """Phase 10's checks and steps over ``agg``: gcn_training's with
-    gat_forward(fast=False, stabilize='bound', dot_mode='split2') and
+    gat_forward(fast=False, stabilize='bound', dot_mode) and
     glorot_gat_weights (seed 0); the per-layer check is on (dh, datt)
     against float64 autograd of the edge-list GAT oracle, which takes the
-    port's side of leaky-relu's kink for edges within KINK of it."""
+    port's side of leaky-relu's kink for edges within KINK of it; the first
+    step's gradients of w and w_att are held to GRAD_REL_L2 (relative L2)
+    of the float64 chain's.  Under dot_mode 'default' the oracle of each
+    layer takes the port's rounded output as its value and the rule of its
+    backward (gat_edge_oracle_ad's ``rounded``): the rounding itself is
+    held to its plain version in phase 34."""
     dev = h0.device
     g_dst, g_src = edge_lists(g, dev)
     labels = train_labels(g.num_nodes, dev)
     gat = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
 
     def fwd(h):
-        return gat(agg, h, fast=False, stabilize="bound", dot_mode="split2")
+        return gat(agg, h, fast=False, stabilize="bound", dot_mode=dot_mode)
 
     def one(h, p):
-        return gat_forward(agg, [p], h, fast=False, stabilize="bound", dot_mode="split2")
+        return gat_forward(agg, [p], h, fast=False, stabilize="bound", dot_mode=dot_mode)
 
     with torch.no_grad():
         gxs = [h0]
@@ -1054,28 +1145,30 @@ def gat_training(agg, g, h0, what: str) -> dict:
         feat.requires_grad_(True)
         att.requires_grad_(True)
         ct = cotangent(tuple(feat.shape), dev)
-        (agg.run_gat(feat, att, stabilize="bound", dot_mode="split2") * ct.float()).sum().backward()
+        out = agg.run_gat(feat, att, stabilize="bound", dot_mode=dot_mode)
+        (out * ct.float()).sum().backward()
         f64 = feat.detach().double().requires_grad_(True)
         a64 = att.detach().double().requires_grad_(True)
-        (gat_edge_oracle_ad(f64, a64, g_dst, g_src, kink_pos[i]) * ct).sum().backward()
+        rounded = out if dot_mode == "default" else None
+        (gat_edge_oracle_ad(f64, a64, g_dst, g_src, kink_pos[i], rounded=rounded) * ct).sum().backward()
         grad_gate(feat.grad, f64.grad, f"{what}GAT layer {i + 1} dh vs f64 autograd")
         grad_gate(att.grad, a64.grad, f"{what}GAT layer {i + 1} datt vs f64 autograd")
-        del feat, att, f64, a64, ct, z
+        del f64, a64, ct, out, rounded, feat, att, z
     loss = softmax_xent(fwd(h0), labels)
     loss.backward()
     grads0 = [(p.w.grad.detach().clone(), p.w_att.grad.detach().clone()) for p in gat.layer_params()]
     ps = [(p.w.detach().double().requires_grad_(True), p.w_att.detach().double().requires_grad_(True))
           for p in gat.layer_params()]
     x = h0.double()
-    for (w, a), pos in zip(ps, kink_pos):
+    for i, ((w, a), pos) in enumerate(zip(ps, kink_pos)):
         feat = x @ w
-        x = gat_edge_oracle_ad(feat, feat @ a, g_dst, g_src, pos)
+        x = gat_edge_oracle_ad(feat, feat @ a, g_dst, g_src, pos, rounded=gxs[i + 1] if dot_mode == "default" else None)
     loss64 = torch.nn.functional.cross_entropy(x, labels)
     loss64.backward()
     log(f"  one step's loss {loss.item():.7f}, f64 chain {loss64.item():.7f}")
-    for i, ((gw, ga), (w64, a64)) in enumerate(zip(grads0, ps)):
-        rw, ra = rel_l2(gw, w64.grad), rel_l2(ga, a64.grad)
-        log(f"  {what}GAT layer {i + 1} gradient vs f64 chain: w relative L2 {rw:.3e}, w_att {ra:.3e}")
+    chain = [(w64.grad.detach(), a64.grad.detach()) for w64, a64 in ps]
+    rels = grad_readings(grads0, chain, f"{what}GAT")
+    for i, (rw, ra) in enumerate(rels):
         check(rw <= GRAD_REL_L2 and ra <= GRAD_REL_L2, f"{what}GAT layer {i + 1} gradient off the float64 chain")
     del ps, x, feat, loss64, g_dst, g_src, kink_pos
     gat.zero_grad(set_to_none=True)
@@ -1084,11 +1177,26 @@ def gat_training(agg, g, h0, what: str) -> dict:
     losses = [step((h0,), labels) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     c, cb = counts(), bit_counts()
+    default_launches = cuda_gat.default_launches
     losses = [float(v) for v in losses]
-    log(f"  losses {losses}; launches in {TRAIN_STEPS} steps: {c}, 1-bit among them: {cb}")
+    log(f"  losses {losses}; launches in {TRAIN_STEPS} steps: {c}, 1-bit among them: {cb}, "
+        f"B2 'default' among them: {default_launches}")
     check(all(np.isfinite(losses)), f"{what}GAT training loss not finite")
+    check(default_launches == (c["B2"] if dot_mode == "default" else 0), f"{what}GAT training: B2 'default' launches")
     return dict(model=gat, fwd=fwd, one=one, step=lambda: step((h0,), labels), xs=gxs, grads0=grads0,
-                counts=c, bit_counts=cb, losses=losses)
+                counts=c, bit_counts=cb, losses=losses, rel_l2=rels, default_launches=default_launches,
+                chain=chain, labels=labels)
+
+
+def grad_readings(grads, chain, what: str) -> list:
+    """Per layer, the relative L2 of the first step's (w, w_att) gradients
+    against the float64 chain's, logged with GRAD_REL_L2."""
+    rels = []
+    for i, ((gw, ga), (cw, ca)) in enumerate(zip(grads, chain)):
+        rels.append((rel_l2(gw, cw), rel_l2(ga, ca)))
+        log(f"  {what} layer {i + 1} gradient vs f64 chain: w relative L2 {rels[-1][0]:.3e}, w_att "
+            f"{rels[-1][1]:.3e} (bound {GRAD_REL_L2:g})")
+    return rels
 
 
 def step_times(gcn: dict, gat: dict, h0) -> dict:
@@ -2583,6 +2691,462 @@ def b6_row(p, a, b, what: str) -> dict:
     return row
 
 
+# ------------------------------------------------ phases 34-36 (B2's modes, P1, P2)
+MODE_CASES = (("twodot", 2), ("twodot", 1), ("merged", 2), ("merged", 1))
+# B2 'default' against its plain version must lie this far nearer to it
+# than to the exact plain version (L2 of the differences): the kernel
+# rounds the scores and h as 'default' does
+DEFAULT_ROUNDING_RATIO = 2.0**-3
+# wide logits, factored modes: max|out - softmax| / max|softmax| (twodot with
+# two chunks is also held to the gate); merged is held to its two bf16
+# roundings, never to the gate
+WIDE_TOL = {("twodot", 2): 1e-5, ("twodot", 1): 5e-3, ("merged", 2): 2.0**-7, ("merged", 1): 2.0**-7}
+PROBE_F = 128  # gnn_computing_tpu_torch/probes/overlap_dma_residual.py --f default
+
+
+def default_vs_plain(tp, h, att, shift, what: str) -> float:
+    """B2 'default' against gat_bcsr_plain(dot_mode='default'): num within
+    KERNEL_TOL * max|plain| plus one bfloat16 ulp (<= 2^-7) of each rounded
+    score times |h| (the kernel's __expf score and torch.exp may round to
+    neighbouring bf16 values), den within KERNEL_TOL and the gate; and the
+    rounding shown: the L2 of num's differences to the 'default' plain
+    version at most DEFAULT_ROUNDING_RATIO of those to the exact one."""
+    before = (cuda_gat.launches, cuda_gat.default_launches)
+    num, den = gat_bcsr(tp, h, att, row_shift=shift, dot_mode="default")
+    check((cuda_gat.launches, cuda_gat.default_launches) == (before[0] + 1, before[1] + 1), f"{what}: B2 'default' launch")
+    ref_num, ref_den = gat_bcsr_plain(tp, h, att, row_shift=shift, dot_mode="default")
+    exact_num = gat_bcsr_plain(tp, h, att, row_shift=shift)[0]
+    a_abs = dataclasses.replace(tp, a=tp.a.abs()) if tp.format in ("float32", "bfloat16") else tp
+    ulp = 2.0**-7 * gat_bcsr_plain(a_abs, h.abs(), att, row_shift=shift)[0] * (1 + 2.0**-7)
+    torch.cuda.synchronize()
+    d = (num - ref_num).abs()
+    scale = ref_num.abs().max().item()
+    beyond = int((d > KERNEL_TOL * scale + ulp).sum())
+    off = int((d > KERNEL_TOL * scale).sum())
+    d_exact = num - exact_num
+    ratio = (d.norm() / d_exact.norm()).item()
+    log(f"  {what} default num: max|d|={d.max().item():.3e} max|ref|={scale:.3e}; {off} elements past "
+        f"{KERNEL_TOL:g}*max (bf16 ulp flips), {beyond} past one bf16 ulp a score; to the exact plain version "
+        f"max|d|={d_exact.abs().max().item():.3e}, L2 ratio {ratio:.3e}")
+    check(bool(torch.isfinite(num).all()) and beyond == 0, f"{what}: B2 'default' num off its plain version")
+    check(ratio <= DEFAULT_ROUNDING_RATIO, f"{what}: B2 'default' is not nearer its plain version than the exact one")
+    compare(den, ref_den, f"{what} default den", gate=True)
+    return d.max().item()
+
+
+def factored_vs_plain(tp, h, att, shift, mode, hv, what: str) -> float:
+    """The factored kernel against _factored_sums over the same per-node
+    operands (rows not marked for rescue), then gat_bcsr_tiles (kernel and
+    B2 for the rescued rows) against the same on the plain versions."""
+    counter = f"{mode}_launches"
+    before = getattr(cuda_gat, counter)
+    num, den, need = gat_bcsr_factored(tp, h, att, DEFAULT_SLOPE, mode, hv, shift)
+    check(getattr(cuda_gat, counter) == before + 1, f"{what}: {mode} kernel launch")
+    terms = factored_terms(h, att, DEFAULT_SLOPE, mode, hv, shift)
+    ref_num, ref_den = _factored_sums(tp, terms, mode)
+    torch.cuda.synchronize()
+    keep = ~need
+    label = f"{what} {mode} hv{hv}"
+    err = compare(num[keep], ref_num[keep], f"{label} num (rows held: {int(keep.sum())})", gate=False)
+    compare(den[keep], ref_den[keep], f"{label} den", gate=False)
+    if bool(need.any()):
+        got = gat_bcsr_tiles(tp, h, att, DEFAULT_SLOPE, mode=mode, hv_chunks=hv, row_shift=shift)
+        exact = gat_bcsr_plain(tp, h, att, row_shift=shift)
+        want = (torch.where(need[:, None], exact[0], ref_num), torch.where(need, exact[1], ref_den))
+        torch.cuda.synchronize()
+        compare(got[0], want[0], f"{label} num with {int(need.sum())} rows rescued", gate=False)
+        compare(got[1], want[1], f"{label} den with rows rescued", gate=False)
+    return err
+
+
+def cell_softmax(tp, h, att) -> torch.Tensor:
+    """float64 softmax over each row's tile cells (count multiplicity), the
+    row's max logit as its shift; rows without a cell give 0."""
+    rows, cols, cnt = tile_cells(tp)
+    n = tp.num_nodes
+    a64 = att.double()
+    z = a64[rows, 0] + a64[cols, 1]
+    lz = torch.maximum(z, DEFAULT_SLOPE * z)
+    mx = torch.full((n,), -torch.inf, dtype=torch.float64, device=h.device).scatter_reduce(0, rows, lz, "amax")
+    s = cnt * torch.exp(lz - mx[rows])
+    den = torch.zeros(n, dtype=torch.float64, device=h.device).index_add_(0, rows, s)
+    num = edge_sum(h.double(), rows, cols, s)
+    return num / torch.where(den == 0, 1.0, den)[:, None]
+
+
+def wide_factored_check(tp, h, att, stabilize, what: str) -> dict:
+    """Phase 34's wide logits: every factored mode through gat_bcsr_tiles on
+    the card ('bound' with hybrid_gat's C2 rescue first) against the float64
+    softmax over the tile cells — finite everywhere, within WIDE_TOL (twodot
+    with two chunks also within the gate, absolute floor 1e-5 * max|ref|) —
+    and against the same on the plain versions.  Returns the rows rescued
+    per mode."""
+    want = cell_softmax(tp, h, att)
+    scale = want.abs().max().item()
+    rescued = {}
+    for mode, hv in MODE_CASES:
+        before = dict(bcsr_gat.rescued)
+        shift = _resolve_shift(tp, None, att, DEFAULT_SLOPE, stabilize)
+        num, den = gat_bcsr_tiles(tp, h, att, DEFAULT_SLOPE, mode=mode, hv_chunks=hv, row_shift=shift)
+        if stabilize == "bound":
+            shift = _bound_rescue(tp, None, att, DEFAULT_SLOPE, shift, den, None)
+            if shift is not None:
+                num, den = gat_bcsr_tiles(tp, h, att, DEFAULT_SLOPE, mode=mode, hv_chunks=hv, row_shift=shift)
+        out = num / torch.where(den == 0, 1.0, den)[:, None]
+        terms = factored_terms(h, att, DEFAULT_SLOPE, mode, hv, shift)
+        exact = gat_bcsr_plain(tp, h, att, row_shift=shift)
+        plain = _factored_sums(tp, terms, mode)
+        need = terms.need[: tp.num_nodes]
+        p_num, p_den = torch.where(need[:, None], exact[0], plain[0]), torch.where(need, exact[1], plain[1])
+        torch.cuda.synchronize()
+        label = f"{what} stabilize={stabilize!r} {mode} hv{hv}"
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite where the float64 softmax is finite")
+        err = (out.double() - want).abs().max().item()
+        bad = relative_error_count(out, want, 1e-2, max(1e-5, KERNEL_TOL * scale))
+        rescued[f"{mode}{hv}"] = bcsr_gat.rescued["rows"] - before["rows"]
+        log(f"  {label}: vs f64 softmax max|d|={err:.3e} max|ref|={scale:.3e} gate_bad={bad}; "
+            f"rows rescued {rescued[f'{mode}{hv}']} (marked now {int(need.sum())})")
+        check(err <= WIDE_TOL[(mode, hv)] * scale, f"{label}: off the float64 softmax")
+        check(bad == 0 or (mode, hv) != ("twodot", 2), f"{label}: off the gate of the float64 softmax")
+        compare(num, p_num, f"{label} num vs plain", gate=False)
+        compare(den, p_den, f"{label} den vs plain", gate=False)
+    return rescued
+
+
+def mode_rows(tp, xs, params, what: str, plain: bool) -> list:
+    """Phase 34's timing rows (Figure 10a's ablation) over ``tp``, one a GAT
+    layer from its own input: ms a launch of B2 maxdot ('exact' = 'split2'
+    here), B2 'default' and the factored kernel in each MODE_CASES (its
+    per-node operands formed outside the timed call, and gat_bcsr_tiles
+    with them inside), with ``plain`` the plain versions (5 timed calls)
+    and the library yardstick and bound of B2 (b2_rows)."""
+    dev = tp.a.device
+    n = tp.num_nodes
+    c_dst, c_src, c_cnt = tile_cells(tp)
+    nnz = c_cnt.numel()
+    move_plan = tp.a.numel() * tp.a.element_size() + 4 * (tp.num_tiles + tp.num_row_tiles + 1)
+    rows = []
+    for i, p in enumerate(params):
+        feat = (xs[i] @ p.w).contiguous()
+        att = feat @ p.w_att
+        f = feat.shape[1]
+        dm, asrc = _score_terms(att)
+        row = dict(f=f, tiles=tp.num_tiles, nnz_cells=nnz)
+        row["maxdot_ms"] = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, feat, dm, asrc, DEFAULT_SLOPE))
+        row["default_ms"] = cuda_time_ms(lambda: cuda_gat.gat_bcsr_cuda(tp, feat, dm, asrc, DEFAULT_SLOPE, bf16_dot=True))
+        for mode, hv in MODE_CASES:
+            terms = factored_terms(feat, att, DEFAULT_SLOPE, mode, hv)
+            check(not bool(terms.need.any()), f"{what}: a row marked for rescue at the layer's own logits")
+            rws = terms.rows[:n].contiguous()
+            row[f"{mode}{hv}_ms"] = cuda_time_ms(lambda: cuda_gat.gat_bcsr_factored_cuda(tp, mode, terms.hv, rws, terms.cols))
+            row[f"{mode}{hv}_entry_ms"] = cuda_time_ms(
+                lambda: gat_bcsr_tiles(tp, feat, att, DEFAULT_SLOPE, mode=mode, hv_chunks=hv)
+            )
+        if plain:
+            row["default_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_plain(tp, feat, att, dot_mode="default"), iters=5)
+            row["twodot2_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_twodot_plain(tp, feat, att), iters=5)
+            row["merged2_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_merged_plain(tp, feat, att), iters=5)
+            z = att[c_dst, 0] + att[c_src, 1]
+            score = c_cnt.float() * torch.exp(torch.maximum(z, DEFAULT_SLOPE * z))
+            csr = cells_csr(c_dst, c_src, score, (n, tp.n_src))
+            hx = torch.cat([feat, torch.ones((feat.shape[0], 1), device=dev)], dim=1)
+            row["library_ms"] = cuda_time_ms(lambda: torch.sparse.mm(csr, hx))
+            del csr, hx, z, score
+        row.update(bound(move_plan + 4 * f * tp.n_src + 8 * n + 4 * tp.n_src + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)))
+        rows.append(row)
+        log(f"  {what} layer {i + 1} f={f}: B2 maxdot {row['maxdot_ms']:.3f} default {row['default_ms']:.3f} | "
+            + " ".join(f"{m}{c} {row[f'{m}{c}_ms']:.3f} (entry {row[f'{m}{c}_entry_ms']:.3f})" for m, c in MODE_CASES)
+            + f" ms | bound {row['bound_ms']:.4f} ({row['bound_by']})"
+            + (f" | plain default {row['default_plain_ms']:.3f} twodot2 {row['twodot2_plain_ms']:.3f} merged2 "
+               f"{row['merged2_plain_ms']:.3f} | torch.sparse.mm {row['library_ms']:.3f}" if plain else ""))
+    return rows
+
+
+def mode_phases(g, h0, gen, forwards: int) -> dict:
+    """Phases 34-35: B2's other modes against their plain versions (34: the
+    GAT plan of phase 6, its 1-bit part and G1's float32 plan, f = 128, 64,
+    32; wide logits; Figure 10a's ablation path and timing), then the
+    --gat-dot-mode default paths (35: five forwards of bench.py --model gat,
+    five GAT training steps)."""
+    dev = h0.device
+    t0 = time.perf_counter()
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK, pack=1,
+                                     device=dev, **GAT_SCHEDULE)
+    bits = split_bit_tiles(densify(g, dtype=np.int8, **GAT_SCHEDULE)[0])[0].to(dev)
+    g1 = Aggregator.schedule_hybrid(g, pack=1, with_transpose=False, device=dev).tile
+    plans = {"GAT int8 [512, 256] t32": agg.tile, "its 1-bit part": bits, "G1 float32 [256, 128]": g1}
+    log(f"phase 34 plans: " + "; ".join(f"{k}: {p.format} tiles={p.num_tiles}" for k, p in plans.items())
+        + f"; built in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 34: the kernels against their plain versions
+    log("phase 34: B2 'default', 'twodot' and 'merged' kernels vs their plain versions")
+    max_err = dict(default=0.0, twodot=0.0, merged=0.0)
+    with torch.no_grad():
+        for label, tp in plans.items():
+            for f in BENCH_DIMS[1:]:
+                h = torch.randn((tp.n_src, f), generator=gen, device=dev)
+                for shift_kind in (None, "exact", "bound"):
+                    att = torch.randn((tp.num_nodes, 2), generator=gen, device=dev) * 0.3
+                    shift = None if shift_kind is None else _resolve_shift(tp, None, att, DEFAULT_SLOPE,
+                                                                         True if shift_kind == "exact" else "bound")
+                    what = f"{label} f={f} shift={shift_kind}"
+                    e = default_vs_plain(tp, h, att, shift, what)
+                    if tp is agg.tile:
+                        max_err["default"] = max(max_err["default"], e)
+                    for mode, hv in MODE_CASES:
+                        e = factored_vs_plain(tp, h, att, shift, mode, hv, what)
+                        if tp is agg.tile:
+                            max_err[mode] = max(max_err[mode], e)
+        n = g.num_nodes
+        hub = int(torch.bincount(torch.from_numpy(g.indices.astype(np.int64)), minlength=n).argmax())
+        hw = torch.randn((n, BENCH_DIMS[3]), generator=gen, device=dev)
+        aw = torch.randn((n, 2), generator=gen, device=dev) * 0.3
+        wide = {}
+        for big in (95.0, 120.0):
+            att = aw.clone()
+            att[hub, 1] = big
+            for stabilize in (True, "bound"):
+                wide[f"as{int(big)}_{stabilize}"] = wide_factored_check(
+                    agg.tile, hw, att, stabilize, f"as_{hub}={big}"
+                )
+        log(f"  rescues over the whole phase: {bcsr_gat.rescued}")
+
+        # Figure 10a's ablation path: gat_bcsr_tiles in each mode over the
+        # GAT plan's tiles, one call a layer from the 3-layer forward's inputs
+        model = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
+        params = model.layer_params()
+        xs = [h0]
+        for p in params:
+            xs.append(gat_forward(agg, [p], xs[-1], fast=True, dot_mode="split2"))
+        reset_counts()
+        for mode, hv in MODE_CASES:
+            for i, p in enumerate(params):
+                feat = xs[i] @ p.w
+                num, den = gat_bcsr_tiles(agg.tile, feat, feat @ p.w_att, DEFAULT_SLOPE, mode=mode, hv_chunks=hv)
+                check(bool(torch.isfinite(num).all()) and bool(torch.isfinite(den).all()), f"ablation {mode}{hv}")
+        torch.cuda.synchronize()
+        ablation = counts()
+        log(f"  ablation path (gat_bcsr_tiles, 3 layers x {len(MODE_CASES)} modes): launches {ablation}")
+        check(ablation["B2_twodot"] == 6 and ablation["B2_merged"] == 6 and only_of(("B2_twodot", "B2_merged")),
+              "ablation path: twodot / merged did not launch 3 times a mode each, or another kernel ran")
+        rows = {label: mode_rows(tp, xs, params, label, plain=tp is agg.tile) for label, tp in plans.items()}
+
+        # ---- phase 35: --gat-dot-mode default
+        log("phase 35: bench.py --model gat --gat-dot-mode default (5 forwards), GAT training steps")
+
+        def fwd(mode):
+            return model(agg, h0, fast=True, dot_mode=mode)
+
+        out_split2 = fwd("split2")
+        reset_counts()
+        for _ in range(forwards):
+            out = fwd("default")
+        torch.cuda.synchronize()
+        fwd_counts = dict(counts(), B2_default=cuda_gat.default_launches)
+        log(f"  launches in {forwards} 'default' forwards: {fwd_counts}")
+        check(cuda_gat.default_launches == 3 * forwards and cuda_gat.launches == 3 * forwards and only("B2"),
+              "'default' forward: B2 did not launch 3 'default' times per forward, or another kernel ran")
+        check(out.shape == out_split2.shape and bool(torch.isfinite(out).all()), "'default' forward output")
+        off = relative_error_count(out, out_split2)
+        off_share = off / out.numel()
+        log(f"  'default' forward vs the split2 forward: {off} of {out.numel()} elements outside the 1e-2 gate "
+            f"({off_share:.4%})")
+        check(off > 0, "'default' forward: no element off the split2 forward's gate, so no bf16 rounding shows")
+        layer_off = []
+        for i, p in enumerate(params):
+            o = gat_forward(agg, [p], xs[i], fast=True, dot_mode="default")
+            layer_off.append(relative_error_count(o, xs[i + 1]) / o.numel())
+        log(f"  per layer from the split2 forward's inputs: off-gate shares {[f'{v:.4%}' for v in layer_off]}")
+        times = dict(default_forward_ms=cuda_time_ms(lambda: fwd("default")),
+                     split2_forward_ms=cuda_time_ms(lambda: fwd("split2")))
+        log(f"  forward: 'default' {times['default_forward_ms']:.3f} ms, split2 {times['split2_forward_ms']:.3f} ms")
+    del plans, bits, g1
+    torch.cuda.empty_cache()
+    aggt = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, residual_block=RESIDUAL_BLOCK, pack=1, with_transpose=True,
+                                      device=dev, **TRAIN_SCHEDULE)
+    train = gat_training(aggt, g, h0, "'default' ", dot_mode="default")
+    check(train["counts"]["B2"] == 3 * TRAIN_STEPS and train["counts"]["B3"] == 3 * TRAIN_STEPS
+          and train["counts"]["B4"] == 3 * TRAIN_STEPS and train["default_launches"] == 3 * TRAIN_STEPS,
+          "'default' GAT training: B2 ('default'), B3 and B4 did not launch 3 times per step")
+    faults = planted_faults(aggt, h0, train)
+    times["default_step_ms"] = cuda_time_ms(train["step"])
+    log(f"  'default' GAT training step {times['default_step_ms']:.3f} ms")
+    return dict(max_err=max_err, wide=wide, ablation=ablation, rows=rows, forward_counts=fwd_counts,
+                off_share=off_share, layer_off=layer_off, times=times, train_losses=train["losses"],
+                train_rel_l2=train["rel_l2"], train_counts=train["counts"], planted_faults=faults)
+
+
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """module.name replaced by wrap(the original) inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def planted_faults(agg, h0, train: dict) -> dict:
+    """Phase 35's planted faults: the first step's gradients of the
+    'default' GAT (the same weights, glorot seed 0) with a backward that
+    drops the residual's attention gradient, and with one whose tile d ad
+    is 2^-7 short, each against the float64 chain of gat_training.  Each
+    fault's largest relative L2 must exceed GRAD_REL_L2, which the sound
+    step's lie below."""
+    readings = {}
+    faults = {
+        "residual attention gradient dropped": (bcsr_gat, "_residual_bwd_flat", lambda f: lambda *a: (
+            lambda r: (r[0], torch.zeros_like(r[1]), torch.zeros_like(r[2])))(f(*a))),
+        "tile d ad 2^-7 short": (bcsr_gat, "gat_bwd_dad", lambda f: lambda *a, **k: f(*a, **k) * (1 - 2.0**-7)),
+    }
+    for label, (module, name, wrap) in faults.items():
+        gat = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=h0.device)
+        with patched(module, name, wrap):
+            softmax_xent(gat(agg, h0, fast=False, stabilize="bound", dot_mode="default"), train["labels"]).backward()
+        grads = [(p.w.grad.detach(), p.w_att.grad.detach()) for p in gat.layer_params()]
+        rels = grad_readings(grads, train["chain"], f"planted fault ({label}): 'default' GAT")
+        readings[label] = max(max(r) for r in rels)
+        check(readings[label] > GRAD_REL_L2, f"planted fault ({label}) passes the gradient bound")
+    sound = max(max(r) for r in train["rel_l2"])
+    log(f"  gradient bound {GRAD_REL_L2:g}: sound step's largest relative L2 {sound:.3e}, planted faults "
+        + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
+    return dict(sound=sound, **readings)
+
+
+def probe_phase(g, gen) -> dict:
+    """Phase 36: the residual-DMA probe at --small size (the quick graph,
+    65,536 nodes, 4,194,304 edges, f = 128): P1 against weighted_task_sums,
+    P2's (dense_out, task_sums) against bcsr_spmm_plain and
+    weighted_task_sums, the probe's two modes through its own measure()
+    (launches counted), and the times of P1, embedding_bag (the library
+    yardstick), the plain residual, P2's fused pass and B1 then P1."""
+    dev = gen.device
+    log("phase 36: the residual-DMA probe (P1 task sums, P2 fused hybrid), --small")
+    t0 = time.perf_counter()
+    agg = probe.schedule(g, dev)
+    plan, tp = agg.plan, agg.tile
+    nt, blk = plan.num_tasks_padded, plan.block_size
+    slots = nt * blk
+    log(f"  probe plan: int8 [256, 128] t24 tiles={tp.num_tiles} residual edges={plan.num_edges} tasks={nt} "
+        f"slots={slots} (block {blk}); built in {time.perf_counter() - t0:.1f} s")
+    h = torch.from_numpy(normal_features(g.num_nodes, PROBE_F, seed=1) * 0.1).to(dev)
+    with torch.no_grad():
+        ts = cuda_residual.task_sums_cuda(plan, h)
+        want_ts = weighted_task_sums(plan, h, plan.val)
+        dense, ts2 = probe.fused_hybrid(tp, plan, h)
+        want_dense, want_ts2 = probe.fused_hybrid_plain(tp, plan, h)
+        src2, val2 = plan.src.view(nt, blk), plan.val.view(nt, blk)
+        lib = torch.nn.functional.embedding_bag(src2, h, per_sample_weights=val2, mode="sum")
+        torch.cuda.synchronize()
+        err = dict(P1=compare(ts, want_ts, "P1 task sums vs weighted_task_sums", gate=False),
+                   P2_dense=compare(dense, want_dense, "P2 dense_out vs bcsr_spmm_plain", gate=False),
+                   P2_tasks=compare(ts2, want_ts2, "P2 task_sums vs weighted_task_sums", gate=False))
+        compare(lib, want_ts, "embedding_bag (the yardstick) vs weighted_task_sums", gate=False)
+        runs = {}
+        for mode in ("standalone", "fused"):
+            reset_counts()
+            runs[mode] = probe.measure(agg, h, mode)
+            runs[mode]["launches"] = counts()
+            log(f"  probe --mode {mode}: {json.dumps(runs[mode])}")
+            check(runs[mode]["error"]["max_abs_over_max_ref"] <= KERNEL_TOL, f"probe --mode {mode}: off the plain pass")
+        check(runs["standalone"]["launches"]["P1"] > 0 and runs["fused"]["launches"]["P2"] > 0,
+              "the probe's path did not launch P1 / P2")
+        b1_bytes = tp.a.numel() * tp.a.element_size() + 4 * (tp.num_tiles + tp.num_row_tiles + 1) \
+            + 4 * PROBE_F * (tp.n_src + tp.num_nodes)
+        # P1 reads each distinct source row the slots gather once (a row
+        # that many slots gather is read once; the 50 MB L2 holds repeats;
+        # pad slots read row 0), int32 indices and float32 values a slot,
+        # and writes the task sums once
+        distinct = torch.unique(plan.src).numel()
+        log(f"  distinct source rows gathered: {distinct} of {plan.n_src} (slots {slots})")
+        p1_bytes = distinct * PROBE_F * 4 + slots * 8 + nt * PROBE_F * 4
+        c_cnt = tile_cells(tp)[2]
+        x = round_h(h, "split").contiguous()
+        t = dict(
+            P1_ms=cuda_time_ms(lambda: cuda_residual.task_sums_cuda(plan, h)),
+            P1_plain_ms=cuda_time_ms(lambda: weighted_task_sums(plan, h, plan.val)),
+            embedding_bag_ms=cuda_time_ms(
+                lambda: torch.nn.functional.embedding_bag(src2, h, per_sample_weights=val2, mode="sum")
+            ),
+            residual_spmm_plain_ms=cuda_time_ms(lambda: spmm_plain(plan, h)),
+            P2_ms=cuda_time_ms(lambda: cuda_residual.fused_hybrid_cuda(tp, plan, x, h)),
+            P2_plain_ms=cuda_time_ms(lambda: probe.fused_hybrid_plain(tp, plan, h)),
+            B1_ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, x)),
+            B1_then_P1_ms=cuda_time_ms(lambda: (cuda_bcsr.bcsr_spmm_cuda(tp, x), cuda_residual.task_sums_cuda(plan, h))),
+            B1_then_spmm_plain_ms=cuda_time_ms(lambda: (cuda_bcsr.bcsr_spmm_cuda(tp, x), spmm_plain(plan, h))),
+        )
+    p1_bound = bound(p1_bytes, 2.0 * slots * PROBE_F)
+    p2_bound = bound(b1_bytes + p1_bytes, 2.0 * (c_cnt.numel() + slots) * PROBE_F)
+    log(f"  P1 {t['P1_ms']:.4f} ms ({t['P1_ms'] / slots * 1e6:.3f} ns/slot) bound {p1_bound['bound_ms']:.4f} | "
+        f"plain {t['P1_plain_ms']:.4f} | embedding_bag {t['embedding_bag_ms']:.4f} | residual spmm_plain "
+        f"{t['residual_spmm_plain_ms']:.4f}")
+    log(f"  P2 fused {t['P2_ms']:.4f} ms bound {p2_bound['bound_ms']:.4f} | plain {t['P2_plain_ms']:.4f} | "
+        f"B1 {t['B1_ms']:.4f}, B1 then P1 {t['B1_then_P1_ms']:.4f}, B1 then spmm_plain {t['B1_then_spmm_plain_ms']:.4f}")
+    return dict(err=err, times=t, runs=runs, p1_bound=p1_bound, p2_bound=p2_bound, slots=slots, tasks=nt,
+                tiles=tp.num_tiles, distinct_rows=distinct)
+
+
+def mode_kernel_entries(modes: dict, pr: dict, libs: dict) -> list:
+    """The kernels-line entries of phases 34-36: B2 'default', 'twodot' and
+    'merged' (times summed over the three layers of one forward over the
+    GAT plan, int8 [512, 256] t32; the 1-bit part's and G1's beside them),
+    P1 and P2 (the probe's plan, f = 128)."""
+    rows = modes["rows"]
+    int8 = rows["GAT int8 [512, 256] t32"]
+
+    def total(rs, k):
+        return sum(r[k] for r in rs)
+
+    b2 = dict(bound_ms=total(int8, "bound_ms"), library_ms=total(int8, "library_ms"),
+              bound_by="bytes" if all(r["bound_by"] == "bytes" for r in int8) else "operations")
+    others = {label: {k: total(rs, k) for k in rs[0] if k.endswith("_ms") and k != "bound_ms"}
+              for label, rs in rows.items() if rs is not int8}
+    src = "gnn_computing_tpu_torch/csrc/"
+    ablation = "Figure 10a's ablation path: gat_bcsr_tiles over the GAT plan's tiles, one call a layer of the 3-layer forward"
+    t = pr["times"]
+    runs = pr["runs"]
+    return [
+        dict(name="gat_bcsr_default", route="cuda", source=src + "gat_bcsr.cu",
+             replaces="gnn_computing_tpu/ops/pallas_bcsr.py:668", launches=modes["forward_counts"]["B2_default"],
+             launches_per_forward=3, training_launches=modes["train_counts"]["B2"],
+             max_abs_err=modes["max_err"]["default"], ms=total(int8, "default_ms"),
+             plain_ms=total(int8, "default_plain_ms"), **b2, maxdot_ms=total(int8, "maxdot_ms"),
+             path="bench.py --model gat --gat-dot-mode default (fast, GAT plan int8 [512, 256] t32), 5 forwards; "
+                  f"--train --model gat --gat-dot-mode default (stabilize 'bound'), {TRAIN_STEPS} steps",
+             forward_ms=modes["times"]["default_forward_ms"], split2_forward_ms=modes["times"]["split2_forward_ms"],
+             step_ms=modes["times"]["default_step_ms"], off_gate_share=modes["off_share"],
+             train_rel_l2=modes["train_rel_l2"], other_plans=others, build_s=libs["gat_bcsr"][1]),
+        dict(name="gat_bcsr_twodot", route="cuda", source=src + "gat_bcsr_factored.cu",
+             replaces="gnn_computing_tpu/ops/pallas_bcsr.py:792", launches=modes["ablation"]["B2_twodot"],
+             launches_per_pass=3, max_abs_err=modes["max_err"]["twodot"], ms=total(int8, "twodot2_ms"),
+             plain_ms=total(int8, "twodot2_plain_ms"), **b2, hv_chunks=2, hv1_ms=total(int8, "twodot1_ms"),
+             entry_ms=total(int8, "twodot2_entry_ms"), maxdot_ms=total(int8, "maxdot_ms"), path=ablation,
+             wide_rescued=modes["wide"], other_plans=others, build_s=libs["gat_bcsr_factored"][1]),
+        dict(name="gat_bcsr_merged", route="cuda", source=src + "gat_bcsr_factored.cu",
+             replaces="gnn_computing_tpu/ops/pallas_bcsr.py:724", launches=modes["ablation"]["B2_merged"],
+             launches_per_pass=3, max_abs_err=modes["max_err"]["merged"], ms=total(int8, "merged2_ms"),
+             plain_ms=total(int8, "merged2_plain_ms"), **b2, hv_chunks=2, hv1_ms=total(int8, "merged1_ms"),
+             entry_ms=total(int8, "merged2_entry_ms"), maxdot_ms=total(int8, "maxdot_ms"), path=ablation,
+             other_plans=others, build_s=libs["gat_bcsr_factored"][1]),
+        dict(name="task_sums", route="cuda", source=src + "task_sums.cu",
+             replaces="probes/overlap_dma_residual.py:40", launches=runs["standalone"]["launches"]["P1"],
+             max_abs_err=pr["err"]["P1"], ms=t["P1_ms"], plain_ms=t["P1_plain_ms"], **pr["p1_bound"],
+             library_ms=t["embedding_bag_ms"], residual_spmm_plain_ms=t["residual_spmm_plain_ms"],
+             slots=pr["slots"], tasks=pr["tasks"], distinct_rows=pr["distinct_rows"],
+             path=f"the residual probe --small --mode standalone (int8 [256, 128] t24, residual 4, f={PROBE_F})",
+             build_s=libs["task_sums"][1]),
+        dict(name="fused_hybrid", route="cuda", source=src + "fused_hybrid.cu",
+             replaces="probes/overlap_dma_residual.py:127", launches=runs["fused"]["launches"]["P2"],
+             max_abs_err=max(pr["err"]["P2_dense"], pr["err"]["P2_tasks"]), ms=t["P2_ms"], plain_ms=t["P2_plain_ms"],
+             **pr["p2_bound"], library_ms=None, b1_ms=t["B1_ms"], b1_then_p1_ms=t["B1_then_P1_ms"],
+             b1_then_spmm_plain_ms=t["B1_then_spmm_plain_ms"], fused_pass_ms=runs["fused"]["fused_ms"],
+             sequential_pass_ms=runs["fused"]["sequential_ms"], tiles=pr["tiles"],
+             path=f"the residual probe --small --mode fused (int8 [256, 128] t24, residual 4, f={PROBE_F}, split)",
+             build_s=libs["fused_hybrid"][1]),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -2733,10 +3297,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         fg = float_gat_phases(g, h0, gen, forwards)
         torch.cuda.empty_cache()
+        modes = mode_phases(g, h0, gen, forwards)
+        torch.cuda.empty_cache()
+        pr = probe_phase(g, gen)
+        torch.cuda.empty_cache()
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
-        log("phases 22-33 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles) "
-            "run at the quick scale only")
+        log("phases 22-36 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
+            "B2's other modes, the residual probe) run at the quick scale only")
 
     # ---- phase 21: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
@@ -2923,6 +3491,16 @@ def main() -> int:
             T=dict(f32=fg["T_f32"]["times"], bf16=fg["T_bf16"]["times"]),
             S={k: dict(path_ms=fg[k]["path_ms"], edges_per_s=fg[k]["edges_per_s"], residual_ms=fg[k]["residual_ms"])
                for k in ("S_G1", "S_gcn_norm")},
+        )}), flush=True)
+    if train is not None:
+        kernels += mode_kernel_entries(modes, pr, libs)
+        print(json.dumps({"modes": dict(
+            ablation_ms={label: [{k: v for k, v in r.items() if k.endswith("_ms")} for r in rows]
+                         for label, rows in modes["rows"].items()},
+            rescued=dict(bcsr_gat.rescued), wide_rescued=modes["wide"], default_off_gate_share=modes["off_share"],
+            default_layer_off_gate_share=modes["layer_off"], default_times=modes["times"],
+            default_train_losses=modes["train_losses"], default_train_rel_l2=modes["train_rel_l2"],
+            probe=dict(times=pr["times"], runs=pr["runs"]),
         )}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

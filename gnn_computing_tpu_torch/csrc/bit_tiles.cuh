@@ -22,10 +22,15 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tile_fmt {
+
+// x rounded once to bfloat16 (nearest even, as PyTorch's
+// .to(torch.bfloat16)), widened back
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 // load8 of a count format: 8 bytes, one per column
 template <class Fmt>

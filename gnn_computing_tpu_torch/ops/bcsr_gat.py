@@ -29,8 +29,49 @@ dot_mode: the TPU kernel offers 'exact' (a float32-grade MXU dot) and
 'split2' (score and h as ~16-bit bf16 chunks, error ~2^-16, a speed trade of
 the TPU's matrix unit).  The port computes both alike in float32: the
 cell value (an exact count, or a float32 / widened bfloat16 value) times a
-float32 score, summed in float32, which meets both error classes.  'default' (single-rounded bf16, timing-only on the TPU) is
-not ported.
+float32 score, summed in float32, which meets both error classes.
+'default' is the TPU's single bf16 pass: the numerator's product takes the
+score and h each rounded once to bfloat16 (round to nearest even), summed
+in float32; den stays the unrounded float32 sum.  The backward of a
+'default' forward is the exact one, as in the JAX package.
+
+Modes (``gat_bcsr_tiles``, the counterpart of ``gat_bcsr_pallas``):
+'maxdot' scores every cell as above (B2).  'twodot' and 'merged' are the
+TPU kernel's factored forms: per-node exponentials formed once
+(``factored_terms``), and per cell only a compare and a select:
+
+  u1_i = exp(ad_i + A1 - M_i)      v1_j = exp(as_j - A1)
+  u2_i = exp(s ad_i + A2 - M_i)    v2_j = exp(s as_j - A2)
+  q_i  = exp((s - 1) ad_i + B)     r_j  = exp((s - 1) as_j - B)
+
+so that u_b,i v_b,j = exp(s_b z_ij - M_i) (s_1 = 1, s_2 = s) and q_i r_j =
+exp((s - 1) z_ij), with A1, A2 and B the least multiples of ln 2 at or
+above the largest as_j, s as_j and (s - 1) as_j: every v and r lies in
+(0, 1], and each factor is the JAX package's (A1 = A2 = B = 0) times a
+power of two, which bf16 rounding commutes with, so the port rounds the
+very values the TPU kernel rounds, scaled.  The JAX package's v1_j =
+exp(as_j) is inf past as_j ~ 88.7 (the C1 fault); the port's is not.
+  twodot: num_i = u1_i sum_j bf16(a1_ij) hv1_j + u2_i sum_j bf16(a2_ij) hv2_j,
+          den_i = u1_i sum_j a1_ij v1_j + u2_i sum_j a2_ij v2_j,
+          a1 = v where z > 0, a2 = v where z <= 0 (selected on the cell's
+          value v != 0, never multiplied);
+  merged: a_m = v where z > 0, else v (q_i r_j); num_i = u1_i sum_j
+          bf16(a_m) hv1_j, den_i = u1_i sum_j a_m v1_j;
+hv_b = v_b o h rounded to ``hv_chunks`` bf16 residue chunks (1: one
+rounding, ~2^-9; 2: ~2^-17), and bf16(x) rounds a float32 tile's value
+(counts up to 256 stay exact); den is float32.
+Rescue.  A row whose u1, u2 (twodot) or q (merged) exceeds FACTOR_MAX =
+2^32, or is not finite, takes the maxdot result.  Under the exact shift
+u_b,i <= 2 exp(A - max_{j in N(i)} as_j), so such a row is one whose
+neighbors' as all lie more than ~22 below the largest as (or a row with
+no tile cell); under no shift, a row with ad_i + A past ~22; for 'merged'
+also a row with ad_i + min_j as_j below -22 / (1 - s) (-28 at s = 0.2).  The
+'bound' shift keeps u1 and u2 <= 2; its C2 rescue rows then take the
+exact shift.  Below the mark a v_j under float32's normal range belongs to
+a score below 2^-62 of its row's largest (1 under the exact shift), which
+float32 sums cannot see.  The factored kernel still runs for every row;
+the rescue is one device-to-host read a call, and a maxdot pass over the
+tiles when a row needs it, counted in ``rescued``.
 
 Stabilizers (one shift M shared by every part, so the partial
 denominators still merge exactly; it cancels in num/den):
@@ -73,12 +114,13 @@ as in the JAX package: only count-valued plans give a well-defined GAT.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from gnn_computing_tpu_torch.ops import cuda_gat, cuda_gat_bwd
-from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax
+from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bf16_residue_chunks
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate_parts, leaky_relu, slot_mask
 from gnn_computing_tpu_torch.ops.spmm import (
     edge_values_from_slots_flat,
@@ -89,7 +131,15 @@ from gnn_computing_tpu_torch.ops.spmm import (
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
 
-DOT_MODES = ("exact", "split2")
+DOT_MODES = ("exact", "split2", "default")
+GAT_MODES = ("maxdot", "twodot", "merged")
+HV_CHUNKS = (1, 2)
+# a factored row with u1, u2 (or q) above this takes the maxdot result
+FACTOR_MAX = 2.0**32
+LN2 = math.log(2.0)
+
+# rows of the factored modes rescued through maxdot, and the calls that did
+rescued = {"calls": 0, "rows": 0}
 
 
 def _score_terms(att: torch.Tensor, row_shift: Optional[torch.Tensor] = None):
@@ -118,6 +168,11 @@ def _pad_to(x: torch.Tensor, size: int) -> torch.Tensor:
     return out
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded once to bfloat16 (nearest even), back in float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def gat_bcsr_plain(
     tp: TilePlan,
     h: torch.Tensor,
@@ -125,11 +180,15 @@ def gat_bcsr_plain(
     relu_slope: float = DEFAULT_SLOPE,
     row_shift: Optional[torch.Tensor] = None,
     chunk: int = 256,
+    dot_mode: str = "exact",
 ):
     """Plain PyTorch (num [n, f], den [n]) of the tile edges, the counterpart
     of ``gat_bcsr_xla``: per chunk of tiles, every cell's score (module
     doc), then one batched matmul against the gathered [h | 1] operands (den
-    packed in as the last column), added into the destination row-tiles."""
+    packed in as the last column), added into the destination row-tiles.
+    dot_mode 'default' takes the numerator's product over the scores and h
+    each rounded to bfloat16, and den from the unrounded scores."""
+    _check_dot_mode(dot_mode)
     tr, tc = tp.tile_rows, tp.tile_cols
     f = h.shape[-1]
     nct, nrt = tp.num_col_tiles, tp.num_row_tiles
@@ -137,6 +196,9 @@ def gat_bcsr_plain(
     dmp = _pad_to(dm, nrt * tr).reshape(nrt, tr, 2)
     asp = _pad_to(asrc, nct * tc).reshape(nct, tc)
     hp = _pad_to(h.float(), nct * tc)
+    bf16_dot = dot_mode == "default"
+    if bf16_dot:
+        hp = _bf16(hp)
     h1 = torch.cat([hp, torch.ones_like(hp[:, :1])], dim=1).reshape(nct, tc, f + 1)
     out_t = torch.zeros((nrt, tr, f + 1), dtype=torch.float32, device=h.device)
     for s0 in range(0, tp.num_tiles, chunk):
@@ -147,7 +209,12 @@ def gat_bcsr_plain(
             tp.counts(s0, s0 + chunk).float(), d[:, :, 0, None], d[:, :, 1, None],
             asp.index_select(0, col)[:, None, :], relu_slope,
         )
-        out_t.index_add_(0, row, torch.bmm(s, h1.index_select(0, col)))
+        hc = h1.index_select(0, col)
+        if bf16_dot:
+            part = torch.cat([torch.bmm(_bf16(s), hc[:, :, :f]), s.sum(dim=2, keepdim=True)], dim=2)
+        else:
+            part = torch.bmm(s, hc)
+        out_t.index_add_(0, row, part)
     out = out_t.reshape(nrt * tr, f + 1)[: tp.num_nodes]
     return out[:, :f], out[:, f]
 
@@ -160,9 +227,9 @@ def gat_bcsr(
     row_shift: Optional[torch.Tensor] = None,
     dot_mode: str = "exact",
 ):
-    """(num, den) of the tile edges.  ``tp`` is a TilePlan or a sequence of
-    them whose partial sums add.  CUDA tensors go through the B2 kernel,
-    CPU tensors through the plain version."""
+    """(num, den) of the tile edges (mode 'maxdot').  ``tp`` is a TilePlan or
+    a sequence of them whose partial sums add.  CUDA tensors go through the
+    B2 kernel, CPU tensors through the plain version."""
     _check_dot_mode(dot_mode)
     if isinstance(tp, (tuple, list)):
         parts = [p for p in tp if p is not None and p.num_tiles]
@@ -176,18 +243,205 @@ def gat_bcsr(
             raise ValueError(f"the CUDA GAT tile kernel takes float32 h, got {h.dtype}")
         dm, asrc = _score_terms(att, row_shift)
         return cuda_gat.gat_bcsr_cuda(
-            tp, h.contiguous(), dm[: tp.num_nodes].contiguous(), asrc[: tp.n_src].contiguous(), relu_slope
+            tp, h.contiguous(), dm[: tp.num_nodes].contiguous(), asrc[: tp.n_src].contiguous(), relu_slope,
+            bf16_dot=dot_mode == "default",
         )
     if h.device.type == "cpu":
-        return gat_bcsr_plain(tp, h, att, relu_slope, row_shift)
+        return gat_bcsr_plain(tp, h, att, relu_slope, row_shift, dot_mode=dot_mode)
     raise ValueError(f"no GAT tile aggregation for device {h.device}")
 
 
 def _check_dot_mode(dot_mode: str):
-    if dot_mode == "default":
-        raise NotImplementedError("dot_mode 'default' (single-rounded bf16) is not ported")
     if dot_mode not in DOT_MODES:
         raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
+
+
+class FactoredTerms(NamedTuple):
+    """The per-node operands of the factored modes (module doc): ``rows``
+    [n, 4] = (ad, u1, u2, q) per destination, ``cols`` [n_src, 4] = (as,
+    v1, v2, r) per source, ``hv`` the [n_src, f] float32 operands (v_b o h
+    rounded to ``hv_chunks`` bf16 chunks, the chunks added: one operand
+    for 'merged', two for 'twodot'), and ``need`` (bool [n]): the rows to
+    rescue."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    hv: tuple
+    need: torch.Tensor
+
+
+def _ln2_ceil(x: torch.Tensor) -> torch.Tensor:
+    """The least multiple of ln 2 >= x: a column shift by it scales the JAX
+    package's factor by a power of two, which bf16 rounding commutes with."""
+    return torch.ceil(x / LN2) * LN2
+
+
+def factored_terms(
+    h: torch.Tensor,
+    att: torch.Tensor,
+    relu_slope: float,
+    mode: str,
+    hv_chunks: int = 2,
+    row_shift: Optional[torch.Tensor] = None,
+) -> FactoredTerms:
+    """The factored modes' per-node operands, formed once per node on h's
+    device (module doc)."""
+    if mode not in ("twodot", "merged"):
+        raise ValueError(f"factored mode must be 'twodot' or 'merged', got {mode!r}")
+    if hv_chunks not in HV_CHUNKS:
+        raise ValueError(f"hv_chunks must be one of {HV_CHUNKS}, got {hv_chunks!r}")
+    n_src = h.shape[0]
+    s = float(relu_slope)
+    ad = att[:, 0].float()
+    asv = att[: n_src, 1].float()
+    m = torch.zeros_like(ad) if row_shift is None else row_shift.float()
+    a1, a2, b = (_ln2_ceil((c * asv).max() if n_src else ad.new_zeros(())) for c in (1.0, s, s - 1.0))
+    u1 = torch.exp(ad + a1 - m)
+    u2 = torch.exp(s * ad + a2 - m)
+    q = torch.exp((s - 1.0) * ad + b)
+    v1 = torch.exp(asv - a1)
+    v2 = torch.exp(s * asv - a2)
+    r = torch.exp((s - 1.0) * asv - b)
+    rows = torch.stack([ad, u1, u2, q], dim=1).contiguous()
+    cols = torch.stack([asv, v1, v2, r], dim=1).contiguous()
+
+    def chunks(v):
+        parts = bf16_residue_chunks(h.float() * v[:, None], hv_chunks)
+        return parts[0].float() if hv_chunks == 1 else parts[0].float() + parts[1].float()
+
+    ok = (u1 <= FACTOR_MAX) & ((u2 if mode == "twodot" else q) <= FACTOR_MAX)
+    hv = (chunks(v1), chunks(v2)) if mode == "twodot" else (chunks(v1),)
+    return FactoredTerms(rows, cols, hv, ~ok)
+
+
+def _factored_chunk(tp: TilePlan, rows, cols, hv, mode: str, s0: int, chunk: int):
+    """One chunk of tiles' factored sums from the row-tile / column-tile
+    views of the operands: (the tiles' row-tile ids, [(P_b [ch, R, f]
+    products, D_b [ch, R] den sums) per branch]) before the row post-scales."""
+    col = tp.tile_col[s0 : s0 + chunk].long()
+    row = tp.tile_row[s0 : s0 + chunk].long()
+    rw, cl = rows.index_select(0, row), cols.index_select(0, col)
+    hv = [x.index_select(0, col) for x in hv]
+    v = tp.counts(s0, s0 + chunk).float()
+    pos = (rw[:, :, 0, None] + cl[:, None, :, 0]) > 0.0
+    edge = v != 0
+    if mode == "twodot":
+        a1 = torch.where(edge & pos, v, 0.0)
+        a2 = torch.where(edge & ~pos, v, 0.0)
+        return row, [
+            (torch.bmm(_bf16(a1), hv[0]), (a1 * cl[:, None, :, 1]).sum(dim=2)),
+            (torch.bmm(_bf16(a2), hv[1]), (a2 * cl[:, None, :, 2]).sum(dim=2)),
+        ]
+    qr = rw[:, :, 3, None] * cl[:, None, :, 3]
+    am = torch.where(edge, torch.where(pos, v, v * qr), 0.0)
+    return row, [(torch.bmm(_bf16(am), hv[0]), (am * cl[:, None, :, 1]).sum(dim=2))]
+
+
+def _factored_sums(tp: TilePlan, terms: FactoredTerms, mode: str, chunk: int = 256):
+    """(num, den) of a factored mode from its per-node operands, in chunks of
+    tiles: each branch's products and den sums accumulate per row-tile, and
+    the row post-scales u_b apply once at the end, as in the kernel."""
+    tr, tc, nrt, nct, n = tp.tile_rows, tp.tile_cols, tp.num_row_tiles, tp.num_col_tiles, tp.num_nodes
+    f = terms.hv[0].shape[-1]
+    dev = terms.rows.device
+    rows = _pad_to(terms.rows, nrt * tr).reshape(nrt, tr, 4)
+    cols = _pad_to(terms.cols, nct * tc).reshape(nct, tc, 4)
+    hv = [_pad_to(x, nct * tc).reshape(nct, tc, f) for x in terms.hv]
+    acc = [
+        (torch.zeros((nrt, tr, f), dtype=torch.float32, device=dev), torch.zeros((nrt, tr), dtype=torch.float32, device=dev))
+        for _ in hv
+    ]
+    for s0 in range(0, tp.num_tiles, chunk):
+        row, parts = _factored_chunk(tp, rows, cols, hv, mode, s0, chunk)
+        for (acc_p, acc_d), (p, d) in zip(acc, parts):
+            acc_p.index_add_(0, row, p)
+            acc_d.index_add_(0, row, d)
+    num = den = 0.0
+    for b, (acc_p, acc_d) in enumerate(acc):
+        u = terms.rows[:n, 1 + b]
+        num = num + u[:, None] * acc_p.reshape(nrt * tr, f)[:n]
+        den = den + u * acc_d.reshape(nrt * tr)[:n]
+    return num, den
+
+
+def gat_bcsr_twodot_plain(
+    tp: TilePlan,
+    h: torch.Tensor,
+    att: torch.Tensor,
+    relu_slope: float = DEFAULT_SLOPE,
+    hv_chunks: int = 2,
+    row_shift: Optional[torch.Tensor] = None,
+):
+    """Plain PyTorch (num, den) of mode 'twodot' (module doc), before the
+    rescue: rows marked in ``factored_terms(...).need`` may be inf or NaN
+    here."""
+    return _factored_sums(tp, factored_terms(h, att, relu_slope, "twodot", hv_chunks, row_shift), "twodot")
+
+
+def gat_bcsr_merged_plain(
+    tp: TilePlan,
+    h: torch.Tensor,
+    att: torch.Tensor,
+    relu_slope: float = DEFAULT_SLOPE,
+    hv_chunks: int = 2,
+    row_shift: Optional[torch.Tensor] = None,
+):
+    """Plain PyTorch (num, den) of mode 'merged' (module doc), before the
+    rescue."""
+    return _factored_sums(tp, factored_terms(h, att, relu_slope, "merged", hv_chunks, row_shift), "merged")
+
+
+def gat_bcsr_factored(tp: TilePlan, h, att, relu_slope=DEFAULT_SLOPE, mode="twodot", hv_chunks=2, row_shift=None):
+    """(num, den, need) of a factored mode over one tile plan, before the
+    rescue: the factored kernel (ops.cuda_gat) on CUDA tensors, the plain
+    version on CPU tensors; ``need`` marks the rows to rescue."""
+    if h.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no GAT tile aggregation for device {h.device}")
+    if h.device.type == "cuda" and h.dtype != torch.float32:
+        raise ValueError(f"the CUDA GAT tile kernel takes float32 h, got {h.dtype}")
+    terms = factored_terms(h, att, relu_slope, mode, hv_chunks, row_shift)
+    need = terms.need[: tp.num_nodes]
+    if h.device.type == "cuda":
+        rows = terms.rows[: tp.num_nodes].contiguous()
+        return (*cuda_gat.gat_bcsr_factored_cuda(tp, mode, terms.hv, rows, terms.cols), need)
+    return (*_factored_sums(tp, terms, mode), need)
+
+
+def gat_bcsr_tiles(
+    tp,
+    h: torch.Tensor,
+    att: torch.Tensor,
+    relu_slope: float = DEFAULT_SLOPE,
+    mode: str = "maxdot",
+    hv_chunks: int = 2,
+    row_shift: Optional[torch.Tensor] = None,
+    dot_mode: str = "exact",
+):
+    """(num, den) of the tile edges in ``mode`` (module doc), the counterpart
+    of ``gat_bcsr_pallas`` (the port schedules with pack 1, so there is no
+    ``pack``).  ``tp`` is a TilePlan or a sequence of them.  'maxdot' is
+    ``gat_bcsr`` with ``dot_mode``; 'twodot' and 'merged' ignore dot_mode,
+    as the TPU kernel does.  Rows the factored form cannot hold take the
+    exact maxdot result (counted in ``rescued``)."""
+    if mode not in GAT_MODES:
+        raise ValueError(f"mode must be one of {GAT_MODES}, got {mode!r}")
+    _check_dot_mode(dot_mode)
+    if mode == "maxdot":
+        return gat_bcsr(tp, h, att, relu_slope, row_shift, dot_mode)
+    if isinstance(tp, (tuple, list)):
+        parts = [p for p in tp if p is not None and p.num_tiles]
+        num, den = gat_bcsr_tiles(parts[0], h, att, relu_slope, mode, hv_chunks, row_shift)
+        for p in parts[1:]:
+            n2, d2 = gat_bcsr_tiles(p, h, att, relu_slope, mode, hv_chunks, row_shift)
+            num, den = num + n2, den + d2
+        return num, den
+    num, den, need = gat_bcsr_factored(tp, h, att, relu_slope, mode, hv_chunks, row_shift)
+    if not bool(need.any()):
+        return num, den
+    rescued["calls"] += 1
+    rescued["rows"] += int(need.sum())
+    exact_num, exact_den = gat_bcsr(tp, h, att, relu_slope, row_shift)
+    return torch.where(need[:, None], exact_num, num), torch.where(need, exact_den, den)
 
 
 def _branch_scores(a_c, ad, m, asrc, relu_slope: float):

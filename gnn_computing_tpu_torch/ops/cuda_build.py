@@ -30,7 +30,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("bcsr_spmm", "gat_bcsr", "rowmax_bcsr", "gat_bwd_dad", "gat_bwd_dh_das", "sddmm_bcsr")
+KERNELS = (
+    "bcsr_spmm", "gat_bcsr", "rowmax_bcsr", "gat_bwd_dad", "gat_bwd_dh_das", "sddmm_bcsr",
+    "gat_bcsr_factored", "task_sums", "fused_hybrid",
+)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

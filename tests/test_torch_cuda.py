@@ -1,6 +1,8 @@
-"""The CUDA kernels (B1 tile product, B2 GAT tile aggregation, B3 and B4 GAT
-tile backward, B5 tile row max and B6 tile SDDMM, each over int8, 1-bit,
-float32 and bfloat16 tiles) against their plain PyTorch versions on the
+"""The CUDA kernels (B1 tile product, B2 GAT tile aggregation in its modes
+'maxdot' — dot_mode 'default' included — 'twodot' and 'merged', B3 and B4
+GAT tile backward, B5 tile row max and B6 tile SDDMM, each over int8,
+1-bit, float32 and bfloat16 tiles; the residual probe's P1 task sums and
+P2 fused pass) against their plain PyTorch versions on the
 card, at small shapes that
 stress the edges: ragged n, C odd or not a multiple of 8 or of the staging
 width, R not a multiple of the row slab (and, for 1-bit tiles, not a power
@@ -23,7 +25,12 @@ gate's floor.  B5 is a max: equal to the plain version, -inf rows included.
 B6 float32 cells: the same bound; bfloat16 cells at most one bfloat16 ulp
 apart; cells without an edge exactly +0.  B1 and B2-B5 over a 1-bit part
 are equal to the same kernel over the part unpacked to int8 (the same
-operations in the same order)."""
+operations in the same order).  B2 'default': within 1e-5 * max|plain|
+plus one bfloat16 ulp (<= 2^-7 of it) of each rounded score times |h| (the
+kernel's __expf score and the plain version's torch.exp may round to
+neighbouring bfloat16 values); 'twodot' and 'merged' take their per-node
+operands from the same torch code, so only the float32 sum order differs.
+P1 and P2: 1e-5 * max|plain|."""
 
 import dataclasses
 import functools
@@ -34,7 +41,7 @@ import torch
 
 from gnn_computing_tpu_torch.aggregator import Aggregator
 from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, rmat_graph
-from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax, cuda_sddmm
+from gnn_computing_tpu_torch.ops import bcsr_gat, cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_residual, cuda_rowmax, cuda_sddmm
 from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
     _global_bound_shift,
@@ -47,7 +54,11 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
     gat_bwd_dh_das,
     gat_bwd_dh_das_plain,
 )
+from gnn_computing_tpu_torch.ops.bcsr_gat import _factored_sums, factored_terms, gat_bcsr_factored, gat_bcsr_tiles
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain
+from gnn_computing_tpu_torch.ops.spmm import weighted_task_sums
+from gnn_computing_tpu_torch.probes.overlap_dma_residual import dma_task_sums, fused_hybrid, fused_hybrid_plain
+from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.ops.cuda_build import check_plan
 from gnn_computing_tpu_torch.ops.validate import assert_valid
 from gnn_computing_tpu_torch.schedule.tiles import densify, split_bit_tiles
@@ -883,3 +894,181 @@ def test_gat_kernels_wide_logits(cuda_dev, big, stabilize):
     torch.cuda.synchronize()
     for got, want, what in zip(res["cuda"], res["cpu"], ("out", "dh", "datt")):
         _close(got, want, f"as={big} {stabilize} {what}")
+
+
+# ------------------------------------------------- B2's other modes, P1 and P2
+@functools.lru_cache(maxsize=None)
+def _mode_plan(dev, fmt, tr, tc, pack):
+    """_gat_plan's counts as int8 tiles, their 1-bit part, or float32 /
+    bfloat16 tiles of signed values (every nonzero cell scored, C6)."""
+    if fmt == "i8":
+        return _gat_plan(dev, tr, tc, pack)[1]
+    if fmt == "b1":
+        g, _ = _gat_plan("cpu", tr, tc, 1)
+        tp = densify(g, dtype=np.int8, tile_rows=tr, tile_cols=tc, threshold=3)[0]
+        return split_bit_tiles(tp)[0].pad_runs(pack).to(dev)
+    return _float_plan(dev, tr, tc, pack, {"f32": np.float32, "bf16": torch.bfloat16}[fmt], False)[1]
+
+
+def _att(n, scale, gen, dev):
+    return torch.randn((n, 2), generator=gen, device=dev) * scale
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (72, 13, 1), (512, 256, 16)])
+@pytest.mark.parametrize("f", [1, 33, 128])
+@pytest.mark.parametrize("fmt", ["i8", "b1", "f32", "bf16"])
+def test_gat_default_kernel_matches_plain(cuda_dev, tr, tc, pack, f, fmt):
+    tp = _mode_plan(cuda_dev, fmt, tr, tc, pack)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    h = torch.randn((tp.n_src, f), generator=gen, device=cuda_dev)
+    for shift in (False, True):
+        att = _att(tp.num_nodes, 0.5, gen, cuda_dev)
+        row_shift = _hybrid_row_shift(tp, None, att, 0.2) if shift else None
+        before = (cuda_gat.launches, cuda_gat.default_launches)
+        num, den = gat_bcsr(tp, h, att, row_shift=row_shift, dot_mode="default")
+        assert (cuda_gat.launches, cuda_gat.default_launches) == (before[0] + 1, before[1] + 1)
+        ref_num, ref_den = gat_bcsr_plain(tp, h, att, row_shift=row_shift, dot_mode="default")
+        a_abs = tp if not tp.format.startswith(("float", "bfloat")) else dataclasses.replace(tp, a=tp.a.abs())
+        ulp = 2.0**-7 * gat_bcsr_plain(a_abs, h.abs(), att, row_shift=row_shift)[0] * (1 + 2.0**-7)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(num).all())
+        assert bool(((num - ref_num).abs() <= 1e-5 * ref_num.abs().max() + ulp).all()), (fmt, shift)
+        _close(den, ref_den, f"default den {fmt} shift={shift}")
+
+
+@pytest.mark.parametrize("tr,tc,pack", [(64, 64, 1), (72, 13, 1), (512, 256, 16)])
+@pytest.mark.parametrize("f", [1, 33, 128])
+@pytest.mark.parametrize("fmt", ["i8", "b1", "f32", "bf16"])
+@pytest.mark.parametrize("mode,hv", [("twodot", 2), ("twodot", 1), ("merged", 2), ("merged", 1)])
+def test_factored_kernel_matches_plain(cuda_dev, tr, tc, pack, f, fmt, mode, hv):
+    """The factored kernel against _factored_sums over the same per-node
+    operands, att at scale 0.5 unshifted and with the exact shift, and at
+    scale 15 with the exact shift, where the rows the factored form cannot
+    hold are compared through gat_bcsr_tiles' rescue."""
+    tp = _mode_plan(cuda_dev, fmt, tr, tc, pack)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f + 7)
+    h = torch.randn((tp.n_src, f), generator=gen, device=cuda_dev)
+    for scale, shift in ((0.5, False), (0.5, True), (15.0, True)):
+        att = _att(tp.num_nodes, scale, gen, cuda_dev)
+        row_shift = _hybrid_row_shift(tp, None, att, 0.2) if shift else None
+        counter = "twodot_launches" if mode == "twodot" else "merged_launches"
+        before = getattr(cuda_gat, counter)
+        num, den, need = gat_bcsr_factored(tp, h, att, 0.2, mode, hv, row_shift)
+        assert getattr(cuda_gat, counter) == before + 1
+        terms = factored_terms(h, att, 0.2, mode, hv, row_shift)
+        ref_num, ref_den = _factored_sums(tp, terms, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(need, terms.need[: tp.num_nodes])
+        keep = ~need
+        what = f"{mode}{hv} {fmt} scale {scale} shift={shift}"
+        if scale < 1:
+            assert not bool(need.any()), what
+        if bool(keep.any()):  # wide logits may mark every row of a plan
+            _close(num[keep], ref_num[keep], f"{what} num")
+            _close(den[keep], ref_den[keep], f"{what} den")
+        got = gat_bcsr_tiles(tp, h, att, 0.2, mode=mode, hv_chunks=hv, row_shift=row_shift)
+        exact = gat_bcsr_plain(tp, h, att, row_shift=row_shift)
+        want = (torch.where(need[:, None], exact[0], ref_num), torch.where(need, exact[1], ref_den))
+        torch.cuda.synchronize()
+        for x, y, out in zip(got, want, ("num", "den")):
+            _close(x, y, f"{what} rescued {out}")
+
+
+@pytest.mark.parametrize("big", [95.0, 120.0])
+@pytest.mark.parametrize("stabilize", [True, "bound"])
+@pytest.mark.parametrize("mode", ["twodot", "merged"])
+def test_factored_kernel_wide_logits(cuda_dev, big, stabilize, mode):
+    """One source's as at 95 or 120: gat_bcsr_tiles on the card (the
+    factored kernel, then B2 for the rescued rows) equals it on the CPU,
+    finite; 'bound' with hybrid_gat's C2 rescue first."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    tp = densify(g, dtype=np.int8, tile_rows=64, tile_cols=64, threshold=3)[0]
+    rng = np.random.default_rng(1)
+    h0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 24)).astype(np.float32))
+    a0 = torch.from_numpy((rng.standard_normal((g.num_nodes, 2)) * 0.1).astype(np.float32))
+    a0[5, 1] = big
+    res = {}
+    for dev in ("cpu", cuda_dev):
+        p, h, att = tp.to(dev), h0.to(dev), a0.to(dev)
+        shift = bcsr_gat._resolve_shift(p, None, att, 0.2, stabilize)
+        before = dict(bcsr_gat.rescued)
+        num, den = gat_bcsr_tiles(p, h, att, 0.2, mode=mode, row_shift=shift)
+        if stabilize == "bound":
+            shift = bcsr_gat._bound_rescue(p, None, att, 0.2, shift, den, None)
+            num, den = gat_bcsr_tiles(p, h, att, 0.2, mode=mode, row_shift=shift)
+        assert bcsr_gat.rescued["rows"] > before["rows"]
+        res[str(dev)] = (num.cpu(), den.cpu())
+    torch.cuda.synchronize()
+    for got, want, what in zip(res["cuda"], res["cpu"], ("num", "den")):
+        _close(got, want, f"{mode} as={big} {stabilize} {what}")
+
+
+def _residual_plan(dev, block, values):
+    g = rmat_graph(3001, 50000, seed=9, with_val=False)
+    val = np.random.default_rng(2).uniform(-1.0, 2.0, g.num_edges).astype(np.float32) if values else None
+    return g, neighbor_grouping_plan(g, block_size=block, val=val).to(dev)
+
+
+@pytest.mark.parametrize("block", [1, 4, 32])
+@pytest.mark.parametrize("f", [1, 3, 24, 128, 130])
+@pytest.mark.parametrize("values", [False, True])
+def test_task_sums_kernel_matches_plain(cuda_dev, block, f, values):
+    g, plan = _residual_plan(cuda_dev, block, values)
+    h = torch.randn((g.n_src, f), generator=torch.Generator(device=cuda_dev).manual_seed(f), device=cuda_dev)
+    before = cuda_residual.task_sums_launches
+    got = dma_task_sums(plan, h)
+    assert cuda_residual.task_sums_launches == before + 1
+    want = weighted_task_sums(plan, h, plan.val)
+    torch.cuda.synchronize()
+    _close(got, want, f"task sums B={block} f={f}")
+    # an unaligned h (a view one float in) takes the scalar path
+    hv = torch.randn((g.n_src * f + 1,), device=cuda_dev)[1:].view(g.n_src, f)
+    _close(dma_task_sums(plan, hv), weighted_task_sums(plan, hv, plan.val), f"task sums unaligned f={f}")
+
+
+@pytest.mark.parametrize("fmt", ["i8", "f32", "bf16"])
+@pytest.mark.parametrize("f", [1, 24, 33, 64, 128, 130])
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("h_mode", ["split", "split3"])
+def test_fused_hybrid_kernel_matches_plain(cuda_dev, fmt, f, factored, h_mode):
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    kw = dict(tile_rows=64, tile_cols=64, threshold=3)
+    if factored:
+        rng = np.random.default_rng(0)
+        sd = rng.uniform(0.5, 2.0, g.num_nodes).astype(np.float32)
+        ss = rng.uniform(0.5, 2.0, g.n_src).astype(np.float32)
+        kw.update(val=sd[g.dst_per_edge] * ss[g.indices], scale_dst=sd, scale_src=ss)
+    dtype = {"i8": np.int8, "f32": np.float32, "bf16": torch.bfloat16}[fmt]
+    tp, res = densify(g, dtype=dtype, **kw)
+    tp = tp.to(cuda_dev)
+    plan = neighbor_grouping_plan(res, block_size=4).to(cuda_dev)
+    h = torch.randn((g.n_src, f), generator=torch.Generator(device=cuda_dev).manual_seed(f), device=cuda_dev)
+    before = (cuda_residual.fused_launches, cuda_bcsr.launches, cuda_residual.task_sums_launches)
+    dense, ts = fused_hybrid(tp, plan, h, h_mode)
+    assert (cuda_residual.fused_launches, cuda_bcsr.launches, cuda_residual.task_sums_launches) == (
+        before[0] + 1, before[1], before[2]
+    )
+    want_dense, want_ts = fused_hybrid_plain(tp, plan, h, h_mode)
+    torch.cuda.synchronize()
+    _close(dense, want_dense, f"fused dense {fmt} f={f}")
+    _close(ts, want_ts, f"fused task sums {fmt} f={f}")
+
+
+def test_residual_wrappers_refuse(cuda_dev):
+    """A 1-bit plan, CPU tensors and a plan whose n_src disagrees raise."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    tp, res = densify(g, dtype=np.int8, tile_rows=64, tile_cols=64, threshold=3)
+    bits = split_bit_tiles(tp)[0]
+    plan = neighbor_grouping_plan(res, block_size=4)
+    h = torch.randn((g.n_src, 8), device=cuda_dev)
+    with pytest.raises(ValueError, match="1-bit"):
+        fused_hybrid(bits.to(cuda_dev), plan.to(cuda_dev), h)
+    with pytest.raises(ValueError):
+        cuda_residual.task_sums_cuda(plan.to("cpu"), h.cpu())
+    with pytest.raises(ValueError):
+        cuda_residual.fused_hybrid_cuda(tp.to(cuda_dev), plan.to(cuda_dev), h[:-1], h)
+    with pytest.raises(ValueError):
+        cuda_gat.gat_bcsr_factored_cuda(tp.to(cuda_dev), "twodot", (h,), torch.zeros(g.num_nodes, 4, device=cuda_dev),
+                                        torch.zeros(g.n_src, 4, device=cuda_dev))

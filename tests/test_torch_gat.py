@@ -279,8 +279,6 @@ def test_glorot_gat_weights_scale():
 def test_unported_gat_options_raise():
     gp, h, att, _, agg = _stabilize_setting(0.1)
     ht, at = torch.from_numpy(h), torch.from_numpy(att)
-    with pytest.raises(NotImplementedError):
-        agg.run_gat(ht, at, dot_mode="default")
     with pytest.raises(ValueError):
         agg.run_gat(ht, at, dot_mode="twodot")
     with pytest.raises(ValueError):

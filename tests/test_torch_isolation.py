@@ -27,7 +27,18 @@ bad = sorted(
 )
 print(len([m for m in sys.modules if m.startswith("gnn_computing_tpu_torch")]))
 print(bad)
+print(sorted(m for m in sys.modules if m.startswith("gnn_computing_tpu_torch.")))
 """
+
+# modules whose walk the probe must include (a subpackage or module that
+# failed to import would drop out of it)
+WALKED = (
+    "gnn_computing_tpu_torch.probes",
+    "gnn_computing_tpu_torch.probes.overlap_dma_residual",
+    "gnn_computing_tpu_torch.ops.cuda_residual",
+    "gnn_computing_tpu_torch.ops.cuda_gat",
+    "gnn_computing_tpu_torch.ops.bcsr_gat",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -36,9 +47,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    n_loaded, bad = proc.stdout.strip().splitlines()
+    n_loaded, bad, loaded = proc.stdout.strip().splitlines()
     assert int(n_loaded) >= 20
     assert bad == "[]", bad
+    for name in WALKED:
+        assert repr(name) in loaded, name
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -115,3 +128,31 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
         gat_bwd_dad_cuda(agg.tile, z, z, torch.zeros(64), dm, torch.ones(64), 0.2)
     with pytest.raises(ValueError):
         gat_bwd_dh_das_cuda(agg.tile_t, z, z, torch.zeros(64), dm, torch.ones(64), 0.2)
+
+
+def test_probe_and_mode_entry_points_raise_without_cuda(monkeypatch):
+    """The residual probe and the factored GAT kernel's wrapper run on the
+    card unless asked for the CPU; the kernel wrappers refuse CPU tensors."""
+    from gnn_computing_tpu_torch.graph import rmat_graph
+    from gnn_computing_tpu_torch.ops.cuda_gat import gat_bcsr_factored_cuda
+    from gnn_computing_tpu_torch.ops.cuda_residual import fused_hybrid_cuda, task_sums_cuda
+    from gnn_computing_tpu_torch.probes import overlap_dma_residual as probe
+    from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
+    from gnn_computing_tpu_torch.schedule.tiles import densify
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        probe.main(["--nodes", "256", "--edges", "2000"])
+    g = rmat_graph(256, 2000, seed=3, with_val=False)
+    tp, res = densify(g, dtype=np.int8, tile_rows=32, tile_cols=32, threshold=2)
+    tp, plan = tp.to("cpu"), neighbor_grouping_plan(res, block_size=4).to("cpu")
+    h = torch.zeros(256, 8)
+    with pytest.raises(ValueError):
+        task_sums_cuda(plan, h)
+    with pytest.raises(ValueError):
+        fused_hybrid_cuda(tp, plan, h, h)
+    with pytest.raises(ValueError):
+        gat_bcsr_factored_cuda(tp, "twodot", (h, h), torch.zeros(256, 4), torch.zeros(256, 4))
+    # on CPU tensors the probe's functions run their plain versions
+    assert probe.dma_task_sums(plan, h).shape == (plan.num_tasks_padded, 8)
+    assert probe.fused_hybrid(tp, plan, h)[0].shape == (256, 8)
