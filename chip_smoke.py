@@ -221,7 +221,8 @@ Phases (any failure exits non-zero; nothing is caught):
      same on the plain versions, the rescued rows printed.  Figure 10a's
      ablation path: gat_bcsr_tiles in each factored mode over the GAT
      plan, one call a layer (twodot and merged 6 launches each); its
-     timing beside B2 maxdot and 'default' on all three plans.
+     timing beside B2 maxdot and 'default' on all three plans, with the
+     plain versions and the library yardstick on each.
  35. --gat-dot-mode default (quick scale): five forwards of bench.py
      --model gat's path with dot_mode='default' (B2 3 'default' launches a
      forward, no other kernel), its share of elements outside the gate
@@ -240,13 +241,24 @@ Phases (any failure exits non-zero; nothing is caught):
      through its own measure() (P1 and P2 launched); P1, embedding_bag
      (the library yardstick), the plain residual, P2, B1, B1 then P1 and
      B1 then spmm_plain timed.
+ 37. the cell walk of B1 and B2 (quick scale): every main plan's work list
+     printed (chunks, runs cut, the largest chunk in cells, the scratch
+     bytes at f = 128; the GCN and GAT plans' also at the start of phases
+     2 and 5, at either scale); on the GCN and GAT int8 plans, the training
+     plan's transposed 1-bit part and G1's float32 plan, B1, its
+     w_epilogue and B2 in every mode called twice (bitwise equal) and held
+     to their plain versions; then the same on the GCN plan and G1's plan
+     skewed: every tile in one run, one all-ones tile row; and B1's time
+     over the GCN plan at f = 128 with the chunk bound at 2^14 cells, the
+     default and 2^20 (no run cut).
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the total
-     seconds, one "kernels" JSON line, the card line, then
+     seconds, one "kernels" JSON line (B1's and B2's entries with "walk":
+     "cell" and their plans' work lists), the card line, then
      {"ok": true, ...}.
 
-With --scale reddit, phases 8-11, 16-20 and 22-36 are replaced by one GCN
+With --scale reddit, phases 8-11, 16-20 and 22-37 are replaced by one GCN
 bit-tile training phase at reddit scale (bench.py --train's headline
 configuration): the [256, 256] t24 bit-tile plan with its transposes and
 its build time, the first step's weight gradients within BITS_REL_L2 of
@@ -297,6 +309,7 @@ from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, fast_layer_opts, gcn_
 from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xent
 from gnn_computing_tpu_torch.ops import (
     bcsr_gat,
+    cell_walk,
     cuda_bcsr,
     cuda_build,
     cuda_gat,
@@ -739,6 +752,7 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
         f"tasks={agg.plan.num_tasks} longest run={int(np.diff(tile_host.run_start).max())} "
         f"built in {time.perf_counter() - t0:.1f} s"
     )
+    walk_plan = walk_line(tp, f"GAT plan ({args.scale})")
 
     # ---- phase 5: B2 and B5 against their plain versions
     log("phase 5: B2 kernel vs gat_bcsr_plain, B5 kernel vs bcsr_rowmax_plain")
@@ -820,7 +834,8 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
 
     return [
         entry("gat_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:436", b2, launches, max_err,
-              path="GAT forward (fast, split2)", forward_ms=fwd_ms, build_s=libs["gat_bcsr"][1]),
+              path="GAT forward (fast, split2)", forward_ms=fwd_ms, build_s=libs["gat_bcsr"][1], walk="cell",
+              walk_plan=walk_plan),
         entry("rowmax_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:1251", rows5, rowmax_launches, 0.0,
               path="GAT forward (fast, split2, stabilize=True)", forward_ms=stab_ms,
               bound_forward_ms=bound_fwd_ms, build_s=libs["rowmax_bcsr"][1]),
@@ -2813,13 +2828,13 @@ def wide_factored_check(tp, h, att, stabilize, what: str) -> dict:
     return rescued
 
 
-def mode_rows(tp, xs, params, what: str, plain: bool) -> list:
+def mode_rows(tp, xs, params, what: str) -> list:
     """Phase 34's timing rows (Figure 10a's ablation) over ``tp``, one a GAT
     layer from its own input: ms a launch of B2 maxdot ('exact' = 'split2'
     here), B2 'default' and the factored kernel in each MODE_CASES (its
     per-node operands formed outside the timed call, and gat_bcsr_tiles
-    with them inside), with ``plain`` the plain versions (5 timed calls)
-    and the library yardstick and bound of B2 (b2_rows)."""
+    with them inside), the plain versions (5 timed calls) and the library
+    yardstick and bound of B2 (b2_rows)."""
     dev = tp.a.device
     n = tp.num_nodes
     c_dst, c_src, c_cnt = tile_cells(tp)
@@ -2842,23 +2857,22 @@ def mode_rows(tp, xs, params, what: str, plain: bool) -> list:
             row[f"{mode}{hv}_entry_ms"] = cuda_time_ms(
                 lambda: gat_bcsr_tiles(tp, feat, att, DEFAULT_SLOPE, mode=mode, hv_chunks=hv)
             )
-        if plain:
-            row["default_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_plain(tp, feat, att, dot_mode="default"), iters=5)
-            row["twodot2_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_twodot_plain(tp, feat, att), iters=5)
-            row["merged2_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_merged_plain(tp, feat, att), iters=5)
-            z = att[c_dst, 0] + att[c_src, 1]
-            score = c_cnt.float() * torch.exp(torch.maximum(z, DEFAULT_SLOPE * z))
-            csr = cells_csr(c_dst, c_src, score, (n, tp.n_src))
-            hx = torch.cat([feat, torch.ones((feat.shape[0], 1), device=dev)], dim=1)
-            row["library_ms"] = cuda_time_ms(lambda: torch.sparse.mm(csr, hx))
-            del csr, hx, z, score
+        row["default_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_plain(tp, feat, att, dot_mode="default"), iters=5)
+        row["twodot2_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_twodot_plain(tp, feat, att), iters=5)
+        row["merged2_plain_ms"] = cuda_time_ms(lambda: gat_bcsr_merged_plain(tp, feat, att), iters=5)
+        z = att[c_dst, 0] + att[c_src, 1]
+        score = c_cnt.float() * torch.exp(torch.maximum(z, DEFAULT_SLOPE * z))
+        csr = cells_csr(c_dst, c_src, score, (n, tp.n_src))
+        hx = torch.cat([feat, torch.ones((feat.shape[0], 1), device=dev)], dim=1)
+        row["library_ms"] = cuda_time_ms(lambda: torch.sparse.mm(csr, hx))
+        del csr, hx, z, score
         row.update(bound(move_plan + 4 * f * tp.n_src + 8 * n + 4 * tp.n_src + 4 * (f + 1) * n, 2.0 * nnz * (f + 1)))
         rows.append(row)
         log(f"  {what} layer {i + 1} f={f}: B2 maxdot {row['maxdot_ms']:.3f} default {row['default_ms']:.3f} | "
             + " ".join(f"{m}{c} {row[f'{m}{c}_ms']:.3f} (entry {row[f'{m}{c}_entry_ms']:.3f})" for m, c in MODE_CASES)
             + f" ms | bound {row['bound_ms']:.4f} ({row['bound_by']})"
-            + (f" | plain default {row['default_plain_ms']:.3f} twodot2 {row['twodot2_plain_ms']:.3f} merged2 "
-               f"{row['merged2_plain_ms']:.3f} | torch.sparse.mm {row['library_ms']:.3f}" if plain else ""))
+            + f" | plain default {row['default_plain_ms']:.3f} twodot2 {row['twodot2_plain_ms']:.3f} merged2 "
+              f"{row['merged2_plain_ms']:.3f} | torch.sparse.mm {row['library_ms']:.3f}")
     return rows
 
 
@@ -2929,7 +2943,7 @@ def mode_phases(g, h0, gen, forwards: int) -> dict:
         log(f"  ablation path (gat_bcsr_tiles, 3 layers x {len(MODE_CASES)} modes): launches {ablation}")
         check(ablation["B2_twodot"] == 6 and ablation["B2_merged"] == 6 and only_of(("B2_twodot", "B2_merged")),
               "ablation path: twodot / merged did not launch 3 times a mode each, or another kernel ran")
-        rows = {label: mode_rows(tp, xs, params, label, plain=tp is agg.tile) for label, tp in plans.items()}
+        rows = {label: mode_rows(tp, xs, params, label) for label, tp in plans.items()}
 
         # ---- phase 35: --gat-dot-mode default
         log("phase 35: bench.py --model gat --gat-dot-mode default (5 forwards), GAT training steps")
@@ -3107,7 +3121,7 @@ def mode_kernel_entries(modes: dict, pr: dict, libs: dict) -> list:
     t = pr["times"]
     runs = pr["runs"]
     return [
-        dict(name="gat_bcsr_default", route="cuda", source=src + "gat_bcsr.cu",
+        dict(name="gat_bcsr_default", route="cuda", walk="cell", source=src + "gat_bcsr.cu",
              replaces="gnn_computing_tpu/ops/pallas_bcsr.py:668", launches=modes["forward_counts"]["B2_default"],
              launches_per_forward=3, training_launches=modes["train_counts"]["B2"],
              max_abs_err=modes["max_err"]["default"], ms=total(int8, "default_ms"),
@@ -3117,13 +3131,13 @@ def mode_kernel_entries(modes: dict, pr: dict, libs: dict) -> list:
              forward_ms=modes["times"]["default_forward_ms"], split2_forward_ms=modes["times"]["split2_forward_ms"],
              step_ms=modes["times"]["default_step_ms"], off_gate_share=modes["off_share"],
              train_rel_l2=modes["train_rel_l2"], other_plans=others, build_s=libs["gat_bcsr"][1]),
-        dict(name="gat_bcsr_twodot", route="cuda", source=src + "gat_bcsr_factored.cu",
+        dict(name="gat_bcsr_twodot", route="cuda", walk="cell", source=src + "gat_bcsr_factored.cu",
              replaces="gnn_computing_tpu/ops/pallas_bcsr.py:792", launches=modes["ablation"]["B2_twodot"],
              launches_per_pass=3, max_abs_err=modes["max_err"]["twodot"], ms=total(int8, "twodot2_ms"),
              plain_ms=total(int8, "twodot2_plain_ms"), **b2, hv_chunks=2, hv1_ms=total(int8, "twodot1_ms"),
              entry_ms=total(int8, "twodot2_entry_ms"), maxdot_ms=total(int8, "maxdot_ms"), path=ablation,
              wide_rescued=modes["wide"], other_plans=others, build_s=libs["gat_bcsr_factored"][1]),
-        dict(name="gat_bcsr_merged", route="cuda", source=src + "gat_bcsr_factored.cu",
+        dict(name="gat_bcsr_merged", route="cuda", walk="cell", source=src + "gat_bcsr_factored.cu",
              replaces="gnn_computing_tpu/ops/pallas_bcsr.py:724", launches=modes["ablation"]["B2_merged"],
              launches_per_pass=3, max_abs_err=modes["max_err"]["merged"], ms=total(int8, "merged2_ms"),
              plain_ms=total(int8, "merged2_plain_ms"), **b2, hv_chunks=2, hv1_ms=total(int8, "merged1_ms"),
@@ -3145,6 +3159,135 @@ def mode_kernel_entries(modes: dict, pr: dict, libs: dict) -> list:
              path=f"the residual probe --small --mode fused (int8 [256, 128] t24, residual 4, f={PROBE_F}, split)",
              build_s=libs["fused_hybrid"][1]),
     ]
+
+
+# ------------------------------------------------ phase 37 (the cell walk)
+def walk_line(tp, label: str) -> dict:
+    """Logs and returns the plan's cell-walk work list (ops/cell_walk.py):
+    its chunks, the runs cut into several, the largest chunk in nonzero
+    cells and the scratch bytes of its multi-chunk runs at f = 128 (B1 and
+    B2 maxdot one branch, twodot two)."""
+    w = cell_walk.walk_for(tp)
+    d = dict(plan=label, format=tp.format, tiles=tp.num_tiles, runs=tp.num_row_tiles, chunks=w.num_chunks,
+             multi_runs=w.num_multi, slots=w.num_slots, bound=w.bound, cells=w.total_cells,
+             max_chunk_cells=w.max_chunk_cells,
+             scratch_bytes=dict(B1=w.scratch_bytes(tp.tile_rows, 128),
+                                B2=w.scratch_bytes(tp.tile_rows, 128, den=True),
+                                twodot=w.scratch_bytes(tp.tile_rows, 128, nb=2, den=True)))
+    log(f"  cell walk, {label}: {w.num_chunks} chunks over {tp.num_row_tiles} runs ({w.num_multi} runs cut, "
+        f"{w.num_slots} scratch slots), bound {w.bound} cells, largest chunk {w.max_chunk_cells} of "
+        f"{w.total_cells} cells; scratch at f=128: B1 {d['scratch_bytes']['B1']} B, B2 {d['scratch_bytes']['B2']} B, "
+        f"twodot {d['scratch_bytes']['twodot']} B")
+    return d
+
+
+def skewed(tp):
+    """The plan with every tile in run 0 and one all-ones tile row (row 0 of
+    tile 0; for a 1-bit plan bit plane 0 of its byte row 0)."""
+    a = tp.a.clone()
+    a[0, 0, :] = 1
+    nrt = tp.num_row_tiles
+    return dataclasses.replace(
+        tp, a=a, tile_row=torch.zeros_like(tp.tile_row),
+        run_start=torch.tensor([0] + [tp.num_tiles] * nrt, dtype=torch.int32, device=tp.a.device),
+    )
+
+
+def twice_equal(fn, what: str):
+    """fn() twice on the card: the results bitwise equal (the walk sums its
+    chunks in a fixed order, without atomics)."""
+    first, second = fn(), fn()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(first, second)), f"{what}: two calls differ")
+    return first if len(first) > 1 else first[0]
+
+
+def walk_kernels_vs_plain(tp, gen, what: str, f: int = BENCH_DIMS[1]) -> float:
+    """B1, its w_epilogue and B2 in every mode over ``tp`` at width f,
+    each called twice (bitwise equal) and held to its plain version
+    (KERNEL_TOL; 'default' through default_vs_plain).  Returns the largest
+    max|d| / max|plain|."""
+    err = 0.0
+    h = torch.randn((tp.n_src, f), generator=gen, device="cuda")
+    got = twice_equal(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, h), f"{what} B1")
+    want = bcsr_spmm_plain(tp, h)
+    err = max(err, compare(got, want, f"{what} B1 f={f}", gate=False) / want.abs().max().item())
+    w = torch.randn((f, BENCH_DIMS[2]), generator=gen, device="cuda") * 0.1
+    agg, trans = twice_equal(lambda: bcsr_spmm_nn(tp, h, w), f"{what} B1 w_epilogue")
+    want_agg, want_trans = bcsr_spmm_nn_plain(tp, h, w)
+    compare(agg, want_agg, f"{what} B1 w_epilogue agg", gate=False)
+    compare(trans, want_trans, f"{what} B1 w_epilogue trans", gate=False)
+    att = torch.randn((tp.num_nodes, 2), generator=gen, device="cuda") * 0.3
+    for shift in (None, _resolve_shift(tp, None, att, DEFAULT_SLOPE, True)):
+        label = f"{what} f={f}{' shifted' if shift is not None else ''}"
+        num, den = twice_equal(lambda: gat_bcsr(tp, h, att, row_shift=shift, dot_mode="split2"), f"{label} B2")
+        ref_num, ref_den = gat_bcsr_plain(tp, h, att, row_shift=shift)
+        err = max(err, compare(num, ref_num, f"{label} B2 maxdot num", gate=False) / ref_num.abs().max().item())
+        compare(den, ref_den, f"{label} B2 maxdot den", gate=True)
+        twice_equal(lambda: gat_bcsr(tp, h, att, row_shift=shift, dot_mode="default"), f"{label} B2 default")
+        default_vs_plain(tp, h, att, shift, label)
+        for mode in ("twodot", "merged"):
+            twice_equal(lambda: gat_bcsr_factored(tp, h, att, DEFAULT_SLOPE, mode, 2, shift)[:2], f"{label} {mode}")
+            factored_vs_plain(tp, h, att, shift, mode, 2, label)
+    return err
+
+
+def walk_phase(g, gen) -> dict:
+    """Phase 37: the cell walk of B1 and B2 at the main plans' shapes.  Each
+    main plan's work list is printed (walk_line).  Repeat: on the GCN and
+    GAT int8 plans, the training plan's transposed 1-bit part and G1's
+    float32 plan, B1, its w_epilogue and B2 in every mode twice, bitwise
+    equal, and against their plain versions.  Skew: the GCN plan and G1's
+    plan with every tile in one run and one all-ones tile row (skewed), the
+    same checks.  Balance: B1's time over the GCN plan by chunk bound."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    gcn_host = densify(g, dtype=np.int8, **SCHEDULE)[0]
+    train_host = densify(g, dtype=np.int8, **TRAIN_SCHEDULE)[0]
+    plans = {
+        "GCN int8 [512, 256] t48": gcn_host.to(dev),
+        "its 1-bit part": split_bit_tiles(gcn_host)[0].to(dev),
+        "GAT int8 [512, 256] t32": densify(g, dtype=np.int8, **GAT_SCHEDULE)[0].to(dev),
+        "training [256, 256] t24, transposed": train_host.transpose().to(dev),
+        "its 1-bit part, transposed": split_bit_tiles(train_host)[0].transpose().to(dev),
+        "G1 float32 [256, 128]": Aggregator.schedule_hybrid(g, pack=1, with_transpose=False, device=dev).tile,
+    }
+    del gcn_host, train_host
+    log(f"phase 37: the cell walk (plans built in {time.perf_counter() - t0:.1f} s)")
+    stats = [walk_line(tp, label) for label, tp in plans.items()]
+    max_err = 0.0
+    with torch.no_grad():
+        for label in ("GCN int8 [512, 256] t48", "GAT int8 [512, 256] t32", "its 1-bit part, transposed",
+                      "G1 float32 [256, 128]"):
+            max_err = max(max_err, walk_kernels_vs_plain(plans[label], gen, label))
+        for label in ("GCN int8 [512, 256] t48", "G1 float32 [256, 128]"):
+            sk = skewed(plans[label])
+            stats.append(walk_line(sk, f"{label}, skewed"))
+            check(cell_walk.walk_for(sk).num_multi == 1, f"{label}, skewed: its one run was not cut into chunks")
+            max_err = max(max_err, walk_kernels_vs_plain(sk, gen, f"{label}, skewed"))
+            del sk
+        # the run balance: B1 over the GCN plan with its runs cut finer,
+        # as they are, and not at all (a bound above its largest run)
+        tp = plans["GCN int8 [512, 256] t48"]
+        h = torch.randn((tp.n_src, BENCH_DIMS[1]), generator=gen, device="cuda")
+        sweep = {}
+        for bound in (1 << 14, cell_walk.MIN_BOUND, 1 << 20):
+            default = cell_walk.MIN_BOUND
+            cell_walk.MIN_BOUND = bound
+            try:
+                w = cell_walk.walk_for(tp)
+                sweep[bound] = dict(chunks=w.num_chunks, runs_cut=w.num_multi,
+                                    ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, h)))
+            finally:
+                cell_walk.MIN_BOUND = default
+        log("  B1 over the GCN plan, f=128, by chunk bound: "
+            + "; ".join(f"{b} cells: {v['chunks']} chunks, {v['runs_cut']} runs cut, {v['ms']:.3f} ms"
+                        for b, v in sweep.items()))
+    log(f"  phase 37: every call twice bitwise equal; max|d|/max|plain| {max_err:.3e}")
+    return dict(plans=stats, max_err=max_err, bound_sweep=sweep)
+
 
 
 def main() -> int:
@@ -3188,6 +3331,7 @@ def main() -> int:
         f"dense_edges={tp.num_dense_edges} residual_edges={agg.plan.num_edges} "
         f"tasks={agg.plan.num_tasks} built in {time.perf_counter() - t0:.1f} s"
     )
+    walk0 = walk_line(tp, f"GCN plan ({args.scale})")
 
     # ---- phase 2: kernel against its plain version
     log("phase 2: B1 kernel vs bcsr_spmm_plain")
@@ -3301,10 +3445,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         pr = probe_phase(g, gen)
         torch.cuda.empty_cache()
+        walk = walk_phase(g, gen)
+        torch.cuda.empty_cache()
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
-        log("phases 22-36 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
-            "B2's other modes, the residual probe) run at the quick scale only")
+        log("phases 22-37 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
+            "B2's other modes, the residual probe, the cell walk's checks) run at the quick scale only")
 
     # ---- phase 21: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
@@ -3318,7 +3464,7 @@ def main() -> int:
         # times summed over the three launches of one forward (f=128, 64, 32)
         ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in shapes) else "operations",
-        library_ms=total("library_ms"),
+        library_ms=total("library_ms"), walk="cell", walk_plan=walk0,
         forward_ms=fwd_ms, build_s=build_s, scale=args.scale, shapes=shapes,
     )] + gat_kernels
 
@@ -3494,6 +3640,9 @@ def main() -> int:
         )}), flush=True)
     if train is not None:
         kernels += mode_kernel_entries(modes, pr, libs)
+        kernels[0]["walk_plans"] = walk["plans"]
+        kernels[0]["walk_max_abs_err"] = walk["max_err"]
+        kernels[0]["walk_bound_sweep"] = walk["bound_sweep"]
         print(json.dumps({"modes": dict(
             ablation_ms={label: [{k: v for k, v in r.items() if k.endswith("_ms")} for r in rows]
                          for label, rows in modes["rows"].items()},

@@ -6,8 +6,6 @@
 // format is a template argument (bit_tiles.cuh): int8 counts, 1-bit tiles
 // whose row i lies in bit plane i / (R/8) of byte row i % (R/8) (8x fewer
 // A bytes), or float32 / bfloat16 edge values (4x / 2x the int8 bytes).
-// Every format loads 8 cells of a row as floats (Fmt::load8), so the tile
-// walk and the FFMAs are the same for all four.
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every row-tile,
@@ -20,131 +18,104 @@
 // tile times f32 h is the TPU's 'split3' class (24-bit operand, exact bf16
 // products) and an f32 tile its 'native' HIGHEST dot.
 //
-// w_epilogue (bcsr_spmm_nn_*): with W [f, f_out] the kernel also writes
-// trans = agg @ W for its rows, from the run's accumulator before it leaves
-// the block, the reference's fused aggregate+GEMM (pallas_bcsr.py:285-296,
-// 388-404).  That GEMM needs a row's whole f, so the epilogue variant's
-// block owns all f <= 128 columns of its 64 rows (one f-slab), stages the
-// [64, f] accumulator in shared memory (in the space the tile walk used)
-// and streams W in [32, 64] chunks; f32 FFMA, k ascending.  A factored
-// plan's scale_dst multiplies the accumulator before both outputs (the
-// reference asserts there instead).
+// Design: the cell walk (csrc/cell_walk.cuh, shared with B2), with
+// SumCells below as its cell policy: a nonzero cell's weight is its value,
+// no den, no post-scale.  Only the nonzero cells are touched (a warp
+// compacts each tile row's cells and gathers one H row slice per cell), and
+// a run's tiles are cut into chunks bounded in nonzero cells (the plan's
+// work list, ops/cell_walk.py), so the hub run is spread over many blocks;
+// each tile's partial joins its chunk's sum, and a run's chunk partials
+// are added in chunk order by the walk's finish pass.  No atomics.
 //
-// Design: one block owns a slab of BR rows of one row-tile run and BF
-// feature columns (the walk is tile_run::run_sum, tile_run.cuh, which the
-// fused residual probe, fused_hybrid.cu, shares).  It walks the run's tiles, stages the A slab (as f32)
-// and the H tile [BK, BF] in shared memory, forms each tile's product
-// with FFMA in registers, adds it to the run's sum, and writes its output
-// rows once at the end: no atomics and no ordering between blocks.  A run
-// with no tiles writes zeros, so the output is fully written whether or not
-// the plan covers every row-tile.
+// w_epilogue (bcsr_spmm_nn_*): with W [f, f_out] the launch also writes
+// trans = agg @ W, the reference's fused aggregate+GEMM (pallas_bcsr.py:
+// 285-296, 388-404).  Its pass (epilogue_kernel) replaces the walk's finish
+// pass and runs over every run: a block owns 64 rows of one run and all
+// f <= 128 columns, finishes each row (the run's chunk partials added in
+// chunk order, or the row the walk wrote), applies a factored plan's
+// scale_dst (the reference asserts there instead), writes agg, and forms
+// agg @ W from the finished rows in shared memory, W streamed in [32, 64]
+// chunks; f32 FFMA, k ascending.
 //
 // Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): the function must read A (T*R*C cells of 1, 2 or 4 bytes; R*C/8
 // bytes a 1-bit tile) and H and write the output once (the epilogue adds
-// W's reads, trans's writes and 2*n*f*f_out FLOPs); the tile stream as the
-// TPU kernel reads it is A + T*C*f*4 bytes.  The dense tile work is
-// 2*T*R*C*f FLOPs, which a split-bf16 wgmma redesign could run on the
-// tensor cores.  Both sit far below this kernel's time: it runs the dense
-// tile product on the FP32 pipes (16 FFMA per 2 shared loads per k step).
-//
-// What the simple design leaves on the table: the tiles are ~1% full, so
-// almost all FFMAs multiply zero cells — compacting each A slab's nonzeros
-// (or skipping all-zero k columns) cuts the work by ~100x; split-bf16
-// wgmma would use the tensor cores; cp.async/TMA double buffering would
-// overlap the loads with the FFMAs; H tiles are re-read once per row slab.
+// W's reads, trans's writes and 2*n*f*f_out FLOPs), against 2*nnz*f FLOPs
+// for the nnz nonzero cells: bytes bind.  The walk reads the A stream once
+// and gathers one H row slice (f*4 bytes) per nonzero cell, from L2 where
+// H fits it (33.5 MB at the quick scale, f = 128): at the quick GCN plan
+// (3,562 int8 [512, 256] tiles, 3.30M cells) 467 MB of A and 1.69 GB of
+// gathers.  What it leaves on the table is the walk's (cell_walk.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bit_tiles.cuh"
-#include "tile_run.cuh"
+#include "cell_walk.cuh"
 
 namespace {
 
-using tile_run::kBK;
-using tile_run::kBR;
-using tile_run::kThreads;
-using tile_run::kTM;
-using tile_run::run_sum;
-constexpr int kWO = 64;        // W columns per epilogue chunk (4 per thread)
-constexpr int kMaxEpiF = 128;  // widest f the epilogue variant holds
+using cell_walk::Args;
+using cell_walk::Work;
 
-template <int BF, class Fmt>
-__global__ void __launch_bounds__(kThreads)
-bcsr_spmm_kernel(const uint8_t* __restrict__ a,
-                 const int32_t* __restrict__ tile_col,
-                 const int32_t* __restrict__ run_start,
-                 const float* __restrict__ h, float* __restrict__ out,
-                 int R, int C, int n, int n_src, int f, int slabs_per_run) {
-  constexpr int TN = BF / 16;
-  // +4 pad keeps rows 16-byte aligned and the transposing stores free of
-  // bank conflicts (32 consecutive rows per warp, one k)
-  __shared__ __align__(16) float as[kBK][kBR + 4];
-  __shared__ __align__(16) float hs[kBK][BF];
-
-  const int run = blockIdx.x / slabs_per_run;
-  const int r0 = (blockIdx.x % slabs_per_run) * kBR;
-  const int f0 = blockIdx.y * BF;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[kTM][TN];
-  run_sum<BF, Fmt>(a, tile_col, run_start[run], run_start[run + 1], h, R, C, n_src, f, f0, r0, acc, as, hs);
-
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int r = r0 + ty * kTM + m;
-    const int64_t grow = (int64_t)run * R + r;
-    if (r >= R || grow >= n) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = f0 + tx * TN + j;
-      if (c < f) out[grow * f + c] = acc[m][j];
-    }
+// a cell's weight is its value (a count, or a float tile's value)
+struct SumCells {
+  static constexpr int NB = 1;
+  static constexpr bool kDen = false;
+  struct Row {};
+  static __device__ __forceinline__ Row row(const float* rows, int64_t i) { return Row{}; }
+  static __device__ __forceinline__ void weigh(const float* cols, float slope, const Row& u, float v, int64_t src,
+                                               float* w, float* d) {
+    w[0] = v;
   }
-}
+  static __device__ __forceinline__ float stage_w(float w) { return w; }
+  static __device__ __forceinline__ float stage_h(float x) { return x; }
+  static __device__ __forceinline__ void post(const float* rows, int64_t i, float* us) { us[0] = 1.f; }
+};
 
-// The w_epilogue variant: one f-slab of BF >= f columns; writes agg (the
-// accumulator times scale_dst where given) and trans = agg @ W.
-template <int BF, class Fmt>
+constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kBR = 64;        // rows per epilogue block (4 per thread)
+constexpr int kTM = 4;
+constexpr int kBK = 32;        // W rows per staged chunk
+constexpr int kWO = 64;        // W columns per chunk (4 per thread)
+constexpr int kMaxEpiF = 128;  // widest f the epilogue holds
+
+template <int BF>
 __global__ void __launch_bounds__(kThreads)
-bcsr_spmm_nn_kernel(const uint8_t* __restrict__ a,
-                    const int32_t* __restrict__ tile_col,
-                    const int32_t* __restrict__ run_start,
-                    const float* __restrict__ h, const float* __restrict__ w,
-                    const float* __restrict__ scale_dst,
-                    float* __restrict__ out, float* __restrict__ trans,
-                    int R, int C, int n, int n_src, int f, int f_out, int slabs_per_run) {
+epilogue_kernel(const Args p, const Work wk, const float* __restrict__ w, const float* __restrict__ scale_dst,
+                float* __restrict__ trans, int f_out, int slabs_per_run) {
   constexpr int TN = BF / 16;
-  // the tile walk's buffers and the epilogue's share one array: the
-  // [64, BF] accumulator tile plus a [32, 64] chunk of W (41 KB at BF = 128)
-  constexpr int kWalk = kBK * (kBR + 4) + kBK * BF;
-  constexpr int kEpi = kBR * (BF + 4) + kBK * kWO;
-  __shared__ __align__(16) float smem[kWalk > kEpi ? kWalk : kEpi];
-  auto as = reinterpret_cast<float (*)[kBR + 4]>(smem);
-  auto hs = reinterpret_cast<float (*)[BF]>(smem + kBK * (kBR + 4));
-
+  __shared__ __align__(16) float accs[kBR][BF + 4];
+  __shared__ __align__(16) float ws[kBK][kWO];
   const int run = blockIdx.x / slabs_per_run;
   const int r0 = (blockIdx.x % slabs_per_run) * kBR;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  float acc[kTM][TN];
-  run_sum<BF, Fmt>(a, tile_col, run_start[run], run_start[run + 1], h, R, C, n_src, f, 0, r0, acc, as, hs);
-
-  __syncthreads();  // the walk's buffers are free
-  auto accs = reinterpret_cast<float (*)[BF + 4]>(smem);
-  auto ws = reinterpret_cast<float (*)[kWO]>(smem + kBR * (BF + 4));
+  const int f = p.f;
+  const int kb = wk.run_chunk[run];
+  const int nk = wk.run_chunk[run + 1] - kb;
+  const int64_t stride = cell_walk::slot_floats<SumCells>(p.R, f);
+  const float* s0 = nk > 1 ? p.scratch + wk.chunk_slot[kb] * stride : nullptr;
 #pragma unroll
   for (int m = 0; m < kTM; ++m) {
     const int r = r0 + ty * kTM + m;
-    const int64_t grow = (int64_t)run * R + r;
-    const bool valid = r < R && grow < n;
+    const int64_t grow = static_cast<int64_t>(run) * p.R + r;
+    const bool valid = r < p.R && grow < p.n;
     const float sc = (valid && scale_dst != nullptr) ? scale_dst[grow] : 1.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = tx * TN + j;
-      const float v = acc[m][j] * sc;
+      float v = 0.f;
+      if (valid && c < f) {
+        if (s0 != nullptr) {  // the run's chunk partials, in chunk order
+          for (int q = 0; q < nk; ++q) v += s0[q * stride + static_cast<int64_t>(r) * f + c];
+        } else {  // the row the walk wrote
+          v = p.num[grow * f + c];
+        }
+        v *= sc;
+        p.num[grow * f + c] = v;
+      }
       accs[ty * kTM + m][c] = v;
-      if (valid && c < f) out[grow * f + c] = v;
     }
   }
   for (int o0 = 0; o0 < f_out; o0 += kWO) {
@@ -157,7 +128,7 @@ bcsr_spmm_nn_kernel(const uint8_t* __restrict__ a,
       __syncthreads();  // accs written; the previous W chunk consumed
       for (int e = tid; e < kBK * kWO; e += kThreads) {
         const int k = e / kWO, o = e % kWO;
-        ws[k][o] = (k0 + k < f && o0 + o < f_out) ? w[(int64_t)(k0 + k) * f_out + o0 + o] : 0.f;
+        ws[k][o] = (k0 + k < f && o0 + o < f_out) ? w[static_cast<int64_t>(k0 + k) * f_out + o0 + o] : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -176,8 +147,8 @@ bcsr_spmm_nn_kernel(const uint8_t* __restrict__ a,
 #pragma unroll
     for (int m = 0; m < kTM; ++m) {
       const int r = r0 + ty * kTM + m;
-      const int64_t grow = (int64_t)run * R + r;
-      if (r >= R || grow >= n) continue;
+      const int64_t grow = static_cast<int64_t>(run) * p.R + r;
+      if (r >= p.R || grow >= p.n) continue;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int o = o0 + tx * 4 + q;
@@ -187,76 +158,80 @@ bcsr_spmm_nn_kernel(const uint8_t* __restrict__ a,
   }
 }
 
-template <class Fmt>
-int launch(const void* a, const void* tile_col, const void* run_start, const void* h, void* out,
-           int num_row_tiles, int R, int C, int n, int n_src, int f, int device, void* stream) {
-  if (num_row_tiles == 0 || f == 0) return 0;
-  // this library carries its own (static) CUDA runtime: select the caller's
-  // card in it before launching on the caller's stream
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int slabs = (R + kBR - 1) / kBR;
-  const dim3 block(kThreads);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* a8 = static_cast<const uint8_t*>(a);
-  const int32_t* col = static_cast<const int32_t*>(tile_col);
-  const int32_t* rs = static_cast<const int32_t*>(run_start);
-  const float* hf = static_cast<const float*>(h);
-  float* o = static_cast<float*>(out);
-  if (f <= 32) {
-    const dim3 grid(num_row_tiles * slabs, 1);
-    bcsr_spmm_kernel<32, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, o, R, C, n, n_src, f, slabs);
-  } else {
-    const dim3 grid(num_row_tiles * slabs, (f + 63) / 64);
-    bcsr_spmm_kernel<64, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, o, R, C, n, n_src, f, slabs);
-  }
-  return static_cast<int>(cudaGetLastError());
+Args make_args(const void* a, const void* tile_col, const void* h, void* out, void* scratch, int R, int C, int n,
+               int n_src, int f) {
+  Args p{};
+  p.a = static_cast<const uint8_t*>(a);
+  p.tile_col = static_cast<const int32_t*>(tile_col);
+  p.h0 = static_cast<const float*>(h);
+  p.num = static_cast<float*>(out);
+  p.scratch = static_cast<float*>(scratch);
+  p.R = R;
+  p.C = C;
+  p.n = n;
+  p.n_src = n_src;
+  p.f = f;
+  return p;
 }
 
 template <class Fmt>
-int launch_nn(const void* a, const void* tile_col, const void* run_start, const void* h, const void* w,
-              const void* scale_dst, void* out, void* trans, int num_row_tiles, int R, int C, int n, int n_src,
-              int f, int f_out, int device, void* stream) {
+int launch(const void* a, const void* tile_col, const void* work, const void* h, void* out, void* scratch,
+           int num_chunks, int num_multi, int num_row_tiles, int R, int C, int n, int n_src, int f, int device,
+           void* stream) {
+  if (f == 0) return 0;
+  return cell_walk::launch<Fmt, SumCells>(make_args(a, tile_col, h, out, scratch, R, C, n, n_src, f),
+                                          static_cast<const int32_t*>(work), num_chunks, num_multi,
+                                          num_row_tiles, device, stream);
+}
+
+template <class Fmt>
+int launch_nn(const void* a, const void* tile_col, const void* work, const void* h, const void* w,
+              const void* scale_dst, void* out, void* trans, void* scratch, int num_chunks, int num_multi,
+              int num_row_tiles, int R, int C, int n, int n_src, int f, int f_out, int device, void* stream) {
   if (f > kMaxEpiF) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_row_tiles == 0 || f == 0 || f_out == 0) return 0;
+  if (num_row_tiles == 0 || n == 0 || f == 0 || f_out == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  const Args p = make_args(a, tile_col, h, out, scratch, R, C, n, n_src, f);
+  const Work wk(static_cast<const int32_t*>(work), num_chunks, num_multi, num_row_tiles);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = cell_walk::launch_walk<Fmt, SumCells>(p, wk, s);
+  if (err != 0) return err;
   const int slabs = (R + kBR - 1) / kBR;
   const dim3 grid(num_row_tiles * slabs), block(kThreads);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* a8 = static_cast<const uint8_t*>(a);
-  const int32_t* col = static_cast<const int32_t*>(tile_col);
-  const int32_t* rs = static_cast<const int32_t*>(run_start);
-  const float* hf = static_cast<const float*>(h);
   const float* wf = static_cast<const float*>(w);
   const float* sd = static_cast<const float*>(scale_dst);
-  float* o = static_cast<float*>(out);
   float* t = static_cast<float*>(trans);
   if (f <= 32)
-    bcsr_spmm_nn_kernel<32, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, wf, sd, o, t, R, C, n, n_src, f, f_out, slabs);
+    epilogue_kernel<32><<<grid, block, 0, s>>>(p, wk, wf, sd, t, f_out, slabs);
   else if (f <= 64)
-    bcsr_spmm_nn_kernel<64, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, wf, sd, o, t, R, C, n, n_src, f, f_out, slabs);
+    epilogue_kernel<64><<<grid, block, 0, s>>>(p, wk, wf, sd, t, f_out, slabs);
   else
-    bcsr_spmm_nn_kernel<128, Fmt><<<grid, block, 0, s>>>(a8, col, rs, hf, wf, sd, o, t, R, C, n, n_src, f, f_out, slabs);
+    epilogue_kernel<128><<<grid, block, 0, s>>>(p, wk, wf, sd, t, f_out, slabs);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define BCSR_SPMM_ENTRY(tag, Fmt, check)                                                                  \
-  extern "C" int bcsr_spmm_##tag##_f32(const void* a, const void* tile_col, const void* run_start,      \
-                                       const void* h, void* out, int num_row_tiles, int R, int C, int n, \
-                                       int n_src, int f, int device, void* stream) {                     \
-    if (check) return static_cast<int>(cudaErrorInvalidValue);                                           \
-    return launch<Fmt>(a, tile_col, run_start, h, out, num_row_tiles, R, C, n, n_src, f, device, stream); \
-  }                                                                                                      \
-  extern "C" int bcsr_spmm_nn_##tag##_f32(const void* a, const void* tile_col, const void* run_start,   \
-                                          const void* h, const void* w, const void* scale_dst, void* out, \
-                                          void* trans, int num_row_tiles, int R, int C, int n, int n_src, \
-                                          int f, int f_out, int device, void* stream) {                  \
-    if (check) return static_cast<int>(cudaErrorInvalidValue);                                           \
-    return launch_nn<Fmt>(a, tile_col, run_start, h, w, scale_dst, out, trans, num_row_tiles, R, C, n,    \
-                          n_src, f, f_out, device, stream);                                              \
+// work: the plan's work list (ops/cell_walk.py), num_chunks / num_multi its
+// sizes; scratch: its chunk partials (null when no run has two chunks)
+#define BCSR_SPMM_ENTRY(tag, Fmt, check)                                                                     \
+  extern "C" int bcsr_spmm_##tag##_f32(const void* a, const void* tile_col, const void* work, const void* h, \
+                                       void* out, void* scratch, int num_chunks, int num_multi,            \
+                                       int num_row_tiles, int R, int C, int n, int n_src, int f, int device, \
+                                       void* stream) {                                                     \
+    if (check) return static_cast<int>(cudaErrorInvalidValue);                                             \
+    return launch<Fmt>(a, tile_col, work, h, out, scratch, num_chunks, num_multi, num_row_tiles, R, C, n,    \
+                       n_src, f, device, stream);                                                          \
+  }                                                                                                        \
+  extern "C" int bcsr_spmm_nn_##tag##_f32(const void* a, const void* tile_col, const void* work,           \
+                                          const void* h, const void* w, const void* scale_dst, void* out,   \
+                                          void* trans, void* scratch, int num_chunks, int num_multi,       \
+                                          int num_row_tiles, int R, int C, int n, int n_src, int f,        \
+                                          int f_out, int device, void* stream) {                           \
+    if (check) return static_cast<int>(cudaErrorInvalidValue);                                             \
+    return launch_nn<Fmt>(a, tile_col, work, h, w, scale_dst, out, trans, scratch, num_chunks, num_multi,   \
+                          num_row_tiles, R, C, n, n_src, f, f_out, device, stream);                        \
   }
 
 // 1-bit tiles need R % 8 == 0

@@ -1,0 +1,449 @@
+// The cell walk: the device code of B1 (csrc/bcsr_spmm.cu) and B2 (its
+// three bodies, csrc/gat_bcsr.cu and csrc/gat_bcsr_factored.cu, through
+// csrc/gat_walk.cuh).  They differ only in how a nonzero cell is weighed,
+// which a Cells policy supplies; the walk, the work split and the sums are
+// this file's.
+//
+// What it computes: tiles are sorted by destination row-tile; the tiles of
+// row-tile r are run_start[r] .. run_start[r+1].  For every destination
+// row i, branch b < Cells::NB and nonzero cell (i, j) of the run's tiles
+// (value v != 0; a zero cell is never touched: select, never multiply),
+//   num_i = sum_b post_b,i * sum_j stage_w(w_b,ij) * stage_h(H_b,j)
+//   den_i = sum_b post_b,i * sum_j d_b,ij                 (Cells::kDen)
+// where Cells::weigh gives a cell's weights w and den terms d, stage_w and
+// stage_h round the weight and the gathered H_b (h, or a factored mode's
+// hv_b) as the mode rounds, and post gives the row post-scales.
+//
+// Why this shape.  The tiles are ~1% full (0.6-0.7% at the quick scale),
+// so a dense tile product does ~140x the useful work; and one run (the hub
+// row-tile) holds a large share of all cells, so a grid of one block per
+// run slab waits on it.  Here the work is the nonzero cells, and the unit of work is
+// a chunk (ops/cell_walk.py): a run's tiles cut into consecutive ranges
+// bounded in nonzero cells, so the hub run is spread over many blocks.
+//
+// Design.  A block owns 8 rows of one chunk, one warp a row; for 1-bit
+// tiles the 8 rows that share a byte row (one per bit plane), so the block
+// reads each A byte once.  The warp walks the chunk's tiles.  Per tile it
+// takes its row's cells, 8 a lane, from one 8-, 16- or 32-byte load that
+// ran up to 4 tiles ahead in registers (~1 KB of the row in flight a warp,
+// Fmt::Raw), with the tile's column.  A tile row without a nonzero cell
+// (most of them) costs a vote and nothing more.
+// Otherwise the warp compacts the nonzero cells in ascending column order
+// (tile_cells::compact_mask) and each lane weighs its own cells once as
+// it writes them to the warp's list.  Then it takes the list kG cells at a
+// time: the kG rows of H gathered at once in 16-byte loads (KPL features a
+// lane, up to 128 a warp; a cell whose staged weight is 0 loads nothing)
+// and weight * H added into the lane's registers in column order.  Each
+// tile's partial (num, and den summed over the warp) is finished before it
+// joins the chunk's sum: a hub run's single float32 sum drifts ~2e-5 *
+// max.  A run of one chunk writes its rows directly, post-scaled (an empty
+// run's chunk writes zeros); the chunks of a longer run write their
+// partials to a scratch slot each, and the finish kernel, launched right
+// after, adds a run's slots in chunk order, post-scales and writes each
+// row once.  No atomics: two calls give bitwise equal output.  f > 128
+// takes 128-wide f-slices (blockIdx.y), each compacting and weighing the
+// cells again; the slice 0 writes den.
+//
+// What bounds it (H100 SXM, 3.35 TB/s): the A stream (every cell of every
+// tile is read once, 1, 2 or 4 bytes, or 1 bit) and the gather of one H
+// row slice per nonzero cell (f * 4 bytes, from L2 where H fits its 50 MB),
+// against 2 * f FLOPs a cell.  What sets its time on the card is neither:
+// it is the walk over tile rows (1.82M at the quick GCN plan), each a
+// vote, and where it holds cells a ballot scan and a dependent L2 gather
+// before the next.  Left on the table: a warp walks one row, ~2 cells a
+// tile on average; an index of each tile's nonzero rows, built once per
+// plan, would skip the empty rows without reading them; H rows are
+// gathered once per cell, not shared between the rows of a block.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "bit_tiles.cuh"
+#include "tile_cells.cuh"
+
+namespace cell_walk {
+
+using tile_cells::kChunk;
+constexpr int kWarps = 8;  // rows per block, one warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kFinishThreads = 256;
+
+// Cells policy:
+//   NB                          branches (each with its own H and post-scale)
+//   kDen                        the walk also sums den terms
+//   Row row(rows, i)            node i's row operand
+//   weigh(cols, slope, row, v, src, w, d)
+//                               a nonzero cell's weights w[b] and den
+//                               terms d[b] (both arrive zeroed)
+//   float stage_w(w)            a weight as the mode stages it
+//   float stage_h(x)            a gathered H value as the mode rounds it
+//   post(rows, i, us)           row i's post-scales us[b]
+
+// The launch's operands.
+struct Args {
+  const uint8_t* a;         // tiles (bit_tiles.cuh formats)
+  const int32_t* tile_col;  // [T]
+  const float* h0;          // [n_src, f] H of branch 0
+  const float* h1;          // [n_src, f] H of branch 1 (NB == 2), else unused
+  const float* rows;        // row operands (Cells::row), may be null
+  const float* cols;        // column operands (Cells::weigh), may be null
+  float* num;               // [n, f]
+  float* den;               // [n] (Cells::kDen)
+  float* scratch;           // num_slots slots of slot_floats floats, may be null
+  int R, C, n, n_src, f;
+  float slope;
+  bool vec_h;               // a lane's KPL features of an H row are one aligned vector load
+};
+
+// The plan's work list (ops/cell_walk.py: CellWalk), one int32 array:
+//   chunk_run[K] | chunk_tile[K + 1] | chunk_slot[K] | run_chunk[nrt + 1] | multi_run[M]
+// chunk k walks tiles chunk_tile[k] .. chunk_tile[k + 1] of run
+// chunk_run[k] and writes its rows directly (chunk_slot[k] < 0: the run's
+// only chunk) or to scratch slot chunk_slot[k]; run r's chunks are
+// run_chunk[r] .. run_chunk[r + 1] with consecutive slots; multi_run lists
+// the runs of more than one chunk.
+struct Work {
+  const int32_t* chunk_run;
+  const int32_t* chunk_tile;
+  const int32_t* chunk_slot;
+  const int32_t* run_chunk;
+  const int32_t* multi_run;
+  int num_chunks, num_multi;
+  Work(const int32_t* w, int K, int M, int nrt)
+      : chunk_run(w), chunk_tile(w + K), chunk_slot(w + 2 * K + 1), run_chunk(w + 3 * K + 1),
+        multi_run(w + 3 * K + nrt + 2), num_chunks(K), num_multi(M) {}
+};
+
+// Floats of one scratch slot: num [NB][R][f], then den [NB][R], rounded up
+// to 4 so every slot starts 16-byte aligned (ops/cell_walk.py: slot_floats).
+template <class Cells>
+__host__ __device__ __forceinline__ int64_t slot_floats(int R, int f) {
+  const int64_t x = static_cast<int64_t>(Cells::NB) * R * (f + (Cells::kDen ? 1 : 0));
+  return (x + 3) / 4 * 4;
+}
+
+template <class Fmt>
+constexpr bool kPlanes = std::is_same<Fmt, BitTiles>::value;
+
+// Blocks a chunk needs, kWarps rows each
+template <class Fmt>
+__host__ __device__ __forceinline__ int num_slabs(int R) {
+  return kPlanes<Fmt> ? R / kWarps : (R + kWarps - 1) / kWarps;
+}
+
+// The tile row of warp `warp` in row block `slab`: kWarps consecutive
+// rows, or for 1-bit tiles (kWarps divides 8) kWarps rows of one byte row,
+// each in its own bit plane
+template <class Fmt>
+__device__ __forceinline__ int block_row(int slab, int warp, int R) {
+  if constexpr (kPlanes<Fmt>) {
+    const int r8 = R / 8;
+    return slab % r8 + ((slab / r8) * kWarps + warp) * r8;
+  } else {
+    return slab * kWarps + warp;
+  }
+}
+
+// x[m] = row[k0 + m] for k0 + m < f, 0 past f or where !on (no load)
+template <int KPL>
+__device__ __forceinline__ void gather(const float* __restrict__ row, int k0, int f, bool vec, bool on,
+                                       float (&x)[KPL]) {
+  if (on && vec && k0 + KPL <= f) {
+    if constexpr (KPL == 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(row + k0));
+      x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+    } else if constexpr (KPL == 2) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(row + k0));
+      x[0] = v.x; x[1] = v.y;
+    } else {
+      x[0] = __ldg(row + k0);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) x[m] = on && k0 + m < f ? __ldg(row + k0 + m) : 0.f;
+  }
+}
+
+// row[k0 + m] = x[m] for k0 + m < f
+template <int KPL>
+__device__ __forceinline__ void store(float* __restrict__ row, int k0, int f, const float (&x)[KPL]) {
+  if (f % KPL == 0 && k0 + KPL <= f) {
+    if constexpr (KPL == 4) {
+      *reinterpret_cast<float4*>(row + k0) = make_float4(x[0], x[1], x[2], x[3]);
+    } else if constexpr (KPL == 2) {
+      *reinterpret_cast<float2*>(row + k0) = make_float2(x[0], x[1]);
+    } else {
+      row[k0] = x[0];
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < KPL; ++m)
+      if (k0 + m < f) row[k0 + m] = x[m];
+  }
+}
+
+// Tiles a warp's A loads run ahead of its walk: Raw registers a lane
+// holds for them (8 bytes of int8 or bits, 16 of bfloat16, 32 of float32),
+// so a warp keeps ~1 KB of its row in flight whatever the format.
+template <class Fmt>
+constexpr int kAhead = sizeof(typename Fmt::Raw) >= 32 ? 1 : 32 / static_cast<int>(sizeof(typename Fmt::Raw));
+
+template <int KPL, class Fmt, class Cells>
+__global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work wk, int slabs) {
+  constexpr int NB = Cells::NB;
+  constexpr int kG = KPL == 1 ? 4 : 2;  // cells in flight per warp (more cost registers)
+  constexpr int D = kAhead<Fmt>;
+  using Raw = typename Fmt::Raw;
+  __shared__ int lcol[kWarps][kChunk];
+  __shared__ float lw[kWarps][NB][kChunk];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k = blockIdx.x / slabs;
+  const int r = block_row<Fmt>(blockIdx.x % slabs, warp, p.R);
+  const int run = wk.chunk_run[k];
+  const int64_t grow = static_cast<int64_t>(run) * p.R + r;
+  if (r >= p.R || grow >= p.n) return;  // the whole warp leaves together
+  const int k0 = blockIdx.y * 32 * KPL + lane * KPL;  // the lane's first feature
+  const bool lead = blockIdx.y == 0;                 // the f-slice that sums den
+  const int t_begin = wk.chunk_tile[k], t_end = wk.chunk_tile[k + 1];
+  int shift = 0;
+  const uint8_t* a_row = p.a + Fmt::row_offset(r, p.R, p.C, &shift);
+  const int64_t tile_bytes = Fmt::tile_bytes(p.R, p.C);
+  const bool vec_a = (p.C % 8) == 0;
+  // a row of at most kChunk cells, 8 a lane in one aligned load: its loads
+  // run D tiles ahead; any other row loads each tile's cells in place
+  const bool ahead = vec_a && p.C <= kChunk;
+  const bool lane_in = lane * 8 < p.C;
+  const typename Cells::Row rw = Cells::row(p.rows, grow);
+  int* cl = lcol[warp];
+
+  float acc[NB][KPL], dacc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    dacc[b] = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) acc[b][m] = 0.f;
+  }
+  Raw ring[D];
+  int col_ring[D];  // tile_col of the same tiles
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const bool in = ahead && t_begin + i < t_end;
+    ring[i] = in && lane_in ? Fmt::load_raw(a_row + (t_begin + i) * tile_bytes, lane * 8) : Raw{};
+    col_ring[i] = in ? p.tile_col[t_begin + i] : 0;
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    int tcol;
+    Raw cur;
+    if (ahead) {
+      cur = ring[0];
+      tcol = col_ring[0];
+#pragma unroll
+      for (int i = 0; i + 1 < D; ++i) {
+        ring[i] = ring[i + 1];
+        col_ring[i] = col_ring[i + 1];
+      }
+      const bool in = t + D < t_end;
+      ring[D - 1] = in && lane_in ? Fmt::load_raw(a_row + (t + D) * tile_bytes, lane * 8) : Raw{};
+      col_ring[D - 1] = in ? p.tile_col[t + D] : 0;
+    } else {
+      tcol = p.tile_col[t];
+    }
+    const int64_t col0 = static_cast<int64_t>(tcol) * p.C;
+    float part[NB][KPL], dl[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      dl[b] = 0.f;
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) part[b][m] = 0.f;
+    }
+    bool any = false;
+    // one pass over the lane's cells base .. base + 7 of this tile row:
+    // bit q of nz marks a nonzero cell base + q, value(q) gives its value
+    const auto take = [&](unsigned nz, int base, const auto& value) {
+      if (!__any_sync(tile_cells::kFull, nz != 0)) return;  // most tile rows hold no cell
+      // columns at or past n_src hold no edge
+      const int64_t lim = p.n_src - col0;
+      if (lim < base + 8) nz &= lim <= base ? 0u : (1u << (lim - base)) - 1u;
+      any = true;
+      const int total = tile_cells::compact_mask(nz, base, lane, value, [&](int pos, int col, float val) {
+        float w[NB], d[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) w[b] = d[b] = 0.f;
+        Cells::weigh(p.cols, p.slope, rw, val, col0 + col, w, d);
+        cl[pos] = col;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          lw[warp][b][pos] = Cells::stage_w(w[b]);
+          if constexpr (Cells::kDen) dl[b] += d[b];
+        }
+      });
+      for (int g0 = 0; g0 < total; g0 += kG) {
+        float wg[kG][NB];
+        float x[kG][NB][KPL];
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          const bool in = g0 + g < total;
+          const int e = in ? g0 + g : g0;
+          const int64_t src = col0 + cl[e];
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            wg[g][b] = in ? lw[warp][b][e] : 0.f;
+            gather<KPL>((b == 0 ? p.h0 : p.h1) + src * p.f, k0, p.f, p.vec_h, wg[g][b] != 0.f, x[g][b]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int m = 0; m < KPL; ++m) part[b][m] = fmaf(wg[g][b], Cells::stage_h(x[g][b][m]), part[b][m]);
+      }
+    };
+    if (ahead) {
+      take(Fmt::nonzero8(cur, shift), lane * 8, [&](int q) { return Fmt::cell(cur, q, shift); });
+    } else {
+      for (int c0 = 0; c0 < p.C; c0 += kChunk) {
+        float v[8];
+        tile_fmt::load8_tail<Fmt>(a_row + t * tile_bytes, c0 + lane * 8, p.C, vec_a, shift, v);
+        unsigned nz = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) nz |= (v[q] != 0.f ? 1u : 0u) << q;
+        take(nz, c0 + lane * 8, [&](int q) { return v[q]; });
+      }
+    }
+    if (!any) continue;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) acc[b][m] += part[b][m];
+    if constexpr (Cells::kDen) {
+      if (lead && any) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) dacc[b] += tile_cells::warp_sum(dl[b]);
+      }
+    }
+  }
+
+  const int slot = wk.chunk_slot[k];
+  if (slot < 0) {  // the run's only chunk: the finished row
+    float us[NB];
+    Cells::post(p.rows, grow, us);
+    float o[KPL];
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      o[m] = us[0] * acc[0][m];
+#pragma unroll
+      for (int b = 1; b < NB; ++b) o[m] += us[b] * acc[b][m];
+    }
+    store<KPL>(p.num + grow * p.f, k0, p.f, o);
+    if constexpr (Cells::kDen) {
+      if (lead && lane == 0) {
+        float d = us[0] * dacc[0];
+#pragma unroll
+        for (int b = 1; b < NB; ++b) d += us[b] * dacc[b];
+        p.den[grow] = d;
+      }
+    }
+  } else {
+    float* s = p.scratch + slot * slot_floats<Cells>(p.R, p.f);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) store<KPL>(s + (static_cast<int64_t>(b) * p.R + r) * p.f, k0, p.f, acc[b]);
+    if constexpr (Cells::kDen) {
+      if (lead && lane == 0) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) s[static_cast<int64_t>(NB) * p.R * p.f + b * p.R + r] = dacc[b];
+      }
+    }
+  }
+}
+
+// The runs of more than one chunk: one thread a row element (then a row's
+// den), the run's slots added in chunk order, post-scaled, written once.
+template <class Cells>
+__global__ void __launch_bounds__(kFinishThreads) finish_kernel(const Args p, const Work wk) {
+  constexpr int NB = Cells::NB;
+  const int run = wk.multi_run[blockIdx.y];
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kFinishThreads + threadIdx.x;
+  const int64_t nf = static_cast<int64_t>(p.R) * p.f;
+  const int kb = wk.run_chunk[run], nk = wk.run_chunk[run + 1] - kb;
+  const int64_t stride = slot_floats<Cells>(p.R, p.f);
+  const float* s0 = p.scratch + wk.chunk_slot[kb] * stride;
+  int r;
+  int64_t at;  // the element's offset in a slot, per branch b: at + b * step
+  int64_t step;
+  if (e < nf) {
+    r = static_cast<int>(e / p.f);
+    at = e;
+    step = nf;
+  } else if (Cells::kDen && e < nf + p.R) {
+    r = static_cast<int>(e - nf);
+    at = NB * nf + r;
+    step = p.R;
+  } else {
+    return;
+  }
+  const int64_t grow = static_cast<int64_t>(run) * p.R + r;
+  if (grow >= p.n) return;
+  float s[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) s[b] = 0.f;
+  for (int q = 0; q < nk; ++q)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) s[b] += s0[q * stride + at + b * step];
+  float us[NB];
+  Cells::post(p.rows, grow, us);
+  float o = us[0] * s[0];
+#pragma unroll
+  for (int b = 1; b < NB; ++b) o += us[b] * s[b];
+  if (e < nf)
+    p.num[grow * p.f + (e - static_cast<int64_t>(r) * p.f)] = o;
+  else
+    p.den[grow] = o;
+}
+
+// The walk over every chunk (no finish pass).  Returns a cudaError_t.
+template <class Fmt, class Cells>
+int launch_walk(Args p, const Work& wk, cudaStream_t s) {
+  const int slabs = num_slabs<Fmt>(p.R);
+  const auto aligned = [](const float* q, int bytes) {
+    return q == nullptr || reinterpret_cast<uintptr_t>(q) % bytes == 0;
+  };
+  const dim3 block(kThreads);
+  if (p.f <= 32) {
+    p.vec_h = true;
+    walk_kernel<1, Fmt, Cells><<<dim3(wk.num_chunks * slabs), block, 0, s>>>(p, wk, slabs);
+  } else if (p.f <= 64) {
+    p.vec_h = p.f % 2 == 0 && aligned(p.h0, 8) && aligned(p.h1, 8);
+    walk_kernel<2, Fmt, Cells><<<dim3(wk.num_chunks * slabs), block, 0, s>>>(p, wk, slabs);
+  } else {
+    p.vec_h = p.f % 4 == 0 && aligned(p.h0, 16) && aligned(p.h1, 16);
+    walk_kernel<4, Fmt, Cells><<<dim3(wk.num_chunks * slabs, (p.f + 127) / 128), block, 0, s>>>(p, wk, slabs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk, then the finish pass over the runs of more than one chunk.
+// Returns a cudaError_t.
+template <class Fmt, class Cells>
+int launch(const Args& p, const int32_t* work, int num_chunks, int num_multi, int num_row_tiles, int device,
+           void* stream) {
+  if (num_row_tiles == 0 || p.n == 0) return 0;
+  // this library carries its own (static) CUDA runtime: select the caller's
+  // card in it before launching on the caller's stream
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Work wk(work, num_chunks, num_multi, num_row_tiles);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_walk<Fmt, Cells>(p, wk, s);
+  if (err != 0 || num_multi == 0) return err;
+  const int64_t elems = static_cast<int64_t>(p.R) * p.f + (Cells::kDen ? p.R : 0);
+  const dim3 grid(static_cast<unsigned>((elems + kFinishThreads - 1) / kFinishThreads), num_multi);
+  finish_kernel<Cells><<<grid, dim3(kFinishThreads), 0, s>>>(p, wk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cell_walk

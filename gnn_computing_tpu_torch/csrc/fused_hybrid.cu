@@ -14,8 +14,8 @@
 // A 1-bit plan is refused (the TPU probe cannot take one either).
 //
 // Design: one grid.  Blocks [0, runs * slabs) of each f-slice walk one
-// row-tile run's slab exactly as B1 does (tile_run.cuh: run_sum, shared
-// with csrc/bcsr_spmm.cu) and write their rows once, scale_dst applied;
+// row-tile run's slab with a dense tile product (tile_run.cuh: run_sum)
+// and write their rows once, scale_dst applied;
 // the remaining blocks of the first f-slice each take 8 tasks over every
 // feature (a warp a task, task_sums.cuh: task_row, shared with
 // csrc/task_sums.cu, 16-byte row reads as P1's), so the gather runs beside

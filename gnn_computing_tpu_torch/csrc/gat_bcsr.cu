@@ -6,9 +6,8 @@
 // see below, and 'default', the template flag kBf16Dot).  The A format is a template argument
 // (bit_tiles.cuh), as in B1: a scoring thread finds its row's bytes at
 // Fmt::row_offset and reads 8 cells' values (counts, or float values) with
-// tile_fmt::load8_tail, one load for all four formats.  A 64-row slab of a 1-bit
-// tile with R = 256 spans two bit planes, so the shift comes from each
-// thread's own row.
+// tile_fmt::load8_tail, one load for all four formats.  A 1-bit row's
+// shift (its bit plane) comes from its own row.
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination
@@ -40,13 +39,14 @@
 // bf16 MXU pass.  The staged score and the staged h are each rounded once
 // to bfloat16 (__float2bfloat16_rn, nearest even, as PyTorch's
 // .to(torch.bfloat16)) before the FFMAs, which sum their exact products in
-// float32; den adds the unrounded scores.  The rounding costs two
-// conversions a staged value and no extra bytes.
+// float32; den adds the unrounded scores.  The rounding costs a conversion
+// a weighed cell and one a gathered h value, and no extra bytes.
 //
-// Design: B2's tile walk (csrc/gat_walk.cuh, shared with the factored
-// modes' csrc/gat_bcsr_factored.cu), with MaxdotCells below as its cell
-// policy: a nonzero cell's weight is its score, formed from dm of its row
-// (in registers) and as of its column, one __expf a nonzero cell.
+// Design: B2's walk (csrc/gat_walk.cuh over the cell walk,
+// csrc/cell_walk.cuh, shared with the factored modes'
+// csrc/gat_bcsr_factored.cu and with B1), with MaxdotCells below as its
+// cell policy: a nonzero cell's weight is its score, formed once from dm of
+// its row (in registers) and as of its column, one __expf a nonzero cell.
 //
 // Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
 // cores): the function reads A (T*R*C bytes), h (n_src*f*4), dm and as
@@ -54,10 +54,11 @@
 // FLOPs for the nnz nonzero cells.  At the quick scale (4,024 tiles of
 // [512, 256], f = 128) that is about 0.18 ms, bytes-bound.  A 1-bit part
 // reads R/8*C A bytes a tile, a bfloat16 or float32 tile 2 or 4 bytes a
-// cell.
+// cell.  The walk reads the A stream once and gathers one h row slice
+// (f*4 bytes, from L2) per nonzero cell: 467 MB and 1.70 GB at that plan.
 //
-// What the design leaves on the table is the walk's (gat_walk.cuh); f > 64
-// recomputes the scores per f-slice.
+// What the design leaves on the table is the walk's (cell_walk.cuh); f >
+// 128 recomputes the scores per 128-wide f-slice.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,6 +72,7 @@ namespace {
 template <bool kBf16Dot>
 struct MaxdotCells {
   static constexpr int NB = 1;
+  static constexpr bool kDen = true;
   using Row = float2;
   static __device__ __forceinline__ Row row(const float* rows, int64_t i) {
     return reinterpret_cast<const float2*>(rows)[i];
@@ -86,27 +88,34 @@ struct MaxdotCells {
 };
 
 template <class Fmt>
-int launch_mode(const void* a, const void* tile_col, const void* run_start, const void* h, const void* dm,
-                const void* asrc, void* num, void* den, int num_row_tiles, int R, int C, int n, int n_src, int f,
-                float slope, int bf16_dot, int device, void* stream) {
-  return bf16_dot ? gat_walk::launch<Fmt, MaxdotCells<true>>(a, tile_col, run_start, h, nullptr, dm, asrc, num, den,
-                                                             num_row_tiles, R, C, n, n_src, f, slope, device, stream)
-                  : gat_walk::launch<Fmt, MaxdotCells<false>>(a, tile_col, run_start, h, nullptr, dm, asrc, num,
-                                                              den, num_row_tiles, R, C, n, n_src, f, slope, device,
-                                                              stream);
+int launch_mode(const void* a, const void* tile_col, const void* work, const void* h, const void* dm,
+                const void* asrc, void* num, void* den, void* scratch, int num_chunks, int num_multi,
+                int num_row_tiles, int R, int C, int n, int n_src, int f, float slope, int bf16_dot, int device,
+                void* stream) {
+  return bf16_dot
+             ? gat_walk::launch<Fmt, MaxdotCells<true>>(a, tile_col, work, h, nullptr, dm, asrc, num, den, scratch,
+                                                        num_chunks, num_multi, num_row_tiles, R, C, n, n_src, f,
+                                                        slope, device, stream)
+             : gat_walk::launch<Fmt, MaxdotCells<false>>(a, tile_col, work, h, nullptr, dm, asrc, num, den, scratch,
+                                                         num_chunks, num_multi, num_row_tiles, R, C, n, n_src, f,
+                                                         slope, device, stream);
 }
 
 }  // namespace
 
-// bf16_dot != 0: dot_mode 'default' (the staged score and h rounded to bf16)
-#define GAT_BCSR_ENTRY(tag, Fmt, check)                                                                    \
-  extern "C" int gat_bcsr_##tag##_f32(const void* a, const void* tile_col, const void* run_start,        \
-                                      const void* h, const void* dm, const void* asrc, void* num,        \
-                                      void* den, int num_row_tiles, int R, int C, int n, int n_src, int f, \
-                                      float slope, int bf16_dot, int device, void* stream) {             \
-    if (check) return static_cast<int>(cudaErrorInvalidValue);                                           \
-    return launch_mode<Fmt>(a, tile_col, run_start, h, dm, asrc, num, den, num_row_tiles, R, C, n, n_src, \
-                            f, slope, bf16_dot, device, stream);                                         \
+// bf16_dot != 0: dot_mode 'default' (the staged score and h rounded to
+// bf16); work: the plan's work list (ops/cell_walk.py), num_chunks /
+// num_multi its sizes; scratch: its chunk partials (null when no run has
+// two chunks)
+#define GAT_BCSR_ENTRY(tag, Fmt, check)                                                                       \
+  extern "C" int gat_bcsr_##tag##_f32(const void* a, const void* tile_col, const void* work, const void* h, \
+                                      const void* dm, const void* asrc, void* num, void* den, void* scratch, \
+                                      int num_chunks, int num_multi, int num_row_tiles, int R, int C, int n, \
+                                      int n_src, int f, float slope, int bf16_dot, int device,               \
+                                      void* stream) {                                                      \
+    if (check) return static_cast<int>(cudaErrorInvalidValue);                                              \
+    return launch_mode<Fmt>(a, tile_col, work, h, dm, asrc, num, den, scratch, num_chunks, num_multi,        \
+                            num_row_tiles, R, C, n, n_src, f, slope, bf16_dot, device, stream);             \
   }
 
 // 1-bit tiles need R % 8 == 0

@@ -28,19 +28,20 @@
 // the caller (ops/bcsr_gat.py: gat_bcsr_tiles); this kernel computes them
 // like any other (they may come out inf or NaN and are replaced).
 //
-// Design: B2's tile walk (csrc/gat_walk.cuh, shared with maxdot's
-// csrc/gat_bcsr.cu), with TwodotCells or MergedCells below as its cell
-// policy: rows[i] in registers, cols[j] read only for nonzero cells, two
-// branches (two staged weight and hv tiles, two products) for twodot, one
-// for merged.
+// Design: B2's walk (csrc/gat_walk.cuh over the cell walk,
+// csrc/cell_walk.cuh, shared with maxdot's csrc/gat_bcsr.cu and with B1),
+// with TwodotCells or MergedCells below as its cell policy: rows[i] in
+// registers, cols[j] read only for nonzero cells, each weighed once; two
+// branches (two weights and accumulators, two post-scales) for twodot, of
+// which a cell's weight is nonzero in one, so only that branch's hv row is
+// gathered; one branch for merged.
 //
 // Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
 // cores): A (T*R*C cells of 1, 2 or 4 bytes; R*C/8 a 1-bit tile), the hv
 // operands (one or two of n_src*f*4 bytes), rows and cols (16 bytes a node
 // each), num and den written (n*(f+1)*4); 2*nnz*(f+1) FLOPs, the same
-// function as B2's, so the same bound.  What it leaves on the table is
-// B2's: the FFMAs multiply mostly zero cells of ~1% full tiles, and twodot
-// doubles them (two products) to save the per-cell __expf.
+// function as B2's, so the same bound.  What it leaves on the table is the
+// walk's (cell_walk.cuh); twodot holds two accumulators a lane.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +57,7 @@ __device__ __forceinline__ float4 factors(const float* p, int64_t i) { return re
 // branch 0 holds the cells with z > 0 (a1), branch 1 the others (a2)
 struct TwodotCells {
   static constexpr int NB = 2;
+  static constexpr bool kDen = true;
   using Row = float4;
   static __device__ __forceinline__ Row row(const float* rows, int64_t i) { return factors(rows, i); }
   static __device__ __forceinline__ void weigh(const float* cols, float slope, const Row& rw, float v, int64_t src,
@@ -80,6 +82,7 @@ struct TwodotCells {
 
 struct MergedCells {
   static constexpr int NB = 1;
+  static constexpr bool kDen = true;
   using Row = float4;
   static __device__ __forceinline__ Row row(const float* rows, int64_t i) { return factors(rows, i); }
   static __device__ __forceinline__ void weigh(const float* cols, float slope, const Row& rw, float v, int64_t src,
@@ -94,27 +97,32 @@ struct MergedCells {
 };
 
 template <class Fmt>
-int launch_mode(const void* a, const void* tile_col, const void* run_start, const void* hv1, const void* hv2,
-                const void* rows, const void* cols, void* num, void* den, int num_row_tiles, int R, int C, int n,
-                int n_src, int f, int merged, int device, void* stream) {
-  return merged ? gat_walk::launch<Fmt, MergedCells>(a, tile_col, run_start, hv1, nullptr, rows, cols, num, den,
-                                                     num_row_tiles, R, C, n, n_src, f, 0.f, device, stream)
-                : gat_walk::launch<Fmt, TwodotCells>(a, tile_col, run_start, hv1, hv2, rows, cols, num, den,
-                                                     num_row_tiles, R, C, n, n_src, f, 0.f, device, stream);
+int launch_mode(const void* a, const void* tile_col, const void* work, const void* hv1, const void* hv2,
+                const void* rows, const void* cols, void* num, void* den, void* scratch, int num_chunks,
+                int num_multi, int num_row_tiles, int R, int C, int n, int n_src, int f, int merged, int device,
+                void* stream) {
+  return merged ? gat_walk::launch<Fmt, MergedCells>(a, tile_col, work, hv1, nullptr, rows, cols, num, den, scratch,
+                                                     num_chunks, num_multi, num_row_tiles, R, C, n, n_src, f, 0.f,
+                                                     device, stream)
+                : gat_walk::launch<Fmt, TwodotCells>(a, tile_col, work, hv1, hv2, rows, cols, num, den, scratch,
+                                                     num_chunks, num_multi, num_row_tiles, R, C, n, n_src, f, 0.f,
+                                                     device, stream);
 }
 
 }  // namespace
 
-// merged != 0: mode 'merged' (hv2 unused, may be null); else 'twodot'
-#define GAT_FACTORED_ENTRY(tag, Fmt, check)                                                                 \
-  extern "C" int gat_bcsr_factored_##tag##_f32(const void* a, const void* tile_col, const void* run_start, \
-                                               const void* hv1, const void* hv2, const void* rows,         \
-                                               const void* cols, void* num, void* den, int num_row_tiles,  \
-                                               int R, int C, int n, int n_src, int f, int merged,          \
-                                               int device, void* stream) {                                 \
-    if (check) return static_cast<int>(cudaErrorInvalidValue);                                             \
-    return launch_mode<Fmt>(a, tile_col, run_start, hv1, hv2, rows, cols, num, den, num_row_tiles, R, C, n, \
-                            n_src, f, merged, device, stream);                                             \
+// merged != 0: mode 'merged' (hv2 unused, may be null); else 'twodot';
+// work, num_chunks, num_multi and scratch as gat_bcsr.cu's
+#define GAT_FACTORED_ENTRY(tag, Fmt, check)                                                                   \
+  extern "C" int gat_bcsr_factored_##tag##_f32(const void* a, const void* tile_col, const void* work,        \
+                                               const void* hv1, const void* hv2, const void* rows,           \
+                                               const void* cols, void* num, void* den, void* scratch,        \
+                                               int num_chunks, int num_multi, int num_row_tiles, int R,      \
+                                               int C, int n, int n_src, int f, int merged, int device,       \
+                                               void* stream) {                                             \
+    if (check) return static_cast<int>(cudaErrorInvalidValue);                                              \
+    return launch_mode<Fmt>(a, tile_col, work, hv1, hv2, rows, cols, num, den, scratch, num_chunks,          \
+                            num_multi, num_row_tiles, R, C, n, n_src, f, merged, device, stream);           \
   }
 
 // 1-bit tiles need R % 8 == 0

@@ -1,8 +1,9 @@
 // Nonzero cells of one row of a tile, compacted by one warp.
 //
-// Shared by the GAT backward kernels (gat_bwd_dad.cu, gat_bwd_dh_das.cu),
-// which walk a row's tiles with one warp and do work only for the cells
-// whose value is nonzero (the tiles are ~99% zero).  Each pass scans kChunk
+// Shared by the GAT backward kernels (gat_bwd_dad.cu, gat_bwd_dh_das.cu)
+// and the cell walk of B1 and B2 (cell_walk.cuh), which walk a row's tiles
+// with one warp and do work only for the cells whose value is nonzero (the
+// tiles are ~99% zero).  Each pass scans kChunk
 // columns, 8 per lane, and writes the nonzero ones, in ascending column
 // order, to the warp's list.  The A format is a template argument
 // (bit_tiles.cuh), read 8 cells a lane by tile_fmt::load8_tail (8 count
@@ -32,37 +33,54 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Compacts the cells among 8 a lane that bit q of `mask` marks (the cells
+// base .. base + 7 of the lane, base = c0 + lane * 8; value(q) gives cell
+// base + q's value) and returns their number, the same in every lane.  Each
+// lane's place in the list is the number of marked cells of the lanes below
+// it, from four ballots over the bits of the lanes' counts (0..8);
+// emit(pos, column, value) writes one cell there, in ascending column
+// order.  The leading __syncwarp lets the warp finish reading the previous
+// list before it is overwritten.
+template <class Value, class Emit>
+__device__ __forceinline__ int compact_mask(unsigned mask, int base, int lane, Value value, Emit emit) {
+  const int nz = __popc(mask);
+  const unsigned below = (1u << lane) - 1u;
+  int pos = 0, total = 0;
+#pragma unroll
+  for (int bit = 0; bit < 4; ++bit) {
+    const unsigned b = __ballot_sync(kFull, (nz >> bit) & 1);
+    pos += __popc(b & below) << bit;
+    total += __popc(b) << bit;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if ((mask >> q) & 1u) emit(pos++, base + q, value(q));
+  __syncwarp();
+  return total;
+}
+
+// compact_mask over the nonzero ones among the lane's 8 cells v
+template <class Emit>
+__device__ __forceinline__ int compact_values(const float (&v)[8], int base, int lane, Emit emit) {
+  unsigned mask = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) mask |= (v[q] != 0.f ? 1u : 0u) << q;
+  return compact_mask(mask, base, lane, [&](int q) { return v[q]; }, emit);
+}
+
 // Compacts the nonzero cells among columns [c0, c0 + kChunk) of the tile
 // row whose bytes start at row_a (shift: the row's bit plane, from
-// Fmt::row_offset) and returns their number, the same in every lane.  Each
-// lane reads its 8 cells' values with tile_fmt::load8_tail (vec: C % 8 ==
-// 0, so they are one aligned load), and the warp's scan of the lanes'
-// nonzero counts gives each lane its place in the list; emit(pos, column,
-// value) writes one cell there.  The leading __syncwarp lets the warp
-// finish reading the previous list before it is overwritten.
+// Fmt::row_offset) with compact_values.  Each lane reads its 8 cells'
+// values with tile_fmt::load8_tail (vec: C % 8 == 0, so they are one
+// aligned load).
 template <class Fmt, class Emit>
 __device__ __forceinline__ int compact_cells(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
                                              bool vec, int lane, Emit emit) {
   const int base = c0 + lane * 8;
   float v[8];
   tile_fmt::load8_tail<Fmt>(row_a, base, C, vec, shift, v);
-  int nz = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) nz += v[q] != 0.f;
-  int incl = nz;  // inclusive scan of the lanes' counts
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int x = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += x;
-  }
-  const int total = __shfl_sync(kFull, incl, 31);
-  int pos = incl - nz;
-  __syncwarp();
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    if (v[q] != 0.f) emit(pos++, base + q, v[q]);
-  __syncwarp();
-  return total;
+  return compact_values(v, base, lane, emit);
 }
 
 // The count formats: each entry of list is (column << 8) | count.

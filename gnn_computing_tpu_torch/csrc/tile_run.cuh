@@ -1,6 +1,5 @@
-// One row-tile run's tile product, B1's per-run device code
-// (csrc/bcsr_spmm.cu), shared by B1 and the fused residual probe
-// (csrc/fused_hybrid.cu) so both walk a run the same way.
+// One row-tile run's dense tile product: the tile walk of the fused
+// residual probe (csrc/fused_hybrid.cu).
 //
 // run_sum<BF, Fmt>: a block of kThreads threads owns a slab of kBR rows
 // (r0..) of one run and BF feature columns (f0..); it walks the run's tiles

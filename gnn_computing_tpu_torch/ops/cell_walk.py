@@ -1,0 +1,191 @@
+"""The work list of the cell walk (``csrc/cell_walk.cuh``), B1's and B2's.
+
+The walk touches only a tile row's nonzero cells, and its unit of work is a
+chunk: a run of tiles (the tiles of one destination row-tile) cut into
+consecutive tile ranges bounded in nonzero cells, so that a hub run, which
+can hold a large share of all cells, is spread over many blocks.
+
+The cut, with H = bound // 2: a tile starts a new chunk where it starts its
+run, where the run's cells before it enter another window of H cells, where
+it holds more than H cells or where the tile before it did.  So a chunk is
+either one tile (possibly over the bound) or tiles whose cells sum to at
+most 2H - 1 < bound; every tile lies in exactly one chunk, in order, inside
+one run; an empty run gets one chunk of no tiles, which writes zeros.  It
+is built on the plan's device from ``run_start`` and the tiles' nonzero
+counts with a few tensor passes, once per plan: ``walk_for`` caches it
+under the plan's tile tensor (``TilePlan.to``, ``astype``, ``pad_runs``,
+``transpose`` and ``split_bit_tiles`` all make a new one), checked against
+the ``run_start`` tensor and both tensors' version counters, so a list can
+not outlive the tiles it was cut from.
+
+The chunks of a run of more than one chunk write their partial sums to a
+scratch slot each (the kernel wrapper allocates ``num_slots`` slots of
+``slot_floats`` floats), and the walk's finish pass adds them in chunk
+order.  ``chunked_sums`` is the plain emulation of that order (per-tile
+partial, chunk partials in tile order, run sums in chunk order), for the
+tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+# the least chunk bound in nonzero cells (on the H100 at the quick scale,
+# 2^15 and 2^17 were slower), and the number of chunks a plan's bound aims
+# at beyond it: a plan of more than 2^28 cells takes a larger bound, so its
+# scratch stays a few thousand slots
+MIN_BOUND = 1 << 16
+TARGET_CHUNKS = 4096
+# tiles whose nonzero cells are counted at once (a bool [chunk, R, C] mask)
+_NNZ_CHUNK = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class CellWalk:
+    """One plan's work list.
+
+    work:   int32 [3K + 1 + nrt + 1 + M] on the plan's device, the kernel's
+            array chunk_run[K] | chunk_tile[K + 1] | chunk_slot[K] |
+            run_chunk[nrt + 1] | multi_run[M] (csrc/cell_walk.cuh: Work).
+    """
+
+    work: torch.Tensor
+    num_chunks: int
+    num_multi: int
+    num_slots: int
+    num_row_tiles: int
+    bound: int
+    max_chunk_cells: int
+    total_cells: int
+
+    def parts(self) -> Dict[str, np.ndarray]:
+        """The work list's arrays, on the host."""
+        k, m, nrt = self.num_chunks, self.num_multi, self.num_row_tiles
+        w = self.work.cpu().numpy()
+        ends = np.cumsum([k, k + 1, k, nrt + 1, m])
+        names = ("chunk_run", "chunk_tile", "chunk_slot", "run_chunk", "multi_run")
+        return {name: w[e - n : e] for name, n, e in zip(names, (k, k + 1, k, nrt + 1, m), ends)}
+
+    def scratch_bytes(self, tile_rows: int, f: int, nb: int = 1, den: bool = False) -> int:
+        return 4 * self.num_slots * slot_floats(tile_rows, f, nb, den)
+
+
+def slot_floats(tile_rows: int, f: int, nb: int = 1, den: bool = False) -> int:
+    """Floats of one scratch slot: num [nb, R, f], then den [nb, R], rounded
+    up to 4 (csrc/cell_walk.cuh: slot_floats)."""
+    x = nb * tile_rows * (f + int(den))
+    return -(-x // 4) * 4
+
+
+def tile_nnz(tp) -> torch.Tensor:
+    """int64 [T] nonzero cells of each tile (a 1-bit tile's set bits), on
+    the plan's device, counted in chunks of tiles."""
+    a = tp.a
+    out = torch.empty(tp.num_tiles, dtype=torch.int64, device=a.device)
+    for s in range(0, tp.num_tiles, _NNZ_CHUNK):
+        c = a[s : s + _NNZ_CHUNK]
+        if tp.bits:
+            out[s : s + _NNZ_CHUNK] = sum(((c >> b) & 1).sum(dim=(1, 2), dtype=torch.int64) for b in range(8))
+        else:
+            out[s : s + _NNZ_CHUNK] = (c != 0).sum(dim=(1, 2), dtype=torch.int64)
+    return out
+
+
+def build_walk(tp, bound: Optional[int] = None) -> CellWalk:
+    """The work list of a plan whose tensors lie on one device (module doc);
+    ``bound`` defaults to MIN_BOUND, or more for a plan of more than
+    MIN_BOUND * TARGET_CHUNKS nonzero cells."""
+    dev = tp.a.device
+    nrt, t = tp.num_row_tiles, tp.num_tiles
+    nnz = tile_nnz(tp)
+    total = int(nnz.sum()) if t else 0
+    if bound is None:
+        bound = max(MIN_BOUND, -(-total // TARGET_CHUNKS))
+    bound = max(2, bound + bound % 2)
+    half = bound // 2
+    rs = tp.run_start.to(device=dev, dtype=torch.int64)
+    prefix = torch.zeros(t + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(nnz, 0, out=prefix[1:])
+    tiles = torch.arange(t, dtype=torch.int64, device=dev)
+    run_of = torch.searchsorted(rs[1:], tiles, right=True)
+    first = rs[run_of]
+    win = (prefix[:-1] - prefix[first]) // half
+    big = nnz > half
+    new = tiles == first
+    new[1:] |= (win[1:] != win[:-1]) | big[1:] | big[:-1]
+    starts = tiles[new]
+    empty = torch.nonzero(rs[1:] == rs[:-1]).flatten()
+    chunk_run = torch.cat([run_of[starts], empty])
+    chunk_tile = torch.cat([starts, rs[empty]])
+    order = torch.argsort(chunk_run * (t + 1) + chunk_tile)
+    chunk_run, chunk_tile = chunk_run[order], chunk_tile[order]
+    k = chunk_run.numel()
+    chunk_tile = torch.cat([chunk_tile, torch.full((1,), t, dtype=torch.int64, device=dev)])
+    cells = prefix[chunk_tile[1:]] - prefix[chunk_tile[:-1]]
+    per_run = torch.bincount(chunk_run, minlength=nrt)
+    run_chunk = torch.zeros(nrt + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(per_run, 0, out=run_chunk[1:])
+    multi = per_run > 1
+    slots_of_run = torch.where(multi, per_run, 0)
+    slot_base = torch.cumsum(slots_of_run, 0) - slots_of_run
+    rank = torch.arange(k, dtype=torch.int64, device=dev) - run_chunk[chunk_run]
+    chunk_slot = torch.where(multi[chunk_run], slot_base[chunk_run] + rank, -1)
+    multi_run = torch.nonzero(multi).flatten()
+    work = torch.cat([chunk_run, chunk_tile, chunk_slot, run_chunk, multi_run]).to(torch.int32)
+    return CellWalk(
+        work=work.contiguous(),
+        num_chunks=k,
+        num_multi=multi_run.numel(),
+        num_slots=int(slots_of_run.sum()),
+        num_row_tiles=nrt,
+        bound=bound,
+        max_chunk_cells=int(cells.max()) if k else 0,
+        total_cells=total,
+    )
+
+
+# id(plan's tile tensor) -> (weakref to it, weakref to its run_start, the
+# key below, the list)
+_cache: Dict[int, Tuple[weakref.ref, weakref.ref, tuple, CellWalk]] = {}
+
+
+def _key(tp) -> tuple:
+    return (tp.a._version, tp.run_start._version, tp.num_tiles, tp.num_nodes, tp.tile_rows, tp.tile_cols,
+            MIN_BOUND, TARGET_CHUNKS)
+
+
+def walk_for(tp) -> CellWalk:
+    """The plan's work list, built at first use and cached under its tile
+    tensor (module doc)."""
+    a, rs = tp.a, tp.run_start
+    ent = _cache.get(id(a))
+    if ent is not None and ent[0]() is a and ent[1]() is rs and ent[2] == _key(tp):
+        return ent[3]
+    walk = build_walk(tp)
+    ident = id(a)
+    _cache[ident] = (weakref.ref(a, lambda _, i=ident: _cache.pop(i, None)), weakref.ref(rs), _key(tp), walk)
+    return walk
+
+
+def chunked_sums(walk: CellWalk, tile_parts: torch.Tensor) -> torch.Tensor:
+    """Plain emulation of the walk's summation order over per-tile partials
+    ``tile_parts`` [T, R, X] (each tile's finished partial): each chunk's
+    partials added in tile order, then a run's chunk sums in chunk order
+    (a run of one chunk is its chunk's sum).  Returns [nrt, R, X]."""
+    p = walk.parts()
+    nrt = walk.num_row_tiles
+    out = tile_parts.new_zeros((nrt,) + tuple(tile_parts.shape[1:]))
+    for r in range(nrt):
+        run_sum = None
+        for k in range(p["run_chunk"][r], p["run_chunk"][r + 1]):
+            acc = tile_parts.new_zeros(tile_parts.shape[1:])
+            for t in range(p["chunk_tile"][k], p["chunk_tile"][k + 1]):
+                acc = acc + tile_parts[t]
+            run_sum = acc if run_sum is None else run_sum + acc
+        out[r] = run_sum
+    return out

@@ -4,7 +4,11 @@ The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:bcsr_spmm_pallas``
 for int8 count tiles, 1-bit tiles, float32 and bfloat16 tiles (one template
 on the A format) and a float32 operand, with or without its ``w_epilogue``
 (``bcsr_spmm_nn_cuda``: the aggregate and its product with W from one
-launch).  ops.cuda_build compiles it at first use and binds it with ctypes.
+launch).  It walks the plan's nonzero cells in chunks of the plan's work
+list (ops.cell_walk, built at the plan's first launch and cached); a run of
+more than one chunk sums its chunks' partials through a scratch buffer
+allocated here.  ops.cuda_build compiles it at first use and binds it with
+ctypes.
 
 ``launches`` counts kernel launches; ``bits_launches``, ``float_launches``
 (float32 or bfloat16 tiles) and ``epilogue_launches`` (the w_epilogue
@@ -19,13 +23,14 @@ import ctypes
 
 import torch
 
+from gnn_computing_tpu_torch.ops import cell_walk
 from gnn_computing_tpu_torch.ops.cuda_build import TAGS, check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "bcsr_spmm"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    **{f"bcsr_spmm_{tag}_f32": [_P] * 5 + [_I] * 7 + [_P] for tag in TAGS},
-    **{f"bcsr_spmm_nn_{tag}_f32": [_P] * 8 + [_I] * 8 + [_P] for tag in TAGS},
+    **{f"bcsr_spmm_{tag}_f32": [_P] * 6 + [_I] * 9 + [_P] for tag in TAGS},
+    **{f"bcsr_spmm_nn_{tag}_f32": [_P] * 9 + [_I] * 10 + [_P] for tag in TAGS},
 }
 # the epilogue variant's block holds all f columns of its rows
 MAX_EPILOGUE_F = 128
@@ -47,6 +52,20 @@ def _check_h(tp, h: torch.Tensor, name: str):
     return dev, h.shape[1], check_plan(tp, dev)
 
 
+def walk_args(tp, f: int, dev, nb: int = 1, den: bool = False) -> tuple:
+    """(scratch, work, scratch pointer, num_chunks, num_multi) of a cell-walk
+    launch over ``tp`` at width f: the plan's cached work list
+    (ops.cell_walk.walk_for) and a scratch buffer for its multi-chunk runs
+    (None when there is none), which the caller holds over the launch."""
+    walk = cell_walk.walk_for(tp)
+    scratch = None
+    if walk.num_slots:
+        scratch = torch.empty(walk.num_slots * cell_walk.slot_floats(tp.tile_rows, f, nb, den),
+                              dtype=torch.float32, device=dev)
+    return (scratch, walk.work.data_ptr(), None if scratch is None else scratch.data_ptr(), walk.num_chunks,
+            walk.num_multi)
+
+
 def _count(tag: str, epilogue: bool):
     global launches, bits_launches, float_launches, epilogue_launches
     launches += 1
@@ -63,10 +82,10 @@ def bcsr_spmm_cuda(tp, h: torch.Tensor) -> torch.Tensor:
     out = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    scratch, work, scr, num_chunks, num_multi = walk_args(tp, f, dev)
     err = getattr(load(NAME, SIGNATURES), f"bcsr_spmm_{tag}_f32")(
-        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
-        h.data_ptr(), out.data_ptr(), tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f,
-        *stream_args(dev),
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), work, h.data_ptr(), out.data_ptr(), scr, num_chunks, num_multi,
+        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"bcsr_spmm kernel launch failed: cudaError {err}")
@@ -100,10 +119,12 @@ def bcsr_spmm_nn_cuda(tp, h: torch.Tensor, w: torch.Tensor):
         return agg, trans
     if f == 0:
         return agg, trans.zero_()
+    scratch, work, scr, num_chunks, num_multi = walk_args(tp, f, dev)
     err = getattr(load(NAME, SIGNATURES), f"bcsr_spmm_nn_{tag}_f32")(
-        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(), h.data_ptr(), w.data_ptr(),
-        None if scale_dst is None else scale_dst.data_ptr(), agg.data_ptr(), trans.data_ptr(),
-        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, f_out, *stream_args(dev),
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), work, h.data_ptr(), w.data_ptr(),
+        None if scale_dst is None else scale_dst.data_ptr(), agg.data_ptr(), trans.data_ptr(), scr, num_chunks,
+        num_multi, tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, f_out,
+        *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"bcsr_spmm_nn kernel launch failed: cudaError {err}")

@@ -7,8 +7,9 @@ template on the A format each): ``gat_bcsr_cuda`` its mode 'maxdot', which
 scores each nonzero cell from (ad, M) per destination and as per source
 (dot_mode 'exact' / 'split2', or 'default' with ``bf16_dot``), and
 ``gat_bcsr_factored_cuda`` its modes 'twodot' and 'merged' from per-node
-factors (ops.bcsr_gat.factored_terms).  ops.cuda_build compiles each at
-first use and binds it with ctypes.
+factors (ops.bcsr_gat.factored_terms).  Both walk the plan's nonzero cells
+in chunks of its work list (ops.cell_walk), as B1 does.  ops.cuda_build
+compiles each at first use and binds it with ctypes.
 
 ``launches`` counts the maxdot kernel's launches; ``bits_launches`` (1-bit
 tiles), ``float_launches`` (float32 or bfloat16 tiles) and
@@ -24,15 +25,16 @@ import ctypes
 
 import torch
 
+from gnn_computing_tpu_torch.ops.cuda_bcsr import walk_args
 from gnn_computing_tpu_torch.ops.cuda_build import TAGS, check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "gat_bcsr"
 FACTORED_NAME = "gat_bcsr_factored"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    f"gat_bcsr_{tag}_f32": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P] for tag in TAGS
+    f"gat_bcsr_{tag}_f32": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P] for tag in TAGS
 }
-FACTORED_SIGNATURES = {f"gat_bcsr_factored_{tag}_f32": [_P] * 9 + [_I] * 8 + [_P] for tag in TAGS}
+FACTORED_SIGNATURES = {f"gat_bcsr_factored_{tag}_f32": [_P] * 10 + [_I] * 10 + [_P] for tag in TAGS}
 
 launches = 0
 bits_launches = 0
@@ -65,11 +67,11 @@ def gat_bcsr_cuda(tp, h: torch.Tensor, dm: torch.Tensor, asrc: torch.Tensor, rel
     den = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return num, den
+    scratch, work, scr, num_chunks, num_multi = walk_args(tp, f, dev, nb=1, den=True)
     err = getattr(load(NAME, SIGNATURES), f"gat_bcsr_{fmt}_f32")(
-        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
-        h.data_ptr(), dm.data_ptr(), asrc.data_ptr(), num.data_ptr(), den.data_ptr(),
-        tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, float(relu_slope),
-        int(bf16_dot), *stream_args(dev),
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), work, h.data_ptr(), dm.data_ptr(), asrc.data_ptr(),
+        num.data_ptr(), den.data_ptr(), scr, num_chunks, num_multi, tp.num_row_tiles, tp.tile_rows, tp.tile_cols,
+        tp.num_nodes, tp.n_src, f, float(relu_slope), int(bf16_dot), *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"gat_bcsr kernel launch failed: cudaError {err}")
@@ -111,9 +113,10 @@ def gat_bcsr_factored_cuda(tp, mode: str, hv, rows: torch.Tensor, cols: torch.Te
     if tp.num_nodes == 0:
         return num, den
     merged = mode == "merged"
+    scratch, work, scr, num_chunks, num_multi = walk_args(tp, f, dev, nb=len(hv), den=True)
     err = getattr(load(FACTORED_NAME, FACTORED_SIGNATURES), f"gat_bcsr_factored_{fmt}_f32")(
-        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(), hv[0].data_ptr(),
-        None if merged else hv[1].data_ptr(), rows.data_ptr(), cols.data_ptr(), num.data_ptr(), den.data_ptr(),
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), work, hv[0].data_ptr(), None if merged else hv[1].data_ptr(),
+        rows.data_ptr(), cols.data_ptr(), num.data_ptr(), den.data_ptr(), scr, num_chunks, num_multi,
         tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, int(merged), *stream_args(dev),
     )
     if err != 0:

@@ -12,7 +12,10 @@ plans (B1), transposed plans (B1, B4), every feature-width branch, f up to
 whose unstabilized GAT score or SDDMM dot overflows to inf (B2, B3, B4, B6),
 signed float cell values (every nonzero cell scored, C6; B6 keeps the cells
 > 0); the training Functions' gradients on the card against the same
-Functions on the CPU, over int8, bit-tile and float-tile aggregators; and
+Functions on the CPU, over int8, bit-tile and float-tile aggregators;
+B1 and B2 over the cell walk's hard plans (one run holding every tile with
+an all-ones tile row, C = 128, 1-bit R = 200, single-tile and empty runs,
+chunk edges inside runs), every call twice and bitwise equal; and
 wrappers that raise, rather than fall back, on a malformed plan.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -1072,3 +1075,110 @@ def test_residual_wrappers_refuse(cuda_dev):
     with pytest.raises(ValueError):
         cuda_gat.gat_bcsr_factored_cuda(tp.to(cuda_dev), "twodot", (h,), torch.zeros(g.num_nodes, 4, device=cuda_dev),
                                         torch.zeros(g.n_src, 4, device=cuda_dev))
+
+
+# ------------------------------------------------------------ the cell walk
+def _walk_host_plan(kind: str, fmt: str):
+    """Host plans that stress B1's and B2's work list: 'skewed', one run
+    holding every tile with one all-ones tile row; 'tail128', [256, 128]
+    tiles (a row pass of 256 columns over 128); 'r200', [200, 64] tiles
+    (the 1-bit part at R = 200); 'single_empty', a run of one tile and an
+    empty run beside longer runs.  fmt: int8 counts ('i8'), their 1-bit
+    part ('b1'), or the counts as float32 / bfloat16 tiles."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    tr, tc = {"tail128": (256, 128), "r200": (200, 64)}.get(kind, (64, 64))
+    tp = densify(g, dtype=np.int8, tile_rows=tr, tile_cols=tc, threshold=3)[0]
+    if fmt == "b1":
+        tp = split_bit_tiles(tp)[0]
+    elif fmt != "i8":
+        tp = tp.astype({"f32": np.float32, "bf16": "bfloat16"}[fmt])
+    a = np.array(tp.a)
+    if kind == "skewed":
+        a[0, 0, :] = 1  # the all-ones row: row 0 (bit plane 0 of byte row 0 in a 1-bit tile)
+        return dataclasses.replace(tp, a=a, tile_row=np.zeros(tp.num_tiles, np.int32),
+                                   run_start=np.array([0] + [tp.num_tiles] * tp.num_row_tiles, np.int32))
+    if kind == "single_empty":
+        rows = np.asarray(tp.tile_row)
+        starts = np.asarray(tp.run_start)
+        keep = (rows != 1) & ((rows != 2) | (np.arange(tp.num_tiles) == starts[2]))
+        new_rows = rows[keep]
+        return dataclasses.replace(
+            tp, a=a[keep], tile_row=new_rows, tile_col=np.asarray(tp.tile_col)[keep],
+            run_start=np.searchsorted(new_rows, np.arange(tp.num_row_tiles + 1)).astype(np.int32),
+            num_tiles=int(keep.sum()),
+        )
+    return tp
+
+
+@pytest.fixture(params=["chunked", "default"])
+def walk_bound(request, monkeypatch):
+    """'chunked': a chunk bound of 300 cells, so chunk edges fall inside the
+    small plans' runs; 'default': the plan's own bound."""
+    if request.param == "chunked":
+        from gnn_computing_tpu_torch.ops import cell_walk
+
+        monkeypatch.setattr(cell_walk, "MIN_BOUND", 300)
+    return request.param
+
+
+def _twice(fn):
+    """fn() twice: the two results bitwise equal (no atomics in the walk)."""
+    first, second = fn(), fn()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    return first if len(first) > 1 else first[0]
+
+
+@pytest.mark.parametrize("fmt", ["i8", "b1", "f32", "bf16"])
+@pytest.mark.parametrize("kind", ["skewed", "tail128", "r200", "single_empty"])
+def test_cell_walk_kernels_match_plain(cuda_dev, walk_bound, kind, fmt):
+    """B1 (and its w_epilogue) and B2 in every mode over the walk's hard
+    plans, against their plain versions (1e-5 * max|plain|; 'default'
+    plus one bfloat16 ulp of each rounded score times |h|); each call
+    twice, bitwise equal."""
+    from gnn_computing_tpu_torch.ops import cell_walk
+    from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn, bcsr_spmm_nn_plain
+
+    tp = _walk_host_plan(kind, fmt).to(cuda_dev)
+    walk = cell_walk.walk_for(tp)
+    if kind in ("skewed", "single_empty"):
+        starts = tp.run_start.cpu().numpy()
+        sizes = np.diff(starts)
+        assert (sizes == 0).any() and ((sizes == 1).any() or kind == "skewed")
+    if walk_bound == "chunked":
+        assert walk.num_multi > 0  # chunk edges inside runs
+    gen = torch.Generator(device=cuda_dev).manual_seed(11)
+    n = tp.num_nodes
+    for f in (1, 32, 64, 100, 128, 160):
+        what = f"{kind} {fmt} f{f} {walk_bound}"
+        h = torch.randn((tp.n_src, f), generator=gen, device=cuda_dev)
+        got = _twice(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, h))
+        _close(got, bcsr_spmm_plain(tp, h), f"B1 {what}")
+        if f <= 128:
+            w = torch.randn((f, 24), generator=gen, device=cuda_dev) * 0.1
+            agg, trans = _twice(lambda: bcsr_spmm_nn(tp, h, w))
+            want_agg, want_trans = bcsr_spmm_nn_plain(tp, h, w)
+            _close(agg, want_agg, f"B1 epilogue agg {what}")
+            _close(trans, want_trans, f"B1 epilogue trans {what}")
+        att = _att(n, 0.5, gen, cuda_dev)
+        row_shift = _hybrid_row_shift(tp, None, att, 0.2)
+        for shift in (None, row_shift):
+            num, den = _twice(lambda: gat_bcsr(tp, h, att, row_shift=shift))
+            ref_num, ref_den = gat_bcsr_plain(tp, h, att, row_shift=shift)
+            _close(num, ref_num, f"B2 maxdot num {what}")
+            _close(den, ref_den, f"B2 maxdot den {what}")
+            num, den = _twice(lambda: gat_bcsr(tp, h, att, row_shift=shift, dot_mode="default"))
+            ref_num, ref_den = gat_bcsr_plain(tp, h, att, row_shift=shift, dot_mode="default")
+            ulp = 2.0**-7 * gat_bcsr_plain(tp, h.abs(), att, row_shift=shift)[0] * (1 + 2.0**-7)
+            assert bool(((num - ref_num).abs() <= 1e-5 * ref_num.abs().max() + ulp).all()), f"default {what}"
+            _close(den, ref_den, f"B2 default den {what}")
+            for mode in ("twodot", "merged"):
+                num, den, need = _twice(lambda: gat_bcsr_factored(tp, h, att, 0.2, mode, 2, shift))
+                assert not bool(need.any())
+                ref_num, ref_den = _factored_sums(tp, factored_terms(h, att, 0.2, mode, 2, shift), mode)
+                _close(num, ref_num, f"B2 {mode} num {what}")
+                _close(den, ref_den, f"B2 {mode} den {what}")
+    torch.cuda.synchronize()
