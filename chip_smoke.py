@@ -251,14 +251,25 @@ Phases (any failure exits non-zero; nothing is caught):
      skewed: every tile in one run, one all-ones tile row; and B1's time
      over the GCN plan at f = 128 with the chunk bound at 2^14 cells, the
      default and 2^20 (no run cut).
+ 38. B3 and B5 on the cell walk (quick scale): the work list of every plan
+     B5 runs on (the GAT plan and its 1-bit and int8 parts, G1, G2 over
+     bfloat16) and of every plan B3 runs on (the training plan and its
+     parts, T over float32 and bfloat16), printed; each kernel called twice
+     (bitwise equal) and held to its plain version (B5 equal, B3 within
+     KERNEL_TOL * max|plain| at f = 128, 64, 32, att at scale 0.1 and at
+     15 with the 'bound' shift); the same on phase 37's skewed plans (B3
+     also at f = 160, the walk's f-slices); then B5 timed on each of its
+     plans and B3 on each of its at f = 128, by CUDA events and as device
+     time alone (torch.profiler's kernel time, per kernel and summed).
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the total
-     seconds, one "kernels" JSON line (B1's and B2's entries with "walk":
-     "cell" and their plans' work lists), the card line, then
+     seconds, one "kernels" JSON line (B1's, B2's, B3's and B5's entries
+     with "walk": "cell", their plans' work lists and B3's and B5's
+     phase 38 times), the card line, then
      {"ok": true, ...}.
 
-With --scale reddit, phases 8-11, 16-20 and 22-37 are replaced by one GCN
+With --scale reddit, phases 8-11, 16-20 and 22-38 are replaced by one GCN
 bit-tile training phase at reddit scale (bench.py --train's headline
 configuration): the [256, 256] t24 bit-tile plan with its transposes and
 its build time, the first step's weight gradients within BITS_REL_L2 of
@@ -838,7 +849,8 @@ def gat_phases(args, g, h0, gen, forwards, libs) -> tuple:
               walk_plan=walk_plan),
         entry("rowmax_bcsr", "gnn_computing_tpu/ops/pallas_bcsr.py:1251", rows5, rowmax_launches, 0.0,
               path="GAT forward (fast, split2, stabilize=True)", forward_ms=stab_ms,
-              bound_forward_ms=bound_fwd_ms, build_s=libs["rowmax_bcsr"][1]),
+              bound_forward_ms=bound_fwd_ms, build_s=libs["rowmax_bcsr"][1], walk="cell",
+              walk_plan=walk_line(tp, f"GAT plan ({args.scale})")),
     ], dict(out=out, out_exact=out_exact)
 
 
@@ -3166,7 +3178,7 @@ def walk_line(tp, label: str) -> dict:
     """Logs and returns the plan's cell-walk work list (ops/cell_walk.py):
     its chunks, the runs cut into several, the largest chunk in nonzero
     cells and the scratch bytes of its multi-chunk runs at f = 128 (B1 and
-    B2 maxdot one branch, twodot two)."""
+    B2 maxdot one branch, B3 as B2, twodot two)."""
     w = cell_walk.walk_for(tp)
     d = dict(plan=label, format=tp.format, tiles=tp.num_tiles, runs=tp.num_row_tiles, chunks=w.num_chunks,
              multi_runs=w.num_multi, slots=w.num_slots, bound=w.bound, cells=w.total_cells,
@@ -3174,10 +3186,10 @@ def walk_line(tp, label: str) -> dict:
              scratch_bytes=dict(B1=w.scratch_bytes(tp.tile_rows, 128),
                                 B2=w.scratch_bytes(tp.tile_rows, 128, den=True),
                                 twodot=w.scratch_bytes(tp.tile_rows, 128, nb=2, den=True)))
-    log(f"  cell walk, {label}: {w.num_chunks} chunks over {tp.num_row_tiles} runs ({w.num_multi} runs cut, "
-        f"{w.num_slots} scratch slots), bound {w.bound} cells, largest chunk {w.max_chunk_cells} of "
-        f"{w.total_cells} cells; scratch at f=128: B1 {d['scratch_bytes']['B1']} B, B2 {d['scratch_bytes']['B2']} B, "
-        f"twodot {d['scratch_bytes']['twodot']} B")
+    log(f"  cell walk, {label}: {w.num_chunks} chunks "
+        f"over {tp.num_row_tiles} runs ({w.num_multi} runs cut, {w.num_slots} scratch slots), bound {w.bound} cells, "
+        f"largest chunk {w.max_chunk_cells} of {w.total_cells} cells; scratch at f=128: "
+        f"B1 {d['scratch_bytes']['B1']} B, B2 {d['scratch_bytes']['B2']} B, twodot {d['scratch_bytes']['twodot']} B")
     return d
 
 
@@ -3288,6 +3300,120 @@ def walk_phase(g, gen) -> dict:
     log(f"  phase 37: every call twice bitwise equal; max|d|/max|plain| {max_err:.3e}")
     return dict(plans=stats, max_err=max_err, bound_sweep=sweep)
 
+
+
+# ------------------------------------------------ phase 38 (B3 and B5 on the cell walk)
+def device_ms(fn, iters: int = 10):
+    """{kernel: mean device ms a call} of the CUDA kernels ``fn`` launches,
+    from torch.profiler over ``iters`` calls after one warm-up, with their
+    sum under "all"; None where the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0) if e.device_type == torch.autograd.DeviceType.CUDA else 0.0
+        if t > 0:
+            # "void (anonymous namespace)::rowmax_walk_kernel<BitTiles>(...)" -> rowmax_walk_kernel
+            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("<")[0].split("(")[0].split("::")[-1] or e.key[:40]
+            per[name] = per.get(name, 0.0) + t / iters / 1e3
+    if not per:
+        return None
+    per["all"] = sum(per.values())
+    return per
+
+
+def rowmax_vs_plain(tp, gen, what: str):
+    """B5 over ``tp`` twice (bitwise equal), equal to its plain version, at
+    att scales 1 and 15."""
+    for scale in (1.0, 15.0):
+        vals = torch.randn(tp.n_src, generator=gen, device="cuda") * scale
+        got = twice_equal(lambda: cuda_rowmax.rowmax_bcsr_cuda(tp, vals), f"{what} B5")
+        check(torch.equal(got, bcsr_rowmax_plain(tp, vals)), f"{what} B5 differs from bcsr_rowmax_plain")
+
+
+def dad_vs_plain(tp, gen, what: str, fs=BENCH_DIMS[1:]) -> float:
+    """B3 over ``tp`` twice (bitwise equal) and within KERNEL_TOL *
+    max|plain| of its plain version at each f, att at scale 0.1 unshifted
+    and at scale 15 with the 'bound' shift.  Returns the largest max|d| /
+    max|plain|."""
+    err = 0.0
+    for f in fs:
+        for scale, shift in ((0.1, False), (15.0, True)):
+            args = bwd_inputs(tp.num_nodes, f, scale, shift, gen, tp.a.device) + (DEFAULT_SLOPE,)
+            got = twice_equal(lambda: cuda_gat_bwd.gat_bwd_dad_cuda(tp, *args), f"{what} B3 f={f}")
+            want = gat_bwd_dad_plain(tp, *args)
+            label = f"{what} B3 f={f} scale {scale}{' bound-shifted' if shift else ''}"
+            err = max(err, compare(got, want, label, gate=False) / want.abs().max().item())
+    return err
+
+
+def rowmax_dad_phase(g, gen) -> dict:
+    """Phase 38: B3 and B5 on the cell walk.  Each plan B5 runs on (the GAT
+    plan and its 1-bit and int8 parts, G1, G2) and B3 runs on (the training
+    plan and its parts, T over float32 and bfloat16): its work list, each
+    kernel twice (bitwise equal) and against its plain version (B5 equal,
+    B3 within KERNEL_TOL * max|plain|); the same on phase 37's skewed
+    plans.  Then B5's time on each of its plans and B3's on each of its at
+    f = 128, by CUDA events and as device time alone."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    gat_host = densify(g, dtype=np.int8, **GAT_SCHEDULE)[0]
+    train_host = densify(g, dtype=np.int8, **TRAIN_SCHEDULE)[0]
+    t_f32 = densify(g, dtype=np.float32, **TRAIN_SCHEDULE)[0].to(dev)
+    b5_plans = {"GAT int8 [512, 256] t32": gat_host.to(dev)}
+    b5_plans["its 1-bit part"], b5_plans["its int8 part"] = (p.to(dev) for p in split_bit_tiles(gat_host))
+    b5_plans["G1 float32 [256, 128]"] = Aggregator.schedule_hybrid(g, pack=1, with_transpose=False, device=dev).tile
+    b5_plans["G2 bfloat16 [512, 256] t32"] = b5_plans["GAT int8 [512, 256] t32"].astype(torch.bfloat16)
+    b3_plans = {"training int8 [256, 256] t24": train_host.to(dev)}
+    b3_plans["its 1-bit part"], b3_plans["its int8 part"] = (p.to(dev) for p in split_bit_tiles(train_host))
+    b3_plans["T float32 [256, 256] t24"] = t_f32
+    b3_plans["T bfloat16 [256, 256] t24"] = t_f32.astype(torch.bfloat16)
+    gcn = densify(g, dtype=np.int8, **SCHEDULE)[0].to(dev)
+    del gat_host, train_host
+    log(f"phase 38: B3 and B5 on the cell walk (plans built in {time.perf_counter() - t0:.1f} s)")
+    stats = dict(B5=[walk_line(tp, label) for label, tp in b5_plans.items()],
+                 B3=[walk_line(tp, label) for label, tp in b3_plans.items()])
+    max_err = 0.0
+    with torch.no_grad():
+        for label, tp in b5_plans.items():
+            rowmax_vs_plain(tp, gen, label)
+        for label, tp in b3_plans.items():
+            max_err = max(max_err, dad_vs_plain(tp, gen, label))
+        for label, tp in (("GCN int8 [512, 256] t48", gcn), ("G1 float32 [256, 128]", b5_plans["G1 float32 [256, 128]"])):
+            sk = skewed(tp)
+            label = f"{label}, skewed"
+            stats["B5"].append(walk_line(sk, label))
+            stats["B3"].append(walk_line(sk, label))
+            check(cell_walk.walk_for(sk).num_multi == 1, f"{label}: its one run was not cut")
+            rowmax_vs_plain(sk, gen, label)
+            check(bool(torch.isneginf(bcsr_rowmax_plain(sk, sk.a.new_zeros(sk.n_src, dtype=torch.float32))).any()),
+                  f"{label}: no row without a cell")
+            max_err = max(max_err, dad_vs_plain(sk, gen, label, fs=(BENCH_DIMS[1], 160)))
+            del sk
+        log(f"  phase 38 checks: every call twice bitwise equal; B5 equal to plain; B3 max|d|/max|plain| {max_err:.3e}")
+
+        # one reading a plan: ms by CUDA events (a call's host-side launch
+        # included), device_ms the profiler's kernel time alone
+        f = BENCH_DIMS[1]
+        timed = {}
+        for label, tp in b5_plans.items():
+            asrc = torch.randn(tp.n_src, generator=gen, device=dev)
+            timed[f"B5 {label}"] = lambda tp=tp, asrc=asrc: cuda_rowmax.rowmax_bcsr_cuda(tp, asrc)
+        for label, tp in b3_plans.items():
+            bwd = bwd_inputs(tp.num_nodes, f, 1.0, True, gen, dev) + (DEFAULT_SLOPE,)
+            timed[f"B3 {label} f={f}"] = lambda tp=tp, bwd=bwd: cuda_gat_bwd.gat_bwd_dad_cuda(tp, *bwd)
+        times = {}
+        for k, fn in timed.items():
+            per = device_ms(fn)
+            times[k] = dict(ms=cuda_time_ms(fn), device_ms=None if per is None else per["all"], device_kernels=per)
+            log(f"  {k}: {times[k]['ms']:.3f} ms (device "
+                + ("not measured" if per is None else f"{per['all']:.3f}: {json.dumps(per)}") + ")")
+    return dict(plans=stats, max_err=max_err, times=times)
 
 
 def main() -> int:
@@ -3447,10 +3573,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         walk = walk_phase(g, gen)
         torch.cuda.empty_cache()
+        rd = rowmax_dad_phase(g, gen)
+        torch.cuda.empty_cache()
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
-        log("phases 22-37 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
-            "B2's other modes, the residual probe, the cell walk's checks) run at the quick scale only")
+        log("phases 22-38 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
+            "B2's other modes, the residual probe, the cell walk's checks, B3 and B5 on the walk) run at the quick "
+            "scale only")
 
     # ---- phase 21: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
@@ -3643,6 +3772,12 @@ def main() -> int:
         kernels[0]["walk_plans"] = walk["plans"]
         kernels[0]["walk_max_abs_err"] = walk["max_err"]
         kernels[0]["walk_bound_sweep"] = walk["bound_sweep"]
+        # phase 38: B3's and B5's lists, checks and times
+        dad = next(k for k in kernels if k["name"] == "gat_bwd_dad")
+        dad.update(walk="cell", walk_plans=rd["plans"]["B3"], walk_max_abs_err=rd["max_err"],
+                   walk_ms={r: v for r, v in rd["times"].items() if r.startswith("B3")})
+        kernels[2].update(walk_plans=rd["plans"]["B5"],
+                          walk_ms={r: v for r, v in rd["times"].items() if r.startswith("B5")})
         print(json.dumps({"modes": dict(
             ablation_ms={label: [{k: v for k, v in r.items() if k.endswith("_ms")} for r in rows]
                          for label, rows in modes["rows"].items()},

@@ -20,9 +20,9 @@
 // where cell c + q's value is nonzero) and one cell's value.
 // The kernels that skip zero cells keep the cells whose value is nonzero
 // (v != 0; a non-edge cell is exactly 0), or, for the SDDMM, > 0.  The
-// count formats also read a cell's count as count(byte at column c, shift):
-// a row of either is C consecutive bytes, which B5 scans a 4-byte word at a
-// time, skipping zero words; the float formats (kValued) have no count.
+// count formats also read a cell's count as count(byte at column c, shift)
+// (a row of either is C consecutive bytes); the float formats (kValued)
+// have no count.
 
 #pragma once
 

@@ -1,8 +1,10 @@
-// The cell walk: the device code of B1 (csrc/bcsr_spmm.cu) and B2 (its
+// The cell walk: the device code of B1 (csrc/bcsr_spmm.cu), B2 (its
 // three bodies, csrc/gat_bcsr.cu and csrc/gat_bcsr_factored.cu, through
-// csrc/gat_walk.cuh).  They differ only in how a nonzero cell is weighed,
-// which a Cells policy supplies; the walk, the work split and the sums are
-// this file's.
+// csrc/gat_walk.cuh) and B3 (csrc/gat_bwd_dad.cu, through gat_walk.cuh).
+// They differ only in how a nonzero cell is weighed, which a Cells policy
+// supplies; the walk, the work split and the sums are this file's.  B5's
+// max walk (csrc/rowmax_bcsr.cu) shares its block layout, its Work list
+// and its look-ahead loads (ring_fill).
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination
@@ -192,6 +194,48 @@ __device__ __forceinline__ void store(float* __restrict__ row, int k0, int f, co
 template <class Fmt>
 constexpr int kAhead = sizeof(typename Fmt::Raw) >= 32 ? 1 : 32 / static_cast<int>(sizeof(typename Fmt::Raw));
 
+// The look-ahead ring of a warp's A loads over the tiles t_begin ..
+// t_end of its chunk: raw holds the Raw cells of its tile row (8 a lane,
+// from column c) and col the tile_col of the next D = kAhead tiles, so each
+// load is issued D tiles before the walk reaches it.  Off (!ahead: a row
+// of more than kChunk cells or not 8-aligned), it loads no cells and
+// ring_pop gives the tile's column only.  ring_fill starts the ring.
+template <class Fmt, int D>
+__device__ __forceinline__ void ring_fill(typename Fmt::Raw (&raw)[D], int (&col)[D], const uint8_t* a_row,
+                                          const int32_t* tile_col, int64_t tile_bytes, int t_begin, int t_end,
+                                          int c, bool ahead, bool lane_in) {
+  using Raw = typename Fmt::Raw;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const bool in = ahead && t_begin + i < t_end;
+    raw[i] = in && lane_in ? Fmt::load_raw(a_row + (t_begin + i) * tile_bytes, c) : Raw{};
+    col[i] = in ? tile_col[t_begin + i] : 0;
+  }
+}
+
+// tile t's cells (with ahead) in cur and its column in tcol; issues the
+// loads of tile t + D
+template <class Fmt, int D>
+__device__ __forceinline__ void ring_pop(typename Fmt::Raw (&raw)[D], int (&col)[D], typename Fmt::Raw& cur,
+                                         int& tcol, const uint8_t* a_row, const int32_t* tile_col,
+                                         int64_t tile_bytes, int t, int t_end, int c, bool ahead, bool lane_in) {
+  using Raw = typename Fmt::Raw;
+  if (ahead) {
+    cur = raw[0];
+    tcol = col[0];
+#pragma unroll
+    for (int i = 0; i + 1 < D; ++i) {
+      raw[i] = raw[i + 1];
+      col[i] = col[i + 1];
+    }
+    const bool in = t + D < t_end;
+    raw[D - 1] = in && lane_in ? Fmt::load_raw(a_row + (t + D) * tile_bytes, c) : Raw{};
+    col[D - 1] = in ? tile_col[t + D] : 0;
+  } else {
+    tcol = tile_col[t];
+  }
+}
+
 template <int KPL, class Fmt, class Cells>
 __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work wk, int slabs) {
   constexpr int NB = Cells::NB;
@@ -229,29 +273,11 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
   }
   Raw ring[D];
   int col_ring[D];  // tile_col of the same tiles
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    const bool in = ahead && t_begin + i < t_end;
-    ring[i] = in && lane_in ? Fmt::load_raw(a_row + (t_begin + i) * tile_bytes, lane * 8) : Raw{};
-    col_ring[i] = in ? p.tile_col[t_begin + i] : 0;
-  }
+  ring_fill<Fmt>(ring, col_ring, a_row, p.tile_col, tile_bytes, t_begin, t_end, lane * 8, ahead, lane_in);
   for (int t = t_begin; t < t_end; ++t) {
     int tcol;
     Raw cur;
-    if (ahead) {
-      cur = ring[0];
-      tcol = col_ring[0];
-#pragma unroll
-      for (int i = 0; i + 1 < D; ++i) {
-        ring[i] = ring[i + 1];
-        col_ring[i] = col_ring[i + 1];
-      }
-      const bool in = t + D < t_end;
-      ring[D - 1] = in && lane_in ? Fmt::load_raw(a_row + (t + D) * tile_bytes, lane * 8) : Raw{};
-      col_ring[D - 1] = in ? p.tile_col[t + D] : 0;
-    } else {
-      tcol = p.tile_col[t];
-    }
+    ring_pop<Fmt>(ring, col_ring, cur, tcol, a_row, p.tile_col, tile_bytes, t, t_end, lane * 8, ahead, lane_in);
     const int64_t col0 = static_cast<int64_t>(tcol) * p.C;
     float part[NB][KPL], dl[NB];
 #pragma unroll

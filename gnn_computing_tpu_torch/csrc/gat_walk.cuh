@@ -1,6 +1,7 @@
 // B2's walk, shared by its three bodies: maxdot (csrc/gat_bcsr.cu,
 // dot_mode 'exact' / 'split2' and 'default') and the factored modes
-// 'twodot' and 'merged' (csrc/gat_bcsr_factored.cu).  The bodies differ
+// 'twodot' and 'merged' (csrc/gat_bcsr_factored.cu), and by B3
+// (csrc/gat_bwd_dad.cu, whose weight is lrelu' times the score).  The bodies differ
 // only in how a nonzero cell's weight and den term are formed, which their
 // Cells policy supplies; the walk is the cell walk (csrc/cell_walk.cuh,
 // which B1 shares: what it computes, its design and what bounds it).  A

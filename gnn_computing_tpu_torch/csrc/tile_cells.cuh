@@ -1,7 +1,7 @@
 // Nonzero cells of one row of a tile, compacted by one warp.
 //
-// Shared by the GAT backward kernels (gat_bwd_dad.cu, gat_bwd_dh_das.cu)
-// and the cell walk of B1 and B2 (cell_walk.cuh), which walk a row's tiles
+// Shared by the GAT backward kernel B4 (gat_bwd_dh_das.cu) and the cell
+// walk of B1, B2 and B3 (cell_walk.cuh), which walk a row's tiles
 // with one warp and do work only for the cells whose value is nonzero (the
 // tiles are ~99% zero).  Each pass scans kChunk
 // columns, 8 per lane, and writes the nonzero ones, in ascending column

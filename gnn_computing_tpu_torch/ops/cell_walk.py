@@ -1,4 +1,5 @@
-"""The work list of the cell walk (``csrc/cell_walk.cuh``), B1's and B2's.
+"""The work list of the cell walk (``csrc/cell_walk.cuh``): B1's, B2's and
+B3's, and B5's max walk (``csrc/rowmax_bcsr.cu``), one list per plan.
 
 The walk touches only a tile row's nonzero cells, and its unit of work is a
 chunk: a run of tiles (the tiles of one destination row-tile) cut into
@@ -10,7 +11,8 @@ run, where the run's cells before it enter another window of H cells, where
 it holds more than H cells or where the tile before it did.  So a chunk is
 either one tile (possibly over the bound) or tiles whose cells sum to at
 most 2H - 1 < bound; every tile lies in exactly one chunk, in order, inside
-one run; an empty run gets one chunk of no tiles, which writes zeros.  It
+one run; an empty run gets one chunk of no tiles, which writes zeros (B5:
+-inf).  It
 is built on the plan's device from ``run_start`` and the tiles' nonzero
 counts with a few tensor passes, once per plan: ``walk_for`` caches it
 under the plan's tile tensor (``TilePlan.to``, ``astype``, ``pad_runs``,
@@ -19,9 +21,9 @@ the ``run_start`` tensor and both tensors' version counters, so a list can
 not outlive the tiles it was cut from.
 
 The chunks of a run of more than one chunk write their partial sums to a
-scratch slot each (the kernel wrapper allocates ``num_slots`` slots of
-``slot_floats`` floats), and the walk's finish pass adds them in chunk
-order.  ``chunked_sums`` is the plain emulation of that order (per-tile
+scratch slot each (``walk_args`` allocates ``num_slots`` slots of
+``slot_floats`` floats for a launch), and the walk's finish pass adds them
+in chunk order.  ``chunked_sums`` is the plain emulation of that order (per-tile
 partial, chunk partials in tile order, run sums in chunk order), for the
 tests.
 """
@@ -170,6 +172,20 @@ def walk_for(tp) -> CellWalk:
     ident = id(a)
     _cache[ident] = (weakref.ref(a, lambda _, i=ident: _cache.pop(i, None)), weakref.ref(rs), _key(tp), walk)
     return walk
+
+
+def walk_args(tp, f: int, dev, nb: int = 1, den: bool = False) -> tuple:
+    """(scratch, work, scratch pointer, num_chunks, num_multi) of a cell-walk
+    launch over ``tp`` at width f: the plan's cached work list (walk_for)
+    and a scratch buffer for its multi-chunk runs (None when there is none),
+    which the caller holds over the launch."""
+    walk = walk_for(tp)
+    scratch = None
+    if walk.num_slots:
+        scratch = torch.empty(walk.num_slots * slot_floats(tp.tile_rows, f, nb, den), dtype=torch.float32,
+                              device=dev)
+    return (scratch, walk.work.data_ptr(), None if scratch is None else scratch.data_ptr(), walk.num_chunks,
+            walk.num_multi)
 
 
 def chunked_sums(walk: CellWalk, tile_parts: torch.Tensor) -> torch.Tensor:

@@ -52,20 +52,6 @@ def _check_h(tp, h: torch.Tensor, name: str):
     return dev, h.shape[1], check_plan(tp, dev)
 
 
-def walk_args(tp, f: int, dev, nb: int = 1, den: bool = False) -> tuple:
-    """(scratch, work, scratch pointer, num_chunks, num_multi) of a cell-walk
-    launch over ``tp`` at width f: the plan's cached work list
-    (ops.cell_walk.walk_for) and a scratch buffer for its multi-chunk runs
-    (None when there is none), which the caller holds over the launch."""
-    walk = cell_walk.walk_for(tp)
-    scratch = None
-    if walk.num_slots:
-        scratch = torch.empty(walk.num_slots * cell_walk.slot_floats(tp.tile_rows, f, nb, den),
-                              dtype=torch.float32, device=dev)
-    return (scratch, walk.work.data_ptr(), None if scratch is None else scratch.data_ptr(), walk.num_chunks,
-            walk.num_multi)
-
-
 def _count(tag: str, epilogue: bool):
     global launches, bits_launches, float_launches, epilogue_launches
     launches += 1
@@ -82,7 +68,7 @@ def bcsr_spmm_cuda(tp, h: torch.Tensor) -> torch.Tensor:
     out = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    scratch, work, scr, num_chunks, num_multi = walk_args(tp, f, dev)
+    scratch, work, scr, num_chunks, num_multi = cell_walk.walk_args(tp, f, dev)
     err = getattr(load(NAME, SIGNATURES), f"bcsr_spmm_{tag}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), work, h.data_ptr(), out.data_ptr(), scr, num_chunks, num_multi,
         tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, *stream_args(dev),
@@ -119,7 +105,7 @@ def bcsr_spmm_nn_cuda(tp, h: torch.Tensor, w: torch.Tensor):
         return agg, trans
     if f == 0:
         return agg, trans.zero_()
-    scratch, work, scr, num_chunks, num_multi = walk_args(tp, f, dev)
+    scratch, work, scr, num_chunks, num_multi = cell_walk.walk_args(tp, f, dev)
     err = getattr(load(NAME, SIGNATURES), f"bcsr_spmm_nn_{tag}_f32")(
         tp.a.data_ptr(), tp.tile_col.data_ptr(), work, h.data_ptr(), w.data_ptr(),
         None if scale_dst is None else scale_dst.data_ptr(), agg.data_ptr(), trans.data_ptr(), scr, num_chunks,

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from gnn_computing_tpu_torch.ops.cuda_bcsr import walk_args
+from gnn_computing_tpu_torch.ops.cell_walk import walk_args
 from gnn_computing_tpu_torch.ops.cuda_build import TAGS, check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "gat_bcsr"

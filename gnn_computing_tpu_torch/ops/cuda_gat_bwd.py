@@ -5,7 +5,11 @@ They replace ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bwd_dad_pallas`` and
 ``gat_bwd_dh_das_pallas`` for int8 count tiles, 1-bit tiles and float32 and
 bfloat16 value tiles (each one template on the A format), scoring each
 nonzero cell from (ad, M) per destination and as per source as the forward
-does.  ops.cuda_build compiles each at first use and binds it with ctypes.
+does.  B3 walks the plan's nonzero cells in chunks of its work list
+(ops.cell_walk: the list B1 and B2 walk over the same plan), as B2 does,
+into num and den scratch allocated here, and forms each row's dot from
+them.
+ops.cuda_build compiles each at first use and binds it with ctypes.
 
 ``dad_launches`` and ``dh_das_launches`` count kernel launches (one per
 wrapper call); ``dad_bits_launches`` / ``dh_das_bits_launches`` (1-bit
@@ -21,12 +25,13 @@ import ctypes
 
 import torch
 
+from gnn_computing_tpu_torch.ops.cell_walk import walk_args
 from gnn_computing_tpu_torch.ops.cuda_build import TAGS, check_no_grad, check_plan, check_tensor, load, stream_args
 
 DAD = "gat_bwd_dad"
 DH_DAS = "gat_bwd_dh_das"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-DAD_SIGNATURES = {f"gat_bwd_dad_{fmt}_f32": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in TAGS}
+DAD_SIGNATURES = {f"gat_bwd_dad_{fmt}_f32": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P] for fmt in TAGS}
 DH_DAS_SIGNATURES = {
     f"gat_bwd_dh_das_{fmt}_f32": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in TAGS
 }
@@ -69,9 +74,12 @@ def gat_bwd_dad_cuda(tp, h, gbar, c, dm, asrc, relu_slope: float) -> torch.Tenso
     out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return out
+    num = torch.empty((tp.num_nodes, f), dtype=torch.float32, device=dev)
+    den = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
+    scratch, work, scr, num_chunks, num_multi = walk_args(tp, f, dev, nb=1, den=True)
     err = getattr(load(DAD, DAD_SIGNATURES), f"gat_bwd_dad_{fmt}_f32")(
-        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
-        c.data_ptr(), dm.data_ptr(), asrc.data_ptr(), out.data_ptr(),
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), work, h.data_ptr(), gbar.data_ptr(), c.data_ptr(),
+        dm.data_ptr(), asrc.data_ptr(), num.data_ptr(), den.data_ptr(), scr, out.data_ptr(), num_chunks, num_multi,
         tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src, f, float(relu_slope),
         *stream_args(dev),
     )

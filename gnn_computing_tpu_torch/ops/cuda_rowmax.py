@@ -2,8 +2,10 @@
 
 The kernel replaces ``gnn_computing_tpu/ops/pallas_bcsr.py:rowmax_bcsr_pallas``
 for int8 count tiles, 1-bit tiles and float32 and bfloat16 value tiles (one
-template on the A format).  ops.cuda_build compiles it at first use and
-binds it with ctypes.
+template on the A format).  It walks the plan's nonzero cells in chunks of
+its work list (ops.cell_walk.walk_for: the list the cell walk's kernels
+share, built at the plan's first launch and cached).
+ops.cuda_build compiles it at first use and binds it with ctypes.
 
 ``launches`` counts kernel launches; ``bits_launches`` (1-bit tiles) and
 ``float_launches`` (float32 or bfloat16 tiles) count those among them.
@@ -17,11 +19,12 @@ import ctypes
 
 import torch
 
+from gnn_computing_tpu_torch.ops import cell_walk
 from gnn_computing_tpu_torch.ops.cuda_build import TAGS, check_no_grad, check_plan, check_tensor, load, stream_args
 
 NAME = "rowmax_bcsr"
 SIGNATURES = {
-    fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     for fn in (f"rowmax_bcsr_{tag}_f32" for tag in TAGS)
 }
 
@@ -44,10 +47,11 @@ def rowmax_bcsr_cuda(tp, col_vals: torch.Tensor) -> torch.Tensor:
     out = torch.empty((tp.num_nodes,), dtype=torch.float32, device=dev)
     if tp.num_nodes == 0:
         return out
+    walk = cell_walk.walk_for(tp)
     err = getattr(load(NAME, SIGNATURES), f"rowmax_bcsr_{fmt}_f32")(
-        tp.a.data_ptr(), tp.tile_col.data_ptr(), tp.run_start.data_ptr(),
-        col_vals.data_ptr(), out.data_ptr(), tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes,
-        tp.n_src, *stream_args(dev),
+        tp.a.data_ptr(), tp.tile_col.data_ptr(), walk.work.data_ptr(), col_vals.data_ptr(), out.data_ptr(),
+        walk.num_chunks, walk.num_multi, tp.num_row_tiles, tp.tile_rows, tp.tile_cols, tp.num_nodes, tp.n_src,
+        *stream_args(dev),
     )
     if err != 0:
         raise RuntimeError(f"rowmax_bcsr kernel launch failed: cudaError {err}")

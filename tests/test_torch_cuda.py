@@ -13,9 +13,10 @@ whose unstabilized GAT score or SDDMM dot overflows to inf (B2, B3, B4, B6),
 signed float cell values (every nonzero cell scored, C6; B6 keeps the cells
 > 0); the training Functions' gradients on the card against the same
 Functions on the CPU, over int8, bit-tile and float-tile aggregators;
-B1 and B2 over the cell walk's hard plans (one run holding every tile with
-an all-ones tile row, C = 128, 1-bit R = 200, single-tile and empty runs,
-chunk edges inside runs), every call twice and bitwise equal; and
+B1, B2, and B3 and B5 over the cell walk's hard plans (one run holding
+every tile with an all-ones tile row, C = 128, 1-bit R = 200, single-tile
+and empty runs, chunk edges inside runs), every call twice and bitwise
+equal; and
 wrappers that raise, rather than fall back, on a malformed plan.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -1181,4 +1182,53 @@ def test_cell_walk_kernels_match_plain(cuda_dev, walk_bound, kind, fmt):
                 ref_num, ref_den = _factored_sums(tp, factored_terms(h, att, 0.2, mode, 2, shift), mode)
                 _close(num, ref_num, f"B2 {mode} num {what}")
                 _close(den, ref_den, f"B2 {mode} den {what}")
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(params=["chunked", "fine", "default"])
+def rowmax_dad_bounds(request, monkeypatch):
+    """'chunked': a chunk bound of 300 cells; 'fine': the least bound the
+    plan takes (a few tiles a chunk), so chunk edges fall inside the small
+    plans' runs either way; 'default': the plan's own bound."""
+    from gnn_computing_tpu_torch.ops import cell_walk
+
+    if request.param != "default":
+        monkeypatch.setattr(cell_walk, "MIN_BOUND", 300 if request.param == "chunked" else 2)
+    return request.param
+
+
+@pytest.mark.parametrize("fmt", ["i8", "b1", "f32", "bf16"])
+@pytest.mark.parametrize("kind", ["skewed", "tail128", "r200", "single_empty"])
+def test_walk_rowmax_dad_kernels_match_plain(cuda_dev, rowmax_dad_bounds, kind, fmt):
+    """B5 and B3 over the walk's hard plans: B5 equal to its plain version
+    (-inf rows included), B3 within 1e-5 * max|plain| at f up to 300 (the
+    walk's f-slices), with the 'bound' shift and without; each call twice,
+    bitwise equal, and one launch a call."""
+    from gnn_computing_tpu_torch.ops import cell_walk
+
+    tp = _walk_host_plan(kind, fmt).to(cuda_dev)
+    if rowmax_dad_bounds != "default":
+        assert cell_walk.walk_for(tp).num_multi > 0  # chunk edges inside runs
+    gen = torch.Generator(device=cuda_dev).manual_seed(12)
+    n = tp.num_nodes
+    for scale in (1.0, 15.0):
+        vals = torch.randn(tp.n_src, generator=gen, device=cuda_dev) * scale
+        before = cuda_rowmax.launches
+        got = _twice(lambda: bcsr_rowmax(tp, vals))
+        assert cuda_rowmax.launches == before + 2
+        want = bcsr_rowmax_plain(tp, vals)
+        assert torch.equal(got, want), f"B5 {kind} {fmt} {rowmax_dad_bounds}"
+        assert bool(torch.isneginf(want).any())
+    for f in (1, 32, 64, 100, 128, 160, 300):
+        h = torch.randn((n, f), generator=gen, device=cuda_dev)
+        gbar = torch.randn((n, f), generator=gen, device=cuda_dev)
+        c = torch.randn(n, generator=gen, device=cuda_dev)
+        for scale, shift in ((0.5, False), (15.0, True)):
+            att = torch.randn((n, 2), generator=gen, device=cuda_dev) * scale
+            dm, asrc = _score_terms(att, _global_bound_shift(att, 0.2) if shift else None)
+            before = cuda_gat_bwd.dad_launches
+            got = _twice(lambda: gat_bwd_dad(tp, h, gbar, c, dm, asrc, 0.2))
+            assert cuda_gat_bwd.dad_launches == before + 2
+            _close(got, gat_bwd_dad_plain(tp, h, gbar, c, dm, asrc, 0.2),
+                   f"B3 {kind} {fmt} f{f} scale{scale} {rowmax_dad_bounds}")
     torch.cuda.synchronize()
