@@ -261,15 +261,31 @@ Phases (any failure exits non-zero; nothing is caught):
      also at f = 160, the walk's f-slices); then B5 timed on each of its
      plans and B3 on each of its at f = 128, by CUDA events and as device
      time alone (torch.profiler's kernel time, per kernel and summed).
+ 39. B4 on the cell walk and B6 streamed (quick scale): the work list of
+     every plan B4 runs on (the training plan's transpose, its 1-bit and
+     int8 parts' transposes, T's float32 and bfloat16 transposes) and B6's
+     blocks over its plans (the SDDMM path's 1-bit and int8 parts, G1,
+     gcn_norm_val, G2), printed; B4 twice (bitwise equal) against its plain
+     version (dh and d_as within KERNEL_TOL * max|plain| at f = 128, 64,
+     32, 160, att at scale 0.1 and at 15 with the 'bound' shift), B6 twice
+     (bitwise equal) against its plain version at f = 32 and 128 in
+     float32 and bfloat16 cells (phase 29's tolerances); the same on phase
+     37's skewed plans; then B4 at f = 128, 64, 32 and B6 at f = 32 on each
+     plan by CUDA events and as device time per kernel (the walk, its finish
+     and the row dot apart); the updateval chain (phase 26's path) building
+     no list on its second call, timed with the weighted plans walking the
+     count plans' lists and with a list built at every call (the earlier
+     path), with a torch.profiler table of each.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the total
-     seconds, one "kernels" JSON line (B1's, B2's, B3's and B5's entries
-     with "walk": "cell", their plans' work lists and B3's and B5's
-     phase 38 times), the card line, then
+     seconds, one "kernels" JSON line (B1's, B2's, B3's, B4's and B5's
+     entries with "walk": "cell", their plans' work lists and B3's, B4's
+     and B5's phase 38-39 times; B6's with "design": "streamed", its phase
+     39 times and the chain's), the card line, then
      {"ok": true, ...}.
 
-With --scale reddit, phases 8-11, 16-20 and 22-38 are replaced by one GCN
+With --scale reddit, phases 8-11, 16-20 and 22-39 are replaced by one GCN
 bit-tile training phase at reddit scale (bench.py --train's headline
 configuration): the [256, 256] t24 bit-tile plan with its transposes and
 its build time, the first step's weight gradients within BITS_REL_L2 of
@@ -3303,28 +3319,31 @@ def walk_phase(g, gen) -> dict:
 
 
 # ------------------------------------------------ phase 38 (B3 and B5 on the cell walk)
-def device_ms(fn, iters: int = 10):
+def device_ms(fn, iters: int = 10, expect=(), tries: int = 3):
     """{kernel: mean device ms a call} of the CUDA kernels ``fn`` launches,
     from torch.profiler over ``iters`` calls after one warm-up, with their
-    sum under "all"; None where the profiler saw no device time."""
+    sum under "all"; None where the profiler saw no device time, or missed
+    a kernel named in ``expect`` in each of ``tries`` profiles (one profile
+    has been seen to drop a kernel's records)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0.0) if e.device_type == torch.autograd.DeviceType.CUDA else 0.0
-        if t > 0:
-            # "void (anonymous namespace)::rowmax_walk_kernel<BitTiles>(...)" -> rowmax_walk_kernel
-            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = name.split("<")[0].split("(")[0].split("::")[-1] or e.key[:40]
-            per[name] = per.get(name, 0.0) + t / iters / 1e3
-    if not per:
-        return None
-    per["all"] = sum(per.values())
-    return per
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0.0) if e.device_type == torch.autograd.DeviceType.CUDA else 0.0
+            if t > 0:
+                # "void (anonymous namespace)::rowmax_walk_kernel<BitTiles>(...)" -> rowmax_walk_kernel
+                name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+                name = name.split("<")[0].split("(")[0].split("::")[-1] or e.key[:40]
+                per[name] = per.get(name, 0.0) + t / iters / 1e3
+        if per and all(k in per for k in expect):
+            per["all"] = sum(per.values())
+            return per
+    return None
 
 
 def rowmax_vs_plain(tp, gen, what: str):
@@ -3414,6 +3433,173 @@ def rowmax_dad_phase(g, gen) -> dict:
             log(f"  {k}: {times[k]['ms']:.3f} ms (device "
                 + ("not measured" if per is None else f"{per['all']:.3f}: {json.dumps(per)}") + ")")
     return dict(plans=stats, max_err=max_err, times=times)
+
+
+# ------------------------------------------------ phase 39 (B4 on the cell walk, B6 streamed)
+def dh_das_vs_plain(tp_t, gen, what: str, fs=(128, 64, 32, 160)) -> float:
+    """B4 over the transposed plan ``tp_t`` twice (bitwise equal) and dh and
+    d_as each within KERNEL_TOL * max|plain| of its plain version at each f,
+    att at scale 0.1 unshifted and at 15 with the 'bound' shift.  Returns
+    the largest max|d| / max|plain|."""
+    check(tp_t.num_nodes == tp_t.n_src, f"{what}: B4's checks take a square plan")
+    err = 0.0
+    for f in fs:
+        for scale, shift in ((0.1, False), (15.0, True)):
+            args = bwd_inputs(tp_t.num_nodes, f, scale, shift, gen, tp_t.a.device) + (DEFAULT_SLOPE,)
+            dh, das = twice_equal(lambda: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp_t, *args), f"{what} B4 f={f}")
+            want_dh, want_das = gat_bwd_dh_das_plain(tp_t, *args)
+            label = f"{what} B4 f={f} scale {scale}{' bound-shifted' if shift else ''}"
+            err = max(err, compare(dh, want_dh, f"{label} dh", gate=False) / want_dh.abs().max().item(),
+                      compare(das, want_das, f"{label} d_as", gate=False) / want_das.abs().max().item())
+    return err
+
+
+def sddmm_twice_vs_plain(tp, gen, what: str, fs=(SDDMM_F, BENCH_DIMS[1])) -> float:
+    """B6 over ``tp`` twice (bitwise equal) in float32 and bfloat16 cells,
+    held to sddmm_bcsr_plain with phase 29's tolerances (cells_agree: float32
+    within KERNEL_TOL * max|plain|, bfloat16 within one ulp, cells whose value
+    is not > 0 exactly +0), CHECK_TILES tiles at a time.  Returns the largest
+    float32 max|d| / max|plain|."""
+    err = 0.0
+    for f in fs:
+        a = torch.randn((tp.n_src, f), generator=gen, device="cuda")
+        b = torch.randn((tp.num_nodes, f), generator=gen, device="cuda")
+        for s in range(0, tp.num_tiles, CHECK_TILES):
+            sub = tile_slice(tp, s, s + CHECK_TILES)
+            edge = sub.counts() > 0
+            for out in (torch.float32, torch.bfloat16):
+                got = twice_equal(lambda: cuda_sddmm.sddmm_bcsr_cuda(sub, a, b, out), f"{what} B6 f={f} {out}")
+                want = sddmm_bcsr_plain(sub, a, b, out)
+                e = cells_agree(got, want, edge, f"{what} B6 f={f} {out}")
+                if out == torch.float32:
+                    err = max(err, e / max(want.abs().max().item(), 1e-30))
+                del got, want
+        log(f"  {what} B6 f={f}: tiles={tp.num_tiles}, twice bitwise equal, within phase 29's tolerances")
+    return err
+
+
+def profile_table(fn, iters: int = 3) -> str:
+    """torch.profiler's table (host and device time by operator) over
+    ``iters`` calls of fn after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return prof.key_averages().table(sort_by="cpu_time_total", row_limit=14, max_name_column_width=48)
+
+
+def dh_das_sddmm_phase(g, gen) -> dict:
+    """Phase 39: B4 and B6 redesigned.  B4's work lists (the transposed
+    plans' own) over every plan it runs on (the training plan's transpose,
+    its 1-bit and int8 parts', T's float32 and bfloat16 transposes) and B6's
+    one block a tile over its plans (the SDDMM path's two parts, G1,
+    gcn_norm_val, G2); each kernel twice (bitwise equal) against its plain
+    version; the same on phase 37's skewed plans.  Then B4 at f = 128, 64,
+    32 and B6 at f = 32 on each plan by CUDA events and as device time per
+    kernel (walk, finish, dot apart), and the updateval chain with the
+    weighted plan's list shared and rebuilt every call (the earlier path),
+    with a profiler table of each."""
+    dev = torch.device("cuda")
+    n = g.num_nodes
+    t0 = time.perf_counter()
+    train_host = densify(g, dtype=np.int8, **TRAIN_SCHEDULE)[0]
+    t_f32 = densify(g, dtype=np.float32, **TRAIN_SCHEDULE)[0]
+    b4_plans = {"training [256, 256] t24, transposed": train_host.transpose().to(dev)}
+    bits, ints = split_bit_tiles(train_host)
+    b4_plans["its 1-bit part, transposed"] = bits.transpose().to(dev)
+    b4_plans["its int8 part, transposed"] = ints.transpose().to(dev)
+    b4_plans["T float32, transposed"] = t_f32.transpose().to(dev)
+    b4_plans["T bfloat16, transposed"] = b4_plans["T float32, transposed"].astype(torch.bfloat16)
+    sagg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK,
+                                      pack=1, bit_tiles=True, device=dev, **SDDMM_SCHEDULE)
+    parts = sagg.tile_parts()
+    b6_plans = {f"SDDMM [256, 128] t24, {part_name(p)} part": p for p in parts}
+    b6_plans["G1 float32 [256, 128]"] = Aggregator.schedule_hybrid(g, pack=1, with_transpose=False, device=dev).tile
+    b6_plans["gcn_norm_val float32 [512, 256] t48"] = densify(g, val=g.gcn_norm_val(), **SCHEDULE)[0].to(dev)
+    b6_plans["G2 bfloat16 [512, 256] t32"] = densify(g, dtype=torch.bfloat16, **GAT_SCHEDULE)[0].to(dev)
+    gcn = densify(g, dtype=np.int8, **SCHEDULE)[0].to(dev)
+    del train_host, t_f32, bits, ints
+    log(f"phase 39: B4 on the cell walk, B6 streamed (plans built in {time.perf_counter() - t0:.1f} s)")
+    stats = dict(B4=[walk_line(tp, label) for label, tp in b4_plans.items()], B6=[])
+    for label, tp in b6_plans.items():
+        cells = int(cell_walk.tile_nnz(tp).sum())
+        stats["B6"].append(dict(plan=label, format=tp.format, tiles=tp.num_tiles, blocks=tp.num_tiles, cells=cells,
+                                out_cells=tp.num_tiles * tp.tile_rows * tp.tile_cols))
+        log(f"  B6, {label}: no work list, one block a tile: {tp.num_tiles} blocks over "
+            f"{tp.num_tiles * tp.tile_rows * tp.tile_cols} cells, {cells} nonzero")
+    max_err = dict(B4=0.0, B6=0.0)
+    with torch.no_grad():
+        for label, tp in b4_plans.items():
+            max_err["B4"] = max(max_err["B4"], dh_das_vs_plain(tp, gen, label))
+        for label, tp in b6_plans.items():
+            max_err["B6"] = max(max_err["B6"], sddmm_twice_vs_plain(tp, gen, label))
+        for label, tp in (("GCN int8 [512, 256] t48", gcn), ("G1 float32 [256, 128]", b6_plans["G1 float32 [256, 128]"])):
+            sk = skewed(tp)
+            label = f"{label}, skewed"
+            stats["B4"].append(walk_line(sk, label))
+            check(cell_walk.walk_for(sk).num_multi == 1, f"{label}: its one run was not cut")
+            max_err["B4"] = max(max_err["B4"], dh_das_vs_plain(sk, gen, label, fs=(BENCH_DIMS[1], 160)))
+            max_err["B6"] = max(max_err["B6"], sddmm_twice_vs_plain(sk, gen, label, fs=(SDDMM_F,)))
+            del sk
+        log(f"  phase 39 checks: every call twice bitwise equal; B4 max|d|/max|plain| {max_err['B4']:.3e}, "
+            f"B6 float32 {max_err['B6']:.3e}")
+
+        # one reading a plan: ms by CUDA events (a call's host-side launch
+        # included), device_ms the profiler's kernel time alone, by kernel
+        timed = {}
+        for label, tp in b4_plans.items():
+            for f in BENCH_DIMS[1:]:
+                bwd = bwd_inputs(tp.num_nodes, f, 1.0, True, gen, dev) + (DEFAULT_SLOPE,)
+                timed[f"B4 {label} f={f}"] = lambda tp=tp, bwd=bwd: cuda_gat_bwd.gat_bwd_dh_das_cuda(tp, *bwd)
+        for label, tp in b6_plans.items():
+            a = torch.randn((tp.n_src, SDDMM_F), generator=gen, device=dev)
+            b = torch.randn((tp.num_nodes, SDDMM_F), generator=gen, device=dev)
+            timed[f"B6 {label} f={SDDMM_F}"] = lambda tp=tp, a=a, b=b: cuda_sddmm.sddmm_bcsr_cuda(tp, a, b)
+        times = {}
+        for k, fn in timed.items():
+            per = device_ms(fn, expect=("walk_kernel", "dot_kernel") if k.startswith("B4") else ("sddmm_bcsr_kernel",))
+            times[k] = dict(ms=cuda_time_ms(fn), device_ms=None if per is None else per["all"], device_kernels=per)
+            log(f"  {k}: {times[k]['ms']:.3f} ms (device "
+                + ("not measured" if per is None else f"{per['all']:.3f}: {json.dumps(per)}") + ")")
+
+        # the updateval chain (phase 26's path): the weighted plans walk the
+        # count plans' lists (shared), or build their own at every call, as
+        # the chain did before share_walk
+        a = torch.from_numpy(normal_features(n, SDDMM_F, seed=3) * 0.1).to(dev)
+        b = torch.from_numpy(normal_features(n, SDDMM_F, seed=4) * 0.1).to(dev)
+        hc = torch.from_numpy(normal_features(n, SDDMM_F, seed=5)).to(dev)
+
+        def chain():
+            cells, _ = hybrid_sddmm(parts, None, a, b, out_dtype=torch.float32, dot_mode="split23")
+            return bcsr_spmm([tileplan_with_values(p, c) for p, c in zip(parts, cells)], hc)
+
+        builds = []
+
+        def counted(real):
+            return lambda tp, bound=None: builds.append(tp.num_tiles) or real(tp, bound)
+
+        with patched(cell_walk, "build_walk", counted):
+            first = chain()
+            built_first = len(builds)
+            second = chain()
+            torch.cuda.synchronize()
+        check(len(builds) == built_first, f"the updateval chain built {len(builds) - built_first} lists again")
+        check(torch.equal(first, second), "the updateval chain's two calls differ")
+        chain_ms = dict(shared=cuda_time_ms(chain))
+        with patched(cell_walk, "share_walk", lambda real: lambda src, dst: None):
+            compare(chain(), first, "the chain over lists built at every call vs shared", gate=False)
+            chain_ms["rebuilt"] = cuda_time_ms(chain)
+            table_rebuilt = profile_table(chain)
+        table_shared = profile_table(chain)
+        log(f"  updateval chain: {built_first} lists built by the first call, 0 by the second; "
+            f"{chain_ms['shared']:.3f} ms with the count plans' lists shared, {chain_ms['rebuilt']:.3f} ms with a "
+            f"list built at every call (the earlier path)")
+        log("  profile of the chain, lists rebuilt at every call (3 calls):\n" + table_rebuilt)
+        log("  profile of the chain, lists shared (3 calls):\n" + table_shared)
+    return dict(plans=stats, max_err=max_err, times=times, chain_ms=chain_ms, chain_builds_first=built_first)
 
 
 def main() -> int:
@@ -3575,11 +3761,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         rd = rowmax_dad_phase(g, gen)
         torch.cuda.empty_cache()
+        dd = dh_das_sddmm_phase(g, gen)
+        torch.cuda.empty_cache()
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
-        log("phases 22-38 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
-            "B2's other modes, the residual probe, the cell walk's checks, B3 and B5 on the walk) run at the quick "
-            "scale only")
+        log("phases 22-39 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
+            "B2's other modes, the residual probe, the cell walk's checks, B3, B5 and B4 on the walk, B6 streamed) "
+            "run at the quick scale only")
 
     # ---- phase 21: report
     total = lambda k: sum(r[k] for r in shapes)  # noqa: E731
@@ -3778,6 +3966,15 @@ def main() -> int:
                    walk_ms={r: v for r, v in rd["times"].items() if r.startswith("B3")})
         kernels[2].update(walk_plans=rd["plans"]["B5"],
                           walk_ms={r: v for r, v in rd["times"].items() if r.startswith("B5")})
+        # phase 39: B4's lists, checks and times; B6's streamed pass and the
+        # updateval chain with the count plans' lists shared
+        dh_das = next(k for k in kernels if k["name"] == "gat_bwd_dh_das")
+        dh_das.update(walk="cell", walk_plans=dd["plans"]["B4"], walk_max_abs_err=dd["max_err"]["B4"],
+                      walk_ms={r: v for r, v in dd["times"].items() if r.startswith("B4")})
+        sd = next(k for k in kernels if k["name"] == "sddmm_bcsr")
+        sd.update(design="streamed", pass_plans=dd["plans"]["B6"], pass_max_abs_err=dd["max_err"]["B6"],
+                  pass_ms={r: v for r, v in dd["times"].items() if r.startswith("B6")},
+                  chain_ms=dd["chain_ms"], chain_builds_first_call=dd["chain_builds_first"])
         print(json.dumps({"modes": dict(
             ablation_ms={label: [{k: v for k, v in r.items() if k.endswith("_ms")} for r in rows]
                          for label, rows in modes["rows"].items()},

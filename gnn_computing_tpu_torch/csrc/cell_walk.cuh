@@ -1,10 +1,11 @@
 // The cell walk: the device code of B1 (csrc/bcsr_spmm.cu), B2 (its
 // three bodies, csrc/gat_bcsr.cu and csrc/gat_bcsr_factored.cu, through
-// csrc/gat_walk.cuh) and B3 (csrc/gat_bwd_dad.cu, through gat_walk.cuh).
-// They differ only in how a nonzero cell is weighed, which a Cells policy
-// supplies; the walk, the work split and the sums are this file's.  B5's
-// max walk (csrc/rowmax_bcsr.cu) shares its block layout, its Work list
-// and its look-ahead loads (ring_fill).
+// csrc/gat_walk.cuh), B3 (csrc/gat_bwd_dad.cu) and B4
+// (csrc/gat_bwd_dh_das.cu, over the transposed plan), both through
+// gat_walk.cuh.  They differ only in how a nonzero cell is weighed, which a
+// Cells policy supplies; the walk, the work split and the sums are this
+// file's.  B5's max walk (csrc/rowmax_bcsr.cu) shares its block layout, its
+// Work list and its look-ahead loads (ring_fill).
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination
@@ -14,7 +15,13 @@
 //   den_i = sum_b post_b,i * sum_j d_b,ij                 (Cells::kDen)
 // where Cells::weigh gives a cell's weights w and den terms d, stage_w and
 // stage_h round the weight and the gathered H_b (h, or a factored mode's
-// hv_b) as the mode rounds, and post gives the row post-scales.
+// hv_b) as the mode rounds, and post gives the row post-scales.  Two
+// switches of a policy, both off unless it sets them, change that: kSplit
+// keeps the branches apart (branch b's post_b,i * sum_j ... goes to num for
+// b = 0 and num1 for b = 1; den is branch 0's), and kShared gives every
+// branch branch 0's gathered H (one gather a cell, h1 unused).  Both are
+// compile-time paths of their own, so a policy without them compiles to the
+// code it had.
 //
 // Why this shape.  The tiles are ~1% full (0.6-0.7% at the quick scale),
 // so a dense tile product does ~140x the useful work; and one run (the hub
@@ -84,6 +91,16 @@ constexpr int kFinishThreads = 256;
 //   float stage_w(w)            a weight as the mode stages it
 //   float stage_h(x)            a gathered H value as the mode rounds it
 //   post(rows, i, us)           row i's post-scales us[b]
+//   kSplit, kShared             optional switches (above), default false
+
+template <class C, class = void>
+struct split_of : std::false_type {};
+template <class C>
+struct split_of<C, std::void_t<decltype(C::kSplit)>> : std::bool_constant<C::kSplit> {};
+template <class C, class = void>
+struct shared_of : std::false_type {};
+template <class C>
+struct shared_of<C, std::void_t<decltype(C::kShared)>> : std::bool_constant<C::kShared> {};
 
 // The launch's operands.
 struct Args {
@@ -94,6 +111,7 @@ struct Args {
   const float* rows;        // row operands (Cells::row), may be null
   const float* cols;        // column operands (Cells::weigh), may be null
   float* num;               // [n, f]
+  float* num1;              // [n, f] branch 1's sums (Cells::kSplit), else unused
   float* den;               // [n] (Cells::kDen)
   float* scratch;           // num_slots slots of slot_floats floats, may be null
   int R, C, n, n_src, f;
@@ -239,6 +257,10 @@ __device__ __forceinline__ void ring_pop(typename Fmt::Raw (&raw)[D], int (&col)
 template <int KPL, class Fmt, class Cells>
 __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work wk, int slabs) {
   constexpr int NB = Cells::NB;
+  constexpr bool kSplit = split_of<Cells>::value;
+  constexpr bool kShared = shared_of<Cells>::value;
+  constexpr int ND = kSplit ? 1 : NB;   // branches that sum den terms
+  constexpr int NH = kShared ? 1 : NB;  // H rows gathered a cell
   constexpr int kG = KPL == 1 ? 4 : 2;  // cells in flight per warp (more cost registers)
   constexpr int D = kAhead<Fmt>;
   using Raw = typename Fmt::Raw;
@@ -264,13 +286,13 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
   const typename Cells::Row rw = Cells::row(p.rows, grow);
   int* cl = lcol[warp];
 
-  float acc[NB][KPL], dacc[NB];
+  float acc[NB][KPL], dacc[ND];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    dacc[b] = 0.f;
+  for (int b = 0; b < ND; ++b) dacc[b] = 0.f;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int m = 0; m < KPL; ++m) acc[b][m] = 0.f;
-  }
   Raw ring[D];
   int col_ring[D];  // tile_col of the same tiles
   ring_fill<Fmt>(ring, col_ring, a_row, p.tile_col, tile_bytes, t_begin, t_end, lane * 8, ahead, lane_in);
@@ -279,10 +301,10 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
     Raw cur;
     ring_pop<Fmt>(ring, col_ring, cur, tcol, a_row, p.tile_col, tile_bytes, t, t_end, lane * 8, ahead, lane_in);
     const int64_t col0 = static_cast<int64_t>(tcol) * p.C;
-    float part[NB][KPL], dl[NB];
+    float part[NB][KPL], dl[ND];
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
-      dl[b] = 0.f;
+      if (b < ND) dl[b] = 0.f;
 #pragma unroll
       for (int m = 0; m < KPL; ++m) part[b][m] = 0.f;
     }
@@ -304,21 +326,33 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
           lw[warp][b][pos] = Cells::stage_w(w[b]);
-          if constexpr (Cells::kDen) dl[b] += d[b];
+          if constexpr (Cells::kDen) {
+            if (b < ND) dl[b] += d[b];
+          }
         }
       });
       for (int g0 = 0; g0 < total; g0 += kG) {
         float wg[kG][NB];
-        float x[kG][NB][KPL];
+        float x[kG][NH][KPL];
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
           const bool in = g0 + g < total;
           const int e = in ? g0 + g : g0;
           const int64_t src = col0 + cl[e];
+          if constexpr (kShared) {  // one gather while some branch weighs the cell
+            bool on = false;
 #pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            wg[g][b] = in ? lw[warp][b][e] : 0.f;
-            gather<KPL>((b == 0 ? p.h0 : p.h1) + src * p.f, k0, p.f, p.vec_h, wg[g][b] != 0.f, x[g][b]);
+            for (int b = 0; b < NB; ++b) {
+              wg[g][b] = in ? lw[warp][b][e] : 0.f;
+              on = on || wg[g][b] != 0.f;
+            }
+            gather<KPL>(p.h0 + src * p.f, k0, p.f, p.vec_h, on, x[g][0]);
+          } else {
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+              wg[g][b] = in ? lw[warp][b][e] : 0.f;
+              gather<KPL>((b == 0 ? p.h0 : p.h1) + src * p.f, k0, p.f, p.vec_h, wg[g][b] != 0.f, x[g][b]);
+            }
           }
         }
 #pragma unroll
@@ -326,7 +360,8 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
 #pragma unroll
           for (int b = 0; b < NB; ++b)
 #pragma unroll
-            for (int m = 0; m < KPL; ++m) part[b][m] = fmaf(wg[g][b], Cells::stage_h(x[g][b][m]), part[b][m]);
+            for (int m = 0; m < KPL; ++m)
+              part[b][m] = fmaf(wg[g][b], Cells::stage_h(x[g][kShared ? 0 : b][m]), part[b][m]);
       }
     };
     if (ahead) {
@@ -349,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
     if constexpr (Cells::kDen) {
       if (lead && any) {
 #pragma unroll
-        for (int b = 0; b < NB; ++b) dacc[b] += tile_cells::warp_sum(dl[b]);
+        for (int b = 0; b < ND; ++b) dacc[b] += tile_cells::warp_sum(dl[b]);
       }
     }
   }
@@ -358,20 +393,33 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
   if (slot < 0) {  // the run's only chunk: the finished row
     float us[NB];
     Cells::post(p.rows, grow, us);
-    float o[KPL];
+    if constexpr (kSplit) {
 #pragma unroll
-    for (int m = 0; m < KPL; ++m) {
-      o[m] = us[0] * acc[0][m];
+      for (int b = 0; b < NB; ++b) {
+        float o[KPL];
 #pragma unroll
-      for (int b = 1; b < NB; ++b) o[m] += us[b] * acc[b][m];
-    }
-    store<KPL>(p.num + grow * p.f, k0, p.f, o);
-    if constexpr (Cells::kDen) {
-      if (lead && lane == 0) {
-        float d = us[0] * dacc[0];
+        for (int m = 0; m < KPL; ++m) o[m] = us[b] * acc[b][m];
+        store<KPL>((b == 0 ? p.num : p.num1) + grow * p.f, k0, p.f, o);
+      }
+      if constexpr (Cells::kDen) {
+        if (lead && lane == 0) p.den[grow] = us[0] * dacc[0];
+      }
+    } else {
+      float o[KPL];
 #pragma unroll
-        for (int b = 1; b < NB; ++b) d += us[b] * dacc[b];
-        p.den[grow] = d;
+      for (int m = 0; m < KPL; ++m) {
+        o[m] = us[0] * acc[0][m];
+#pragma unroll
+        for (int b = 1; b < NB; ++b) o[m] += us[b] * acc[b][m];
+      }
+      store<KPL>(p.num + grow * p.f, k0, p.f, o);
+      if constexpr (Cells::kDen) {
+        if (lead && lane == 0) {
+          float d = us[0] * dacc[0];
+#pragma unroll
+          for (int b = 1; b < NB; ++b) d += us[b] * dacc[b];
+          p.den[grow] = d;
+        }
       }
     }
   } else {
@@ -381,17 +429,19 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
     if constexpr (Cells::kDen) {
       if (lead && lane == 0) {
 #pragma unroll
-        for (int b = 0; b < NB; ++b) s[static_cast<int64_t>(NB) * p.R * p.f + b * p.R + r] = dacc[b];
+        for (int b = 0; b < ND; ++b) s[static_cast<int64_t>(NB) * p.R * p.f + b * p.R + r] = dacc[b];
       }
     }
   }
 }
 
 // The runs of more than one chunk: one thread a row element (then a row's
-// den), the run's slots added in chunk order, post-scaled, written once.
+// den), the run's slots added in chunk order, post-scaled, written once
+// (kSplit: each branch's to its own output, den branch 0's).
 template <class Cells>
 __global__ void __launch_bounds__(kFinishThreads) finish_kernel(const Args p, const Work wk) {
   constexpr int NB = Cells::NB;
+  constexpr bool kSplit = split_of<Cells>::value;
   const int run = wk.multi_run[blockIdx.y];
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kFinishThreads + threadIdx.x;
   const int64_t nf = static_cast<int64_t>(p.R) * p.f;
@@ -414,14 +464,26 @@ __global__ void __launch_bounds__(kFinishThreads) finish_kernel(const Args p, co
   }
   const int64_t grow = static_cast<int64_t>(run) * p.R + r;
   if (grow >= p.n) return;
+  const int nb = kSplit && e >= nf ? 1 : NB;  // branches summed
   float s[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) s[b] = 0.f;
   for (int q = 0; q < nk; ++q)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) s[b] += s0[q * stride + at + b * step];
+    for (int b = 0; b < NB; ++b)
+      if (b < nb) s[b] += s0[q * stride + at + b * step];
   float us[NB];
   Cells::post(p.rows, grow, us);
+  if constexpr (kSplit) {
+    if (e < nf) {
+      const int64_t at_row = grow * p.f + (e - static_cast<int64_t>(r) * p.f);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) (b == 0 ? p.num : p.num1)[at_row] = us[b] * s[b];
+    } else {
+      p.den[grow] = us[0] * s[0];
+    }
+    return;
+  }
   float o = us[0] * s[0];
 #pragma unroll
   for (int b = 1; b < NB; ++b) o += us[b] * s[b];

@@ -29,9 +29,10 @@
 // over many blocks; per-tile partials; a run's chunk partials added in a
 // fixed order), with DadCells below as its policy, writing num [n, f] and
 // den [n] to scratch the wrapper allocates; f > 128 takes the walk's
-// 128-wide f-slices.  The dot follows in a second small kernel, one warp a
-// row with the lanes over f, in a fixed order: d_ad_i = <gbar_i, num_i> -
-// c_i * den_i; a row without a cell has num = den = 0 and writes 0.  Two
+// 128-wide f-slices.  The dot follows in a second small kernel
+// (gat_walk::dot_kernel, which B4 shares), one warp a row with the lanes
+// over f, in a fixed order: d_ad_i = <gbar_i, num_i> - c_i * den_i; a row
+// without a cell has num = den = 0 and writes 0.  Two
 // calls give bitwise equal output.  The reassociation changes only the
 // float32 summation order; rows whose true d_ad is 0 (every logit >= 0 and
 // only tile edges: <ct, out> - <ct, out>) lose to cancellation in either
@@ -79,24 +80,6 @@ struct DadCells {
   static __device__ __forceinline__ void post(const float* rows, int64_t i, float* us) { us[0] = 1.f; }
 };
 
-constexpr int kDotWarps = 8;  // rows per block of the dot, one warp each
-
-// out_i = <gbar_i, num_i> - c_i * den_i: lane l sums features l, l + 32, ...
-// in order, then the butterfly
-__global__ void __launch_bounds__(32 * kDotWarps)
-dot_kernel(const float* __restrict__ gbar, const float* __restrict__ num, const float* __restrict__ den,
-           const float* __restrict__ c, float* __restrict__ out, int n, int f) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kDotWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (i >= n) return;  // the whole warp leaves together
-  const float* g = gbar + i * f;
-  const float* x = num + i * f;
-  float p = 0.f;
-  for (int k = lane; k < f; k += 32) p = fmaf(g[k], x[k], p);
-  p = tile_cells::warp_sum(p);
-  if (lane == 0) out[i] = p - c[i] * den[i];
-}
-
 template <class Fmt>
 int launch(const void* a, const void* tile_col, const void* work, const void* h, const void* gbar, const void* c,
            const void* dm, const void* asrc, void* num, void* den, void* scratch, void* out, int num_chunks,
@@ -107,10 +90,7 @@ int launch(const void* a, const void* tile_col, const void* work, const void* h,
                                                   num_chunks, num_multi, num_row_tiles, R, C, n, n_src, f, slope,
                                                   device, stream);
   if (err != 0) return err;
-  dot_kernel<<<(n + kDotWarps - 1) / kDotWarps, 32 * kDotWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gbar), static_cast<const float*>(num), static_cast<const float*>(den),
-      static_cast<const float*>(c), static_cast<float*>(out), n, f);
-  return static_cast<int>(cudaGetLastError());
+  return gat_walk::launch_dot<true>(gbar, num, den, c, out, n, f, stream);
 }
 
 }  // namespace

@@ -1,24 +1,16 @@
 // Nonzero cells of one row of a tile, compacted by one warp.
 //
-// Shared by the GAT backward kernel B4 (gat_bwd_dh_das.cu) and the cell
-// walk of B1, B2 and B3 (cell_walk.cuh), which walk a row's tiles
-// with one warp and do work only for the cells whose value is nonzero (the
-// tiles are ~99% zero).  Each pass scans kChunk
-// columns, 8 per lane, and writes the nonzero ones, in ascending column
-// order, to the warp's list.  The A format is a template argument
-// (bit_tiles.cuh), read 8 cells a lane by tile_fmt::load8_tail (8 count
-// bytes, 16 bytes of bfloat16 or 32 of float32; a 1-bit row's cells are
-// 0 or 1).  compact_row takes the count formats, each entry (column << 8)
-// | count; compact_row_vals takes the float formats (kValued), each entry a
-// column in one list and its value in a parallel float list, so a value
-// never passes through an integer.
+// Used by the cell walk (cell_walk.cuh) of B1, B2, B3 and B4, which walks a
+// row's tiles with one warp and does work only for the cells whose value is
+// nonzero (the tiles are ~99% zero).  compact_mask takes the lane's mask of
+// its 8 cells (c0 + lane * 8 .. + 7, kChunk columns a pass) and writes the
+// marked ones, in ascending column order, to the warp's list through a
+// callback; warp_sum adds a value over the warp.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "bit_tiles.cuh"
 
 namespace tile_cells {
 
@@ -58,47 +50,6 @@ __device__ __forceinline__ int compact_mask(unsigned mask, int base, int lane, V
     if ((mask >> q) & 1u) emit(pos++, base + q, value(q));
   __syncwarp();
   return total;
-}
-
-// compact_mask over the nonzero ones among the lane's 8 cells v
-template <class Emit>
-__device__ __forceinline__ int compact_values(const float (&v)[8], int base, int lane, Emit emit) {
-  unsigned mask = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) mask |= (v[q] != 0.f ? 1u : 0u) << q;
-  return compact_mask(mask, base, lane, [&](int q) { return v[q]; }, emit);
-}
-
-// Compacts the nonzero cells among columns [c0, c0 + kChunk) of the tile
-// row whose bytes start at row_a (shift: the row's bit plane, from
-// Fmt::row_offset) with compact_values.  Each lane reads its 8 cells'
-// values with tile_fmt::load8_tail (vec: C % 8 == 0, so they are one
-// aligned load).
-template <class Fmt, class Emit>
-__device__ __forceinline__ int compact_cells(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
-                                             bool vec, int lane, Emit emit) {
-  const int base = c0 + lane * 8;
-  float v[8];
-  tile_fmt::load8_tail<Fmt>(row_a, base, C, vec, shift, v);
-  return compact_values(v, base, lane, emit);
-}
-
-// The count formats: each entry of list is (column << 8) | count.
-template <class Fmt>
-__device__ __forceinline__ int compact_row(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
-                                           bool vec, int lane, int* list) {
-  return compact_cells<Fmt>(row_a, shift, C, c0, vec, lane,
-                            [=](int p, int col, float v) { list[p] = (col << 8) | static_cast<int>(v); });
-}
-
-// The float formats: the columns go to cols and the values to vals.
-template <class Fmt>
-__device__ __forceinline__ int compact_row_vals(const uint8_t* __restrict__ row_a, int shift, int C, int c0,
-                                                bool vec, int lane, int* cols, float* vals) {
-  return compact_cells<Fmt>(row_a, shift, C, c0, vec, lane, [=](int p, int col, float v) {
-    cols[p] = col;
-    vals[p] = v;
-  });
 }
 
 }  // namespace tile_cells

@@ -27,7 +27,9 @@ device it raises on an input that requires grad while grad is enabled.
 ``tileplan_with_values`` turns a part's cell values into float32 tile
 weights (count x value), the hybrid analog of the reference's
 ``updateval``: the SDDMM's output becomes the edge weights of a following
-weighted aggregation (B1 over float32 tiles).
+weighted aggregation (B1 over float32 tiles).  The weighted plan walks the
+count plan's cell-walk work list (ops.cell_walk.share_walk), so a chain
+called again builds no list.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from gnn_computing_tpu_torch.ops import cuda_sddmm
+from gnn_computing_tpu_torch.ops import cell_walk, cuda_sddmm
 from gnn_computing_tpu_torch.ops.bcsr_gat import _pad_to
 from gnn_computing_tpu_torch.ops.spmm import sddmm_slots
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
@@ -127,4 +129,9 @@ def tileplan_with_values(tp: TilePlan, cell_vals: torch.Tensor) -> TilePlan:
     cnt = torch.as_tensor(tp.counts()).to(cell_vals.device)
     if tuple(cnt.shape) != tuple(cell_vals.shape):
         raise ValueError(f"cell values {tuple(cell_vals.shape)} do not match the tiles {tuple(cnt.shape)}")
-    return dataclasses.replace(tp, a=cnt.float() * cell_vals.float(), bits=False)
+    out = dataclasses.replace(tp, a=cnt.float() * cell_vals.float(), bits=False)
+    # the same tiles and runs, nonzero only where a count is: the count
+    # plan's work list serves it
+    if isinstance(tp.a, torch.Tensor):
+        cell_walk.share_walk(tp, out)
+    return out

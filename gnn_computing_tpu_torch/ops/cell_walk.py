@@ -1,5 +1,6 @@
-"""The work list of the cell walk (``csrc/cell_walk.cuh``): B1's, B2's and
-B3's, and B5's max walk (``csrc/rowmax_bcsr.cu``), one list per plan.
+"""The work list of the cell walk (``csrc/cell_walk.cuh``): B1's, B2's, B3's
+and B4's (over a transposed plan), and B5's max walk
+(``csrc/rowmax_bcsr.cu``), one list per plan.
 
 The walk touches only a tile row's nonzero cells, and its unit of work is a
 chunk: a run of tiles (the tiles of one destination row-tile) cut into
@@ -18,7 +19,11 @@ counts with a few tensor passes, once per plan: ``walk_for`` caches it
 under the plan's tile tensor (``TilePlan.to``, ``astype``, ``pad_runs``,
 ``transpose`` and ``split_bit_tiles`` all make a new one), checked against
 the ``run_start`` tensor and both tensors' version counters, so a list can
-not outlive the tiles it was cut from.
+not outlive the tiles it was cut from.  ``share_walk`` hands a plan's list
+to a plan with the same tiles in the same runs whose nonzero cells are a
+subset of its own (``ops.bcsr_sddmm.tileplan_with_values``: the count plan
+weighted by per-cell values), which the list serves as it is: its chunks
+depend on the tiles and runs, and its cell bound only grows tighter.
 
 The chunks of a run of more than one chunk write their partial sums to a
 scratch slot each (``walk_args`` allocates ``num_slots`` slots of
@@ -172,6 +177,23 @@ def walk_for(tp) -> CellWalk:
     ident = id(a)
     _cache[ident] = (weakref.ref(a, lambda _, i=ident: _cache.pop(i, None)), weakref.ref(rs), _key(tp), walk)
     return walk
+
+
+def share_walk(src, dst) -> None:
+    """Cache ``src``'s work list (built if it has none) under ``dst``'s tile
+    tensor, for a ``dst`` with ``src``'s tiles in ``src``'s order and runs
+    whose nonzero cells are a subset of ``src``'s (module doc).  Does
+    nothing where the two plans' tiles lie on different devices."""
+    if dst.a.device != src.a.device:
+        return
+    if (dst.num_tiles, dst.num_row_tiles, dst.tile_rows, dst.tile_cols) != (
+        src.num_tiles, src.num_row_tiles, src.tile_rows, src.tile_cols
+    ):
+        raise ValueError("share_walk: the plans' tiles or runs differ")
+    walk = walk_for(src)
+    a, ident = dst.a, id(dst.a)
+    _cache[ident] = (weakref.ref(a, lambda _, i=ident: _cache.pop(i, None)), weakref.ref(dst.run_start), _key(dst),
+                     walk)
 
 
 def walk_args(tp, f: int, dev, nb: int = 1, den: bool = False) -> tuple:

@@ -5,10 +5,10 @@ They replace ``gnn_computing_tpu/ops/pallas_bcsr.py:gat_bwd_dad_pallas`` and
 ``gat_bwd_dh_das_pallas`` for int8 count tiles, 1-bit tiles and float32 and
 bfloat16 value tiles (each one template on the A format), scoring each
 nonzero cell from (ad, M) per destination and as per source as the forward
-does.  B3 walks the plan's nonzero cells in chunks of its work list
-(ops.cell_walk: the list B1 and B2 walk over the same plan), as B2 does,
-into num and den scratch allocated here, and forms each row's dot from
-them.
+does.  Both walk the plan's nonzero cells in chunks of its work list
+(ops.cell_walk: the list B1 and B2 walk over the same plan; B4's is the
+transposed plan's, the one B1's backward walks), as B2 does, into num and
+den scratch allocated here, and form each row's dot from them.
 ops.cuda_build compiles each at first use and binds it with ctypes.
 
 ``dad_launches`` and ``dh_das_launches`` count kernel launches (one per
@@ -33,7 +33,7 @@ DH_DAS = "gat_bwd_dh_das"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DAD_SIGNATURES = {f"gat_bwd_dad_{fmt}_f32": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P] for fmt in TAGS}
 DH_DAS_SIGNATURES = {
-    f"gat_bwd_dh_das_{fmt}_f32": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P] for fmt in TAGS
+    f"gat_bwd_dh_das_{fmt}_f32": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P] for fmt in TAGS
 }
 
 dad_launches = 0
@@ -95,18 +95,24 @@ def gat_bwd_dh_das_cuda(tp_t, h, gbar, c, dm, asrc, relu_slope: float):
     """(dh [num_nodes, f], d_att_src [num_nodes]) over the transposed plan
     ``tp_t`` (rows: the forward's sources) from h [num_nodes, f], gbar
     [n_src, f], c [n_src], dm [n_src, 2] and asrc [num_nodes].  One
-    launch computes both.  Launches the kernel or raises; it never falls
-    back."""
+    launch (the walk, its finish pass and the row dot) computes both.
+    Launches the kernel or raises; it never falls back."""
     global dh_das_launches, dh_das_bits_launches, dh_das_float_launches
     dev, f, fmt = _check_inputs("gat_bwd_dh_das_cuda", tp_t, h, gbar, c, dm, asrc, tp_t.num_nodes, tp_t.n_src)
-    dh = torch.empty((tp_t.num_nodes, f), dtype=torch.float32, device=dev)
-    d_as = torch.empty((tp_t.num_nodes,), dtype=torch.float32, device=dev)
-    if tp_t.num_nodes == 0:
+    n = tp_t.num_nodes
+    dh = torch.empty((n, f), dtype=torch.float32, device=dev)
+    d_as = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
         return dh, d_as
+    # (ad, M, c, 0) per destination: one 16-byte load a cell
+    cols = torch.cat([dm, c[:, None], torch.zeros_like(c)[:, None]], dim=1)
+    num1 = torch.empty((n, f), dtype=torch.float32, device=dev)
+    den = torch.empty((n,), dtype=torch.float32, device=dev)
+    scratch, work, scr, num_chunks, num_multi = walk_args(tp_t, f, dev, nb=2, den=True)
     err = getattr(load(DH_DAS, DH_DAS_SIGNATURES), f"gat_bwd_dh_das_{fmt}_f32")(
-        tp_t.a.data_ptr(), tp_t.tile_col.data_ptr(), tp_t.run_start.data_ptr(), h.data_ptr(), gbar.data_ptr(),
-        c.data_ptr(), dm.data_ptr(), asrc.data_ptr(), dh.data_ptr(), d_as.data_ptr(),
-        tp_t.num_row_tiles, tp_t.tile_rows, tp_t.tile_cols, tp_t.num_nodes, tp_t.n_src, f, float(relu_slope),
+        tp_t.a.data_ptr(), tp_t.tile_col.data_ptr(), work, h.data_ptr(), gbar.data_ptr(), cols.data_ptr(),
+        asrc.data_ptr(), dh.data_ptr(), num1.data_ptr(), den.data_ptr(), scr, d_as.data_ptr(), num_chunks,
+        num_multi, tp_t.num_row_tiles, tp_t.tile_rows, tp_t.tile_cols, n, tp_t.n_src, f, float(relu_slope),
         *stream_args(dev),
     )
     if err != 0:

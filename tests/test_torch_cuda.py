@@ -1232,3 +1232,44 @@ def test_walk_rowmax_dad_kernels_match_plain(cuda_dev, rowmax_dad_bounds, kind, 
             _close(got, gat_bwd_dad_plain(tp, h, gbar, c, dm, asrc, 0.2),
                    f"B3 {kind} {fmt} f{f} scale{scale} {rowmax_dad_bounds}")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("fmt", ["i8", "b1", "f32", "bf16"])
+@pytest.mark.parametrize("kind", ["skewed", "tail128", "r200", "single_empty"])
+def test_walk_dh_das_sddmm_kernels_match_plain(cuda_dev, rowmax_dad_bounds, kind, fmt):
+    """B4 on the cell walk over the walk's hard plans (each taken as a
+    transposed plan) within 1e-5 * max|plain| of its plain version for dh
+    and d_as, at f up to 300 (the walk's f-slices), with the 'bound' shift
+    and without; B6 streamed over the same plans, float32 and bfloat16
+    cells, against its plain version; each call twice, bitwise equal, and
+    one launch a call."""
+    from gnn_computing_tpu_torch.ops import cell_walk
+
+    tp = _walk_host_plan(kind, fmt).to(cuda_dev)
+    if rowmax_dad_bounds != "default":
+        assert cell_walk.walk_for(tp).num_multi > 0  # chunk edges inside runs
+    gen = torch.Generator(device=cuda_dev).manual_seed(13)
+    n, n_src = tp.num_nodes, tp.n_src
+    for f in (1, 32, 64, 100, 128, 160, 300):
+        h = torch.randn((n, f), generator=gen, device=cuda_dev)
+        gbar = torch.randn((n_src, f), generator=gen, device=cuda_dev)
+        c = torch.randn(n_src, generator=gen, device=cuda_dev)
+        for scale, shift in ((0.5, False), (15.0, True)):
+            att = torch.randn((max(n, n_src), 2), generator=gen, device=cuda_dev) * scale
+            dm, asrc = _score_terms(att, _global_bound_shift(att, 0.2) if shift else None)
+            args = (h, gbar, c, dm[:n_src].contiguous(), asrc[:n].contiguous(), 0.2)
+            before = cuda_gat_bwd.dh_das_launches
+            dh, das = _twice(lambda: gat_bwd_dh_das(tp, *args))
+            assert cuda_gat_bwd.dh_das_launches == before + 2
+            want_dh, want_das = gat_bwd_dh_das_plain(tp, *args)
+            what = f"B4 {kind} {fmt} f{f} scale{scale} {rowmax_dad_bounds}"
+            _close(dh, want_dh, f"{what} dh")
+            _close(das, want_das, f"{what} d_as")
+        a = torch.randn((n_src, f), generator=gen, device=cuda_dev)
+        b = torch.randn((n, f), generator=gen, device=cuda_dev)
+        for out in (torch.float32, torch.bfloat16):
+            before = cuda_sddmm.launches
+            got = _twice(lambda: sddmm_bcsr(tp, a, b, out_dtype=out))
+            assert cuda_sddmm.launches == before + 2
+            _sddmm_check(got, sddmm_bcsr_plain(tp, a, b, out), tp.counts() > 0, f"B6 {kind} {fmt} f{f} {out}")
+    torch.cuda.synchronize()
