@@ -235,12 +235,17 @@ Phases (any failure exits non-zero; nothing is caught):
      the port's rounded output and its backward's rule; two planted
      backward faults must miss that bound.
  36. the residual-DMA probe at --small size (quick graph, f = 128, int8
-     [256, 128] t24, residual 4): P1 against weighted_task_sums, P2's
-     (dense_out, task_sums) against bcsr_spmm_plain and weighted_task_sums
+     [256, 128] t24, residual 4): the probe plan's work list printed; over
+     the probe plan, its form skewed as phase 37 skews plans (also at f =
+     160) and a factored plan of the same graph, P1 and P2 each called
+     twice (bitwise equal), P2's
+     dense_out bitwise B1's output times scale_dst and its task sums
+     bitwise P1's, both against weighted_task_sums and bcsr_spmm_plain
      (1e-5 * max|plain|); the probe's --mode standalone and --mode fused
-     through its own measure() (P1 and P2 launched); P1, embedding_bag
-     (the library yardstick), the plain residual, P2, B1, B1 then P1 and
-     B1 then spmm_plain timed.
+     through its own measure() (P1 and P2 launched); then P1,
+     embedding_bag (the library yardstick), the plain residual, P2 (its
+     walk blocks alone, its finish pass), B1, B1 then P1
+     and B1 then spmm_plain timed by CUDA events and as device time.
  37. the cell walk of B1 and B2 (quick scale): every main plan's work list
      printed (chunks, runs cut, the largest chunk in cells, the scratch
      bytes at f = 128; the GCN and GAT plans' also at the start of phases
@@ -279,10 +284,11 @@ Phases (any failure exits non-zero; nothing is caught):
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the total
-     seconds, one "kernels" JSON line (B1's, B2's, B3's, B4's and B5's
-     entries with "walk": "cell", their plans' work lists and B3's, B4's
-     and B5's phase 38-39 times; B6's with "design": "streamed", its phase
-     39 times and the chain's), the card line, then
+     seconds, one "kernels" JSON line (B1's, B2's, B3's, B4's, B5's and
+     P2's entries with "walk": "cell", their plans' work lists and B3's,
+     B4's and B5's phase 38-39 times; P1's and P2's phase 36 times; B6's
+     with "design": "streamed", its phase 39 times and the chain's), the
+     card line, then
      {"ok": true, ...}.
 
 With --scale reddit, phases 8-11, 16-20 and 22-39 are replaced by one GCN
@@ -345,7 +351,15 @@ from gnn_computing_tpu_torch.ops import (
     cuda_rowmax,
     cuda_sddmm,
 )
-from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bcsr_rowmax_plain, bcsr_spmm, bcsr_spmm_plain, round_h
+from gnn_computing_tpu_torch.ops.bcsr import (
+    _post_scale,
+    _pre_scale,
+    bcsr_rowmax,
+    bcsr_rowmax_plain,
+    bcsr_spmm,
+    bcsr_spmm_plain,
+    round_h,
+)
 from gnn_computing_tpu_torch.ops.bcsr_gat import (
     _bound_rescue,
     _factored_sums,
@@ -371,8 +385,9 @@ from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, _att_slots_flat
 from gnn_computing_tpu_torch.ops.spmm import sddmm_slots, spmm_plain, weighted_task_sums
 from gnn_computing_tpu_torch.probes import overlap_dma_residual as probe
 from gnn_computing_tpu_torch.ops.validate import relative_error_count
+from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.tiles import densify, densify_gcn_norm, split_bit_tiles
-from gnn_computing_tpu_torch.utils.timing import cuda_time_ms
+from gnn_computing_tpu_torch.utils.timing import cuda_time_ms, device_ms
 
 SCALES = {"quick": (1 << 16, 1 << 22), "reddit": (232_965, 114_615_891)}
 SCHEDULE = dict(tile_rows=512, tile_cols=256, threshold=48)  # bench.py defaults
@@ -3056,15 +3071,47 @@ def planted_faults(agg, h0, train: dict) -> dict:
     return dict(sound=sound, **readings)
 
 
+def residual_identities(tp, plan, h, what: str) -> dict:
+    """P1 and P2 over ``tp`` and ``plan`` at h's width, each called twice
+    (bitwise equal): P2's dense_out bitwise B1's output (bcsr_spmm_cuda over x, h rounded to
+    'split' and times scale_src, as the probe hands it to P2) times
+    scale_dst, its task sums bitwise P1's; both within KERNEL_TOL *
+    max|plain| of their plain versions.  Returns each output's max|d|."""
+    x = _pre_scale(tp, round_h(h, "split")).contiguous()
+    ts = twice_equal(lambda: cuda_residual.task_sums_cuda(plan, h), f"{what} P1")
+    b1 = _post_scale(tp, cuda_bcsr.bcsr_spmm_cuda(tp, x))
+    dense, ts2 = twice_equal(lambda: cuda_residual.fused_hybrid_cuda(tp, plan, x, h), f"{what} P2")
+    check(torch.equal(dense, b1), f"{what}: P2's dense_out is not bitwise B1's output times scale_dst")
+    check(torch.equal(ts2, ts), f"{what}: P2's task sums are not bitwise P1's")
+    log(f"  {what} f={h.shape[1]}: P1 and P2 twice bitwise equal; P2's dense_out bitwise B1 x scale_dst, its "
+        f"task sums bitwise P1's")
+    want_dense, want_ts = probe.fused_hybrid_plain(tp, plan, h)
+    return {k: compare(got, want, f"{what} {k} vs its plain version", gate=False)
+            for k, got, want in (("P1", ts, want_ts), ("P2 dense_out", dense, want_dense),
+                                 ("P2 task sums", ts2, want_ts))}
+
+
+def two_clocks(fn, expect=()) -> dict:
+    """ms by CUDA events (a call's host-side launch included) and the
+    profiler's device ms, summed and by kernel."""
+    per = device_ms(fn, expect=expect)
+    return dict(ms=cuda_time_ms(fn), device_ms=None if per is None else per["all"], device_kernels=per)
+
+
 def probe_phase(g, gen) -> dict:
     """Phase 36: the residual-DMA probe at --small size (the quick graph,
-    65,536 nodes, 4,194,304 edges, f = 128): P1 against weighted_task_sums,
-    P2's (dense_out, task_sums) against bcsr_spmm_plain and
-    weighted_task_sums, the probe's two modes through its own measure()
-    (launches counted), and the times of P1, embedding_bag (the library
-    yardstick), the plain residual, P2's fused pass and B1 then P1."""
+    65,536 nodes, 4,194,304 edges, f = 128).  The probe plan's work list
+    printed; P1 and P2 twice (bitwise equal), P2's dense_out
+    bitwise B1's times scale_dst and its task sums bitwise P1's, both
+    against their plain versions (residual_identities) over the probe plan,
+    the plan skewed as phase 37 skews plans (also at f = 160: the walk's
+    f-slices) and a factored plan of the same graph; the probe's two modes
+    through its own measure() (launches counted); then the times, by CUDA
+    events and as device time, of P1, embedding_bag (the library
+    yardstick), the plain residual, P2 (its walk alone, its finish pass and
+    what the residual blocks add), B1, B1 then P1 and B1 then spmm_plain."""
     dev = gen.device
-    log("phase 36: the residual-DMA probe (P1 task sums, P2 fused hybrid), --small")
+    log("phase 36: the residual-DMA probe (P1 task sums, P2 fused hybrid on the cell walk), --small")
     t0 = time.perf_counter()
     agg = probe.schedule(g, dev)
     plan, tp = agg.plan, agg.tile
@@ -3072,19 +3119,33 @@ def probe_phase(g, gen) -> dict:
     slots = nt * blk
     log(f"  probe plan: int8 [256, 128] t24 tiles={tp.num_tiles} residual edges={plan.num_edges} tasks={nt} "
         f"slots={slots} (block {blk}); built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(36)
+    sd = rng.uniform(0.2, 2.0, g.num_nodes).astype(np.float32)
+    ss = rng.uniform(0.2, 2.0, g.n_src).astype(np.float32)
+    kw = {k: v for k, v in probe.SCHEDULE.items() if k != "residual_block"}
+    fac_host, fac_res = densify(g, dtype=np.int8, val=sd[g.dst_per_edge] * ss[g.indices], scale_dst=sd, scale_src=ss,
+                                **kw)
+    plans = {
+        "probe int8 [256, 128] t24": (tp, plan),
+        "its skewed form": (skewed(tp), plan),
+        "factored int8 [256, 128] t24": (fac_host.to(dev),
+                                         neighbor_grouping_plan(fac_res, block_size=probe.SCHEDULE["residual_block"]).to(dev)),
+    }
+    del fac_host, fac_res
+    walks = [walk_line(p, label) for label, (p, _) in plans.items()]
     h = torch.from_numpy(normal_features(g.num_nodes, PROBE_F, seed=1) * 0.1).to(dev)
     with torch.no_grad():
-        ts = cuda_residual.task_sums_cuda(plan, h)
-        want_ts = weighted_task_sums(plan, h, plan.val)
-        dense, ts2 = probe.fused_hybrid(tp, plan, h)
-        want_dense, want_ts2 = probe.fused_hybrid_plain(tp, plan, h)
+        err = {}
+        for label, (p, rp) in plans.items():
+            for f in ((PROBE_F, 160) if label == "its skewed form" else (PROBE_F,)):
+                hf = h if f == PROBE_F else torch.randn((g.n_src, f), generator=gen, device=dev) * 0.1
+                for k, v in residual_identities(p, rp, hf, f"{label}").items():
+                    err[k] = max(err.get(k, 0.0), v)
+        del plans
         src2, val2 = plan.src.view(nt, blk), plan.val.view(nt, blk)
         lib = torch.nn.functional.embedding_bag(src2, h, per_sample_weights=val2, mode="sum")
-        torch.cuda.synchronize()
-        err = dict(P1=compare(ts, want_ts, "P1 task sums vs weighted_task_sums", gate=False),
-                   P2_dense=compare(dense, want_dense, "P2 dense_out vs bcsr_spmm_plain", gate=False),
-                   P2_tasks=compare(ts2, want_ts2, "P2 task_sums vs weighted_task_sums", gate=False))
-        compare(lib, want_ts, "embedding_bag (the yardstick) vs weighted_task_sums", gate=False)
+        compare(lib, weighted_task_sums(plan, h, plan.val), "embedding_bag (the yardstick) vs weighted_task_sums",
+                gate=False)
         runs = {}
         for mode in ("standalone", "fused"):
             reset_counts()
@@ -3105,28 +3166,46 @@ def probe_phase(g, gen) -> dict:
         p1_bytes = distinct * PROBE_F * 4 + slots * 8 + nt * PROBE_F * 4
         c_cnt = tile_cells(tp)[2]
         x = round_h(h, "split").contiguous()
+        no_tasks = dataclasses.replace(plan, src=plan.src[:0], val=plan.val[:0])
+        p1 = lambda: cuda_residual.task_sums_cuda(plan, h)  # noqa: E731
+        p2 = lambda: cuda_residual.fused_hybrid_cuda(tp, plan, x, h)  # noqa: E731
+        b1 = lambda: cuda_bcsr.bcsr_spmm_cuda(tp, x)  # noqa: E731
         t = dict(
-            P1_ms=cuda_time_ms(lambda: cuda_residual.task_sums_cuda(plan, h)),
-            P1_plain_ms=cuda_time_ms(lambda: weighted_task_sums(plan, h, plan.val)),
-            embedding_bag_ms=cuda_time_ms(
+            P1=two_clocks(p1, expect=("task_sums_kernel",)),
+            P1_plain=two_clocks(lambda: weighted_task_sums(plan, h, plan.val)),
+            embedding_bag=two_clocks(
                 lambda: torch.nn.functional.embedding_bag(src2, h, per_sample_weights=val2, mode="sum")
             ),
-            residual_spmm_plain_ms=cuda_time_ms(lambda: spmm_plain(plan, h)),
-            P2_ms=cuda_time_ms(lambda: cuda_residual.fused_hybrid_cuda(tp, plan, x, h)),
-            P2_plain_ms=cuda_time_ms(lambda: probe.fused_hybrid_plain(tp, plan, h)),
-            B1_ms=cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, x)),
-            B1_then_P1_ms=cuda_time_ms(lambda: (cuda_bcsr.bcsr_spmm_cuda(tp, x), cuda_residual.task_sums_cuda(plan, h))),
-            B1_then_spmm_plain_ms=cuda_time_ms(lambda: (cuda_bcsr.bcsr_spmm_cuda(tp, x), spmm_plain(plan, h))),
+            residual_spmm_plain=two_clocks(lambda: spmm_plain(plan, h)),
+            P2_plain=two_clocks(lambda: probe.fused_hybrid_plain(tp, plan, h)),
+            B1=two_clocks(b1, expect=("walk_kernel",)),
+            B1_then_P1=two_clocks(lambda: (b1(), p1()), expect=("walk_kernel", "task_sums_kernel")),
+            B1_then_spmm_plain=two_clocks(lambda: (b1(), spmm_plain(plan, h))),
         )
+        t["P2"] = two_clocks(p2, expect=("fused_hybrid_kernel",))
+        t["P2_walk_only"] = two_clocks(lambda: cuda_residual.fused_hybrid_cuda(tp, no_tasks, x, h),
+                                       expect=("fused_hybrid_kernel",))
     p1_bound = bound(p1_bytes, 2.0 * slots * PROBE_F)
     p2_bound = bound(b1_bytes + p1_bytes, 2.0 * (c_cnt.numel() + slots) * PROBE_F)
-    log(f"  P1 {t['P1_ms']:.4f} ms ({t['P1_ms'] / slots * 1e6:.3f} ns/slot) bound {p1_bound['bound_ms']:.4f} | "
-        f"plain {t['P1_plain_ms']:.4f} | embedding_bag {t['embedding_bag_ms']:.4f} | residual spmm_plain "
-        f"{t['residual_spmm_plain_ms']:.4f}")
-    log(f"  P2 fused {t['P2_ms']:.4f} ms bound {p2_bound['bound_ms']:.4f} | plain {t['P2_plain_ms']:.4f} | "
-        f"B1 {t['B1_ms']:.4f}, B1 then P1 {t['B1_then_P1_ms']:.4f}, B1 then spmm_plain {t['B1_then_spmm_plain_ms']:.4f}")
+
+    def dev_txt(r, kernel=None):
+        per = r["device_kernels"]
+        if per is None or (kernel is not None and kernel not in per):
+            return "not measured"
+        return f"{per[kernel if kernel else 'all']:.4f}"
+
+    log(f"  P1 {t['P1']['ms']:.4f} ms, device {dev_txt(t['P1'])} ({t['P1']['ms'] / slots * 1e6:.3f} ns/slot) bound "
+        f"{p1_bound['bound_ms']:.4f} | plain {t['P1_plain']['ms']:.4f} | embedding_bag {t['embedding_bag']['ms']:.4f} "
+        f"(device {dev_txt(t['embedding_bag'])}) | residual spmm_plain {t['residual_spmm_plain']['ms']:.4f}")
+    full, walk_only = t["P2"], t["P2_walk_only"]
+    log(f"  P2 {full['ms']:.4f} ms, device {dev_txt(full)}: its kernel {dev_txt(full, 'fused_hybrid_kernel')} "
+        f"(walk blocks alone {dev_txt(walk_only, 'fused_hybrid_kernel')}), finish pass "
+        f"{dev_txt(full, 'finish_kernel')}; bound {p2_bound['bound_ms']:.4f}")
+    log(f"  P2 plain {t['P2_plain']['ms']:.4f} | B1 {t['B1']['ms']:.4f} (device {dev_txt(t['B1'])}), B1 then P1 "
+        f"{t['B1_then_P1']['ms']:.4f} (device {dev_txt(t['B1_then_P1'])}), B1 then spmm_plain "
+        f"{t['B1_then_spmm_plain']['ms']:.4f}")
     return dict(err=err, times=t, runs=runs, p1_bound=p1_bound, p2_bound=p2_bound, slots=slots, tasks=nt,
-                tiles=tp.num_tiles, distinct_rows=distinct)
+                tiles=tp.num_tiles, distinct_rows=distinct, walks=walks)
 
 
 def mode_kernel_entries(modes: dict, pr: dict, libs: dict) -> list:
@@ -3173,16 +3252,19 @@ def mode_kernel_entries(modes: dict, pr: dict, libs: dict) -> list:
              other_plans=others, build_s=libs["gat_bcsr_factored"][1]),
         dict(name="task_sums", route="cuda", source=src + "task_sums.cu",
              replaces="probes/overlap_dma_residual.py:40", launches=runs["standalone"]["launches"]["P1"],
-             max_abs_err=pr["err"]["P1"], ms=t["P1_ms"], plain_ms=t["P1_plain_ms"], **pr["p1_bound"],
-             library_ms=t["embedding_bag_ms"], residual_spmm_plain_ms=t["residual_spmm_plain_ms"],
+             max_abs_err=pr["err"]["P1"], ms=t["P1"]["ms"], device_ms=t["P1"]["device_ms"],
+             plain_ms=t["P1_plain"]["ms"], **pr["p1_bound"], library_ms=t["embedding_bag"]["ms"],
+             library_device_ms=t["embedding_bag"]["device_ms"], residual_spmm_plain_ms=t["residual_spmm_plain"]["ms"],
              slots=pr["slots"], tasks=pr["tasks"], distinct_rows=pr["distinct_rows"],
              path=f"the residual probe --small --mode standalone (int8 [256, 128] t24, residual 4, f={PROBE_F})",
              build_s=libs["task_sums"][1]),
-        dict(name="fused_hybrid", route="cuda", source=src + "fused_hybrid.cu",
+        dict(name="fused_hybrid", route="cuda", walk="cell", source=src + "fused_hybrid.cu",
              replaces="probes/overlap_dma_residual.py:127", launches=runs["fused"]["launches"]["P2"],
-             max_abs_err=max(pr["err"]["P2_dense"], pr["err"]["P2_tasks"]), ms=t["P2_ms"], plain_ms=t["P2_plain_ms"],
-             **pr["p2_bound"], library_ms=None, b1_ms=t["B1_ms"], b1_then_p1_ms=t["B1_then_P1_ms"],
-             b1_then_spmm_plain_ms=t["B1_then_spmm_plain_ms"], fused_pass_ms=runs["fused"]["fused_ms"],
+             max_abs_err=max(pr["err"]["P2 dense_out"], pr["err"]["P2 task sums"]), ms=t["P2"]["ms"],
+             device_ms=t["P2"]["device_ms"], plain_ms=t["P2_plain"]["ms"], **pr["p2_bound"], library_ms=None,
+             b1_ms=t["B1"]["ms"], b1_device_ms=t["B1"]["device_ms"], b1_then_p1_ms=t["B1_then_P1"]["ms"],
+             b1_then_p1_device_ms=t["B1_then_P1"]["device_ms"], b1_then_spmm_plain_ms=t["B1_then_spmm_plain"]["ms"],
+             device_kernels=t["P2"]["device_kernels"], walk_only=t["P2_walk_only"], walk_plans=pr["walks"], fused_pass_ms=runs["fused"]["fused_ms"],
              sequential_pass_ms=runs["fused"]["sequential_ms"], tiles=pr["tiles"],
              path=f"the residual probe --small --mode fused (int8 [256, 128] t24, residual 4, f={PROBE_F}, split)",
              build_s=libs["fused_hybrid"][1]),
@@ -3317,35 +3399,7 @@ def walk_phase(g, gen) -> dict:
     return dict(plans=stats, max_err=max_err, bound_sweep=sweep)
 
 
-
 # ------------------------------------------------ phase 38 (B3 and B5 on the cell walk)
-def device_ms(fn, iters: int = 10, expect=(), tries: int = 3):
-    """{kernel: mean device ms a call} of the CUDA kernels ``fn`` launches,
-    from torch.profiler over ``iters`` calls after one warm-up, with their
-    sum under "all"; None where the profiler saw no device time, or missed
-    a kernel named in ``expect`` in each of ``tries`` profiles (one profile
-    has been seen to drop a kernel's records)."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        per = {}
-        for e in prof.key_averages():
-            t = getattr(e, "device_time_total", 0.0) if e.device_type == torch.autograd.DeviceType.CUDA else 0.0
-            if t > 0:
-                # "void (anonymous namespace)::rowmax_walk_kernel<BitTiles>(...)" -> rowmax_walk_kernel
-                name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-                name = name.split("<")[0].split("(")[0].split("::")[-1] or e.key[:40]
-                per[name] = per.get(name, 0.0) + t / iters / 1e3
-        if per and all(k in per for k in expect):
-            per["all"] = sum(per.values())
-            return per
-    return None
-
-
 def rowmax_vs_plain(tp, gen, what: str):
     """B5 over ``tp`` twice (bitwise equal), equal to its plain version, at
     att scales 1 and 15."""
@@ -3428,8 +3482,8 @@ def rowmax_dad_phase(g, gen) -> dict:
             timed[f"B3 {label} f={f}"] = lambda tp=tp, bwd=bwd: cuda_gat_bwd.gat_bwd_dad_cuda(tp, *bwd)
         times = {}
         for k, fn in timed.items():
-            per = device_ms(fn)
-            times[k] = dict(ms=cuda_time_ms(fn), device_ms=None if per is None else per["all"], device_kernels=per)
+            times[k] = two_clocks(fn)
+            per = times[k]["device_kernels"]
             log(f"  {k}: {times[k]['ms']:.3f} ms (device "
                 + ("not measured" if per is None else f"{per['all']:.3f}: {json.dumps(per)}") + ")")
     return dict(plans=stats, max_err=max_err, times=times)
@@ -3560,8 +3614,8 @@ def dh_das_sddmm_phase(g, gen) -> dict:
             timed[f"B6 {label} f={SDDMM_F}"] = lambda tp=tp, a=a, b=b: cuda_sddmm.sddmm_bcsr_cuda(tp, a, b)
         times = {}
         for k, fn in timed.items():
-            per = device_ms(fn, expect=("walk_kernel", "dot_kernel") if k.startswith("B4") else ("sddmm_bcsr_kernel",))
-            times[k] = dict(ms=cuda_time_ms(fn), device_ms=None if per is None else per["all"], device_kernels=per)
+            times[k] = two_clocks(fn, expect=("walk_kernel", "dot_kernel") if k.startswith("B4") else ("sddmm_bcsr_kernel",))
+            per = times[k]["device_kernels"]
             log(f"  {k}: {times[k]['ms']:.3f} ms (device "
                 + ("not measured" if per is None else f"{per['all']:.3f}: {json.dumps(per)}") + ")")
 

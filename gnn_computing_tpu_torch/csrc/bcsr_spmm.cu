@@ -18,9 +18,9 @@
 // tile times f32 h is the TPU's 'split3' class (24-bit operand, exact bf16
 // products) and an f32 tile its 'native' HIGHEST dot.
 //
-// Design: the cell walk (csrc/cell_walk.cuh, shared with B2), with
-// SumCells below as its cell policy: a nonzero cell's weight is its value,
-// no den, no post-scale.  Only the nonzero cells are touched (a warp
+// Design: the cell walk (csrc/cell_walk.cuh, shared with B2), with its
+// SumCells as the cell policy: a nonzero cell's weight is its value, no
+// den, no post-scale.  Only the nonzero cells are touched (a warp
 // compacts each tile row's cells and gathers one H row slice per cell), and
 // a run's tiles are cut into chunks bounded in nonzero cells (the plan's
 // work list, ops/cell_walk.py), so the hub run is spread over many blocks;
@@ -56,22 +56,8 @@
 namespace {
 
 using cell_walk::Args;
+using cell_walk::SumCells;
 using cell_walk::Work;
-
-// a cell's weight is its value (a count, or a float tile's value)
-struct SumCells {
-  static constexpr int NB = 1;
-  static constexpr bool kDen = false;
-  struct Row {};
-  static __device__ __forceinline__ Row row(const float* rows, int64_t i) { return Row{}; }
-  static __device__ __forceinline__ void weigh(const float* cols, float slope, const Row& u, float v, int64_t src,
-                                               float* w, float* d) {
-    w[0] = v;
-  }
-  static __device__ __forceinline__ float stage_w(float w) { return w; }
-  static __device__ __forceinline__ float stage_h(float x) { return x; }
-  static __device__ __forceinline__ void post(const float* rows, int64_t i, float* us) { us[0] = 1.f; }
-};
 
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kBR = 64;        // rows per epilogue block (4 per thread)

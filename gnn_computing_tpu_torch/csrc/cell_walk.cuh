@@ -2,10 +2,11 @@
 // three bodies, csrc/gat_bcsr.cu and csrc/gat_bcsr_factored.cu, through
 // csrc/gat_walk.cuh), B3 (csrc/gat_bwd_dad.cu) and B4
 // (csrc/gat_bwd_dh_das.cu, over the transposed plan), both through
-// gat_walk.cuh.  They differ only in how a nonzero cell is weighed, which a
-// Cells policy supplies; the walk, the work split and the sums are this
-// file's.  B5's max walk (csrc/rowmax_bcsr.cu) shares its block layout, its
-// Work list and its look-ahead loads (ring_fill).
+// gat_walk.cuh, and the walk blocks of P2 (csrc/fused_hybrid.cu, B1's
+// policy with a row post-scale).  They differ only in how a nonzero cell
+// is weighed, which a Cells policy supplies; the walk, the work split and
+// the sums are this file's.  B5's max walk (csrc/rowmax_bcsr.cu) shares
+// its block layout, its Work list and its look-ahead loads (ring_fill).
 //
 // What it computes: tiles are sorted by destination row-tile; the tiles of
 // row-tile r are run_start[r] .. run_start[r+1].  For every destination
@@ -101,6 +102,23 @@ template <class C, class = void>
 struct shared_of : std::false_type {};
 template <class C>
 struct shared_of<C, std::void_t<decltype(C::kShared)>> : std::bool_constant<C::kShared> {};
+
+// B1's policy (csrc/bcsr_spmm.cu; P2's, csrc/fused_hybrid.cu, with a
+// post-scale): a cell's weight is its value (a count, or a float tile's
+// value)
+struct SumCells {
+  static constexpr int NB = 1;
+  static constexpr bool kDen = false;
+  struct Row {};
+  static __device__ __forceinline__ Row row(const float* rows, int64_t i) { return Row{}; }
+  static __device__ __forceinline__ void weigh(const float* cols, float slope, const Row& u, float v, int64_t src,
+                                               float* w, float* d) {
+    w[0] = v;
+  }
+  static __device__ __forceinline__ float stage_w(float w) { return w; }
+  static __device__ __forceinline__ float stage_h(float x) { return x; }
+  static __device__ __forceinline__ void post(const float* rows, int64_t i, float* us) { us[0] = 1.f; }
+};
 
 // The launch's operands.
 struct Args {
@@ -254,8 +272,13 @@ __device__ __forceinline__ void ring_pop(typename Fmt::Raw (&raw)[D], int (&col)
   }
 }
 
+// One block of the walk: block bx of the chunk x slab axis (chunk bx /
+// slabs, row block bx % slabs) and f-slice by.  walk_kernel runs it over
+// its grid; P2 (csrc/fused_hybrid.cu) runs it in the walk blocks of its
+// own grid.  bx and by are unsigned, as blockIdx is: walk_kernel then
+// compiles to the code it had as one function.
 template <int KPL, class Fmt, class Cells>
-__global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work wk, int slabs) {
+__device__ __forceinline__ void walk_block(const Args& p, const Work& wk, int slabs, unsigned bx, unsigned by) {
   constexpr int NB = Cells::NB;
   constexpr bool kSplit = split_of<Cells>::value;
   constexpr bool kShared = shared_of<Cells>::value;
@@ -267,13 +290,13 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
   __shared__ int lcol[kWarps][kChunk];
   __shared__ float lw[kWarps][NB][kChunk];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k = blockIdx.x / slabs;
-  const int r = block_row<Fmt>(blockIdx.x % slabs, warp, p.R);
+  const int k = bx / slabs;
+  const int r = block_row<Fmt>(bx % slabs, warp, p.R);
   const int run = wk.chunk_run[k];
   const int64_t grow = static_cast<int64_t>(run) * p.R + r;
   if (r >= p.R || grow >= p.n) return;  // the whole warp leaves together
-  const int k0 = blockIdx.y * 32 * KPL + lane * KPL;  // the lane's first feature
-  const bool lead = blockIdx.y == 0;                 // the f-slice that sums den
+  const int k0 = by * 32 * KPL + lane * KPL;  // the lane's first feature
+  const bool lead = by == 0;                  // the f-slice that sums den
   const int t_begin = wk.chunk_tile[k], t_end = wk.chunk_tile[k + 1];
   int shift = 0;
   const uint8_t* a_row = p.a + Fmt::row_offset(r, p.R, p.C, &shift);
@@ -435,6 +458,11 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work
   }
 }
 
+template <int KPL, class Fmt, class Cells>
+__global__ void __launch_bounds__(kThreads) walk_kernel(const Args p, const Work wk, int slabs) {
+  walk_block<KPL, Fmt, Cells>(p, wk, slabs, blockIdx.x, blockIdx.y);
+}
+
 // The runs of more than one chunk: one thread a row element (then a row's
 // den), the run's slots added in chunk order, post-scaled, written once
 // (kSplit: each branch's to its own output, den branch 0's).
@@ -493,29 +521,54 @@ __global__ void __launch_bounds__(kFinishThreads) finish_kernel(const Args p, co
     p.den[grow] = o;
 }
 
+// Features a lane takes at width p.f: 1, 2 or 4, a warp covering up to 32,
+// 64 or 128 (a wider f takes 128-wide f-slices, f_slices); sets p.vec_h to
+// match.
+inline int lane_features(Args& p) {
+  const auto aligned = [](const float* q, int bytes) {
+    return q == nullptr || reinterpret_cast<uintptr_t>(q) % bytes == 0;
+  };
+  if (p.f <= 32) {
+    p.vec_h = true;
+    return 1;
+  }
+  if (p.f <= 64) {
+    p.vec_h = p.f % 2 == 0 && aligned(p.h0, 8) && aligned(p.h1, 8);
+    return 2;
+  }
+  p.vec_h = p.f % 4 == 0 && aligned(p.h0, 16) && aligned(p.h1, 16);
+  return 4;
+}
+
+inline int f_slices(int f, int kpl) { return kpl == 4 ? (f + 127) / 128 : 1; }
+
 // The walk over every chunk (no finish pass).  Returns a cudaError_t.
 template <class Fmt, class Cells>
 int launch_walk(Args p, const Work& wk, cudaStream_t s) {
   const int slabs = num_slabs<Fmt>(p.R);
-  const auto aligned = [](const float* q, int bytes) {
-    return q == nullptr || reinterpret_cast<uintptr_t>(q) % bytes == 0;
-  };
-  const dim3 block(kThreads);
-  if (p.f <= 32) {
-    p.vec_h = true;
-    walk_kernel<1, Fmt, Cells><<<dim3(wk.num_chunks * slabs), block, 0, s>>>(p, wk, slabs);
-  } else if (p.f <= 64) {
-    p.vec_h = p.f % 2 == 0 && aligned(p.h0, 8) && aligned(p.h1, 8);
-    walk_kernel<2, Fmt, Cells><<<dim3(wk.num_chunks * slabs), block, 0, s>>>(p, wk, slabs);
-  } else {
-    p.vec_h = p.f % 4 == 0 && aligned(p.h0, 16) && aligned(p.h1, 16);
-    walk_kernel<4, Fmt, Cells><<<dim3(wk.num_chunks * slabs, (p.f + 127) / 128), block, 0, s>>>(p, wk, slabs);
-  }
+  const int kpl = lane_features(p);
+  const dim3 grid(wk.num_chunks * slabs, f_slices(p.f, kpl)), block(kThreads);
+  if (kpl == 1)
+    walk_kernel<1, Fmt, Cells><<<grid, block, 0, s>>>(p, wk, slabs);
+  else if (kpl == 2)
+    walk_kernel<2, Fmt, Cells><<<grid, block, 0, s>>>(p, wk, slabs);
+  else
+    walk_kernel<4, Fmt, Cells><<<grid, block, 0, s>>>(p, wk, slabs);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The walk, then the finish pass over the runs of more than one chunk.
+// The finish pass over the runs of more than one chunk, if there are any.
 // Returns a cudaError_t.
+template <class Cells>
+int launch_finish(const Args& p, const Work& wk, cudaStream_t s) {
+  if (wk.num_multi == 0) return 0;
+  const int64_t elems = static_cast<int64_t>(p.R) * p.f + (Cells::kDen ? p.R : 0);
+  const dim3 grid(static_cast<unsigned>((elems + kFinishThreads - 1) / kFinishThreads), wk.num_multi);
+  finish_kernel<Cells><<<grid, dim3(kFinishThreads), 0, s>>>(p, wk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk, then the finish pass.  Returns a cudaError_t.
 template <class Fmt, class Cells>
 int launch(const Args& p, const int32_t* work, int num_chunks, int num_multi, int num_row_tiles, int device,
            void* stream) {
@@ -527,11 +580,7 @@ int launch(const Args& p, const int32_t* work, int num_chunks, int num_multi, in
   const Work wk(work, num_chunks, num_multi, num_row_tiles);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_walk<Fmt, Cells>(p, wk, s);
-  if (err != 0 || num_multi == 0) return err;
-  const int64_t elems = static_cast<int64_t>(p.R) * p.f + (Cells::kDen ? p.R : 0);
-  const dim3 grid(static_cast<unsigned>((elems + kFinishThreads - 1) / kFinishThreads), num_multi);
-  finish_kernel<Cells><<<grid, dim3(kFinishThreads), 0, s>>>(p, wk);
-  return static_cast<int>(cudaGetLastError());
+  return err != 0 ? err : launch_finish<Cells>(p, wk, s);
 }
 
 }  // namespace cell_walk

@@ -8,8 +8,8 @@ bandwidth-bound as the tiles.  Here the two kernels are hand-written CUDA:
 
   dma_task_sums (P1, csrc/task_sums.cu): the residual's per-task sums,
       task_sums[t] = sum_b val[t, b] * h[src[t, b]];
-  fused_hybrid (P2, csrc/fused_hybrid.cu): B1's tile product and P1's task
-      sums from one launch, the residual blocks after the dense ones.
+  fused_hybrid (P2, csrc/fused_hybrid.cu): B1's cell walk and P1's task
+      rows in one grid, the residual blocks after the walk's.
 
 On CPU tensors both run their plain versions (``weighted_task_sums``;
 ``bcsr_spmm_plain`` plus ``weighted_task_sums``).  ``main`` builds the

@@ -34,7 +34,8 @@ plus one bfloat16 ulp (<= 2^-7 of it) of each rounded score times |h| (the
 kernel's __expf score and the plain version's torch.exp may round to
 neighbouring bfloat16 values); 'twodot' and 'merged' take their per-node
 operands from the same torch code, so only the float32 sum order differs.
-P1 and P2: 1e-5 * max|plain|."""
+P1 and P2: 1e-5 * max|plain|; P2 walks B1's work list, so its dense_out is
+bitwise B1's output times scale_dst and its task sums bitwise P1's."""
 
 import dataclasses
 import functools
@@ -1014,15 +1015,18 @@ def _residual_plan(dev, block, values):
     return g, neighbor_grouping_plan(g, block_size=block, val=val).to(dev)
 
 
-@pytest.mark.parametrize("block", [1, 4, 32])
+@pytest.mark.parametrize("block", [1, 3, 4, 8, 32, 33])
 @pytest.mark.parametrize("f", [1, 3, 24, 128, 130])
 @pytest.mark.parametrize("values", [False, True])
 def test_task_sums_kernel_matches_plain(cuda_dev, block, f, values):
+    """P1 at residual blocks 1 to 33 (its slot loop whole, in unrolled
+    steps of 4 and with a remainder): twice bitwise equal, against its
+    plain version."""
     g, plan = _residual_plan(cuda_dev, block, values)
     h = torch.randn((g.n_src, f), generator=torch.Generator(device=cuda_dev).manual_seed(f), device=cuda_dev)
     before = cuda_residual.task_sums_launches
-    got = dma_task_sums(plan, h)
-    assert cuda_residual.task_sums_launches == before + 1
+    got = _twice(lambda: dma_task_sums(plan, h))
+    assert cuda_residual.task_sums_launches == before + 2
     want = weighted_task_sums(plan, h, plan.val)
     torch.cuda.synchronize()
     _close(got, want, f"task sums B={block} f={f}")
@@ -1273,3 +1277,39 @@ def test_walk_dh_das_sddmm_kernels_match_plain(cuda_dev, rowmax_dad_bounds, kind
             assert cuda_sddmm.launches == before + 2
             _sddmm_check(got, sddmm_bcsr_plain(tp, a, b, out), tp.counts() > 0, f"B6 {kind} {fmt} f{f} {out}")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("fmt", ["i8", "f32", "bf16"])
+@pytest.mark.parametrize("f", [1, 24, 64, 128, 160])
+@pytest.mark.parametrize("factored", [False, True])
+def test_fused_hybrid_on_cell_walk(cuda_dev, walk_bound, fmt, f, factored):
+    """P2 on B1's cell walk: its dense_out bitwise B1's output times
+    scale_dst, its task sums bitwise P1's, two calls bitwise equal; at a
+    chunk bound of 300 cells (chunk edges inside runs) and the default;
+    f = 160 takes the walk's f-slices."""
+    from gnn_computing_tpu_torch.ops.bcsr import _post_scale, _pre_scale
+
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    kw = dict(tile_rows=64, tile_cols=64, threshold=3)
+    if factored:
+        rng = np.random.default_rng(0)
+        sd = rng.uniform(0.5, 2.0, g.num_nodes).astype(np.float32)
+        ss = rng.uniform(0.5, 2.0, g.n_src).astype(np.float32)
+        kw.update(val=sd[g.dst_per_edge] * ss[g.indices], scale_dst=sd, scale_src=ss)
+    tp, res = densify(g, dtype={"i8": np.int8, "f32": np.float32, "bf16": torch.bfloat16}[fmt], **kw)
+    tp = tp.to(cuda_dev)
+    plan = neighbor_grouping_plan(res, block_size=4).to(cuda_dev)
+    h = torch.randn((g.n_src, f), generator=torch.Generator(device=cuda_dev).manual_seed(f), device=cuda_dev)
+    x = _pre_scale(tp, round_h(h, "split")).contiguous()
+    before = (cuda_residual.fused_launches, cuda_bcsr.launches, cuda_residual.task_sums_launches)
+    dense, ts = _twice(lambda: cuda_residual.fused_hybrid_cuda(tp, plan, x, h))
+    assert (cuda_residual.fused_launches, cuda_bcsr.launches, cuda_residual.task_sums_launches) == (
+        before[0] + 2, before[1], before[2]
+    )
+    assert torch.equal(dense, _post_scale(tp, cuda_bcsr.bcsr_spmm_cuda(tp, x)))
+    assert torch.equal(ts, cuda_residual.task_sums_cuda(plan, h))
+    want_dense, want_ts = fused_hybrid_plain(tp, plan, h)
+    torch.cuda.synchronize()
+    _close(dense, want_dense, f"P2 dense {fmt} f={f} {walk_bound}")
+    _close(ts, want_ts, f"P2 task sums {fmt} f={f}")
