@@ -281,9 +281,43 @@ Phases (any failure exits non-zero; nothing is caught):
      no list on its second call, timed with the weighted plans walking the
      count plans' lists and with a list built at every call (the earlier
      path), with a torch.profiler table of each.
+ 40. gather plans (quick scale): Aggregator.schedule over the graph with
+     neighbor grouping at B = 32 (bench.py --strategy gather's plan, with
+     its transposed plan), locality + neighbor grouping over 8 source
+     partitions at B = 32 (the JAX CLI's default), and nop over a graph of
+     16 in-neighbours a node (sources from numpy seed 16); each plan's
+     build seconds and stats().
+ 41. bench.py --strategy gather at full width, no kernel of the port on
+     it (every launch count stays 0): five 3-layer GCN forwards (ReLU after
+     every layer, glorot_weights seed 0) over each of the two graph plans,
+     each layer and the chain held to phase 3's gates (the gather sums in
+     float32 exactly, so the modes' oracle is the float32 transform's);
+     one SpMM pass at f = 128 (bench.py --model spmm's h) over NG, locality
+     + NG and the nop plan, spmm_nn at f = 32, all against float64
+     edge-list oracles (the gate, 0 bad); five SDDMM passes at f = 32 with
+     f16_split2 rows (bench.py's fast mode), every edge against its
+     float64 dot, over NG and over locality + NG (edge order through
+     edge_perm); five GAT forwards (glorot_gat_weights seed 0) over the NG
+     plan un-stabilized and five with stabilize=True, each layer against
+     gat_edge_oracle (0 bad) and the chain; gat_split_forward's base and
+     adapter pipelines against gat_aggregate on layer 1's inputs.
+ 42. GCN training over the NG plan and its transposed plan (spmm_bidir):
+     phase 9's gates (per-layer input gradients against float64 autograd,
+     the first step's weight gradients within GRAD_REL_L2 of the float64
+     chain) and five Adam steps with a finite loss; no kernel launches.
+ 43. gather timing (CUDA events, median of 10 after 3 warm-ups, and the
+     profiler's device time): the GCN forwards and their layers; the SpMM
+     at f = 128, 64, 32 over both plans beside torch.sparse.mm over the
+     same CSR (a yardstick the port never calls) and the bytes bound
+     (slots x f x 4 read, n x f x 4 written, at HBM_BYTES_PER_S); the SpMM
+     pass's edges/s and peak memory; the SDDMM pass; the GAT forwards; the
+     training step; and P1 (task_sums_cuda, another yardstick) beside
+     weighted_task_sums over the NG plan's task sums at f = 128, their
+     results compared.  A "gather" JSON line carries them.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
-     share, losses and gradient errors, the probe's runs), the total
+     share, losses and gradient errors, the probe's runs), the "gather"
+     line (phases 40-43), the total
      seconds, one "kernels" JSON line (B1's, B2's, B3's, B4's, B5's and
      P2's entries with "walk": "cell", their plans' work lists and B3's,
      B4's and B5's phase 38-39 times; P1's and P2's phase 36 times; B6's
@@ -297,7 +331,10 @@ configuration): the [256, 256] t24 bit-tile plan with its transposes and
 its build time, the first step's weight gradients within BITS_REL_L2 of
 the same step over the same parts passed through unpack_bits() (a check
 on the card, not the training path), REDDIT_STEPS steps with B1 at 12
-launches a step (6 1-bit) and a finite loss, and the step's time.
+launches a step (6 1-bit) and a finite loss, and the step's time; and
+phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
+= 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
+and peak memory.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it (the GCN forward for B1, the GAT forward for B2, the
@@ -306,7 +343,8 @@ training steps for B2, B3 and B4, five SDDMM calls for B6, five 1-bit GCN
 forwards for B1, the bit-tile phases' steps and forwards, phases 23-27's
 forwards, steps, chain and fused calls, phases 30-33's forwards, steps
 and SDDMM calls, phase 34's ablation path, phase 35's forwards and steps
-and phase 36's probe runs); launches made to compare a kernel with its
+and phase 36's probe runs; phases 41-42's gather paths, which must leave
+every count at 0); launches made to compare a kernel with its
 plain version are not counted.  Each wrapper also counts its 1-bit launches apart
 (``bits_launches``) and its float-tile launches (``float_launches``; B3/B4
 ``dad_float_launches`` / ``dh_das_float_launches``); B1 its w_epilogue
@@ -338,7 +376,7 @@ from gnn_computing_tpu_torch.aggregator import Aggregator
 from gnn_computing_tpu_torch.convert import gat_params_from_jax, gcn_params_from_jax
 from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, normal_features, rmat_graph
 from gnn_computing_tpu_torch.models.gat import gat_forward, glorot_gat_weights
-from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, fast_layer_opts, gcn_layer, glorot_weights
+from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, LayerOpts, fast_layer_opts, gcn_layer, glorot_weights
 from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xent
 from gnn_computing_tpu_torch.ops import (
     bcsr_gat,
@@ -380,9 +418,15 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
     gat_bwd_dh_das_plain,
 )
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain, tileplan_with_values
-from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn, bcsr_spmm_nn_plain, hybrid_spmm_nn
-from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, _att_slots_flat
-from gnn_computing_tpu_torch.ops.spmm import sddmm_slots, spmm_plain, weighted_task_sums
+from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn, bcsr_spmm_nn_plain, hybrid_spmm_nn, spmm_nn
+from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, _att_slots_flat, gat_aggregate, gat_split_forward
+from gnn_computing_tpu_torch.ops.spmm import (
+    edge_values_from_slots_flat,
+    sddmm_slots,
+    spmm,
+    spmm_plain,
+    weighted_task_sums,
+)
 from gnn_computing_tpu_torch.probes import overlap_dma_residual as probe
 from gnn_computing_tpu_torch.ops.validate import relative_error_count
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
@@ -414,6 +458,10 @@ GRAD_REL_L2 = 1e-4  # whole-step weight gradients against the float64 chain
 # (float32 summation order only: the parts add their partial sums)
 BITS_REL_L2 = 1e-5
 REDDIT_STEPS = 3  # bit-tile GCN training steps at --scale reddit
+GATHER_BLOCK = 32  # bench.py --block-size: the --strategy gather plan's B
+GATHER_PARTITIONS = 8  # the JAX CLI's --partitions default (locality schedules)
+NOP_DEGREE = 16  # in-neighbours a node of phase 40's fixed-degree graph
+GATHER_CALLS = 5
 # leaky-relu's derivative jumps by (1 - slope) * the attention weight at a
 # zero logit, and for an edge within ~1e-7 of it float32 and float64 may
 # take different sides: for edges within KINK of it the float64 oracles
@@ -679,9 +727,10 @@ def gat_edge_oracle(feat, att, dst, src, slope=DEFAULT_SLOPE):
     return num / torch.where(den == 0, 1.0, den)[:, None]
 
 
-def gat_gates(agg, params, h0, out, g, what: str, layer_limit: float = 0.0) -> list:
-    """Phase 6's checks of a GAT forward (fast=True, split2) over ``agg``:
-    each layer, from its own float32 input, against the float64 edge-list
+def gat_gates(agg, params, h0, out, g, what: str, layer_limit: float = 0.0, stabilize=False) -> list:
+    """Phase 6's checks of a GAT forward (fast=True, split2, ``stabilize``)
+    over ``agg`` (an aggregator or a gather plan): each layer, from its own
+    float32 input, against the float64 edge-list
     oracle (the softmax over each row's in-edges, with multiplicity) misses
     the gate on at most ``layer_limit`` of its elements (0: none), and the
     whole chain ``out`` on at most PURE_BAD_FRACTION.  Returns the layer
@@ -689,7 +738,7 @@ def gat_gates(agg, params, h0, out, g, what: str, layer_limit: float = 0.0) -> l
     g_dst, g_src = edge_lists(g, h0.device)
     xs, chain = [h0], h0.double()
     for i, p in enumerate(params):
-        xs.append(gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2"))
+        xs.append(gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2", stabilize=stabilize))
         feat = xs[i].double() @ p.w.double()
         ref = gat_edge_oracle(feat, feat @ p.w_att.double(), g_dst, g_src)
         bad = relative_error_count(xs[-1], ref)
@@ -3656,6 +3705,227 @@ def dh_das_sddmm_phase(g, gen) -> dict:
     return dict(plans=stats, max_err=max_err, times=times, chain_ms=chain_ms, chain_builds_first=built_first)
 
 
+def gather_plan(g, schedule: str, dev, with_transpose: bool = False, **kw):
+    """Aggregator.schedule over ``g`` on ``dev``, its build seconds and
+    stats() logged."""
+    t0 = time.perf_counter()
+    agg = Aggregator.schedule(g, schedule, with_transpose=with_transpose, device=dev, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  {schedule} {kw} (transposed plan: {with_transpose}): built in {secs:.2f} s, {agg.plan.stats()}")
+    return agg, dict(build_s=secs, stats=agg.plan.stats())
+
+
+def fixed_degree_graph(n: int, degree: int, seed: int) -> CSRGraph:
+    """Every node ``degree`` in-edges from sources drawn uniformly (numpy
+    ``seed``): the bounded-degree graph the nop schedule is for."""
+    rng = np.random.default_rng(seed)
+    return CSRGraph(np.arange(n + 1, dtype=np.int64) * degree, rng.integers(0, n, n * degree))
+
+
+def gather_edges(g, dev) -> tuple:
+    """gcn_gates's edge lists for a gather plan: every edge is a residual
+    edge (aggregated in float32 exactly, no tile rounding), no tile cell."""
+    g_dst, g_src = edge_lists(g, dev)
+    none = torch.zeros(0, dtype=torch.long, device=dev)
+    return g_dst, g_src, None, g_dst, g_src, None, none, none, none.double()
+
+
+def sddmm_gate(plan, a, b, g_dst, g_src, what: str):
+    """The SDDMM of bench.py's gather path (f16_split2 source rows) in CSR
+    edge order, through the plan's edge permutation, against the float64
+    dot of every edge."""
+    got = edge_values_from_slots_flat(plan, sddmm_slots(plan, a, b, gather_dtype="f16_split2"))
+    ref = torch.empty(g_dst.shape[0], dtype=torch.float64, device=a.device)
+    for s in range(0, ref.shape[0], CHECK_EDGES):
+        d, sr = g_dst[s : s + CHECK_EDGES], g_src[s : s + CHECK_EDGES]
+        ref[s : s + CHECK_EDGES] = (a.double().index_select(0, sr) * b.double().index_select(0, d)).sum(dim=1)
+    bad = relative_error_count(got, ref)
+    log(f"  {what}: {ref.numel()} edges vs f64 dots, gate_bad={bad}")
+    check(bool(torch.isfinite(got).all()) and bad == 0, f"{what} fails the gate against the float64 dots")
+
+
+def gather_phases(g, h0, gen) -> dict:
+    """Phases 40-43: the gather-only schedules and bench.py --strategy
+    gather's paths over them (no kernel of the port runs there)."""
+    dev = h0.device
+    n, m = g.num_nodes, g.num_edges
+    edges = gather_edges(g, dev)
+    g_dst, g_src = edges[:2]
+    # ---- phase 40: plans
+    log(f"phase 40: gather plans (Aggregator.schedule): NG B={GATHER_BLOCK}, locality + NG "
+        f"{GATHER_PARTITIONS} partitions B={GATHER_BLOCK}, nop over a {NOP_DEGREE}-in-neighbour graph")
+    ng, ng_info = gather_plan(g, "neighbor_grouping", dev, with_transpose=True, block_size=GATHER_BLOCK)
+    lasng, lasng_info = gather_plan(
+        g, "locality_neighbor_grouping", dev, num_partitions=GATHER_PARTITIONS, block_size=GATHER_BLOCK
+    )
+    fg = fixed_degree_graph(n, NOP_DEGREE, seed=16)
+    nop, nop_info = gather_plan(fg, "nop", dev)
+    check(nop.plan.block_size == NOP_DEGREE and lasng.plan.num_partitions == GATHER_PARTITIONS, "gather plan shapes")
+    plans = dict(ng=ng_info, lasng=lasng_info, nop=nop_info)
+
+    # ---- phase 41: the slice at full width
+    log("phase 41: bench.py --strategy gather: GCN forward, SpMM f=128, spmm_nn f=32, SDDMM f=32, GAT forward")
+    model = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
+    opts = [LayerOpts()] * (len(BENCH_DIMS) - 1)
+    xs = {}
+    with torch.no_grad():
+        for label, agg in (("NG", ng), ("locality+NG", lasng)):
+            reset_counts()
+            for _ in range(GATHER_CALLS):
+                out = model(agg, h0)
+            torch.cuda.synchronize()
+            check(only_of(()), f"the gather GCN forward ({label}) launched a kernel")
+            check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), f"gather forward ({label})")
+            xs[label] = gcn_gates(agg, model.weights, opts, h0, out, edges, f"gather {label} ")
+        h128 = torch.from_numpy(normal_features(n, BENCH_DIMS[1], seed=123) * 0.1).to(dev)
+        ref128 = edge_sum(h128.double(), g_dst, g_src)
+        for label, agg in (("NG", ng), ("locality+NG", lasng)):
+            reset_counts()
+            got = spmm(agg.plan, h128)
+            torch.cuda.synchronize()
+            check(only_of(()), "the gather SpMM launched a kernel")
+            bad = relative_error_count(got, ref128)
+            log(f"  SpMM pass ({label}) f=128 vs f64 oracle: gate_bad={bad} of {ref128.numel()}")
+            check(bad == 0, f"the gather SpMM ({label}) fails the gate")
+        f_dst, f_src = edge_lists(fg, dev)
+        bad = relative_error_count(spmm(nop.plan, h128), edge_sum(h128.double(), f_dst, f_src))
+        log(f"  SpMM pass (nop, {NOP_DEGREE}-in-neighbour graph) f=128 vs f64 oracle: gate_bad={bad}")
+        check(bad == 0, "the nop SpMM fails the gate")
+        del ref128, f_dst, f_src
+        h32 = torch.from_numpy(normal_features(n, FUSED_F, seed=5) * 0.1).to(dev)
+        w32 = torch.from_numpy(glorot_weights((FUSED_F, FUSED_F), seed=1)[0]).to(dev)
+        agg32, trans = spmm_nn(ng.plan, h32, w32)
+        ref32 = edge_sum(h32.double(), g_dst, g_src)
+        bad = (relative_error_count(agg32, ref32), relative_error_count(trans, ref32 @ w32.double()))
+        log(f"  spmm_nn f={FUSED_F} vs f64 oracle: agg gate_bad={bad[0]}, agg @ w gate_bad={bad[1]}")
+        check(bad == (0, 0), "spmm_nn fails the gate")
+        a = torch.from_numpy(normal_features(n, SDDMM_F, seed=3) * 0.1).to(dev)
+        b = torch.from_numpy(normal_features(n, SDDMM_F, seed=4) * 0.1).to(dev)
+        reset_counts()
+        for _ in range(GATHER_CALLS):
+            sddmm_slots(ng.plan, a, b, gather_dtype="f16_split2")
+        torch.cuda.synchronize()
+        check(only_of(()), "the gather SDDMM launched a kernel")
+        sddmm_gate(ng.plan, a, b, g_dst, g_src, "SDDMM (NG, f16_split2)")
+        sddmm_gate(lasng.plan, a, b, g_dst, g_src, "SDDMM (locality+NG: edges through edge_perm)")
+        gat = gat_params_from_jax(glorot_gat_weights(BENCH_DIMS, seed=0), device=dev)
+        gat_out = {}
+        for stabilize in (False, True):
+            reset_counts()
+            for _ in range(GATHER_CALLS):
+                out = gat(ng.plan, h0, stabilize=stabilize)
+            torch.cuda.synchronize()
+            check(only_of(()), "the gather GAT forward launched a kernel")
+            gat_gates(ng.plan, gat.layer_params(), h0, out, g, f"gather GAT stabilize={stabilize} ",
+                      stabilize=stabilize)
+            gat_out[stabilize] = out
+        compare(gat_out[True], gat_out[False], "gather GAT stabilize=True vs un-stabilized", gate=True)
+        p1 = gat.layer_params()[0]
+        feat = h0 @ p1.w
+        att = feat @ p1.w_att
+        fused = gat_aggregate(ng.plan, feat, att)
+        for adapter in (False, True):
+            compare(gat_split_forward(ng.plan, feat, att, use_adapter=adapter), fused,
+                    f"gat_split_forward ({'adapter' if adapter else 'base'}) vs gat_aggregate, layer 1", gate=True)
+        del feat, att, fused
+
+    # ---- phase 42: training
+    log(f"phase 42: GCN training over the NG gather plan (B={GATHER_BLOCK}, transposed plan), {TRAIN_STEPS} steps")
+    train = gcn_training(ng, g, h0, "gather ")
+    check(all(v == 0 for v in train["counts"].values()), "gather GCN training launched a kernel")
+
+    # ---- phase 43: timing
+    log("phase 43: gather timing (CUDA events, median of 10 after 3 warm-up; profiler device time)")
+    slots = ng.plan.num_tasks_padded * ng.plan.block_size
+    t = dict(plans=plans, slots=slots, edges=m)
+    with torch.no_grad():
+        for label, agg in (("ng", ng), ("lasng", lasng)):
+            xl = xs["NG" if label == "ng" else "locality+NG"]
+            fw = two_clocks(lambda: model(agg, h0))
+            fw["layer_ms"] = [cuda_time_ms(lambda: gcn_layer(agg, xl[i], w)) for i, w in enumerate(model.weights)]
+            t[f"{label}_forward"] = fw
+            log(f"  GCN forward ({label}): {fw['ms']:.3f} ms (device {fw['device_ms']}), layers "
+                f"{' / '.join(f'{x:.3f}' for x in fw['layer_ms'])}")
+        crow = torch.from_numpy(g.indptr.astype(np.int64)).to(dev)
+        csr = torch.sparse_csr_tensor(crow, g_src, torch.ones(m, device=dev), (n, g.n_src))
+        rows = []
+        for f in BENCH_DIMS[1:]:
+            x = torch.randn((g.n_src, f), generator=gen, device=dev)
+            row = dict(f=f, ms=cuda_time_ms(lambda: spmm(ng.plan, x)),
+                       lasng_ms=cuda_time_ms(lambda: spmm(lasng.plan, x)),
+                       library_ms=cuda_time_ms(lambda: torch.sparse.mm(csr, x)),
+                       **bound((slots + n) * f * 4.0, 2.0 * m * f))
+            rows.append(row)
+            log(f"  SpMM f={f}: NG {row['ms']:.3f} ms, locality+NG {row['lasng_ms']:.3f} | torch.sparse.mm "
+                f"{row['library_ms']:.3f} | bound {row['bound_ms']:.4f} ({row['bound_by']}; {slots} slots)")
+        t["spmm_rows"] = rows
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        spmm(ng.plan, h128)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        sp = two_clocks(lambda: spmm(ng.plan, h128))
+        sp.update(edges_per_s=m / (sp["ms"] * 1e-3), peak_bytes=peak)
+        t["spmm_pass"] = sp
+        log(f"  SpMM pass f=128 (NG): {sp['ms']:.3f} ms (device {sp['device_ms']}) = {sp['edges_per_s']:.4g} "
+            f"edges/s, peak {peak / 2**30:.3f} GiB above its inputs")
+        sd = two_clocks(lambda: sddmm_slots(ng.plan, a, b, gather_dtype="f16_split2"))
+        sd["edges_per_s"] = m / (sd["ms"] * 1e-3)
+        t["sddmm_pass"] = sd
+        log(f"  SDDMM pass f=32 (NG, f16_split2): {sd['ms']:.3f} ms (device {sd['device_ms']}) = "
+            f"{sd['edges_per_s']:.4g} edges/s")
+        for stabilize in (False, True):
+            gm = two_clocks(lambda: gat(ng.plan, h0, stabilize=stabilize))
+            t["gat_forward_stabilized" if stabilize else "gat_forward"] = gm
+            log(f"  GAT forward (NG, stabilize={stabilize}): {gm['ms']:.3f} ms (device {gm['device_ms']})")
+        # a yardstick the port never calls: P1 over the NG plan's task sums
+        compare(cuda_residual.task_sums_cuda(ng.plan, h128), weighted_task_sums(ng.plan, h128, ng.plan.val),
+                "P1 (yardstick) vs weighted_task_sums", gate=False)
+        ts = dict(
+            plain=two_clocks(lambda: weighted_task_sums(ng.plan, h128, ng.plan.val)),
+            p1=two_clocks(lambda: cuda_residual.task_sums_cuda(ng.plan, h128)),
+            **bound((slots + ng.plan.num_tasks_padded) * BENCH_DIMS[1] * 4.0, 2.0 * slots * BENCH_DIMS[1]),
+        )
+        t["task_sums"] = ts
+        log(f"  task sums f=128 (NG): weighted_task_sums {ts['plain']['ms']:.3f} ms (device "
+            f"{ts['plain']['device_ms']}) | P1 {ts['p1']['ms']:.3f} ms (device {ts['p1']['device_ms']}) | "
+            f"bound {ts['bound_ms']:.4f}")
+        del csr
+    step_ms = cuda_time_ms(train["step"])
+    fwd_ms = cuda_time_ms(lambda: train["fwd"](h0))
+    t["train"] = dict(step_ms=step_ms, forward_ms=fwd_ms, backward_adam_ms=step_ms - fwd_ms, losses=train["losses"])
+    log(f"  GCN training step (NG): {step_ms:.3f} ms = forward {fwd_ms:.3f} + backward and Adam {step_ms - fwd_ms:.3f}")
+    return t
+
+
+def gather_reddit_phase(g, h0) -> dict:
+    """--scale reddit: bench.py --strategy gather's GCN forward over the NG
+    plan (B = 32; spmm_plain's chunks of CHUNK_SLOTS slots), each layer
+    held to phase 3's gates, its time and peak memory."""
+    dev = h0.device
+    log(f"phase 41 (reddit): the gather GCN forward, NG B={GATHER_BLOCK}")
+    ng, info = gather_plan(g, "neighbor_grouping", dev, block_size=GATHER_BLOCK)
+    model = gcn_params_from_jax(glorot_weights(BENCH_DIMS, seed=0), device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        out = model(ng, h0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(only_of(()) and out.shape == (g.num_nodes, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()),
+              "the reddit gather forward")
+        gcn_gates(ng, model.weights, [LayerOpts()] * (len(BENCH_DIMS) - 1), h0, out, gather_edges(g, dev),
+                  "reddit gather ")
+        fw = two_clocks(lambda: model(ng, h0))
+    log(f"  reddit gather GCN forward: {fw['ms']:.3f} ms (device {fw['device_ms']}), peak "
+        f"{peak / 2**30:.3f} GiB above its inputs")
+    return dict(plan=info, forward=fw, peak_bytes=peak)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -3817,8 +4087,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         dd = dh_das_sddmm_phase(g, gen)
         torch.cuda.empty_cache()
+        gather = gather_phases(g, h0, gen)
+        torch.cuda.empty_cache()
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
+        torch.cuda.empty_cache()
+        gather = gather_reddit_phase(g, h0)
         log("phases 22-39 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
             "B2's other modes, the residual probe, the cell walk's checks, B3, B5 and B4 on the walk, B6 streamed) "
             "run at the quick scale only")
@@ -4037,6 +4311,7 @@ def main() -> int:
             default_train_losses=modes["train_losses"], default_train_rel_l2=modes["train_rel_l2"],
             probe=dict(times=pr["times"], runs=pr["runs"]),
         )}), flush=True)
+    print(json.dumps({"gather": gather}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

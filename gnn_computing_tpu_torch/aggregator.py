@@ -1,12 +1,22 @@
 """Aggregator: the user-facing handle bundling a scheduled graph.
 
-Port of the hybrid part of ``gnn_computing_tpu/aggregator.py``: dense
-adjacency tiles (schedule.tiles; float32 edge values by default, as in the
-JAX package, or int8 counts or bfloat16 values) plus a neighbor-grouping
-plan for the residual edges, run by ops.bcsr.hybrid_spmm (``run``) and
-ops.bcsr_gat.hybrid_gat (``run_gat``).  ``with_transpose=True`` (the
-default, as in the JAX package) adds the transposed tile plan, the
-transposed residual plan and the edge map that the ops' backwards stream.
+Port of ``gnn_computing_tpu/aggregator.py``.  ``schedule`` builds a
+gather-only aggregator: a plan of one of the reference's four schedules
+(schedule.make_plan: neighbor grouping, locality, locality + neighbor
+grouping, nop) and, with ``with_transpose=True`` (the default), the same
+schedule of the transposed graph and its edge map, which the backward of
+``run`` aggregates over (ops.spmm.spmm_bidir).  ``run`` is the SpMM,
+``run_gat`` the fused GAT (ops.gat.gat_aggregate), ``run_sddmm`` the
+SDDMM, all plain PyTorch: the JAX package has no kernel on this path.
+
+``schedule_hybrid`` builds the hybrid one: dense adjacency tiles
+(schedule.tiles; float32 edge values by default, as in the JAX package,
+or int8 counts or bfloat16 values) plus a neighbor-grouping plan for the
+residual edges, run by ops.bcsr.hybrid_spmm (``run``) and
+ops.bcsr_gat.hybrid_gat (``run_gat``) over the hand-written kernels.
+``with_transpose=True`` (the default, as in the JAX package) adds the
+transposed tile plan, the transposed residual plan and the edge map that
+the ops' backwards stream.
 ``bit_tiles=True`` splits int8 count tiles into a 1-bit part (``tile_bits``)
 and an int8 part (``tile``); with ``with_transpose=True`` each part gets its own
 transposed plan (``tile_bits_t``, ``tile_t``), the configuration of bench.py
@@ -15,7 +25,7 @@ transposed plan (``tile_bits_t``, ``tile_t``), the configuration of bench.py
 a transposed 1-bit part stays 1-bit whatever its R: the JAX package unpacks
 it below R = 256, the minimum int8 sublane tile of its Mosaic kernel; the
 CUDA kernels need only R % 8 == 0.  Both store the same counts, so the
-function is the same.  Not ported yet: the gather-only schedule.
+function is the same.
 """
 
 from __future__ import annotations
@@ -30,7 +40,10 @@ from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.graph.csr import CSRGraph
 from gnn_computing_tpu_torch.ops.bcsr import hybrid_spmm
 from gnn_computing_tpu_torch.ops.bcsr_gat import hybrid_gat
-from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
+from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate
+from gnn_computing_tpu_torch.ops.sddmm import sddmm
+from gnn_computing_tpu_torch.ops.spmm import slots_from_edge_values, spmm, spmm_bidir
+from gnn_computing_tpu_torch.schedule import Schedule, make_plan
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify, split_bit_tiles, tile_format
@@ -38,7 +51,7 @@ from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify, split_bit_
 
 @dataclasses.dataclass
 class Aggregator:
-    plan: AggregationPlan  # residual edges
+    plan: AggregationPlan  # every edge (schedule) or the residual edges (schedule_hybrid)
     num_nodes: int
     n_src: int
     num_edges: int
@@ -46,7 +59,7 @@ class Aggregator:
     # transposed plans for the backward (with_transpose=True)
     tile_t: Optional[TilePlan] = None
     plan_t: Optional[AggregationPlan] = None
-    edge_map_t: Optional[object] = None  # transposed residual edge -> residual edge
+    edge_map_t: Optional[object] = None  # plan_t's graph edge -> plan's graph edge
     tile_bits: Optional[TilePlan] = None  # 1-bit part (bit_tiles=True)
     tile_bits_t: Optional[TilePlan] = None  # its transposed plan (with_transpose=True)
     in_degree: Optional[object] = None  # int32 [n]: every row's in-edges (tiles and residual)
@@ -59,6 +72,30 @@ class Aggregator:
     def tile_parts_t(self) -> tuple:
         """The non-empty transposed tile parts, the 1-bit part first."""
         return tuple(p for p in (self.tile_bits_t, self.tile_t) if p is not None and p.num_tiles)
+
+    @classmethod
+    def schedule(
+        cls,
+        g: CSRGraph,
+        schedule=Schedule.neighbor_grouping,
+        with_transpose: bool = True,
+        device="cuda",
+        **kw,
+    ) -> "Aggregator":
+        """A gather-only aggregator: ``make_plan(g, schedule, **kw)`` and,
+        with ``with_transpose``, the same schedule of the transposed graph
+        with its edge map (transposed edge i is edge edge_map_t[i]), placed
+        on ``device``."""
+        dev = resolve_device(device)
+        plan = make_plan(g, schedule, **kw)
+        plan_t = edge_map = None
+        if with_transpose:
+            gt, edge_map = g.transpose_with_map()
+            plan_t = make_plan(gt, schedule, **kw)
+            edge_map = edge_map.astype(np.int32)
+        agg = cls(plan=plan, num_nodes=g.num_nodes, n_src=g.n_src, num_edges=g.num_edges, plan_t=plan_t,
+                  edge_map_t=edge_map)
+        return agg.to(dev)
 
     @classmethod
     def schedule_hybrid(
@@ -145,20 +182,58 @@ class Aggregator:
         plan_t = self.plan_t if self.plan_t is not None and self.plan_t.num_edges else None
         return self.tile_parts_t() or None, plan_t
 
+    def slot_values(self, edge_val: torch.Tensor) -> torch.Tensor:
+        """Per-edge values (CSR edge order) -> the forward plan's
+        [num_tasks_p, B] slots."""
+        return slots_from_edge_values(self.plan, edge_val)
+
+    def transposed_val(self, edge_val: torch.Tensor) -> torch.Tensor:
+        """Per-edge values (CSR edge order) -> the transposed plan's slots."""
+        if self.plan_t is None:
+            raise ValueError("the aggregator has no transposed plan (with_transpose=False)")
+        return slots_from_edge_values(self.plan_t, edge_val[self.edge_map_t])
+
     def run(
         self,
         h: torch.Tensor,
         residual_gather_dtype=None,
         tile_h_mode: str = "auto",
+        *,
+        val=None,
+        val_t=None,
+        strategy: str = "auto",
     ) -> torch.Tensor:
-        """Weighted aggregation out = A @ h over tiles + residual;
-        differentiable in h when the aggregator holds transposed plans."""
+        """Weighted aggregation out = A @ h.  Over tiles + residual (the
+        hybrid op, edge values inside the plans: ``val`` raises); without
+        tiles over the gather plan, ``val`` / ``val_t`` slot values
+        overriding the plans' (``val_t`` needed beside ``val`` for the
+        transposed backward; the gather modes are not used there, as in the
+        JAX package).  Differentiable in h (and ``val``) when the
+        aggregator holds transposed plans; a gather plan without them
+        differentiates through autograd's scatter."""
         tps = self.tile_parts()
-        plan = self.plan if self.plan.num_edges else None
-        if not tps:
-            raise ValueError("aggregator has no tiles (schedule_hybrid always makes some)")
-        tp_t, plan_t = self._plans_t()
-        return hybrid_spmm(tps, plan, h, residual_gather_dtype, tile_h_mode, tp_t=tp_t, plan_t=plan_t)
+        if tps:
+            if val is not None or val_t is not None:
+                raise ValueError("hybrid aggregators carry edge values inside their plans")
+            plan = self.plan if self.plan.num_edges else None
+            tp_t, plan_t = self._plans_t()
+            return hybrid_spmm(tps, plan, h, residual_gather_dtype, tile_h_mode, tp_t=tp_t, plan_t=plan_t)
+        if self.plan_t is not None:
+            if val is None and self.plan_t.val is not None:
+                return spmm_bidir(self.plan, self.plan_t, h)
+            if val is not None and val_t is not None:
+                return spmm_bidir(self.plan, self.plan_t, h, val, val_t)
+        return spmm(self.plan, h, val=val, strategy=strategy)
+
+    def run_transpose(self, g_out: torch.Tensor, val_t=None) -> torch.Tensor:
+        """Aggregation over the reversed graph (dH-style products)."""
+        if self.plan_t is None:
+            raise ValueError("the aggregator has no transposed plan (with_transpose=False)")
+        return spmm(self.plan_t, g_out, val=val_t)
+
+    def run_sddmm(self, a: torch.Tensor, b: torch.Tensor, output: str = "edges") -> torch.Tensor:
+        """Per-edge dots <a[src], b[dst]> over the forward plan (ops.sddmm)."""
+        return sddmm(self.plan, a, b, output=output)
 
     def run_gat(
         self,
@@ -172,11 +247,14 @@ class Aggregator:
     ) -> torch.Tensor:
         """Fused GAT attention aggregation (softmax over each row's in-edges
         of exp(leaky_relu(att[dst, 0] + att[src, 1])), weighting h) over the
-        tiles + residual; see ops.bcsr_gat.hybrid_gat.  Differentiable in
-        (h, att) when the aggregator holds transposed plans."""
+        tiles + residual (ops.bcsr_gat.hybrid_gat; differentiable in (h,
+        att) when the aggregator holds transposed plans) or, without tiles,
+        over the gather plan (ops.gat.gat_aggregate, through autograd; the
+        gather modes and ``dot_mode`` are not used there, as in the JAX
+        package)."""
         tps = self.tile_parts()
         if not tps:
-            raise NotImplementedError("the gather-only GAT path (Aggregator.schedule) is not ported yet")
+            return gat_aggregate(self.plan, h, att, relu_slope=relu_slope, stabilize=stabilize)
         plan = self.plan if self.plan.num_edges else None
         tp_t, plan_t = self._plans_t()
         return hybrid_gat(

@@ -61,6 +61,10 @@ class CSRGraph:
         """Destination vertex of every edge (COO expansion), int32[m]."""
         return np.repeat(np.arange(self.num_nodes, dtype=np.int32), self.degrees)
 
+    def max_degree(self) -> int:
+        d = self.degrees
+        return int(d.max()) if len(d) else 0
+
     @classmethod
     def from_edges(
         cls,
@@ -82,6 +86,10 @@ class CSRGraph:
         indptr = np.zeros(num_nodes + 1, dtype=np.int64)
         np.cumsum(counts, out=indptr[1:])
         return cls(indptr=indptr.astype(np.int32), indices=src, val=val, n_src=n_src)
+
+    def with_val(self, val: np.ndarray) -> "CSRGraph":
+        """A copy carrying per-edge values (CSR edge order)."""
+        return CSRGraph(self.indptr, self.indices, val=val, n_src=self.n_src)
 
     def gcn_norm_val(self) -> np.ndarray:
         """Symmetric GCN normalization 1/sqrt(deg_dst * deg_src) per edge,

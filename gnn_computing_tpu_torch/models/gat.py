@@ -1,9 +1,10 @@
 """GAT: dense transform -> 2-wide attention projection -> fused aggregation.
 
-Port of ``gnn_computing_tpu/models/gat.py`` for hybrid aggregators: each
+Port of ``gnn_computing_tpu/models/gat.py``: each
 layer computes feat2 = h @ W and att = feat2 @ W_att (an [f, 2] projection
 giving the dst and src attention halves; float32 matmuls, TF32 off — the JAX
-code's Precision.HIGHEST), then ``Aggregator.run_gat``.  There is no
+code's Precision.HIGHEST), then ``Aggregator.run_gat`` (hybrid or gather)
+or, over a bare AggregationPlan, ``ops.gat.gat_aggregate``.  There is no
 nonlinearity between layers beyond the softmax-weighted aggregation, as in
 the reference's our.py.  The benchmark model is the 3-layer
 512 -> 128 -> 64 -> 32 stack.
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from gnn_computing_tpu_torch.device import resolve_device
-from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE
+from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate
 
 BENCH_DIMS = (512, 128, 64, 32)
 
@@ -38,12 +39,16 @@ def gat_layer(
     h_gather_dtype=None,
     dot_mode: str = "exact",
 ) -> torch.Tensor:
-    """One GAT layer over a hybrid Aggregator.  With a [heads, f_out, 2]
-    attention weight every head attends on its own over the shared feat2,
-    and the heads' outputs lie side by side: [n, heads * f_out]."""
+    """One GAT layer over an Aggregator or an AggregationPlan (whose
+    gat_aggregate takes no gather mode or dot mode, as in the JAX package).
+    With a [heads, f_out, 2] attention weight every head attends on its own
+    over the shared feat2, and the heads' outputs lie side by side:
+    [n, heads * f_out]."""
     feat2 = h @ p.w
 
     def aggregate(w_att):
+        if not hasattr(agg, "run_gat"):
+            return gat_aggregate(agg, feat2, feat2 @ w_att, relu_slope=relu_slope, stabilize=stabilize)
         return agg.run_gat(
             feat2, feat2 @ w_att, relu_slope=relu_slope, stabilize=stabilize,
             att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype, dot_mode=dot_mode,

@@ -1,10 +1,13 @@
-"""GCN: dense transform -> hybrid aggregation -> ReLU.
+"""GCN: dense transform -> aggregation -> ReLU.
 
-Port of ``gnn_computing_tpu/models/gcn.py`` for hybrid aggregators: each
-layer transforms first (a float32 matmul, TF32 off — the JAX code's
-Precision.HIGHEST), aggregates over the scheduled graph, then applies ReLU;
-``LayerOpts.aggregate_first`` aggregates first and transforms after.
-The benchmark model is the 3-layer 512 -> 128 -> 64 -> 32 stack.
+Port of ``gnn_computing_tpu/models/gcn.py``: each layer transforms first (a
+float32 matmul, TF32 off — the JAX code's Precision.HIGHEST), aggregates
+over the scheduled graph, then applies ReLU; ``LayerOpts.aggregate_first``
+aggregates first and transforms after.  The graph is a hybrid Aggregator
+(with the layer's numeric modes), a gather Aggregator or a bare
+AggregationPlan (ops.spmm.spmm); the gather paths take no numeric mode,
+as in the JAX package.  The benchmark model is the 3-layer
+512 -> 128 -> 64 -> 32 stack.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from torch import nn
 
 from gnn_computing_tpu_torch.device import resolve_device
+from gnn_computing_tpu_torch.ops.spmm import spmm
 
 BENCH_DIMS = (512, 128, 64, 32)
 
@@ -51,27 +55,48 @@ def fast_layer_opts(dims: Sequence[int] = BENCH_DIMS) -> list:
     ]
 
 
-def gcn_layer(agg, h: torch.Tensor, w: torch.Tensor, opts: Optional[LayerOpts] = None) -> torch.Tensor:
-    """relu(agg.run(h @ w)) for a hybrid Aggregator, or relu(agg.run(h) @ w)
-    with ``opts.aggregate_first``."""
-    opts = LayerOpts() if opts is None else opts
+def gcn_layer(
+    agg, h: torch.Tensor, w: torch.Tensor, opts: Optional[LayerOpts] = None, *, val=None,
+    activation=torch.relu, strategy: str = "auto", residual_gather_dtype=None,
+) -> torch.Tensor:
+    """activation(aggregate(h @ w)), or activation(aggregate(h) @ w) with
+    ``opts.aggregate_first``.  ``agg`` a hybrid Aggregator (run with the
+    opts' numeric modes), a gather Aggregator (its ``run``) or an
+    AggregationPlan (spmm with the slot values ``val``).  Without ``opts``
+    the layer takes ``residual_gather_dtype``, which only a hybrid
+    aggregator uses."""
+    if opts is None:
+        opts = LayerOpts(residual_gather_dtype=residual_gather_dtype)
 
     def aggregate(x):
-        return agg.run(x, residual_gather_dtype=opts.residual_gather_dtype, tile_h_mode=opts.tile_h_mode)
+        if hasattr(agg, "run"):  # an Aggregator without tiles ignores the modes
+            return agg.run(x, opts.residual_gather_dtype, opts.tile_h_mode, strategy=strategy)
+        return spmm(agg, x, val=val, strategy=strategy)
 
     z = aggregate(h) @ w if opts.aggregate_first else aggregate(h @ w)
-    return torch.relu(z)
+    return activation(z) if activation is not None else z
+
+
+def gcn_forward(agg, params: Sequence[torch.Tensor], h: torch.Tensor, strategy: str = "auto") -> torch.Tensor:
+    """Multi-layer GCN forward, ReLU between layers and the last layer
+    linear (logits)."""
+    for i, w in enumerate(params):
+        h = gcn_layer(agg, h, w, activation=torch.relu if i < len(params) - 1 else None, strategy=strategy)
+    return h
 
 
 def gcn_forward_bench(
     agg, params: Sequence[torch.Tensor], h: torch.Tensor,
-    layer_opts: Optional[Sequence[LayerOpts]] = None,
+    layer_opts: Optional[Sequence[LayerOpts]] = None, *, strategy: str = "auto", residual_gather_dtype=None,
 ) -> torch.Tensor:
     """The benchmark forward: ReLU after every layer.  ``agg`` may be one
-    aggregator or one per layer."""
+    aggregator or plan, or one per layer."""
     aggs = list(agg) if isinstance(agg, (list, tuple)) else [agg] * len(params)
     for i, w in enumerate(params):
-        h = gcn_layer(aggs[i], h, w, opts=None if layer_opts is None else layer_opts[i])
+        h = gcn_layer(
+            aggs[i], h, w, None if layer_opts is None else layer_opts[i], strategy=strategy,
+            residual_gather_dtype=residual_gather_dtype,
+        )
     return h
 
 

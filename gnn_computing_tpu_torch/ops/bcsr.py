@@ -40,23 +40,11 @@ from typing import Optional
 import torch
 
 from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_rowmax
-from gnn_computing_tpu_torch.ops.spmm import spmm_plain
+from gnn_computing_tpu_torch.ops.spmm import bf16_residue_chunks, spmm_plain
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
 
 H_MODES = ("auto", "native", "split3", "split", "bf16")
-
-
-def bf16_residue_chunks(x: torch.Tensor, n: int) -> list:
-    """Decompose float32 ``x`` into ``n`` bf16 chunks whose sum equals x to
-    n*8 mantissa bits (round to nearest even, as lax.reduce_precision)."""
-    chunks = []
-    rem = x
-    for _ in range(n):
-        c = rem.to(torch.bfloat16)
-        chunks.append(c)
-        rem = rem - c.float()
-    return chunks
 
 
 def round_h(h: torch.Tensor, h_mode: str) -> torch.Tensor:

@@ -120,9 +120,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from gnn_computing_tpu_torch.ops import cuda_gat, cuda_gat_bwd
-from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, bf16_residue_chunks
+from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate_parts, leaky_relu, slot_mask
 from gnn_computing_tpu_torch.ops.spmm import (
+    bf16_residue_chunks,
     edge_values_from_slots_flat,
     sddmm_slots,
     slots_from_edge_values_flat,

@@ -17,21 +17,33 @@ the accumulator before both outputs (the TPU kernel asserts instead).
 
 The op is forward-only, as the TPU kernel is (it has no VJP): on either
 device it raises on an input that requires grad while grad is enabled.
-``spmm_nn`` (over the gather-only schedule) is not ported yet: the gather
-``spmm`` it calls is not (ROADMAP A4).
+``spmm_nn`` is the same pair over a gather plan: ops.spmm.spmm, then the
+matmul (differentiable, as the JAX op is).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from gnn_computing_tpu_torch.ops import cuda_bcsr
 from gnn_computing_tpu_torch.ops.bcsr import _pre_scale, bcsr_spmm_plain, round_h
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import check_forward_only
-from gnn_computing_tpu_torch.ops.spmm import spmm_plain
+from gnn_computing_tpu_torch.ops.spmm import spmm, spmm_plain
+from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
+
+
+def spmm_nn(
+    plan: AggregationPlan, h: torch.Tensor, w: torch.Tensor, val: Optional[torch.Tensor] = None,
+    strategy: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(agg, agg @ w) with agg = A_plan @ h over a gather plan: the
+    reference run_with_nn's (vout, transformed) pair; float32 products,
+    TF32 off."""
+    agg = spmm(plan, h, val=val, strategy=strategy)
+    return agg, agg @ w
 
 
 def bcsr_spmm_nn_plain(tp: TilePlan, h: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,5 +1,6 @@
 """Neighbor-grouping schedule: split every CSR row into tasks of at most B
-edges (port of ``gnn_computing_tpu/schedule/neighbor_grouping.py``)."""
+edges, and ``nop_plan``, one task per row (port of
+``gnn_computing_tpu/schedule/neighbor_grouping.py``)."""
 
 from __future__ import annotations
 
@@ -90,3 +91,10 @@ def neighbor_grouping_plan(
         partition_starts=(0, len(task_start)),
         pad_multiple=pad_multiple,
     )
+
+
+def nop_plan(g: CSRGraph, val: Optional[np.ndarray] = None, pad_multiple: int = 8) -> AggregationPlan:
+    """One task per row, padded to the largest in-degree (B = max degree,
+    at least 1): the reference's unscheduled row-per-warp path.  Only sane
+    on bounded-degree graphs (fixed-size neighbor samples)."""
+    return neighbor_grouping_plan(g, max(g.max_degree(), 1), val=val, pad_multiple=pad_multiple)

@@ -57,6 +57,36 @@ class AggregationPlan:
         """Slot sources as a flat [num_tasks_p * B] vector."""
         return self.src.reshape(-1)
 
+    @property
+    def num_partitions(self) -> int:
+        return len(self.partition_starts) - 1
+
+    def slot_mask(self) -> torch.Tensor:
+        """bool[num_tasks_p, B]: slots that hold an edge, on the plan's
+        device (the CPU for a host plan)."""
+        count = torch.as_tensor(self.count).long()
+        return torch.arange(self.block_size, device=count.device)[None, :] < count[:, None]
+
+    def stats(self) -> dict:
+        """Task-size diagnostics (the JAX package's ``stats``)."""
+        count = self.count.cpu().numpy() if isinstance(self.count, torch.Tensor) else np.asarray(self.count)
+        counts = count[: self.num_tasks]
+        b = self.block_size
+        total_slots = self.num_tasks * b
+        return {
+            "num_tasks": int(self.num_tasks),
+            "num_tasks_padded": int(self.num_tasks_padded),
+            "block_size": int(b),
+            "num_edges": int(self.num_edges),
+            "min_task": int(counts.min()) if len(counts) else 0,
+            "max_task": int(counts.max()) if len(counts) else 0,
+            "mean_task": float(counts.mean()) if len(counts) else 0.0,
+            "under_half_full": int((counts < b / 2).sum()),
+            "zero_tasks": int((counts == 0).sum()),
+            "slot_occupancy": float(counts.sum()) / total_slots if total_slots else 0.0,
+            "pad_overhead": float(self.num_tasks_padded * b) / max(self.num_edges, 1),
+        }
+
     def to(self, device) -> "AggregationPlan":
         dev = resolve_device(device)
 

@@ -11,7 +11,9 @@ plans (B1), transposed plans (B1, B4), every feature-width branch, f up to
 300 (B6's column chunks), cells on both leaky-relu branches, and a non-edge
 whose unstabilized GAT score or SDDMM dot overflows to inf (B2, B3, B4, B6),
 signed float cell values (every nonzero cell scored, C6; B6 keeps the cells
-> 0); the training Functions' gradients on the card against the same
+> 0); the gather-only path (no kernel: spmm and sddmm in every gather
+mode, gat_aggregate, spmm_bidir and GAT gradients) on the card against the
+same calls on the CPU; the training Functions' gradients on the card against the same
 Functions on the CPU, over int8, bit-tile and float-tile aggregators;
 B1, B2, and B3 and B5 over the cell walk's hard plans (one run holding
 every tile with an all-ones tile row, C = 128, 1-bit R = 200, single-tile
@@ -61,7 +63,9 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
 )
 from gnn_computing_tpu_torch.ops.bcsr_gat import _factored_sums, factored_terms, gat_bcsr_factored, gat_bcsr_tiles
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain
-from gnn_computing_tpu_torch.ops.spmm import weighted_task_sums
+from gnn_computing_tpu_torch.ops.gat import gat_aggregate
+from gnn_computing_tpu_torch.ops.sddmm import sddmm
+from gnn_computing_tpu_torch.ops.spmm import spmm_plain, weighted_task_sums
 from gnn_computing_tpu_torch.probes.overlap_dma_residual import dma_task_sums, fused_hybrid, fused_hybrid_plain
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.ops.cuda_build import check_plan
@@ -1313,3 +1317,60 @@ def test_fused_hybrid_on_cell_walk(cuda_dev, walk_bound, fmt, f, factored):
     torch.cuda.synchronize()
     _close(dense, want_dense, f"P2 dense {fmt} f={f} {walk_bound}")
     _close(ts, want_ts, f"P2 task sums {fmt} f={f}")
+
+
+def _gather_graph(sched):
+    """An RMAT graph with edge values; for 'nop' (one task a row) a graph of
+    16 in-neighbours a node, from a numpy seed."""
+    if sched == "nop":
+        rng = np.random.default_rng(5)
+        n = 1237
+        return CSRGraph(np.arange(n + 1) * 16, rng.integers(0, n, n * 16), val=rng.standard_normal(n * 16))
+    return rmat_graph(1237, 60000, seed=3, with_val=True)
+
+
+@pytest.mark.parametrize("sched,kw", [
+    ("neighbor_grouping", dict(block_size=32)),
+    ("locality_neighbor_grouping", dict(num_partitions=8, block_size=32)),
+    ("nop", {}),
+], ids=["ng32", "lasng32", "nop"])
+def test_gather_path_on_card_matches_cpu(cuda_dev, sched, kw):
+    """The gather-only path on the card against the same calls on the CPU:
+    spmm and sddmm (slots and edges) in every gather mode, gat_aggregate
+    (stabilize False and True), and the gradients of spmm_bidir (h and the
+    slot values, through Aggregator.run) and of run_gat.  No kernel
+    launches on this path."""
+    g = _gather_graph(sched)
+    cpu = Aggregator.schedule(g, sched, with_transpose=True, device="cpu", **kw)
+    card = cpu.to(cuda_dev)
+    rng = np.random.default_rng(1)
+    h0, a0, b0, ct0 = (torch.from_numpy(rng.standard_normal((g.num_nodes, f)).astype(np.float32))
+                       for f in (40, 24, 24, 40))
+    att0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 2)).astype(np.float32))
+    ev = torch.from_numpy(g.val)
+    before = (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches, cuda_sddmm.launches)
+    for mode in (None, "f16_split2", "bf16_split2", torch.bfloat16, torch.float16):
+        want = spmm_plain(cpu.plan, h0, gather_dtype=mode)
+        _close(spmm_plain(card.plan, h0.to(cuda_dev), gather_dtype=mode).cpu(), want, f"spmm {sched} {mode}")
+        for output in ("slots", "edges"):
+            want = sddmm(cpu.plan, a0, b0, output=output, gather_dtype=mode)
+            got = sddmm(card.plan, a0.to(cuda_dev), b0.to(cuda_dev), output=output, gather_dtype=mode)
+            _close(got.cpu(), want, f"sddmm {output} {sched} {mode}")
+    for stabilize in (False, True):
+        want = gat_aggregate(cpu.plan, h0, att0, stabilize=stabilize)
+        got = gat_aggregate(card.plan, h0.to(cuda_dev), att0.to(cuda_dev), stabilize=stabilize)
+        _close(got.cpu(), want, f"gat_aggregate {sched} {stabilize}")
+    grads = {}
+    for agg, dev, key in ((cpu, "cpu", "cpu"), (card, cuda_dev, "card")):
+        h = h0.to(dev, copy=True).requires_grad_(True)
+        val = agg.slot_values(ev.to(dev)).requires_grad_(True)
+        (agg.run(h, val=val, val_t=agg.transposed_val(ev.to(dev))) * ct0.to(dev)).sum().backward()
+        dh, dval = h.grad.cpu(), val.grad.cpu()
+        h.grad = None
+        att = att0.to(dev, copy=True).requires_grad_(True)
+        (agg.run_gat(h, att, stabilize=True) * ct0.to(dev)).sum().backward()
+        grads[key] = (dh, dval, h.grad.cpu(), att.grad.cpu())
+    torch.cuda.synchronize()
+    for got, want, what in zip(grads["card"], grads["cpu"], ("spmm_bidir dh", "dval", "run_gat dh", "datt")):
+        _close(got, want, f"{what} {sched}")
+    assert (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches, cuda_sddmm.launches) == before

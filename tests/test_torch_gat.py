@@ -277,13 +277,13 @@ def test_glorot_gat_weights_scale():
 
 
 def test_unported_gat_options_raise():
-    gp, h, att, _, agg = _stabilize_setting(0.1)
+    gp, h, att, jagg, agg = _stabilize_setting(0.1)
     ht, at = torch.from_numpy(h), torch.from_numpy(att)
     with pytest.raises(ValueError):
         agg.run_gat(ht, at, dot_mode="twodot")
     with pytest.raises(ValueError):
         agg.run_gat(ht, at, stabilize="loose")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # no gather mode in the JAX package either
         gat_aggregate_parts(agg.plan, ht, at, att_gather_dtype="bf16")
     # factored plans are refused: attention provides the edge weights
     rng = np.random.default_rng(0)
@@ -293,9 +293,11 @@ def test_unported_gat_options_raise():
                         tile_rows=64, tile_cols=128, threshold=4)
     with pytest.raises(ValueError, match="raw count"):
         hybrid_gat(scaled.to("cpu"), None, ht, at)
-    # no tiles: the gather-only path is not ported
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(agg, tile=None).run_gat(ht, at)
+    # no tiles: the gather-only path, gat_aggregate over the plan, as the
+    # JAX aggregator without tiles runs it
+    want = dataclasses.replace(jagg, tile=None, tile_bits=None).run_gat(jnp.asarray(h), jnp.asarray(att))
+    got = dataclasses.replace(agg, tile=None).run_gat(ht, at)
+    assert_matches_jax(got.numpy(), _as_np(want), what="run_gat without tiles")
 
 
 # ------------------------------------------------------- wide logits (C1, C2)

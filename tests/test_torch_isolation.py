@@ -38,6 +38,7 @@ WALKED = (
     "gnn_computing_tpu_torch.ops.cuda_residual",
     "gnn_computing_tpu_torch.ops.cuda_gat",
     "gnn_computing_tpu_torch.ops.bcsr_gat",
+    "gnn_computing_tpu_torch.schedule.locality",
 )
 
 

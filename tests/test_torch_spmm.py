@@ -55,9 +55,22 @@ def test_residual_matches_spmm_xla(gather_dtype, block, f):
 
 
 def test_residual_rejects_unported_gather_dtype():
-    plan = neighbor_grouping_plan(rmat_graph(50, 300, seed=1), block_size=4).to("cpu")
-    with pytest.raises(NotImplementedError):
-        spmm_plain(plan, torch.zeros(50, 8), gather_dtype="bf16_split2")
+    """'bf16_split2', once refused, agrees with the JAX package's
+    ``spmm_xla`` (max|port - jax| <= 1e-5 * max|jax|; it is held to JAX
+    only, not to the f64 oracle); a string the JAX package does not know
+    as a gather mode either ('bf16') raises."""
+    gj = j_rmat_graph(50, 300, seed=1, with_val=True, device="cpu")
+    gp = rmat_graph(50, 300, seed=1, with_val=True)
+    h = np.random.default_rng(4).standard_normal((50, 8)).astype(np.float32)
+    plan = neighbor_grouping_plan(gp, block_size=4).to("cpu")
+    want = np.asarray(spmm_xla(
+        make_plan(gj, Schedule.neighbor_grouping, block_size=4).device_put(), jnp.asarray(h), gather_dtype="bf16_split2",
+    ))
+    got = spmm_plain(plan, torch.from_numpy(h), gather_dtype="bf16_split2").numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    with pytest.raises(ValueError):
+        spmm_plain(plan, torch.zeros(50, 8), gather_dtype="bf16")
 
 
 def test_f16_split2_beyond_float16_range():
