@@ -314,10 +314,38 @@ Phases (any failure exits non-zero; nothing is caught):
      training step; and P1 (task_sums_cuda, another yardstick) beside
      weighted_task_sums over the NG plan's task sums at f = 128, their
      results compared.  A "gather" JSON line carries them.
+ 44. SAGE-LSTM at full width, bench.py --model sage's inputs (no kernel of
+     the port on it; every launch count stays 0): presample_fixed_neighbors
+     (k = 16, seed 2) over the quick graph, x = normal_features(n, 32,
+     seed 3) * 0.1, the LSTM's and the layer's weights from a seeded
+     generator (f = 32); lstm_aggregate's redundancy_bypass (float32 gates,
+     and float16 gates, bench.py's fast default), sparse_fetch and
+     materialize, and sage_lstm_layer (f_out = 32), each float32 run against
+     a float64 recurrence on the card (the gate, 0 bad); the float16 run 0
+     bad against the float64 oracle of its own rounding and at most
+     F16_GATE_BAD_FRACTION off the gate against the unrounded one (its
+     share printed); torch.nn.LSTM (cuDNN, a yardstick the port never calls) over
+     the materialized [n, 16, 32] sequence, slabs permuted into its layout,
+     within the gate of the port and of the float64 oracle.
+ 45. the edge MLP at f = 32, bench.py --model edgemlp's inputs (h =
+     normal_features(n, 32, seed 3) * 0.1, W seed 4): edge_mlp and
+     edge_mlp_chunked over phase 40's NG, locality + NG and nop plans, each
+     against a float64 edge-list oracle (index_add_; the gate, 0 bad); no
+     kernel launches.
+ 46. timing (CUDA events, median of 10 after 3 warm-ups, and the profiler's
+     device time by kernel): each LSTM run, the layer and cuDNN's LSTM
+     (edges/s = n * 16 / t, as bench.py counts them; peak memory); the edge
+     MLP over each plan (edges/s = m / t, peak memory) beside the slot
+     bound ((slots + n) x 32 x 4 bytes).  A "sage" and an "edgemlp" JSON
+     line carry them.
+ 47. (--scale reddit only) the SAGE aggregate (float16 gates) over the
+     uncut graph, its gates as phase 44's, beside the V100 anchor (14.204
+     ms); edge_mlp_chunked over the reddit NG plan of phase 41, held to the
+     float64 edge-list oracle taken in chunks; times and peak memory.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
-     share, losses and gradient errors, the probe's runs), the "gather"
-     line (phases 40-43), the total
+     share, losses and gradient errors, the probe's runs), the "sage" and
+     "edgemlp" lines (phases 44-47), the "gather" line (phases 40-43), the total
      seconds, one "kernels" JSON line (B1's, B2's, B3's, B4's, B5's and
      P2's entries with "walk": "cell", their plans' work lists and B3's,
      B4's and B5's phase 38-39 times; P1's and P2's phase 36 times; B6's
@@ -334,7 +362,7 @@ on the card, not the training path), REDDIT_STEPS steps with B1 at 12
 launches a step (6 1-bit) and a finite loss, and the step's time; and
 phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
 = 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
-and peak memory.
+and peak memory; phases 44-46 by phase 47.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after it (the GCN forward for B1, the GAT forward for B2, the
@@ -343,8 +371,8 @@ training steps for B2, B3 and B4, five SDDMM calls for B6, five 1-bit GCN
 forwards for B1, the bit-tile phases' steps and forwards, phases 23-27's
 forwards, steps, chain and fused calls, phases 30-33's forwards, steps
 and SDDMM calls, phase 34's ablation path, phase 35's forwards and steps
-and phase 36's probe runs; phases 41-42's gather paths, which must leave
-every count at 0); launches made to compare a kernel with its
+and phase 36's probe runs; phases 41-42's gather paths and phases 44-45's
+and 47's SAGE-LSTM and edge-MLP runs, which must leave every count at 0); launches made to compare a kernel with its
 plain version are not counted.  Each wrapper also counts its 1-bit launches apart
 (``bits_launches``) and its float-tile launches (``float_launches``; B3/B4
 ``dad_float_launches`` / ``dh_das_float_launches``); B1 its w_epilogue
@@ -375,8 +403,10 @@ import torch
 from gnn_computing_tpu_torch.aggregator import Aggregator
 from gnn_computing_tpu_torch.convert import gat_params_from_jax, gcn_params_from_jax
 from gnn_computing_tpu_torch.graph import CSRGraph, degree_sort, normal_features, rmat_graph
+from gnn_computing_tpu_torch.graph.sample import presample_fixed_neighbors
 from gnn_computing_tpu_torch.models.gat import gat_forward, glorot_gat_weights
 from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, LayerOpts, fast_layer_opts, gcn_layer, glorot_weights
+from gnn_computing_tpu_torch.models.sage_lstm import init_sage_lstm_params, sage_lstm_layer
 from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xent
 from gnn_computing_tpu_torch.ops import (
     bcsr_gat,
@@ -418,8 +448,10 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
     gat_bwd_dh_das_plain,
 )
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain, tileplan_with_values
+from gnn_computing_tpu_torch.ops.edge_mlp import edge_mlp, edge_mlp_chunked
 from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn, bcsr_spmm_nn_plain, hybrid_spmm_nn, spmm_nn
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, _att_slots_flat, gat_aggregate, gat_split_forward
+from gnn_computing_tpu_torch.ops.lstm import init_lstm_params, lstm_aggregate
 from gnn_computing_tpu_torch.ops.spmm import (
     edge_values_from_slots_flat,
     sddmm_slots,
@@ -3745,9 +3777,10 @@ def sddmm_gate(plan, a, b, g_dst, g_src, what: str):
     check(bool(torch.isfinite(got).all()) and bad == 0, f"{what} fails the gate against the float64 dots")
 
 
-def gather_phases(g, h0, gen) -> dict:
+def gather_phases(g, h0, gen) -> tuple:
     """Phases 40-43: the gather-only schedules and bench.py --strategy
-    gather's paths over them (no kernel of the port runs there)."""
+    gather's paths over them (no kernel of the port runs there).  Returns
+    the timings and the plans (phases 45-46 run the edge MLP over them)."""
     dev = h0.device
     n, m = g.num_nodes, g.num_edges
     edges = gather_edges(g, dev)
@@ -3897,13 +3930,14 @@ def gather_phases(g, h0, gen) -> dict:
     fwd_ms = cuda_time_ms(lambda: train["fwd"](h0))
     t["train"] = dict(step_ms=step_ms, forward_ms=fwd_ms, backward_adam_ms=step_ms - fwd_ms, losses=train["losses"])
     log(f"  GCN training step (NG): {step_ms:.3f} ms = forward {fwd_ms:.3f} + backward and Adam {step_ms - fwd_ms:.3f}")
-    return t
+    return t, dict(ng=ng, lasng=lasng, nop=nop, nop_graph=fg)
 
 
-def gather_reddit_phase(g, h0) -> dict:
+def gather_reddit_phase(g, h0) -> tuple:
     """--scale reddit: bench.py --strategy gather's GCN forward over the NG
     plan (B = 32; spmm_plain's chunks of CHUNK_SLOTS slots), each layer
-    held to phase 3's gates, its time and peak memory."""
+    held to phase 3's gates, its time and peak memory.  Returns them and
+    the plan (phase 47 runs the edge MLP over it)."""
     dev = h0.device
     log(f"phase 41 (reddit): the gather GCN forward, NG B={GATHER_BLOCK}")
     ng, info = gather_plan(g, "neighbor_grouping", dev, block_size=GATHER_BLOCK)
@@ -3923,7 +3957,246 @@ def gather_reddit_phase(g, h0) -> dict:
         fw = two_clocks(lambda: model(ng, h0))
     log(f"  reddit gather GCN forward: {fw['ms']:.3f} ms (device {fw['device_ms']}), peak "
         f"{peak / 2**30:.3f} GiB above its inputs")
-    return dict(plan=info, forward=fw, peak_bytes=peak)
+    return dict(plan=info, forward=fw, peak_bytes=peak), ng
+
+
+# ------------------------------------------------ phases 44-47 (SAGE-LSTM, the edge MLP)
+SAGE_K = 16  # bench.py's SAGE_K: the fixed-16-neighbour sample
+SAGE_F = 32  # bench.py --model sage / edgemlp: f = 32
+V100_SAGE_MS = 14.204  # bench.py's BASELINE_SAGE_EDGES_PER_S: the V100's reddit aggregate
+# (label, strategy, gate_gather_dtype) of phase 44's LSTM runs; "bypass_f16"
+# is bench.py --model sage's default (--layer-config fast)
+LSTM_RUNS = (
+    ("bypass", "redundancy_bypass", None),
+    ("bypass_f16", "redundancy_bypass", torch.float16),
+    ("sparse_fetch", "sparse_fetch", None),
+    ("materialize", "materialize", None),
+)
+# float16 gate rows round at 2^-11, 32x coarser than the 16-bit 'split' tiles
+# PURE_BAD_FRACTION bounds: near-zero hidden states (|ref| < 1.3e-3) then miss
+# the gate's 1e-5 floor against the unrounded oracle.  On the quick inputs
+# (CPU run) 37 of 2,097,152 elements, 1.8e-5, miss it, the same 37 as the JAX
+# package's own float16 mode on the same inputs; against the oracle of the
+# rounding every element passes.
+F16_GATE_BAD_FRACTION = 1e-4
+TORCH_GATE_ORDER = (0, 1, 3, 2)  # the port's [i, f, o, c~] slabs in torch.nn.LSTM's [i, f, g, o] order
+
+
+def sage_inputs(g, dev) -> tuple:
+    """bench.py --model sage's inputs: presample_fixed_neighbors(g, k=16,
+    seed=2), x = normal_features(n, 32, seed=3) * 0.1; and the sample's
+    host seconds."""
+    t0 = time.perf_counter()
+    nbr = torch.from_numpy(presample_fixed_neighbors(g, k=SAGE_K, seed=2)).to(dev)
+    secs = time.perf_counter() - t0
+    x = torch.from_numpy(normal_features(g.num_nodes, SAGE_F, seed=3) * 0.1).to(dev)
+    log(f"  fixed-{SAGE_K} sample of n={g.num_nodes}: {secs:.2f} s on the host")
+    return nbr, x, secs
+
+
+def lstm_oracle(params, x, nbr, gx_all=None) -> torch.Tensor:
+    """The LSTM's step loop (slabs [i, f, o, c~]) in float64 on the card;
+    ``gx_all`` replaces x @ wx (a 16-bit mode's rounded gate rows)."""
+    wx, wh, b = (p.double() for p in params)
+    f = wh.shape[0]
+    h = torch.zeros((nbr.shape[0], f), dtype=torch.float64, device=x.device)
+    c = torch.zeros_like(h)
+    gx_all = x.double() @ wx if gx_all is None else gx_all
+    for t in range(nbr.shape[1]):
+        z = gx_all.index_select(0, nbr[:, t].long()) + h @ wh + b
+        i, fg, o = (torch.sigmoid(z[:, s * f : (s + 1) * f]) for s in range(3))
+        c = fg * c + i * torch.tanh(z[:, 3 * f :])
+        h = o * torch.tanh(c)
+    return h
+
+
+def f16_gates(params, x, nbr, out, ref, what: str) -> float:
+    """A float16-gate run: 0 bad elements against the float64 oracle of its
+    own rounding (the rounded gate rows), at most F16_GATE_BAD_FRACTION of
+    them off the gate against the unrounded oracle.  Returns that share."""
+    rounded = lstm_oracle(params, x, nbr, gx_all=(x @ params.wx).to(torch.float16).double())
+    bad = relative_error_count(out, rounded)
+    share = relative_error_count(out, ref) / out.numel()
+    log(f"  {what}: vs the f64 oracle of its rounding gate_bad={bad}; vs the unrounded oracle "
+        f"{share:.3e} of {out.numel()} off the gate (bound {F16_GATE_BAD_FRACTION}), max|d| "
+        f"{(out - ref).abs().max().item():.3e}")
+    check(bad == 0 and share <= F16_GATE_BAD_FRACTION, f"{what} fails its gates")
+    return share
+
+
+def edge_mlp_oracle(h, w, dst, src) -> torch.Tensor:
+    """sum over edges of relu((h[dst] + h[src]) @ W) in float64 on the card,
+    CHECK_EDGES edges at a time (index_add_ into the rows)."""
+    h64, w64 = h.double(), w.double()
+    out = torch.zeros((h.shape[0], w.shape[1]), dtype=torch.float64, device=h.device)
+    for s in range(0, dst.shape[0], CHECK_EDGES):
+        d, sr = dst[s : s + CHECK_EDGES], src[s : s + CHECK_EDGES]
+        out.index_add_(0, d, torch.relu((h64.index_select(0, d) + h64.index_select(0, sr)) @ w64))
+    return out
+
+
+def edge_mlp_inputs(n: int, dev) -> tuple:
+    """bench.py --model edgemlp's h = normal_features(n, 32, seed=3) * 0.1
+    and W = normal_features(32, 32, seed=4) * 0.1."""
+    return (torch.from_numpy(normal_features(n, SAGE_F, seed=3) * 0.1).to(dev),
+            torch.from_numpy(normal_features(SAGE_F, SAGE_F, seed=4) * 0.1).to(dev))
+
+
+def with_peak(fn) -> tuple:
+    """(fn(), bytes the call allocated at its peak above what was live)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def timed(fn, edges: int) -> dict:
+    """two_clocks of fn with edges/s and the call's peak bytes."""
+    _, peak = with_peak(fn)
+    t = two_clocks(fn)
+    t.update(edges_per_s=edges / (t["ms"] * 1e-3), peak_bytes=peak)
+    return t
+
+
+def cudnn_lstm(params, f_in: int) -> torch.nn.LSTM:
+    """torch.nn.LSTM (cuDNN) holding the port's weights, slabs permuted
+    into its [i, f, g, o] layout, b_hh = 0: a yardstick the port never
+    calls."""
+    f = params.wh.shape[0]
+    idx = torch.cat([torch.arange(s * f, (s + 1) * f) for s in TORCH_GATE_ORDER]).to(params.wx.device)
+    lstm = torch.nn.LSTM(f_in, f, batch_first=True).to(params.wx.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(params.wx[:, idx].t())
+        lstm.weight_hh_l0.copy_(params.wh[:, idx].t())
+        lstm.bias_ih_l0.copy_(params.b[idx])
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def sage_edgemlp_phases(g, aggs: dict, dev) -> tuple:
+    """Phases 44-46: bench.py --model sage's and --model edgemlp's paths at
+    full width over the quick graph (no kernel of the port on either), held
+    to float64 oracles on the card, then timed beside cuDNN's LSTM and the
+    slot bound.  Returns the "sage" and "edgemlp" lines."""
+    n, m = g.num_nodes, g.num_edges
+    # ---- phase 44: SAGE-LSTM
+    log(f"phase 44: SAGE-LSTM at full width (f={SAGE_F}, k={SAGE_K}): lstm_aggregate's three strategies, "
+        f"float16 gates, sage_lstm_layer")
+    nbr, x, sample_s = sage_inputs(g, dev)
+    sp = init_sage_lstm_params(SAGE_F, SAGE_F, SAGE_F, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = sp.lstm
+    with torch.no_grad():
+        ref = lstm_oracle(params, x, nbr)
+        reset_counts()
+        outs = {label: lstm_aggregate(params, x, nbr, strategy, gate_gather_dtype=gdt)
+                for label, strategy, gdt in LSTM_RUNS}
+        layer = sage_lstm_layer(sp, x, nbr)
+        torch.cuda.synchronize()
+        check(only_of(()), "the SAGE-LSTM path launched a kernel")
+        for label, out in outs.items():
+            check(out.shape == (n, SAGE_F) and bool(torch.isfinite(out).all()), f"LSTM {label} output")
+            if label == "bypass_f16":
+                share = f16_gates(params, x, nbr, out, ref, f"LSTM {label}")
+                continue
+            bad = relative_error_count(out, ref)
+            log(f"  LSTM {label} vs f64 recurrence: gate_bad={bad} max|d|={(out - ref).abs().max().item():.3e}")
+            check(bad == 0, f"LSTM {label} fails the gate")
+        want = torch.relu(torch.cat([x.double() @ sp.w_self.double(), ref], dim=1) @ sp.w_out.double())
+        bad = relative_error_count(layer, want)
+        log(f"  sage_lstm_layer f_out={SAGE_F} vs f64: gate_bad={bad}")
+        check(layer.shape == (n, SAGE_F) and bad == 0, "sage_lstm_layer fails the gate")
+        lstm = cudnn_lstm(params, SAGE_F)
+        xs = x.index_select(0, nbr.reshape(-1).long()).reshape(n, SAGE_K, SAGE_F)
+        h_cudnn = lstm(xs)[1][0][0]
+        bad = (relative_error_count(h_cudnn, outs["bypass"]), relative_error_count(h_cudnn, ref))
+        log(f"  torch.nn.LSTM (cuDNN, yardstick) vs the port: gate_bad={bad[0]}; vs f64: gate_bad={bad[1]}")
+        check(bad == (0, 0), "cuDNN's LSTM disagrees with the port")
+
+        # ---- phase 45: the edge MLP
+        log(f"phase 45: edge MLP at f={SAGE_F} (edge_mlp, edge_mlp_chunked) over NG, locality + NG and nop")
+        h, w = edge_mlp_inputs(n, dev)
+        g_dst, g_src = edge_lists(g, dev)
+        em_ref = edge_mlp_oracle(h, w, g_dst, g_src)
+        f_dst, f_src = edge_lists(aggs["nop_graph"], dev)
+        refs = dict(ng=em_ref, lasng=em_ref, nop=edge_mlp_oracle(h, w, f_dst, f_src))
+        del f_dst, f_src
+        for key in ("ng", "lasng", "nop"):
+            plan = aggs[key].plan
+            for fn in (edge_mlp, edge_mlp_chunked):
+                reset_counts()
+                out = fn(plan, h, w)
+                torch.cuda.synchronize()
+                check(only_of(()), f"{fn.__name__} launched a kernel")
+                bad = relative_error_count(out, refs[key])
+                log(f"  {fn.__name__} ({key}) vs f64 edge list: gate_bad={bad} of {out.numel()}")
+                check(bool(torch.isfinite(out).all()) and bad == 0, f"{fn.__name__} ({key}) fails the gate")
+        del refs, em_ref
+
+        # ---- phase 46: timing
+        log("phase 46: SAGE-LSTM and edge MLP timing (CUDA events, median of 10 after 3 warm-up; profiler "
+            "device time)")
+        runs = {}
+        for label, strategy, gdt in LSTM_RUNS:
+            runs[label] = timed(lambda: lstm_aggregate(params, x, nbr, strategy, gate_gather_dtype=gdt), n * SAGE_K)
+        runs["layer"] = timed(lambda: sage_lstm_layer(sp, x, nbr), n * SAGE_K)
+        runs["cudnn"] = timed(lambda: lstm(xs), n * SAGE_K)
+        for label, r in runs.items():
+            log(f"  LSTM {label}: {r['ms']:.3f} ms (device {r['device_ms']}) = {r['edges_per_s']:.4g} edges/s, "
+                f"peak {r['peak_bytes'] / 2**20:.1f} MiB")
+        sage = dict(n=n, k=SAGE_K, f=SAGE_F, sample_s=sample_s, f16_off_gate_share=share, runs=runs,
+                    cudnn_vs_bypass=runs["bypass"]["ms"] / runs["cudnn"]["ms"])
+        ng = aggs["ng"].plan
+        slots = ng.num_tasks_padded * ng.block_size
+        em = dict(f=SAGE_F, edges=m, slots=slots,
+                  **bound((slots + n) * SAGE_F * 4.0, 2.0 * n * SAGE_F * SAGE_F + 3.0 * slots * SAGE_F))
+        em["ng"] = timed(lambda: edge_mlp(ng, h, w), m)
+        em["ng_chunked"] = timed(lambda: edge_mlp_chunked(ng, h, w), m)
+        em["lasng_chunked"] = timed(lambda: edge_mlp_chunked(aggs["lasng"].plan, h, w), m)
+        em["nop_chunked"] = timed(lambda: edge_mlp_chunked(aggs["nop"].plan, h, w), n * NOP_DEGREE)
+        for key in ("ng", "ng_chunked", "lasng_chunked", "nop_chunked"):
+            r = em[key]
+            log(f"  edge MLP {key}: {r['ms']:.3f} ms (device {r['device_ms']}) = {r['edges_per_s']:.4g} edges/s, "
+                f"peak {r['peak_bytes'] / 2**20:.1f} MiB | slot bound (NG) {em['bound_ms']:.4f} ({em['bound_by']})")
+    return sage, em
+
+
+def sage_edgemlp_reddit_phase(g, ng, dev) -> tuple:
+    """Phase 47 (--scale reddit): the SAGE aggregate (float16 gates, bench.py
+    --model sage's default) over the uncut graph beside the V100 anchor, and
+    the edge MLP over the reddit NG plan, each held to its float64 oracle."""
+    n, m = g.num_nodes, g.num_edges
+    log(f"phase 47 (reddit): SAGE-LSTM aggregate (k={SAGE_K}, float16 gates), edge MLP over the NG plan")
+    nbr, x, sample_s = sage_inputs(g, dev)
+    params = init_lstm_params(SAGE_F, SAGE_F, torch.Generator(device=dev).manual_seed(0), device=dev)
+    run = lambda: lstm_aggregate(params, x, nbr, gate_gather_dtype=torch.float16)  # noqa: E731
+    with torch.no_grad():
+        reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        check(only_of(()) and out.shape == (n, SAGE_F) and bool(torch.isfinite(out).all()), "the reddit SAGE path")
+        share = f16_gates(params, x, nbr, out, lstm_oracle(params, x, nbr), "reddit LSTM bypass_f16")
+        sage = timed(run, n * SAGE_K)
+        sage.update(n=n, k=SAGE_K, sample_s=sample_s, f16_off_gate_share=share, v100_ms=V100_SAGE_MS,
+                    vs_v100=V100_SAGE_MS / sage["ms"])
+        log(f"  reddit SAGE aggregate: {sage['ms']:.3f} ms (device {sage['device_ms']}) = {sage['edges_per_s']:.4g} "
+            f"edges/s, peak {sage['peak_bytes'] / 2**20:.1f} MiB; V100 anchor {V100_SAGE_MS} ms")
+        del nbr, x, out
+        h, w = edge_mlp_inputs(n, dev)
+        reset_counts()
+        out = edge_mlp_chunked(ng.plan, h, w)
+        torch.cuda.synchronize()
+        check(only_of(()) and bool(torch.isfinite(out).all()), "the reddit edge MLP")
+        bad = relative_error_count(out, edge_mlp_oracle(h, w, *edge_lists(g, dev)))
+        log(f"  reddit edge_mlp_chunked (NG) vs f64 edge list: gate_bad={bad} of {out.numel()}")
+        check(bad == 0, "the reddit edge MLP fails the gate")
+        slots = ng.plan.num_tasks_padded * ng.plan.block_size
+        em = timed(lambda: edge_mlp_chunked(ng.plan, h, w), m)
+        em.update(slots=slots, **bound((slots + n) * SAGE_F * 4.0, 2.0 * n * SAGE_F * SAGE_F + 3.0 * slots * SAGE_F))
+        log(f"  reddit edge MLP: {em['ms']:.3f} ms (device {em['device_ms']}) = {em['edges_per_s']:.4g} edges/s, "
+            f"peak {em['peak_bytes'] / 2**30:.3f} GiB; slot bound {em['bound_ms']:.4f}")
+    return sage, em
 
 
 def main() -> int:
@@ -4087,12 +4360,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         dd = dh_das_sddmm_phase(g, gen)
         torch.cuda.empty_cache()
-        gather = gather_phases(g, h0, gen)
+        gather, gather_aggs = gather_phases(g, h0, gen)
+        torch.cuda.empty_cache()
+        sage, edgemlp = sage_edgemlp_phases(g, gather_aggs, dev)
+        del gather_aggs
         torch.cuda.empty_cache()
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
         torch.cuda.empty_cache()
-        gather = gather_reddit_phase(g, h0)
+        gather, ng_reddit = gather_reddit_phase(g, h0)
+        torch.cuda.empty_cache()
+        sage, edgemlp = sage_edgemlp_reddit_phase(g, ng_reddit, dev)
+        del ng_reddit
         log("phases 22-39 (float tiles, the fused aggregate+GEMM, the repairs, GAT and SDDMM over float tiles, "
             "B2's other modes, the residual probe, the cell walk's checks, B3, B5 and B4 on the walk, B6 streamed) "
             "run at the quick scale only")
@@ -4311,6 +4590,8 @@ def main() -> int:
             default_train_losses=modes["train_losses"], default_train_rel_l2=modes["train_rel_l2"],
             probe=dict(times=pr["times"], runs=pr["runs"]),
         )}), flush=True)
+    print(json.dumps({"sage": sage}), flush=True)
+    print(json.dumps({"edgemlp": edgemlp}), flush=True)
     print(json.dumps({"gather": gather}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
-"""Dense float64 numpy oracles (small graphs only), copies of ``spmm_dense``,
-``sddmm_dense`` and ``gat_aggregate_dense`` from
-``gnn_computing_tpu/ops/reference.py``."""
+"""Dense float64 numpy oracles (small graphs only), copies of every
+function of ``gnn_computing_tpu/ops/reference.py``: ``dense_adjacency``,
+``spmm_dense``, ``sddmm_dense``, ``gat_aggregate_dense`` and
+``edge_mlp_dense``."""
 
 from __future__ import annotations
 
@@ -45,3 +46,14 @@ def gat_aggregate_dense(
     np.add.at(denom, g.dst_per_edge, score)
     safe = np.where(denom == 0.0, 1.0, denom)
     return num / safe[:, None], score, denom
+
+
+def edge_mlp_dense(g: CSRGraph, h: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """Per-edge MLP aggregation over the edge list:
+    out[i] = sum_e relu((h[dst_e] + h[src_e]) @ W)."""
+    h = np.asarray(h, np.float64)
+    w = np.asarray(w, np.float64)
+    z = np.maximum((h[g.dst_per_edge] + h[g.indices]) @ w, 0.0)
+    out = np.zeros((g.num_nodes, w.shape[1]))
+    np.add.at(out, g.dst_per_edge, z)
+    return out

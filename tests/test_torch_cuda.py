@@ -13,7 +13,10 @@ whose unstabilized GAT score or SDDMM dot overflows to inf (B2, B3, B4, B6),
 signed float cell values (every nonzero cell scored, C6; B6 keeps the cells
 > 0); the gather-only path (no kernel: spmm and sddmm in every gather
 mode, gat_aggregate, spmm_bidir and GAT gradients) on the card against the
-same calls on the CPU; the training Functions' gradients on the card against the same
+same calls on the CPU; SAGE-LSTM (every strategy, float16 gates, the
+layer, gradients; cuDNN's LSTM as a yardstick) and the edge MLP over the
+gather plans on the card against the CPU and float64 oracles, no kernel
+launched; the training Functions' gradients on the card against the same
 Functions on the CPU, over int8, bit-tile and float-tile aggregators;
 B1, B2, and B3 and B5 over the cell walk's hard plans (one run holding
 every tile with an all-ones tile row, C = 128, 1-bit R = 200, single-tile
@@ -63,7 +66,13 @@ from gnn_computing_tpu_torch.ops.bcsr_gat import (
 )
 from gnn_computing_tpu_torch.ops.bcsr_gat import _factored_sums, factored_terms, gat_bcsr_factored, gat_bcsr_tiles
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm, sddmm_bcsr, sddmm_bcsr_plain
+from gnn_computing_tpu_torch.graph.sample import presample_fixed_neighbors
+from gnn_computing_tpu_torch.models.sage_lstm import init_sage_lstm_params, sage_lstm_layer
+from gnn_computing_tpu_torch.ops.edge_mlp import edge_mlp, edge_mlp_chunked
 from gnn_computing_tpu_torch.ops.gat import gat_aggregate
+from gnn_computing_tpu_torch.ops.lstm import LSTMParams, lstm_aggregate
+from gnn_computing_tpu_torch.ops.reference import edge_mlp_dense
+from gnn_computing_tpu_torch.ops.validate import relative_error_count
 from gnn_computing_tpu_torch.ops.sddmm import sddmm
 from gnn_computing_tpu_torch.ops.spmm import spmm_plain, weighted_task_sums
 from gnn_computing_tpu_torch.probes.overlap_dma_residual import dma_task_sums, fused_hybrid, fused_hybrid_plain
@@ -1374,3 +1383,113 @@ def test_gather_path_on_card_matches_cpu(cuda_dev, sched, kw):
     for got, want, what in zip(grads["card"], grads["cpu"], ("spmm_bidir dh", "dval", "run_gat dh", "datt")):
         _close(got, want, f"{what} {sched}")
     assert (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches, cuda_sddmm.launches) == before
+
+
+def _lstm_f64(params, x, nbr, gx_all=None):
+    """The LSTM's step loop (slabs [i, f, o, c~]) in float64 on the CPU."""
+    wx, wh, b = (p.detach().cpu().double() for p in params)
+    x, nbr = x.cpu().double(), nbr.cpu().long()
+    f = wh.shape[0]
+    h = torch.zeros((nbr.shape[0], f), dtype=torch.float64)
+    c = torch.zeros_like(h)
+    gx_all = x @ wx if gx_all is None else gx_all.cpu().double()
+    for t in range(nbr.shape[1]):
+        z = gx_all[nbr[:, t]] + h @ wh + b
+        i, fg, o = (torch.sigmoid(z[:, s * f : (s + 1) * f]) for s in range(3))
+        c = fg * c + i * torch.tanh(z[:, 3 * f :])
+        h = o * torch.tanh(c)
+    return h
+
+
+def _all_launches():
+    return (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches, cuda_sddmm.launches,
+            cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches, cuda_residual.task_sums_launches,
+            cuda_residual.fused_launches)
+
+
+@pytest.mark.parametrize("strategy,gdt", [
+    ("redundancy_bypass", None), ("redundancy_bypass", torch.float16), ("sparse_fetch", None), ("materialize", None),
+], ids=["bypass", "bypass_f16", "sparse_fetch", "materialize"])
+def test_sage_lstm_on_card_matches_cpu(cuda_dev, strategy, gdt):
+    """chip_smoke phase 44 at a small size: lstm_aggregate on the card
+    against the CPU (1e-5 * max|cpu|) and the float64 oracle (the gate, 0
+    bad; float16 gates against the oracle of their rounding), the layer,
+    gradients against the CPU's (1e-4 relative L2; float16 gates 1e-2, the
+    two devices' gate rows may round apart), and cuDNN's LSTM (slabs
+    permuted) within the gate of the port.  No kernel launches."""
+    g = rmat_graph(1237, 20000, seed=3, with_val=False)
+    nbr = torch.from_numpy(presample_fixed_neighbors(g, k=16, seed=2))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((g.num_nodes, 32)).astype(np.float32) * 0.1)
+    sp = init_sage_lstm_params(32, 32, 32, torch.Generator().manual_seed(0), device="cpu")
+    before = _all_launches()
+    want = lstm_aggregate(sp.lstm, x, nbr, strategy, gate_gather_dtype=gdt)
+    card = LSTMParams(*(t.to(cuda_dev) for t in sp.lstm))
+    got = lstm_aggregate(card, x.to(cuda_dev), nbr.to(cuda_dev), strategy, gate_gather_dtype=gdt)
+    if gdt is None:
+        _close(got.cpu(), want, f"lstm {strategy}")
+        gx = None
+    else:
+        # the card's and the CPU's float32 gate rows may round to
+        # neighbouring float16 values: the gate against the CPU, 0 bad
+        # against the oracle of the card's own rounding
+        assert relative_error_count(got, want) == 0
+        gx = (x.to(cuda_dev) @ card.wx).to(gdt)
+    assert relative_error_count(got, _lstm_f64(sp.lstm, x, nbr, gx)) == 0
+    layer = sage_lstm_layer(sp._replace(lstm=card, w_self=sp.w_self.to(cuda_dev), w_out=sp.w_out.to(cuda_dev)),
+                            x.to(cuda_dev), nbr.to(cuda_dev), strategy)
+    _close(layer.cpu(), sage_lstm_layer(sp, x, nbr, strategy), f"sage_lstm_layer {strategy}")
+    grads = []
+    for dev in ("cpu", cuda_dev):
+        leaves = [t.to(dev, copy=True).requires_grad_(True) for t in sp.lstm]
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        lstm_aggregate(LSTMParams(*leaves), xd, nbr.to(dev), strategy, gate_gather_dtype=gdt).square().sum().backward()
+        grads.append([t.grad.cpu().double() for t in (*leaves, xd)])
+    for a, b in zip(*grads):
+        assert (a - b).norm() <= (1e-4 if gdt is None else 1e-2) * a.norm()
+    if strategy == "redundancy_bypass" and gdt is None:
+        f = 32
+        idx = torch.cat([torch.arange(s * f, (s + 1) * f) for s in (0, 1, 3, 2)])
+        lstm = torch.nn.LSTM(32, f, batch_first=True)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(sp.lstm.wx[:, idx].t())
+            lstm.weight_hh_l0.copy_(sp.lstm.wh[:, idx].t())
+            lstm.bias_ih_l0.copy_(sp.lstm.b[idx])
+            lstm.bias_hh_l0.zero_()
+            h_cudnn = lstm.to(cuda_dev)(x.to(cuda_dev)[nbr.to(cuda_dev).long()])[1][0][0]
+        assert relative_error_count(h_cudnn, got) == 0
+    torch.cuda.synchronize()
+    assert _all_launches() == before
+
+
+@pytest.mark.parametrize("sched,kw", [
+    ("neighbor_grouping", dict(block_size=32)),
+    ("locality_neighbor_grouping", dict(num_partitions=8, block_size=32)),
+    ("nop", {}),
+], ids=["ng32", "lasng32", "nop"])
+def test_edge_mlp_on_card_matches_cpu(cuda_dev, sched, kw):
+    """chip_smoke phase 45 at a small size: edge_mlp and edge_mlp_chunked
+    (a chunk that does not divide the task count) on the card against the
+    CPU and edge_mlp_dense (the gate, 0 bad), and their gradients against
+    the CPU's.  No kernel launches."""
+    g = _gather_graph(sched)
+    plan = Aggregator.schedule(g, sched, with_transpose=False, device="cpu", **kw).plan
+    card = plan.to(cuda_dev)
+    rng = np.random.default_rng(4)
+    h = torch.from_numpy(rng.standard_normal((g.num_nodes, 32)).astype(np.float32) * 0.1)
+    w = torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32) * 0.1)
+    ref = edge_mlp_dense(g, h.numpy(), w.numpy())
+    before = _all_launches()
+    for fn in (edge_mlp, functools.partial(edge_mlp_chunked, chunk_tasks=37)):
+        want = fn(plan, h, w)
+        got = fn(card, h.to(cuda_dev), w.to(cuda_dev))
+        _close(got.cpu(), want, f"edge mlp {sched}")
+        assert relative_error_count(got, ref) == 0
+        grads = []
+        for p, dev in ((plan, "cpu"), (card, cuda_dev)):
+            hd, wd = h.to(dev, copy=True).requires_grad_(True), w.to(dev, copy=True).requires_grad_(True)
+            fn(p, hd, wd).square().sum().backward()
+            grads.append((hd.grad.cpu().double(), wd.grad.cpu().double()))
+        for a, b in zip(*grads):
+            assert (a - b).norm() <= 1e-4 * a.norm()
+    torch.cuda.synchronize()
+    assert _all_launches() == before

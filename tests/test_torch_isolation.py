@@ -39,6 +39,12 @@ WALKED = (
     "gnn_computing_tpu_torch.ops.cuda_gat",
     "gnn_computing_tpu_torch.ops.bcsr_gat",
     "gnn_computing_tpu_torch.schedule.locality",
+    "gnn_computing_tpu_torch.native",
+    "gnn_computing_tpu_torch.graph.sample",
+    "gnn_computing_tpu_torch.graph.io",
+    "gnn_computing_tpu_torch.ops.lstm",
+    "gnn_computing_tpu_torch.ops.edge_mlp",
+    "gnn_computing_tpu_torch.models.sage_lstm",
 )
 
 
@@ -98,6 +104,64 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError):
         rowmax_bcsr_cuda(agg.tile, torch.zeros(64))
     assert agg.run_gat(torch.zeros(64, 8), torch.zeros(64, 2)).shape == (64, 8)
+
+
+def test_sage_lstm_entry_points_raise_without_cuda(monkeypatch):
+    """The LSTM and SAGE-LSTM entry points place their weights on the card
+    unless asked for the CPU."""
+    from gnn_computing_tpu_torch.convert import lstm_params_from_jax, sage_lstm_params_from_jax
+    from gnn_computing_tpu_torch.models.sage_lstm import SageLSTM, init_sage_lstm_params
+    from gnn_computing_tpu_torch.ops.lstm import init_lstm_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_lstm_params(8, 4, gen)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_sage_lstm_params(8, 4, 2, gen)
+    params = init_sage_lstm_params(8, 4, 2, gen, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SageLSTM(params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lstm_params_from_jax([a.numpy() for a in params.lstm])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sage_lstm_params_from_jax((tuple(a.numpy() for a in params.lstm), params.w_self.numpy(), params.w_out.numpy()))
+    model = SageLSTM(params, device="cpu")
+    assert model(torch.zeros(5, 8), torch.zeros(5, 3, dtype=torch.long)).shape == (5, 2)
+
+
+def test_native_builds_outside_the_jax_package(tmp_path, monkeypatch):
+    """The port's host library is built under the repo's ignored build/
+    directory, from the repo's csrc/gnnhost.cpp, and its build writes
+    nothing under gnn_computing_tpu/ (whose tracked libgnnhost.so the JAX
+    module builds)."""
+    from gnn_computing_tpu_torch import native
+
+    jax_pkg = os.path.join(REPO, "gnn_computing_tpu")
+    assert native.library_path().is_relative_to(os.path.join(REPO, "build"))
+    assert not native.library_path().is_relative_to(jax_pkg)
+    assert native.SRC == native.REPO / "csrc" / "gnnhost.cpp" and str(native.REPO) == REPO
+
+    # every file's path, and its mtime but for the tracked library that the
+    # JAX module itself may rebuild (from another test process) meanwhile
+    jax_lib = os.path.join(jax_pkg, "_native", "libgnnhost.so")
+
+    def snapshot():
+        return {
+            path: None if path == jax_lib else os.stat(path).st_mtime_ns
+            for d, _, files in os.walk(jax_pkg) if "__pycache__" not in d
+            for path in (os.path.join(d, f) for f in files)
+        }
+
+    before = snapshot()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(native, "_lib", None)
+    lib = native.load()
+    assert native.library_path().parent == tmp_path / "native" and native.library_path().exists()
+    assert [p.name for p in (tmp_path / "native").iterdir()] == [native.library_path().name]
+    assert lib.gs_parse_ints.restype is not None
+    assert np.array_equal(native.counting_sort(np.array([2, 0, 1, 0]), 3), [1, 3, 2, 0])
+    assert snapshot() == before
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
