@@ -123,3 +123,15 @@ def glorot_weights(dims: Sequence[int] = BENCH_DIMS, seed: int = 0) -> list:
         (rng.standard_normal((dims[i], dims[i + 1])) * np.sqrt(2.0 / (dims[i] + dims[i + 1]))).astype(np.float32)
         for i in range(len(dims) - 1)
     ]
+
+
+def init_gcn_params(dims: Sequence[int], generator: torch.Generator, device="cuda") -> list:
+    """Glorot-scaled normal float32 weights, one leaf tensor per layer on
+    ``device``, drawn from the seeded ``generator`` on its own device (the
+    JAX package's ``init_gcn_params`` draws from a jax.random key)."""
+    dev = resolve_device(device)
+    return [
+        (torch.randn((dims[i], dims[i + 1]), generator=generator, device=generator.device)
+         * (2.0 / (dims[i] + dims[i + 1])) ** 0.5).to(dev).requires_grad_(True)
+        for i in range(len(dims) - 1)
+    ]

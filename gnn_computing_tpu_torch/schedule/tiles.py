@@ -10,14 +10,15 @@ gather path.
 Tile value formats (``TilePlan.a``):
   int8     exact edge counts (unweighted graphs, or factored edge values
            val[e] = scale_dst[dst] * scale_src[src] with the scales beside
-           the tiles).  Written straight from the sorted cell keys, with no
-           float staging array.  A cell holds at most 127 edges; in each
-           cell the first 127 edges in edge order stay in the tile and
-           later ones spill to the residual, the rule of the JAX package's
-           native fill.
+           the tiles), counted in edge order by the native host library
+           (``native.saturating_count_i8``), as the JAX package's densify
+           counts them, with no float staging array.  A cell holds at most
+           127 edges; in each cell the first 127 edges in edge order stay
+           in the tile and later ones spill to the residual.
   float32  edge values (after the scales), duplicate edges of a cell
-           summed in float32 in edge order, as the JAX package's fill does;
-           the JAX package's default.  No cap, no spill.
+           summed in float32 in edge order (``native.scatter_add_f32``), as
+           the JAX package's fill does; the JAX package's default.  No cap,
+           no spill.
   bfloat16 the float32 sums rounded to nearest even.  numpy has no
            bfloat16, so a host plan holds its uint16 bit pattern and ``to``
            turns it into a torch.bfloat16 tensor.
@@ -39,6 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gnn_computing_tpu_torch import native
 from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.graph.csr import CSRGraph
 
@@ -426,31 +428,20 @@ def densify(
     slot = np.empty(num_tiles, np.int64)  # dense tile id -> final position
     slot[order] = np.arange(num_tiles)
 
+    # each edge's cell in the final tile order; the native library fills
+    # the cells in edge order, as the JAX package's densify does
     cell = tile_of_edge * (tr * tc) + (de_dst % tr) * tc + (de_src % tc)
+    flat = slot[cell // (tr * tc)] * (tr * tc) + cell % (tr * tc)
     if fmt == "int8":
-        # per-cell counts from the sorted cell keys; rank edges within a
-        # cell in edge order (stable sort) and spill those past the int8 cap
-        by_cell = np.argsort(cell, kind="stable")
-        sc = cell[by_cell]
-        new_cell = np.ones(len(sc), bool)
-        new_cell[1:] = sc[1:] != sc[:-1]
-        first = np.flatnonzero(new_cell)
-        per_cell = np.diff(np.append(first, len(sc)))
-        rank = np.arange(len(sc)) - np.repeat(first, per_cell)
-        spill = np.zeros(len(cell), bool)
-        spill[by_cell] = rank >= INT8_CAP
-        cells = sc[first]
-
+        # saturating counts; an edge past the int8 cap of its cell spills
+        # back to the residual
         a = np.zeros((num_tiles, tr, tc), np.int8)
-        a.reshape(-1)[slot[cells // (tr * tc)] * (tr * tc) + cells % (tr * tc)] = np.minimum(
-            per_cell, INT8_CAP
-        )
+        spill = native.saturating_count_i8(flat, INT8_CAP, a.reshape(-1))
         edge_dense[np.flatnonzero(edge_dense)[spill]] = False
     else:
-        # float32 sums in edge order (np.add.at adds one index at a time),
-        # the JAX package's fill; bfloat16 rounds the sums
+        # float32 sums (bfloat16 rounds the sums)
         a = np.zeros((num_tiles, tr, tc), np.float32)
-        np.add.at(a.reshape(-1), slot[cell // (tr * tc)] * (tr * tc) + cell % (tr * tc), tile_val)
+        native.scatter_add_f32(flat, tile_val, a.reshape(-1))
         a = _host_values(a, fmt)
 
     tile_row = tile_row[order]

@@ -1347,8 +1347,9 @@ def test_gather_path_on_card_matches_cpu(cuda_dev, sched, kw):
     """The gather-only path on the card against the same calls on the CPU:
     spmm and sddmm (slots and edges) in every gather mode, gat_aggregate
     (stabilize False and True), and the gradients of spmm_bidir (h and the
-    slot values, through Aggregator.run) and of run_gat.  No kernel
-    launches on this path."""
+    slot values, through Aggregator.run) and of run_gat, the card's and the
+    CPU's each within 1e-5 * max|ref| of float64 autograd over the same
+    plan.  No kernel launches on this path."""
     g = _gather_graph(sched)
     cpu = Aggregator.schedule(g, sched, with_transpose=True, device="cpu", **kw)
     card = cpu.to(cuda_dev)
@@ -1369,19 +1370,27 @@ def test_gather_path_on_card_matches_cpu(cuda_dev, sched, kw):
         want = gat_aggregate(cpu.plan, h0, att0, stabilize=stabilize)
         got = gat_aggregate(card.plan, h0.to(cuda_dev), att0.to(cuda_dev), stabilize=stabilize)
         _close(got.cpu(), want, f"gat_aggregate {sched} {stabilize}")
+    # the gradients on the card and on the CPU (float32), each held to the
+    # float64 oracle of the same function: CPU autograd in double over the
+    # same plan.  Card against CPU would also compare two float32 sum orders
+    # (index_add_'s atomics on the card sum a hub row in any order).
     grads = {}
-    for agg, dev, key in ((cpu, "cpu", "cpu"), (card, cuda_dev, "card")):
-        h = h0.to(dev, copy=True).requires_grad_(True)
-        val = agg.slot_values(ev.to(dev)).requires_grad_(True)
-        (agg.run(h, val=val, val_t=agg.transposed_val(ev.to(dev))) * ct0.to(dev)).sum().backward()
+    for agg, dev, dtype, key in (
+        (cpu, "cpu", torch.float64, "oracle"), (cpu, "cpu", torch.float32, "cpu"), (card, cuda_dev, torch.float32, "card")
+    ):
+        h = h0.to(dev, dtype, copy=True).requires_grad_(True)
+        val = agg.slot_values(ev.to(dev, dtype)).requires_grad_(True)
+        ct = ct0.to(dev, dtype)
+        (agg.run(h, val=val, val_t=agg.transposed_val(ev.to(dev, dtype))) * ct).sum().backward()
         dh, dval = h.grad.cpu(), val.grad.cpu()
         h.grad = None
-        att = att0.to(dev, copy=True).requires_grad_(True)
-        (agg.run_gat(h, att, stabilize=True) * ct0.to(dev)).sum().backward()
+        att = att0.to(dev, dtype, copy=True).requires_grad_(True)
+        (agg.run_gat(h, att, stabilize=True) * ct).sum().backward()
         grads[key] = (dh, dval, h.grad.cpu(), att.grad.cpu())
     torch.cuda.synchronize()
-    for got, want, what in zip(grads["card"], grads["cpu"], ("spmm_bidir dh", "dval", "run_gat dh", "datt")):
-        _close(got, want, f"{what} {sched}")
+    for key in ("card", "cpu"):
+        for got, want, what in zip(grads[key], grads["oracle"], ("spmm_bidir dh", "dval", "run_gat dh", "datt")):
+            _close(got.double(), want, f"{what} {sched} {key} vs float64")
     assert (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches, cuda_sddmm.launches) == before
 
 
@@ -1493,3 +1502,49 @@ def test_edge_mlp_on_card_matches_cpu(cuda_dev, sched, kw):
             assert (a - b).norm() <= 1e-4 * a.norm()
     torch.cuda.synchronize()
     assert _all_launches() == before
+
+
+def test_cli_tune_on_card_launches_b1(cuda_dev, capsys):
+    """The CLI's tune on the card (chip_smoke phase 49 at a small size): its
+    table lists every gather and hybrid candidate in the JAX order, each
+    with a positive time, and the hybrid candidates ran B1 (bfloat16 tiles:
+    the graph is weighted, so int8 is skipped, as in the JAX package)."""
+    import json
+
+    from gnn_computing_tpu_torch.utils.cli import main as cli_main
+
+    b1, b1_float = cuda_bcsr.launches, cuda_bcsr.float_launches
+    cli_main(["tune", "--syn", "rmat:4096:60000", "--feature-len", "32", "--iters", "2"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    configs = [{k: v for k, v in r.items() if k != "seconds"} for r in out["table"]]
+    assert configs == [{"block_size": b, "strategy": "gather"} for b in (8, 16, 32, 64)] + [
+        {"tile_rows": r, "threshold": t, "tile_dtype": "bf16", "strategy": "hybrid"}
+        for r in (256, 512) for t in (16, 24, 48)
+    ]
+    assert all(r["seconds"] > 0 for r in out["table"])
+    assert cuda_bcsr.launches > b1 and cuda_bcsr.float_launches - b1_float == cuda_bcsr.launches - b1
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_decompose_on_card(cuda_dev, model):
+    """profiling.decompose on the card over an int8 hybrid aggregator: every
+    phase present with a finite positive time, B1 (GCN) or B2 (GAT) launched
+    by the dense phase, and the analytic block equal to plan_cost and
+    tile_cost."""
+    from gnn_computing_tpu_torch.utils.profiling import decompose, plan_cost, tile_cost
+
+    g = rmat_graph(4096, 60000, seed=5, with_val=False)
+    g = g.reorder(degree_sort(g))
+    agg = Aggregator.schedule_hybrid(g, tile_rows=64, tile_cols=128, threshold=8, residual_block=4,
+                                     tile_dtype=np.int8, with_transpose=False, pack=1, device=cuda_dev)
+    gen = torch.Generator(device=cuda_dev).manual_seed(1)
+    h = torch.rand((g.num_nodes, 32), generator=gen, device=cuda_dev)
+    att = torch.randn((g.num_nodes, 2), generator=gen, device=cuda_dev) * 0.1
+    before = (cuda_bcsr.launches, cuda_gat.launches)
+    out = decompose(agg, h, model=model, att=att, iters=2, reps=2)
+    phases = ("dense", "residual", "residual_floor", "transform") + (("total",) if model == "gcn" else ())
+    for phase in phases:
+        assert np.isfinite(out[phase]["ms"]) and out[phase]["ms"] > 0, phase
+    launched = (cuda_bcsr.launches - before[0], cuda_gat.launches - before[1])
+    assert launched[0 if model == "gcn" else 1] > 0 and launched[1 if model == "gcn" else 0] == 0
+    assert out["analytic"] == {"plan": plan_cost(agg.plan, 32), "tile": [tile_cost(agg.tile, 32)]}

@@ -45,7 +45,7 @@ from gnn_computing_tpu_torch.ops.validate import assert_valid
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.tiles import densify
 
-from test_torch_spmm import assert_matches_jax
+from test_torch_spmm import assert_matches_jax, jax_native_from_port  # noqa: F401
 
 TILES = dict(tile_rows=64, tile_cols=64, threshold=6)
 

@@ -45,6 +45,13 @@ WALKED = (
     "gnn_computing_tpu_torch.ops.lstm",
     "gnn_computing_tpu_torch.ops.edge_mlp",
     "gnn_computing_tpu_torch.models.sage_lstm",
+    "gnn_computing_tpu_torch.graph.reorder",
+    "gnn_computing_tpu_torch.utils.autotune",
+    "gnn_computing_tpu_torch.utils.cli",
+    "gnn_computing_tpu_torch.utils.flops",
+    "gnn_computing_tpu_torch.utils.profiling",
+    "gnn_computing_tpu_torch.utils.timing",
+    "gnn_computing_tpu_torch.__main__",
 )
 
 
@@ -221,3 +228,29 @@ def test_probe_and_mode_entry_points_raise_without_cuda(monkeypatch):
     # on CPU tensors the probe's functions run their plain versions
     assert probe.dma_task_sums(plan, h).shape == (plan.num_tasks_padded, 8)
     assert probe.fused_hybrid(tp, plan, h)[0].shape == (256, 8)
+
+
+def test_utils_entry_points_raise_without_cuda(monkeypatch):
+    """The autotune sweeps and the CLI's parameter init place their work on
+    the card unless asked for the CPU; the timing helpers that report device
+    time refuse to run without one."""
+    from gnn_computing_tpu_torch.graph import rmat_graph
+    from gnn_computing_tpu_torch.utils import autotune
+    from gnn_computing_tpu_torch.models.gcn import init_gcn_params
+    from gnn_computing_tpu_torch.utils.timing import device_ms
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = rmat_graph(256, 2000, seed=3, with_val=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        autotune.tune_gather(g, feature_len=4, block_sizes=(8,), iters=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        autotune.tune_hybrid(g, feature_len=4, thresholds=(4,), tile_rows=(64,), iters=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        autotune.tune(g, feature_len=4, iters=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_gcn_params((8, 4), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_ms(lambda: None)
+    r = autotune.tune_gather(g, feature_len=4, block_sizes=(8,), iters=1, device="cpu")
+    assert r.best.plan.src.device.type == "cpu"
+    assert [p.device.type for p in init_gcn_params((8, 4), torch.Generator().manual_seed(0), device="cpu")] == ["cpu"]

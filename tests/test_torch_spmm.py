@@ -24,6 +24,26 @@ from gnn_computing_tpu_torch.ops.validate import assert_valid
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_from_port():
+    """The JAX package's native module, for this module's tests, bound to
+    the port's build of the same ``csrc/gnnhost.cpp`` with the same flags
+    and argument types.  The JAX module rebuilds its tracked library in
+    place when the source looks newer than it, so another test process may
+    be writing it when this one loads it: the JAX module then falls back
+    for the rest of the process (and ``cluster_reorder_exact`` returns
+    None).  The port's build is renamed into place whole.  Import this
+    fixture into a test module to apply it there."""
+    from gnn_computing_tpu import native as j_native
+
+    from gnn_computing_tpu_torch import native
+
+    saved = j_native._lib, j_native._tried
+    j_native._lib, j_native._tried = native.load(), True
+    yield
+    j_native._lib, j_native._tried = saved
+
+
 def assert_matches_jax(port, jax_out, ref=None, what=""):
     port = np.asarray(port, np.float64)
     jax_out = np.asarray(jax_out, np.float64)
