@@ -375,10 +375,47 @@ Phases (any failure exits non-zero; nothing is caught):
      DECOMPOSE_TOL (30%) of the kernel's per-launch time phase 4 (7) took
      on the same plan at the same f; analytic equal to plan_cost and
      tile_cost.
+ 51. (quick scale, as 52-54) the all-gather hybrid GCN (parallel.allgather_tiles)
+     at full width over phase 1's graph: build_allgather_hybrid at D = 4,
+     int8 [512, 256] t48, residual 4, 1-bit and int8 groups split local /
+     halo, pack 8, with the groups' transposes; the 4 rank bodies run on
+     the card in turn, each given its rows and the whole buffer (what the
+     all-gather gives it).  B1 launches once a group, rank and layer (and
+     its 1-bit launches once a 1-bit group's); each layer from its own
+     float32 input passes the gate against the float64 edge oracle with 0
+     bad elements; the forward within PAR_TOL (1e-5) * max|ref| of the
+     single-card schedule_hybrid forward; B1 over every group and every
+     transposed group against bcsr_spmm_plain (KERNEL_TOL) at f = 128, 64,
+     32; per (f, rank) B1's ms over the body's launches, their bound, the
+     plain version's ms and torch.sparse.mm over the same cells; each rank
+     body's ms and the whole forward's.
+ 52. the dry run's training step (multichip.train_step: the all-gather
+     hybrid, ring hybrid and gather ring in one loss) in an NCCL world of
+     one on the card, over the toy graph of D = 4: the loss finite, B1
+     launched once a group and layer forward and backward (over the
+     transposes), the loss within 1e-5 relative and the weight gradients
+     within GRAD_REL_L2 of the same step in a gloo group on the CPU; the
+     D = 4 rank bodies' three forwards within PAR_TOL of the world of
+     one's on the graph's rows; the step's ms (the plan parts put on the
+     card once before it; the toy features and labels are copied in it).
+ 53. the dry run's all-gather forward at arxiv scale (RMAT 169,343 v /
+     1,166,243 e, seed 11, [256, 128] t16, residual 4, pack 8, f = 32)
+     with the step's weights as D = 8 rank bodies: B1 once a group, body
+     and layer, finite, each layer against the float64 edge oracle (0
+     bad), B1 over every group against its plain version, its times.
+ 54. RMAT 32,768 v / 1,048,576 e (seed 123, degree sorted) through the
+     gather ring (NG B = 32), the ring-hybrid GCN and GAT (f = 64; float32
+     [256, 128] tiles; plain torch, no kernel launched) and the
+     feature-parallel GCN (phase 3's plan; B1 once a rank and layer), as
+     D = 4 rank bodies, each within PAR_TOL * max|ref| of the single-card
+     port (gather forward, schedule_hybrid forward, gat_aggregate, the
+     aggregate-first forward); their ms, with every rank's plan parts put
+     on the card once before (mesh.shard_all), as in phases 51 and 53.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the "reorder"
-     and "cli" lines (phases 48-49), the "sage" and
+     and "cli" lines (phases 48-49), the "parallel" line (phases 51-54;
+     B1's kernel entry carries their "allgather" rows), the "sage" and
      "edgemlp" lines (phases 44-47), the "gather" line (phases 40-43), the total
      seconds, one "kernels" JSON line (B1's, B2's, B3's, B4's, B5's and
      P2's entries with "walk": "cell", their plans' work lists and B3's,
@@ -396,7 +433,7 @@ on the card, not the training path), REDDIT_STEPS steps with B1 at 12
 launches a step (6 1-bit) and a finite loss, and the step's time; and
 phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
 = 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
-and peak memory; phases 44-46 by phase 47; phases 48-50 run at the quick
+and peak memory; phases 44-46 by phase 47; phases 48-54 run at the quick
 scale only.
 
 Launch counts: every count is set to 0 just before a path is driven and
@@ -434,11 +471,14 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gnn_computing_tpu_torch import multichip
 from gnn_computing_tpu_torch.aggregator import Aggregator
 from gnn_computing_tpu_torch.convert import gat_params_from_jax, gcn_params_from_jax
 from gnn_computing_tpu_torch.graph import (
@@ -453,7 +493,14 @@ from gnn_computing_tpu_torch.graph import (
 )
 from gnn_computing_tpu_torch.graph.sample import presample_fixed_neighbors
 from gnn_computing_tpu_torch.models.gat import gat_forward, glorot_gat_weights
-from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, LayerOpts, fast_layer_opts, gcn_layer, glorot_weights
+from gnn_computing_tpu_torch.models.gcn import (
+    BENCH_DIMS,
+    LayerOpts,
+    fast_layer_opts,
+    gcn_forward,
+    gcn_layer,
+    glorot_weights,
+)
 from gnn_computing_tpu_torch.models.sage_lstm import init_sage_lstm_params, sage_lstm_layer
 from gnn_computing_tpu_torch.models.training import make_train_step, softmax_xent
 from gnn_computing_tpu_torch.ops import (
@@ -507,8 +554,24 @@ from gnn_computing_tpu_torch.ops.spmm import (
     spmm_plain,
     weighted_task_sums,
 )
+from gnn_computing_tpu_torch.parallel import build_ring_plan, make_mesh
+from gnn_computing_tpu_torch.parallel.allgather_tiles import (
+    _local_allgather_hybrid,
+    allgather_hybrid_gcn_forward_bodies,
+    allgather_hybrid_spmm_bodies,
+    build_allgather_hybrid,
+)
+from gnn_computing_tpu_torch.parallel.feature_parallel import feature_sharded_gcn_forward_bodies
+from gnn_computing_tpu_torch.parallel.mesh import shard_all
+from gnn_computing_tpu_torch.parallel.ring import ring_gcn_forward_bodies
+from gnn_computing_tpu_torch.parallel.ring_tiles import (
+    build_ring_hybrid,
+    ring_hybrid_gat_bodies,
+    ring_hybrid_gcn_forward_bodies,
+)
 from gnn_computing_tpu_torch.probes import overlap_dma_residual as probe
 from gnn_computing_tpu_torch.ops.validate import DEFAULT_ATOL, DEFAULT_RTOL, relative_error_count
+from gnn_computing_tpu_torch.schedule import make_plan
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.tiles import densify, densify_gcn_norm, split_bit_tiles
 from gnn_computing_tpu_torch.utils import cli
@@ -4516,6 +4579,317 @@ def decompose_phase(g, gen, b1_rows, b2_rows, dev) -> dict:
         torch.cuda.empty_cache()
     return out
 
+# ------------------------------------------------ phases 51-54 (multi-device on torch.distributed)
+PAR_D = 4  # rank bodies of phases 51, 52 and 54
+ARXIV_D = 8  # phase 53: the dry run's arxiv-scale forward
+# phase 51: build_allgather_hybrid at bench.py's GCN geometry, 1-bit and int8 groups
+AG_SCHEDULE = dict(SCHEDULE, residual_block=RESIDUAL_BLOCK, tile_dtype=np.int8, bit_tiles=True, pack=8)
+RING_GRAPH = (1 << 15, 1 << 20)  # phase 54's RMAT (seed 123, degree sorted)
+PAR_TOL = 1e-5  # max|d| <= PAR_TOL * max|ref| against the single-card port: float32 summation order
+
+
+def close_to(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+    scale = want.abs().max().item() if want.numel() else 0.0
+    log(f"  {what}: max|d|={err:.3e} max|ref|={scale:.3e}")
+    check(err <= PAR_TOL * scale, f"{what}: off the single-card port by more than {PAR_TOL} max|ref|")
+    return err
+
+
+def layer_gates(g, ws, h0, out, aggregate, what: str) -> list:
+    """Each layer of a GCN forward (transform, aggregate, ReLU but after the
+    last) from its own float32 input against the float64 edge oracle of the
+    layer's own float32 transform: 0 elements off the gate; the chain of
+    layers must be ``out``.  Returns the layer inputs."""
+    g_dst, g_src = edge_lists(g, h0.device)
+    xs = [h0]
+    for i, w in enumerate(ws):
+        z = xs[i] @ w
+        y, ref = aggregate(z), edge_sum(z.double(), g_dst, g_src)
+        if i < len(ws) - 1:
+            y, ref = torch.relu(y), ref.clamp_min_(0.0)
+        bad = relative_error_count(y, ref)
+        log(f"  {what}layer {i + 1} (f={z.shape[1]}) vs f64 edge oracle: gate_bad={bad} of {ref.numel()}")
+        check(bad == 0, f"{what}layer {i + 1} fails the gate against the float64 oracle")
+        xs.append(y)
+    # the residual's index_add_ adds in atomic order on the card, so the
+    # layers recomputed one by one match the forward to float32 sum order
+    err = (xs[-1] - out).abs().max().item()
+    check(err <= PAR_TOL * out.abs().max().item(), f"{what}the layers do not chain to the forward's output ({err:.3e})")
+    return xs
+
+
+def b1_bound(tp, f: int, nnz: int) -> tuple:
+    """(bound ms, bound_by) of one B1 launch: its tiles, column indices and
+    runs read once, the h rows of the column tiles it touches read once and
+    its output rows written once, at the card's memory rate; 2 nnz f
+    float32 operations at its peak rate."""
+    cols = int(torch.unique(tp.tile_col).numel()) if tp.num_tiles else 0
+    move = tp.a.numel() + 4 * (tp.num_tiles + tp.num_row_tiles + 1) + 4 * f * (min(cols * tp.tile_cols, tp.n_src)
+                                                                               + tp.num_nodes)
+    bytes_ms, ops_ms = move / HBM_BYTES_PER_S * 1e3, 2.0 * nnz * f / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def group_rows(views, xs_of, fs, gen, what: str, transposed: bool = False) -> tuple:
+    """B1 over every group of every rank body (or the groups' transposes),
+    against bcsr_spmm_plain (nonnegative and signed h, KERNEL_TOL) and timed
+    (CUDA events, median of 10 after 3): per (f, rank) the ms a body's
+    launches take together, their plain version's, their bound and
+    torch.sparse.mm over the same cells (a yardstick the port never
+    calls).  ``xs_of(f, r, local)`` gives a body's operand."""
+    rows, err = [], 0.0
+    for f in fs:
+        for r, v in enumerate(views):
+            row = dict(f=f, rank=r, launches=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by="bytes")
+            for k, (tp, tp_t, local) in enumerate(v.groups):
+                p = tp_t if transposed else tp
+                label = f"{what} rank {r} group {k} ({'1-bit' if p.bits else p.format}, {'local' if local else 'halo'})"
+                err = max(err, kernel_vs_plain(p, f, "native", gen, label))
+                x = xs_of(f, r, local) if not transposed else torch.randn((p.n_src, f), generator=gen, device=p.a.device)
+                csr = tile_csr(p)
+                bound, by = b1_bound(p, f, csr.values().numel())
+                row["launches"] += 1
+                row["ms"] += cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(p, x))
+                row["plain_ms"] += cuda_time_ms(lambda: bcsr_spmm_plain(p, x))
+                row["library_ms"] += cuda_time_ms(lambda: torch.sparse.mm(csr, x))
+                row["bound_ms"] += bound
+                row["bound_by"] = by if row["bound_by"] == "bytes" else row["bound_by"]
+            rows.append(row)
+            log(f"  {what} f={f} rank {r}: B1 {row['ms']:.4f} ms over {row['launches']} launches | bound "
+                f"{row['bound_ms']:.4f} | plain {row['plain_ms']:.3f} | torch.sparse.mm {row['library_ms']:.4f}")
+    return rows, err
+
+
+def allgather_phase(g, h0, gen) -> dict:
+    """Phase 51: the all-gather hybrid GCN at full width over phase 1's
+    graph (build_allgather_hybrid at D = 4, 1-bit and int8 groups, pack 8,
+    with the groups' transposes): the 4 rank bodies on the card, each given
+    its rows and the whole buffer (what the all-gather gives it)."""
+    dev = h0.device
+    log(f"phase 51: the all-gather hybrid GCN, D = {PAR_D} rank bodies on the card ({AG_SCHEDULE})")
+    t0 = time.perf_counter()
+    plan, gp = build_allgather_hybrid(g, PAR_D, with_transpose=True, **AG_SCHEDULE)
+    build_s = time.perf_counter() - t0
+    views = shard_all(plan, dev)
+    ngroups = len(plan.groups)
+    nbits = sum(grp.bits for grp in plan.groups)
+    # a rank's view leaves out its all-zero tiles, and a group without others
+    bodies_groups = sum(len(v.groups) for v in views)
+    bodies_bits = sum(tp.bits for v in views for tp, _, _ in v.groups)
+    log(f"  plan: n_pad={plan.n_pad} groups={ngroups} ({nbits} 1-bit) "
+        + ", ".join(f"{'1-bit' if grp.bits else 'int8'} {'local' if grp.local else 'halo'} T={grp.a.shape[1]}"
+                    for grp in plan.groups)
+        + f" residual tasks {plan.rcnt.shape[1]} halo + {plan.lcnt.shape[1]} local a rank; built in {build_s:.1f} s")
+    check(gp.num_nodes == g.num_nodes, "the quick graph needs no padding at D = 4")
+    ws = [torch.from_numpy(w).to(dev) for w in glorot_weights(BENCH_DIMS, seed=0)]
+    fwd = lambda: allgather_hybrid_gcn_forward_bodies(views, ws, h0)  # noqa: E731
+    with torch.no_grad():
+        reset_counts()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches, bits = cuda_bcsr.launches, cuda_bcsr.bits_launches
+        want = 3 * bodies_groups
+        log(f"  B1 launches in one forward: {launches} ({bits} 1-bit); {bodies_groups} non-empty (rank, group) "
+            f"views of {PAR_D} x {ngroups} x 3 layers; nonzero tiles a view: "
+            + ", ".join(str(tp.num_tiles) for v in views for tp, _, _ in v.groups))
+        check(only("B1") and launches == want and bits == 3 * bodies_bits,
+              "the all-gather forward did not launch B1 once a non-empty group, layer and rank")
+        check(out.shape == (g.num_nodes, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "all-gather forward output")
+        xs = layer_gates(g, ws, h0, out, lambda z: allgather_hybrid_spmm_bodies(views, z), "all-gather ")
+        single = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, bit_tiles=True, with_transpose=False,
+                                            residual_block=RESIDUAL_BLOCK, pack=1, device=dev, **SCHEDULE)
+        max_err = close_to(out, gcn_forward(single, ws, h0), "all-gather forward vs the single-card schedule_hybrid")
+        del single
+        forward_ms = cuda_time_ms(fwd)
+        ns = plan.shard_size
+        zs = {w.shape[1]: (xs[i] @ w).contiguous() for i, w in enumerate(ws)}
+        bodies = []
+        for i, w in enumerate(ws):
+            z = zs[w.shape[1]]
+            for r, v in enumerate(views):
+                bodies.append(dict(layer=i + 1, f=z.shape[1], rank=r, ms=cuda_time_ms(
+                    lambda: _local_allgather_hybrid(v, z[r * ns : (r + 1) * ns], z))))
+        log("  rank bodies (ms, layer x rank): " + ", ".join(f"{b['ms']:.3f}" for b in bodies)
+            + f" | whole forward {forward_ms:.3f} ms")
+        fs = sorted(zs, reverse=True)
+        rows, err = group_rows(views, lambda f, r, local: zs[f][r * ns : (r + 1) * ns] if local else zs[f], fs, gen,
+                               "all-gather")
+        rows_t, err_t = group_rows(views, None, fs, gen, "all-gather transposed", transposed=True)
+    return dict(plan_build_s=build_s, groups=ngroups, bit_groups=nbits, views=bodies_groups, launches=launches,
+                bits_launches=bits,
+                launches_per_forward=want, max_err=max_err, kernel_max_err=max(err, err_t), forward_ms=forward_ms,
+                bodies=bodies, rows=rows, rows_t=rows_t)
+
+
+def nccl_world_phase(dev) -> dict:
+    """Phase 52: the dry run's training step (multichip.train_step: the
+    all-gather hybrid, ring hybrid and gather ring, B1 over the all-gather
+    groups and their transposes) in an NCCL world of one on the card, held
+    to the same step in a gloo group on the CPU (plain versions); and the
+    D = 4 rank bodies' forwards against the world of one's over the same
+    graph."""
+    log(f"phase 52: the dry run's training step in an NCCL world of one (toy graph of D = {PAR_D})")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(num_graph=1, device=dev)
+        cpu_mesh = make_mesh(num_graph=1, device="cpu", backend="gloo")
+        prob = multichip.toy_problem(1, graph_devices=PAR_D)
+        w0 = [p.detach().numpy() for p in multichip.toy_params("cpu")]
+        params = multichip.toy_params(dev, w0)
+        opt = torch.optim.Adam(params, lr=multichip.LR)
+        # the plan parts go to the card once, outside the timed step
+        shards = multichip.toy_shards(mesh, prob)
+        ngroups = len(shards[0].groups)
+        reset_counts()
+        loss, grads = multichip.train_step(mesh, prob, params, opt, shards)
+        torch.cuda.synchronize()
+        launches = cuda_bcsr.launches
+        layers = len(multichip.TOY_DIMS) - 1
+        log(f"  step: loss {loss:.6f}; B1 launches {launches} ({ngroups} groups x {layers} layers, forward and "
+            f"backward over the transposes)")
+        check(math.isfinite(loss), "the dry run's loss is not finite")
+        check(only("B1") and launches == 2 * layers * ngroups, "the step did not launch B1 once a group and layer, "
+              "forward and backward")
+        cparams = multichip.toy_params("cpu", w0)
+        closs, cgrads = multichip.train_step(cpu_mesh, prob, cparams, torch.optim.Adam(cparams, lr=multichip.LR),
+                                             multichip.toy_shards(cpu_mesh, prob))
+        rels = [rel_l2(a.cpu(), b.double()) for a, b in zip(grads, cgrads)]
+        log(f"  the same step on the CPU (gloo, plain versions): loss {closs:.6f}; gradients' relative L2 {rels}")
+        check(abs(loss - closs) <= 1e-5 * abs(closs) and max(rels) <= GRAD_REL_L2,
+              "the card's step differs from the CPU's")
+        p0 = multichip.toy_params(dev, w0)
+        n = prob.labels.shape[0]
+        with torch.no_grad():
+            one = multichip.toy_forwards(mesh, prob, p0, shards)
+            four = multichip.toy_forwards_bodies(multichip.toy_problem(PAR_D), p0, dev)
+            for a, b, name in zip(four, one, ("all-gather", "ring hybrid", "ring")):
+                close_to(a[:n], b[:n], f"{name} logits: D = {PAR_D} rank bodies vs the world of one")
+        step_ms = cuda_time_ms(lambda: multichip.train_step(mesh, prob, params, opt, shards))
+        log(f"  step {step_ms:.3f} ms (CUDA events, the world of one; plan parts on the card before it, the toy "
+            f"features and labels copied in it)")
+        return dict(loss=loss, cpu_loss=closs, grad_rel_l2=rels, launches=launches, groups=ngroups, step_ms=step_ms,
+                    params=[p.detach() for p in params])
+    finally:
+        dist.destroy_process_group()
+
+
+def arxiv_phase(params, gen) -> dict:
+    """Phase 53: the dry run's all-gather forward at arxiv scale (RMAT
+    169,343 v / 1,166,243 e, seed 11; [256, 128] t16, residual 4, pack 8,
+    f = 32) with the step's weights, as D = 8 rank bodies on the card."""
+    dev = params[0].device
+    log(f"phase 53: the all-gather forward at arxiv scale, D = {ARXIV_D} rank bodies")
+    t0 = time.perf_counter()
+    plan, gp = multichip.arxiv_plan(ARXIV_D)
+    build_s = time.perf_counter() - t0
+    views = shard_all(plan, dev)
+    ha = torch.from_numpy(multichip.arxiv_features(plan.n_pad)).to(dev)
+    ngroups = sum(len(v.groups) for v in views)
+    fwd = lambda: allgather_hybrid_gcn_forward_bodies(views, params, ha)  # noqa: E731
+    with torch.no_grad():
+        reset_counts()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches = cuda_bcsr.launches
+        log(f"  n_pad={plan.n_pad} non-empty (rank, group) views={ngroups} of {ARXIV_D} x {len(plan.groups)}, built "
+            f"in {build_s:.1f} s; B1 launches {launches}")
+        check(only("B1") and launches == len(params) * ngroups, "arxiv forward: B1 not once a group, body and layer")
+        check(bool(torch.isfinite(out).all()), "arxiv forward: non-finite output")
+        xs = layer_gates(gp, params, ha, out, lambda z: allgather_hybrid_spmm_bodies(views, z), "arxiv ")
+        forward_ms = cuda_time_ms(fwd)
+        ns = plan.shard_size
+        zs = {w.shape[1]: (xs[i] @ w).contiguous() for i, w in enumerate(params)}
+        rows, err = group_rows(views, lambda f, r, local: zs[f][r * ns : (r + 1) * ns] if local else zs[f],
+                               sorted(zs, reverse=True), gen, "arxiv")
+    log(f"  arxiv forward {forward_ms:.3f} ms")
+    return dict(plan_build_s=build_s, n_pad=plan.n_pad, groups=ngroups, launches=launches, forward_ms=forward_ms,
+                kernel_max_err=err, rows=rows)
+
+
+def ring_feature_phase(gen, dev) -> dict:
+    """Phase 54: the gather ring, the ring-hybrid GCN and GAT (plain torch,
+    as the JAX package leaves them to XLA: no kernel launched) and the
+    feature-parallel forward (B1 through Aggregator.run a rank and layer),
+    each as D = 4 rank bodies against the single-card port."""
+    n, m = RING_GRAPH
+    log(f"phase 54: ring, ring hybrid (GCN, GAT) and feature-parallel forwards, D = {PAR_D} rank bodies "
+        f"(RMAT n={n} m={m}, seed 123, degree sorted)")
+    g = rmat_graph(n, m, seed=123, with_val=False)
+    g = g.reorder(degree_sort(g))
+    ws = [torch.from_numpy(w).to(dev) for w in glorot_weights(BENCH_DIMS, seed=0)]
+    h = torch.from_numpy(normal_features(n, BENCH_DIMS[0], seed=5) * 0.1).to(dev)
+    out = {}
+    with torch.no_grad():
+        # every rank's plan parts go to the card once, outside the timed forwards
+        ring, gp, _ = build_ring_plan(g, PAR_D, block_size=GATHER_BLOCK)
+        rings = shard_all(ring, dev)
+        reset_counts()
+        got = ring_gcn_forward_bodies(rings, ws, h)
+        torch.cuda.synchronize()
+        check(only_of(()), "the ring launched a kernel")
+        single = Aggregator.schedule(gp, "neighbor_grouping", with_transpose=False, device=dev, block_size=GATHER_BLOCK)
+        out["ring"] = dict(max_err=close_to(got, gcn_forward(single, ws, h), "ring GCN vs the single-card gather"),
+                           ms=cuda_time_ms(lambda: ring_gcn_forward_bodies(rings, ws, h)),
+                           tasks_per_step=ring.tasks_per_step)
+        del ring, rings, single
+        rtp, hring, gph = build_ring_hybrid(g, PAR_D, tile_rows=256, tile_cols=128)
+        check(gph.num_nodes == n, "phase 54's graph needs no padding")
+        tiles, hrings = shard_all(rtp, dev), shard_all(hring, dev)
+        reset_counts()
+        got = ring_hybrid_gcn_forward_bodies(tiles, hrings, ws, h)
+        torch.cuda.synchronize()
+        check(only_of(()), "the ring hybrid launched a kernel")
+        single = Aggregator.schedule_hybrid(g, tile_rows=256, tile_cols=128, residual_block=8, with_transpose=False,
+                                            pack=1, device=dev)
+        out["ring_hybrid"] = dict(
+            max_err=close_to(got, gcn_forward(single, ws, h), "ring-hybrid GCN vs the single-card schedule_hybrid"),
+            ms=cuda_time_ms(lambda: ring_hybrid_gcn_forward_bodies(tiles, hrings, ws, h)), stats=rtp.stats())
+        x = torch.from_numpy(normal_features(n, BENCH_DIMS[2], seed=6)).to(dev)
+        att = torch.from_numpy(normal_features(n, 2, seed=7) * 0.3).to(dev)
+        reset_counts()
+        got = ring_hybrid_gat_bodies(tiles, hrings, x, att)
+        torch.cuda.synchronize()
+        check(only_of(()), "the ring-hybrid GAT launched a kernel")
+        plan = make_plan(g, "neighbor_grouping", block_size=GATHER_BLOCK).to(dev)
+        out["ring_hybrid_gat"] = dict(
+            max_err=close_to(got, gat_aggregate(plan, x, att), "ring-hybrid GAT vs the single-card gat_aggregate"),
+            ms=cuda_time_ms(lambda: ring_hybrid_gat_bodies(tiles, hrings, x, att)))
+        del rtp, hring, tiles, hrings, single, plan
+        agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, with_transpose=False, residual_block=RESIDUAL_BLOCK,
+                                         pack=1, device=dev, **SCHEDULE)
+        reset_counts()
+        got = feature_sharded_gcn_forward_bodies(agg, ws, h, PAR_D)
+        torch.cuda.synchronize()
+        launches = cuda_bcsr.launches
+        check(only("B1") and launches == PAR_D * len(ws), "feature parallel: B1 not once a rank and layer")
+        ref = h
+        for i, w in enumerate(ws):
+            ref = agg.run(ref) @ w
+            ref = torch.relu(ref) if i < len(ws) - 1 else ref
+        out["feature_parallel"] = dict(
+            max_err=close_to(got, ref, "feature-parallel GCN vs the single-card aggregate-first forward"),
+            launches=launches, ms=cuda_time_ms(lambda: feature_sharded_gcn_forward_bodies(agg, ws, h, PAR_D)))
+    log("  " + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in out.items()))
+    return out
+
+
+def parallel_phases(g, h0, gen) -> dict:
+    """Phases 51-54 (module doc)."""
+    dev = h0.device
+    ag = allgather_phase(g, h0, gen)
+    torch.cuda.empty_cache()
+    world = nccl_world_phase(dev)
+    torch.cuda.empty_cache()
+    arxiv = arxiv_phase(world.pop("params"), gen)
+    torch.cuda.empty_cache()
+    rf = ring_feature_phase(gen, dev)
+    torch.cuda.empty_cache()
+    return dict(allgather=ag, nccl_world=world, arxiv=arxiv, ring=rf)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4689,6 +5063,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         dec = decompose_phase(g, gen, shapes, gat_kernels[0]["shapes"], dev)
         torch.cuda.empty_cache()
+        par = parallel_phases(g, h0, gen)
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
         torch.cuda.empty_cache()
@@ -4935,6 +5310,28 @@ def main() -> int:
                                        launches_per_forward=3, forward_ms=cg["forward_ms"])
         print(json.dumps({"reorder": reorders}), flush=True)
         print(json.dumps({"cli": cli_out}), flush=True)
+        # phases 51-54: B1 under the all-gather hybrid's rank bodies
+        ag, arxiv = par["allgather"], par["arxiv"]
+
+        def b1_rows(rows, **extra):
+            return dict(ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                        bound_ms=sum(r["bound_ms"] for r in rows), library_ms=sum(r["library_ms"] for r in rows),
+                        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
+                        rows=rows, **extra)
+
+        kernels[0]["allgather"] = b1_rows(
+            ag["rows"], path=f"all-gather hybrid GCN forward, D = {PAR_D} rank bodies (parallel.allgather_tiles, "
+                             f"{AG_SCHEDULE}), phase 1's graph, f=128, 64, 32; times summed over one forward's launches",
+            launches=ag["launches"], launches_per_forward=ag["launches_per_forward"], max_abs_err=ag["kernel_max_err"],
+            forward_ms=ag["forward_ms"],
+            transposed=b1_rows(ag["rows_t"], over="the groups' transposes (the step's backward), f=128, 64, 32"),
+            arxiv=b1_rows(arxiv["rows"], path=f"the dry run's arxiv-scale forward, D = {ARXIV_D} rank bodies",
+                          launches=arxiv["launches"], forward_ms=arxiv["forward_ms"],
+                          max_abs_err=arxiv["kernel_max_err"]),
+            training=dict(path="the dry run's training step in an NCCL world of one", launches=par["nccl_world"]["launches"],
+                          step_ms=par["nccl_world"]["step_ms"]),
+        )
+        print(json.dumps({"parallel": par}, default=float), flush=True)
     print(json.dumps({"sage": sage}), flush=True)
     print(json.dumps({"edgemlp": edgemlp}), flush=True)
     print(json.dumps({"gather": gather}), flush=True)

@@ -2,8 +2,10 @@
 
 Port of the numpy stream of ``gnn_computing_tpu/graph/synthetic.py``: the
 same seed gives the same graph in both packages.  The JAX package switches
-to the JAX PRNG for RMAT when an accelerator is present; this port always
-uses the numpy stream.  Generators: RMAT (power-law), the community graph
+to the JAX PRNG for RMAT when an accelerator is present; this port uses
+the numpy stream unless ``rmat_graph`` is given a torch device, where it
+draws the edges (``rmat_edges_device``: same distribution, another
+stream).  Generators: RMAT (power-law), the community graph
 (reddit's co-comment shape), uniform, fixed-degree (the pre-sampled
 ``<dset>_sample_16`` SAGE-LSTM inputs) and RMAT at a reference dataset's
 scale.
@@ -12,7 +14,9 @@ scale.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.graph.csr import CSRGraph
 
 # Named presets at the scale of the reference's benchmark datasets
@@ -55,12 +59,47 @@ def rmat_edges(
     return np.concatenate(dsts), np.concatenate(srcs)
 
 
+def rmat_edges_device(
+    n_log2: int,
+    num_edges: int,
+    seed: int = 123,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    batch: int = 1 << 24,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """RMAT edges drawn on a torch device from a ``torch.Generator`` seeded
+    with ``seed``: the distribution of rmat_edges, another random stream
+    (as the JAX package's ``rmat_edges_device`` has another than its numpy
+    one)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t1, t2, t3 = a, a + b, a + b + c
+    weights = 1 << torch.arange(n_log2 - 1, -1, -1, dtype=torch.int32, device=dev)
+    dsts, srcs = [], []
+    remaining = num_edges
+    while remaining > 0:
+        k = min(batch, remaining)
+        r = torch.rand((k, n_log2), generator=gen, device=dev)
+        q = (r >= t1).to(torch.int32) + (r >= t2).to(torch.int32) + (r >= t3).to(torch.int32)
+        dsts.append(((q >> 1) * weights).sum(dim=1).cpu().numpy())
+        srcs.append(((q & 1) * weights).sum(dim=1).cpu().numpy())
+        remaining -= k
+    return np.concatenate(dsts).astype(np.int64), np.concatenate(srcs).astype(np.int64)
+
+
 def rmat_graph(
-    num_nodes: int, num_edges: int, seed: int = 123, with_val: bool = True
+    num_nodes: int, num_edges: int, seed: int = 123, with_val: bool = True, device=None
 ) -> CSRGraph:
-    """Power-law graph: RMAT over the next power of two, folded by modulo."""
+    """Power-law graph: RMAT over the next power of two, folded by modulo.
+    ``device`` None draws the numpy stream (the JAX package's on the CPU);
+    a torch device draws the edges there (rmat_edges_device)."""
     n_log2 = max(1, int(np.ceil(np.log2(num_nodes))))
-    dst, src = rmat_edges(n_log2, num_edges, seed=seed)
+    if device is None:
+        dst, src = rmat_edges(n_log2, num_edges, seed=seed)
+    else:
+        dst, src = rmat_edges_device(n_log2, num_edges, seed=seed, device=device)
     dst = dst % num_nodes
     src = (src % num_nodes).astype(np.int32)
     val = None

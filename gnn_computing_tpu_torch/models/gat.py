@@ -121,3 +121,24 @@ def glorot_gat_weights(dims: Sequence[int] = BENCH_DIMS, seed: int = 0, heads: i
         w_att = (rng.standard_normal(att_shape) * scale).astype(np.float32)
         out.append((w, w_att))
     return out
+
+
+def init_gat_params(
+    dims: Sequence[int], generator: torch.Generator, device="cuda", heads: int = 1
+) -> list:
+    """[GATLayerParams] of Glorot-scaled normal float32 leaves on ``device``
+    (w [f_in, f_out], w_att [f_out, 2] or [heads, f_out, 2], both at the
+    scale sqrt(2 / (f_in + f_out))), drawn from the seeded ``generator`` on
+    its own device (the JAX package's ``init_gat_params`` draws from a
+    jax.random key)."""
+    dev = resolve_device(device)
+    out = []
+    for i in range(len(dims) - 1):
+        scale = (2.0 / (dims[i] + dims[i + 1])) ** 0.5
+        att_shape = (dims[i + 1], 2) if heads == 1 else (heads, dims[i + 1], 2)
+        w, w_att = (
+            (torch.randn(shape, generator=generator, device=generator.device) * scale).to(dev).requires_grad_(True)
+            for shape in ((dims[i], dims[i + 1]), att_shape)
+        )
+        out.append(GATLayerParams(w, w_att))
+    return out

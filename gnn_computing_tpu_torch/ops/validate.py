@@ -28,6 +28,13 @@ def valid(y, y_ref, rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL) -> b
     return relative_error_count(y, y_ref, rtol, atol) == 0
 
 
+def valid_reordered(y_reordered, y_ref, rows, rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL) -> bool:
+    """A run on the reordered graph against an unreordered reference: row
+    ``i`` of the reordered output is original row ``rows[i]`` (the
+    reference's validateReordered)."""
+    return valid(y_reordered, _f64(y_ref)[np.asarray(rows, dtype=np.int64)], rtol, atol)
+
+
 def assert_valid(y, y_ref, rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL, what: str = ""):
     bad = relative_error_count(y, y_ref, rtol, atol)
     if bad:

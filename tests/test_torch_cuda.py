@@ -1548,3 +1548,57 @@ def test_decompose_on_card(cuda_dev, model):
     launched = (cuda_bcsr.launches - before[0], cuda_gat.launches - before[1])
     assert launched[0 if model == "gcn" else 1] > 0 and launched[1 if model == "gcn" else 0] == 0
     assert out["analytic"] == {"plan": plan_cost(agg.plan, 32), "tile": [tile_cost(agg.tile, 32)]}
+
+
+def test_allgather_bodies_on_card_match_cpu(cuda_dev):
+    """The all-gather hybrid's D = 4 rank bodies (parallel.allgather_tiles)
+    on the card against the same bodies on the CPU (plain versions): the
+    GCN forward within 1e-5 * max|cpu| and the weight gradients (B1 over the
+    groups' transposes in the backward) within 1e-4 relative L2; B1
+    launched once a non-empty (rank, group) view and layer each way."""
+    from gnn_computing_tpu_torch.graph import normal_features
+    from gnn_computing_tpu_torch.models.gcn import glorot_weights
+    from gnn_computing_tpu_torch.parallel.allgather_tiles import (
+        allgather_hybrid_gcn_forward_bodies,
+        build_allgather_hybrid,
+    )
+
+    g = rmat_graph(3000, 80000, seed=9, with_val=False)
+    plan, gp = build_allgather_hybrid(g, 4, tile_rows=64, tile_cols=128, threshold=4, with_transpose=True)
+    h = np.zeros((gp.num_nodes, 16), np.float32)
+    h[: g.num_nodes] = normal_features(g.num_nodes, 16, seed=5) * 0.1
+    ct = np.random.default_rng(3).standard_normal((gp.num_nodes, 8)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda_dev):
+        views = [plan.shard(r, dev) for r in range(4)]
+        ws = [torch.from_numpy(w).to(dev).requires_grad_(True) for w in glorot_weights((16, 16, 8), seed=4)]
+        before = (cuda_bcsr.launches, cuda_bcsr.bits_launches)
+        out = allgather_hybrid_gcn_forward_bodies(views, ws, torch.from_numpy(h).to(dev))
+        (out * torch.from_numpy(ct).to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        res[str(dev)] = out.detach().cpu(), [w.grad.cpu() for w in ws]
+        launched = (cuda_bcsr.launches - before[0], cuda_bcsr.bits_launches - before[1])
+        groups = sum(len(v.groups) for v in views)
+        bits = sum(tp.bits for v in views for tp, _, _ in v.groups)
+        assert launched == ((0, 0) if dev == "cpu" else (2 * 2 * groups, 2 * 2 * bits))
+    (out_c, g_c), (out_d, g_d) = res["cpu"], res["cuda"]
+    assert (out_d - out_c).abs().max() <= 1e-5 * out_c.abs().max()
+    for a, b in zip(g_d, g_c):
+        assert float((a.double() - b.double()).norm() / b.double().norm()) <= 1e-4
+
+
+def test_dryrun_in_an_nccl_world_of_one(cuda_dev):
+    """multichip.dryrun_multichip(1): a spawned NCCL world of one runs the
+    dry run's training step through every distributed path on the card;
+    its loss and weight gradients against the D = 1 step's rank bodies on
+    the CPU (1e-5 relative, 1e-4 relative L2)."""
+    from gnn_computing_tpu_torch import multichip
+
+    out = multichip.dryrun_multichip(1, device="cuda", arxiv=False, timeout=600)[0]
+    prob = multichip.toy_problem(1)
+    params = multichip.toy_params("cpu")
+    loss = multichip.toy_loss_bodies(prob, params, "cpu")
+    loss.backward()
+    assert abs(out["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+    for p, g in zip(params, out["grads"]):
+        assert float(np.linalg.norm(g - p.grad.numpy()) / np.linalg.norm(p.grad.numpy())) <= 1e-4

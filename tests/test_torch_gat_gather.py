@@ -14,6 +14,11 @@ Gradients within 1e-4 relative L2; training as tests/test_torch_train.py
 holds it (losses within 1e-5 relative, parameters within 1e-5 *
 max|param|)."""
 
+import json
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -81,6 +86,37 @@ def test_gat_aggregate_matches_jax(name, stabilize):
     if stabilize:  # every row's largest score is 1 (0 rows without edges)
         top = torch.zeros(gp.num_nodes).scatter_reduce_(0, plan.dst, score.amax(dim=1), "amax")
         assert torch.equal(top, torch.from_numpy((gp.degrees > 0).astype(np.float32)))
+
+
+FIRST_CALL_TRIALS = 200  # a process each, for each of exp, log and tanh
+
+
+def test_first_threaded_mkl_calls_after_import_are_exact():
+    """PyTorch's CPU exp, log and tanh on float32 go through MKL's VML, called
+    from every thread of a parallel_for at once.  The first such call of a
+    process can leave part of its output up to 1.5e-4 relative off (about 1
+    process in 100 for each of the three, 8 threads, 11,520 elements, 6
+    processes at once; probes/first_threaded_call.py): the cause of
+    test_gat_aggregate_matches_jax's occasional failure, whose first case
+    made its xdist worker's first exp.  Importing the port runs one exp of
+    one element on the calling thread, which sets VML up for all three.
+    Here every trial is a process forked after the import that makes its
+    first threaded call of one of them and holds it to float64 at 1e-6.  In
+    a copy of the port without the import's exp, each of 6 runs of these 600
+    trials found trials off (31 of 3,600 in all)."""
+    code = (
+        "import gnn_computing_tpu_torch\n"
+        "from gnn_computing_tpu_torch.probes.first_threaded_call import main\n"
+        f"main(['--ops', 'exp,log,tanh', '--warm', 'none', '--trials', '{FIRST_CALL_TRIALS}'])\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [r["op"] for r in rows] == ["exp", "log", "tanh"]
+    for r in rows:
+        assert r["trials"] == FIRST_CALL_TRIALS and r["off_first"] == 0 and r["off_second"] == 0, r
 
 
 # (att gather mode, h gather mode) of the port and of the JAX package, ulps

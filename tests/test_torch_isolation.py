@@ -20,6 +20,8 @@ import gnn_computing_tpu_torch
 for info in pkgutil.walk_packages(gnn_computing_tpu_torch.__path__, "gnn_computing_tpu_torch."):
     importlib.import_module(info.name)
 import chip_smoke  # noqa: F401  (the chip check's own imports)
+sys.path.insert(0, "tests")
+import torch_parallel_ranks  # noqa: F401  (what the spawned test ranks import)
 bad = sorted(
     m for m, mod in sys.modules.items()
     if mod is not None
@@ -35,6 +37,7 @@ print(sorted(m for m in sys.modules if m.startswith("gnn_computing_tpu_torch."))
 WALKED = (
     "gnn_computing_tpu_torch.probes",
     "gnn_computing_tpu_torch.probes.overlap_dma_residual",
+    "gnn_computing_tpu_torch.probes.first_threaded_call",
     "gnn_computing_tpu_torch.ops.cuda_residual",
     "gnn_computing_tpu_torch.ops.cuda_gat",
     "gnn_computing_tpu_torch.ops.bcsr_gat",
@@ -52,6 +55,15 @@ WALKED = (
     "gnn_computing_tpu_torch.utils.profiling",
     "gnn_computing_tpu_torch.utils.timing",
     "gnn_computing_tpu_torch.__main__",
+    "gnn_computing_tpu_torch.parallel",
+    "gnn_computing_tpu_torch.parallel.mesh",
+    "gnn_computing_tpu_torch.parallel.partition",
+    "gnn_computing_tpu_torch.parallel.ring",
+    "gnn_computing_tpu_torch.parallel.ring_tiles",
+    "gnn_computing_tpu_torch.parallel.allgather_tiles",
+    "gnn_computing_tpu_torch.parallel.feature_parallel",
+    "gnn_computing_tpu_torch.parallel.launch",
+    "gnn_computing_tpu_torch.multichip",
 )
 
 
@@ -254,3 +266,22 @@ def test_utils_entry_points_raise_without_cuda(monkeypatch):
     r = autotune.tune_gather(g, feature_len=4, block_sizes=(8,), iters=1, device="cpu")
     assert r.best.plan.src.device.type == "cpu"
     assert [p.device.type for p in init_gcn_params((8, 4), torch.Generator().manual_seed(0), device="cpu")] == ["cpu"]
+
+
+def test_multi_device_entry_points_raise_without_cuda(monkeypatch):
+    """The dry run and the meshes run on the card unless asked for the CPU;
+    rmat_graph's device stream and init_gat_params likewise."""
+    from gnn_computing_tpu_torch import multichip
+    from gnn_computing_tpu_torch.graph import rmat_graph
+    from gnn_computing_tpu_torch.models.gat import init_gat_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        multichip.dryrun_multichip(1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        multichip.toy_params("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        rmat_graph(64, 400, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_gat_params((8, 4), torch.Generator().manual_seed(0))
+    assert len(multichip.toy_params("cpu")) == 2

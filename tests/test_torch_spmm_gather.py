@@ -74,9 +74,22 @@ def close(got, want, what, tol=None, ref=None):
     assert got.shape == want.shape, what
     assert np.isfinite(got).all(), what
     err = np.abs(got - want).max() if want.size else 0.0
-    assert err <= (1e-5 if tol is None else tol) * np.abs(want).max(initial=0.0), f"{what}: max|port-jax| = {err}"
+    bound = (1e-5 if tol is None else tol) * np.abs(want).max(initial=0.0)
+    assert err <= bound, f"{what}: max|port-jax| = {err} > {bound}; {_which_side(got, want, ref)}"
     if ref is not None:
         assert_valid(got, ref, what=f"{what} vs f64 oracle")
+
+
+def _which_side(got, want, ref) -> str:
+    """Where port and JAX differ most, and how far each side lies from the
+    float64 oracle there and overall (when one is given)."""
+    at = np.unravel_index(np.abs(got - want).argmax(), got.shape)
+    msg = f"arg-max {tuple(int(i) for i in at)}: port {got[at]!r}, jax {want[at]!r}"
+    if ref is None:
+        return msg
+    ref = np.asarray(ref, np.float64).reshape(got.shape)
+    return (f"{msg}, oracle {ref[at]!r}; max|port-oracle| = {np.abs(got - ref).max()}, "
+            f"max|jax-oracle| = {np.abs(want - ref).max()}")
 
 
 def rel_l2(got, want) -> float:
