@@ -411,6 +411,35 @@ Phases (any failure exits non-zero; nothing is caught):
      port (gather forward, schedule_hybrid forward, gat_aggregate, the
      aggregate-first forward); their ms, with every rank's plan parts put
      on the card once before (mesh.shard_all), as in phases 51 and 53.
+ 55. the figure harness (gnn_computing_tpu_torch/benchmarks): every
+     figure's main() at --quick (rmat_quick), --iters 4, into a temporary
+     results directory, through its check hook (FigureCheck): one call of
+     each timed function must launch launches_of's kernels (B1 3 a fig7 GCN
+     forward; B2 3 a fig7 fast GAT forward, one a layer over its one int8
+     tile part, no B5; B1 once a call of fig9's hybrid_spmm, of fig8's
+     hybrid pass and of fig10b_pallas's split and fused calls, the fused
+     one through the w_epilogue; nothing on fig8's, fig9's and fig10's
+     gather rows or fig11), and the counts of each figure's run (set to 0
+     just before, read just after) must equal those calls' launches summed
+     over the calls timed (fig8's decompose phases added), each figure's
+     kernels launched; every row parses, names the card and its power limit
+     and holds finite times > 0.
+ 56. one real dataset a figure (SYN_DATASETS): rmat_mid (65,536 v /
+     8,388,608 e) for fig7, fig8, fig10 and fig11, comm_mid for fig7's
+     label-propagation route, rmat_arxiv for fig9 (FIG9_DATASET), each
+     graph's host build seconds and fig9's reorders' printed; --iters 8; as
+     phase 55, and before it is timed one output of every timed function
+     against its float64 oracle (figure_oracle: the GCN layers against
+     their modes' oracle as phase 3, the GAT layers against the softmax
+     oracle as phase 6, the LSTM against its float64 recurrence as phase
+     44, A @ h, (A @ h) @ W and 10a's attention aggregation against float64
+     edge-list sums with 0 elements off the gate).
+ 57. scaling.py at d = 1 on the card (an NCCL world of one), the ring
+     hybrid and --allgather at their defaults (n = 65,536, m = 4,194,304,
+     f = 32), --iters 8: the rank's output within PAR_TOL * max|ref| of the
+     single-card schedule_hybrid forward of the same graph, B1 launched on
+     every call of the all-gather rank and never in the ring's; one
+     representative row a path.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the "reorder"
@@ -420,8 +449,10 @@ Phases (any failure exits non-zero; nothing is caught):
      seconds, one "kernels" JSON line (B1's, B2's, B3's, B4's, B5's and
      P2's entries with "walk": "cell", their plans' work lists and B3's,
      B4's and B5's phase 38-39 times; P1's and P2's phase 36 times; B6's
-     with "design": "streamed", its phase 39 times and the chain's), the
-     card line, then
+     with "design": "streamed", its phase 39 times and the chain's; B1's
+     and B2's "figures" launches of phases 55-57), a "figures" JSON line
+     (phases 55-57: each figure's rows, the launches of each run, the
+     graphs' build seconds, the phases' seconds), the card line, then
      {"ok": true, ...}.
 
 With --scale reddit, phases 8-11, 16-20 and 22-39 are replaced by one GCN
@@ -433,7 +464,7 @@ on the card, not the training path), REDDIT_STEPS steps with B1 at 12
 launches a step (6 1-bit) and a finite loss, and the step's time; and
 phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
 = 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
-and peak memory; phases 44-46 by phase 47; phases 48-54 run at the quick
+and peak memory; phases 44-46 by phase 47; phases 48-57 run at the quick
 scale only.
 
 Launch counts: every count is set to 0 just before a path is driven and
@@ -446,7 +477,7 @@ and SDDMM calls, phase 34's ablation path, phase 35's forwards and steps
 and phase 36's probe runs; phases 41-42's gather paths and phases 44-45's
 and 47's SAGE-LSTM and edge-MLP runs, which must leave every count at 0;
 phase 48's forwards, each of phase 49's subcommands and each of phase
-50's decompose calls); launches made to compare a kernel with its
+50's decompose calls, each figure run of phases 55-56); launches made to compare a kernel with its
 plain version are not counted.  Each wrapper also counts its 1-bit launches apart
 (``bits_launches``) and its float-tile launches (``float_launches``; B3/B4
 ``dad_float_launches`` / ``dh_das_float_launches``); B1 its w_epilogue
@@ -480,6 +511,9 @@ import torch.distributed as dist
 
 from gnn_computing_tpu_torch import multichip
 from gnn_computing_tpu_torch.aggregator import Aggregator
+from gnn_computing_tpu_torch.benchmarks import common as fig_common
+from gnn_computing_tpu_torch.benchmarks import fig7_models, fig8_balance, fig9_locality, fig10_fusion, fig11_sage
+from gnn_computing_tpu_torch.benchmarks import scaling as fig_scaling
 from gnn_computing_tpu_torch.convert import gat_params_from_jax, gcn_params_from_jax
 from gnn_computing_tpu_torch.graph import (
     CSRGraph,
@@ -893,8 +927,9 @@ def gat_edge_oracle(feat, att, dst, src, slope=DEFAULT_SLOPE):
     return num / torch.where(den == 0, 1.0, den)[:, None]
 
 
-def gat_gates(agg, params, h0, out, g, what: str, layer_limit: float = 0.0, stabilize=False) -> list:
-    """Phase 6's checks of a GAT forward (fast=True, split2, ``stabilize``)
+def gat_gates(agg, params, h0, out, g, what: str, layer_limit: float = 0.0, stabilize=False,
+              dot_mode: str = "split2") -> list:
+    """Phase 6's checks of a GAT forward (fast=True, ``dot_mode``, ``stabilize``)
     over ``agg`` (an aggregator or a gather plan): each layer, from its own
     float32 input, against the float64 edge-list
     oracle (the softmax over each row's in-edges, with multiplicity) misses
@@ -904,7 +939,7 @@ def gat_gates(agg, params, h0, out, g, what: str, layer_limit: float = 0.0, stab
     g_dst, g_src = edge_lists(g, h0.device)
     xs, chain = [h0], h0.double()
     for i, p in enumerate(params):
-        xs.append(gat_forward(agg, [p], xs[i], fast=True, dot_mode="split2", stabilize=stabilize))
+        xs.append(gat_forward(agg, [p], xs[i], fast=True, dot_mode=dot_mode, stabilize=stabilize))
         feat = xs[i].double() @ p.w.double()
         ref = gat_edge_oracle(feat, feat @ p.w_att.double(), g_dst, g_src)
         bad = relative_error_count(xs[-1], ref)
@@ -4891,6 +4926,336 @@ def parallel_phases(g, h0, gen) -> dict:
     return dict(allgather=ag, nccl_world=world, arxiv=arxiv, ring=rf)
 
 
+# ---- phases 55-57: the figure harness (gnn_computing_tpu_torch/benchmarks)
+FIG_QUICK_ITERS = 4  # phase 55: every figure's main() at --quick
+FIG_ITERS = 8  # phases 56 and 57: chains of 8 and 16 calls at the real sizes
+FIG_MID = "rmat_mid"  # phase 56: fig7, fig8, fig10 and fig11 (comm_mid: fig7's label-propagation route)
+# phase 56's fig9 graph: over rmat_mid its two cluster orders alone take
+# about as long as the rest of the phase (host seconds), so fig9 runs on
+# the arxiv-scale RMAT
+FIG9_DATASET = "rmat_arxiv"
+DECOMPOSE_REPS = 3  # profiling.decompose's default
+FIGURES = {  # module name: (module, its rows' tags, the kernels each run of it must launch)
+    "fig7_models": (fig7_models, ("fig7",), ("B1", "B2")),
+    "fig8_balance": (fig8_balance, ("fig8",), ("B1",)),
+    "fig9_locality": (fig9_locality, ("fig9",), ("B1",)),
+    "fig10_fusion": (fig10_fusion, ("fig10a", "fig10b", "fig10b_pallas"), ("B1", "B1_epilogue")),
+    "fig11_sage": (fig11_sage, ("fig11",), ()),
+}
+FIG_ROW_TAGS = [t for _, tags, _ in FIGURES.values() for t in tags]
+
+
+def fig_counts() -> dict:
+    """counts() with B1's w_epilogue launches apart."""
+    return dict(counts(), B1_epilogue=cuda_bcsr.epilogue_launches)
+
+
+def chained_calls(iters: int, reps: int = 2) -> int:
+    """Calls utils.timing.benchmark_chained makes of its function: chains of
+    iters and 2 iters to warm up, then reps of each."""
+    return iters * (3 + 3 * reps)
+
+
+def launches_of(what: str, inputs, ctx) -> dict:
+    """What one call of a harness's timed function launches: B1 3 times a
+    GCN forward and B2 3 times a fast GAT forward (stabilize=False: no B5),
+    one a layer over each tile part; B1 once a part a hybrid pass (fig8's
+    hybrid row, fig9's hybrid_spmm over its one tile plan, fig10b_pallas:
+    the fused call through the w_epilogue); nothing on the gather path or
+    the LSTM."""
+    parts = len(ctx["agg"].tile_parts()) if "agg" in ctx else 0
+    want = {
+        "fig7.GCN": {"B1": 3 * parts}, "fig7.GAT": {"B2": 3 * parts}, "fig8.hybrid": {"B1": parts},
+        "fig9.hybrid": {"B1": 1}, "fig10b_pallas.split": {"B1": parts},
+        "fig10b_pallas.fused": {"B1": parts, "B1_epilogue": parts},
+    }.get(what, {})
+    return {k: v for k, v in want.items() if v}
+
+
+def hybrid_edges(g, agg) -> tuple:
+    """gcn_edges' lists for a hybrid aggregator on the card: the graph's
+    (dst, src), the residual's from its plan's valid slots and every tile
+    part's cells; checks that cells and residual partition the graph's
+    edges (an unweighted graph: counts per row)."""
+    plan = agg.plan
+    valid = plan.slot_mask().reshape(-1)
+    r_src = plan.src_flat()[valid].long()
+    r_dst = plan.dst.long().repeat_interleave(plan.block_size)[valid]
+    c_dst, c_src, c_cnt = (torch.cat(c) for c in zip(*(tile_cells(p) for p in agg.tile_parts())))
+    g_dst, g_src = edge_lists(g, c_dst.device)
+    n = g.num_nodes
+    per_row = torch.bincount(c_dst, weights=c_cnt, minlength=n) + torch.bincount(r_dst, minlength=n)
+    check(torch.equal(per_row.long().cpu(), torch.from_numpy(g.degrees.astype(np.int64))),
+          "tile cells + residual slots do not partition the graph's edges")
+    return g_dst, g_src, None, r_dst, r_src, None, c_dst, c_src, c_cnt
+
+
+def figure_oracle(what: str, out: torch.Tensor, inputs, ctx) -> int:
+    """Phase 56: one output of a timed function against its float64 oracle,
+    with the tolerance of the phase that checks the path: the GCN layers
+    against the oracle of their numeric modes (phase 3's gcn_gates, the
+    misses beyond the modes' own as phase 48 counts them), the fast GAT
+    forward's layers against the softmax over each row's in-edges (phase
+    6), the LSTM against its float64 recurrence (float16 gates: the oracle
+    of their rounding, phase 44), every other (A @ h, its product with W,
+    the 10a attention aggregation) against the float64 edge-list sum with 0
+    elements off the gate (phases 27 and 41).  Returns the elements off."""
+    if what == "fig7.GCN":
+        agg = ctx["agg"]
+        gcn_gates(agg, inputs[2], ctx["opts"], inputs[0], out, hybrid_edges(ctx["graph"], agg), f"{what}: ",
+                  pure="beyond_modes")
+        return 0
+    if what == "fig7.GAT":
+        gat_gates(ctx["agg"], inputs[2], inputs[0], out, ctx["graph"], f"{what}: ", dot_mode="exact")
+        return 0
+    if what == "fig7.SAGE-LSTM" or what.startswith("fig11."):
+        x, params, nbr = inputs
+        ref = lstm_oracle(params, x, nbr)
+        if ctx.get("gate_gather_dtype") is not None:
+            f16_gates(params, x, nbr, out, ref, what)
+            return 0
+        bad = relative_error_count(out, ref)
+        log(f"  {what} vs f64 recurrence: gate_bad={bad} of {ref.numel()}")
+        check(bad == 0, f"{what} fails the gate against the f64 recurrence")
+        return bad
+    g_dst, g_src = edge_lists(ctx["graph"], out.device)
+    h64 = inputs[0].double()
+    if what.startswith("fig10a."):
+        ref, label = gat_edge_oracle(h64, inputs[2].double(), g_dst, g_src), "f64 softmax aggregation"
+    elif what.startswith("fig10b"):
+        ref, label = edge_sum(h64, g_dst, g_src) @ inputs[2].double(), "f64 (A @ h) @ W"
+    else:
+        ref, label = edge_sum(h64, g_dst, g_src), "f64 A @ h"
+    bad = relative_error_count(out, ref)
+    log(f"  {what} vs {label}: gate_bad={bad} of {ref.numel()}")
+    check(bad == 0, f"{what} fails the gate against the {label}")
+    return bad
+
+
+class FigureCheck:
+    """The harness's check hook (benchmarks.common.bench; one a figure run):
+    one call of each timed function, whose launches must be launches_of's
+    and, with ``oracles``, whose output is held to figure_oracle; then the
+    function to time, wrapped so every call adds its launches to
+    ``expected``.  fig8's hybrid row adds profiling.decompose's two phases
+    that run B1 (dense and total), each over its chained calls."""
+
+    def __init__(self, iters: int, oracles: bool):
+        self.iters, self.oracles = iters, oracles
+        self.expected, self.per_call, self.calls = {}, {}, {}
+
+    def add(self, launches: dict, times: int = 1):
+        for k, v in launches.items():
+            self.expected[k] = self.expected.get(k, 0) + v * times
+
+    def __call__(self, what, fn, inputs, ctx):
+        before = fig_counts()
+        with torch.no_grad():
+            out = fn(*inputs)
+        torch.cuda.synchronize()
+        one = {k: v - before[k] for k, v in fig_counts().items() if v != before[k]}
+        want = launches_of(what, inputs, ctx)
+        check(one == want, f"{what}: one call launched {one}, expected {want}")
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+        self.add(one)
+        self.per_call[what] = one
+        if what == "fig8.hybrid":
+            self.add(one, 2 * chained_calls(self.iters, DECOMPOSE_REPS))
+        if self.oracles:
+            mid = fig_counts()
+            with torch.no_grad():
+                figure_oracle(what, out, inputs, ctx)
+            torch.cuda.synchronize()
+            self.add({k: v - mid[k] for k, v in fig_counts().items()})  # the gates' own forwards
+        self.calls.setdefault(what, 0)
+
+        def counted(*args):
+            self.calls[what] += 1
+            self.add(one)
+            return fn(*args)
+
+        return counted
+
+
+def figure_rows(results: str, tags, card: str) -> dict:
+    """{tag: rows} of a results directory: every row parses, names the card
+    and its power limit, and every time in it is finite and > 0."""
+    rows = {}
+    for tag in tags:
+        path = f"{results}/{tag}.jsonl"
+        with open(path) as fh:
+            rows[tag] = [json.loads(line) for line in fh if line.strip()]
+        check(bool(rows[tag]), f"{tag}: no rows")
+        for r in rows[tag]:
+            check(r.get("device") == card, f"{tag}: row device {r.get('device')!r} is not {card!r}")
+            times = [v for k, v in r.items() if (k.endswith("_s") and k != "ts") or k == "seconds"]
+            check(bool(times) and all(math.isfinite(t) and t > 0 for t in times),
+                  f"{tag}: a time is not finite and > 0: {r}")
+    return rows
+
+
+def run_figure(name: str, hook: FigureCheck, drive) -> dict:
+    """drive() (a figure run through ``hook``) with every count set to 0
+    just before and read just after: the counts must be what the hook
+    expected, each of the figure's kernels launched and no other.  Returns
+    the counts."""
+    reset_counts()
+    drive()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in fig_counts().items() if v}
+    want = {k: v for k, v in hook.expected.items() if v}
+    log(f"  {name}: launches {got} (one call: {hook.per_call}; timed calls {hook.calls})")
+    check(got == want, f"{name}: launches {got}, the timed calls account for {want}")
+    kernels = FIGURES[name][2]
+    check(all(got.get(k, 0) > 0 for k in kernels), f"{name}: a kernel of the path did not launch")
+    check(set(got) <= set(kernels), f"{name}: a kernel outside {kernels} launched")
+    return got
+
+
+def quick_figures_phase(card: str, results: str) -> dict:
+    """Phase 55: every figure's main() at --quick (rmat_quick), --iters 4."""
+    log(f"phase 55: every figure's main() at --quick, --iters {FIG_QUICK_ITERS}, into a temporary results directory")
+    out = {}
+    for name, (mod, _, _) in FIGURES.items():
+        t0 = time.perf_counter()
+        hook = FigureCheck(FIG_QUICK_ITERS, oracles=False)
+        got = run_figure(name, hook, lambda: mod.main(
+            ["--quick", "--iters", str(FIG_QUICK_ITERS), "--results-dir", results], check=hook))
+        out[name] = dict(launches=got, seconds=time.perf_counter() - t0)
+    return dict(runs=out, rows=figure_rows(results, FIG_ROW_TAGS, card))
+
+
+def timed_reorders():
+    """fig9's reorder functions wrapped to log their host seconds."""
+    stack = contextlib.ExitStack()
+    secs = {}
+
+    def timer(orig):
+        def wrapped(g, **kw):
+            t0 = time.perf_counter()
+            out = orig(g, **kw)
+            secs[orig.__name__] = time.perf_counter() - t0
+            log(f"  {orig.__name__} over n={g.num_nodes} m={g.num_edges}: {secs[orig.__name__]:.2f} s (host)")
+            return out
+        return wrapped
+
+    for fn in ("degree_sort", "label_propagation_reorder", "cluster_reorder", "cluster_reorder_exact"):
+        stack.enter_context(patched(fig9_locality, fn, timer))
+    return stack, secs
+
+
+def real_figures_phase(card: str, results: str) -> dict:
+    """Phase 56: one real dataset a figure (SYN_DATASETS), every timed
+    function's output held to its float64 oracle before it is timed."""
+    log(f"phase 56: one real dataset a figure: {FIG_MID} (fig7, fig8, fig10, fig11), comm_mid (fig7's "
+        f"label-propagation route), {FIG9_DATASET} (fig9); --iters {FIG_ITERS}, outputs against float64 oracles")
+    builds, out = {}, {}
+    graphs = {}
+    for ds in (FIG_MID, "comm_mid", FIG9_DATASET):
+        args = fig_common.parse_args(fig_common.parser(""), ["--only", ds])
+        t0 = time.perf_counter()
+        graphs[ds] = next(fig_common.datasets(args))[1]
+        builds[ds] = time.perf_counter() - t0
+        log(f"  {ds}: n={graphs[ds].num_nodes} m={graphs[ds].num_edges} built in {builds[ds]:.2f} s (host)")
+    runs = [("fig7_models", FIG_MID), ("fig7_models", "comm_mid"), ("fig8_balance", FIG_MID),
+            ("fig9_locality", FIG9_DATASET), ("fig10_fusion", FIG_MID), ("fig11_sage", FIG_MID)]
+    reorder_s = {}
+    for name, ds in runs:
+        mod = FIGURES[name][0]
+        hook = FigureCheck(FIG_ITERS, oracles=True)
+        args = fig_common.parse_args(mod.arg_parser(), ["--iters", str(FIG_ITERS), "--results-dir", results], hook)
+        t0 = time.perf_counter()
+
+        def drive():
+            if mod is fig9_locality:
+                stack, secs = timed_reorders()
+                with stack:
+                    mod.run(ds, graphs[ds], args)
+                reorder_s.update(secs)
+            else:
+                mod.run(ds, graphs[ds], args)
+
+        got = run_figure(name, hook, drive)
+        out[f"{name}:{ds}"] = dict(launches=got, seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    del graphs
+    rows = figure_rows(results, FIG_ROW_TAGS, card)
+    return dict(runs=out, rows=rows, graph_build_s=builds, fig9_reorder_s=reorder_s)
+
+
+def scaling_phase(card: str, results: str, dev) -> dict:
+    """Phase 57: scaling.py at d = 1 on the card (an NCCL world of one),
+    the ring hybrid and --allgather at the defaults (n = 65,536,
+    m = 4,194,304, f = 32), each rank's output within PAR_TOL of the
+    single-card schedule_hybrid forward; B1 in the all-gather's rank on
+    every call, none in the ring's."""
+    log(f"phase 57: scaling.py at d = 1 (NCCL world of one), ring hybrid and --allgather, --iters {FIG_ITERS}")
+    out, graphs = {}, {}
+    for path in ("ring", "allgather"):
+        seen = {}
+
+        def hook(what, fn, inputs, ctx, seen=seen):
+            seen.update(what=what, out=fn(), ctx=ctx)
+
+        t0 = time.perf_counter()
+        fig_scaling.main(["--iters", str(FIG_ITERS), "--results-dir", results]
+                         + (["--allgather"] if path == "allgather" else []), check=hook)
+        secs = time.perf_counter() - t0
+        ctx = seen["ctx"]
+        r0 = ctx["ranks"][0]
+        check(seen["what"] == f"scaling.{path}" and ctx["devices"] == 1 and len(ctx["ranks"]) == 1,
+              f"scaling {path}: not one world of one")
+        n, m = ctx["n"], ctx["m"]
+        check(r0["n_pad"] == n, f"scaling {path}: the default graph should need no padding")
+        if (n, m) not in graphs:
+            graphs[(n, m)] = rmat_graph(n, m, seed=123, with_val=False)
+        g = graphs[(n, m)]
+        h = torch.from_numpy(normal_features(n, ctx["feature_len"], seed=1) * 0.1).to(dev)
+        if path == "ring":
+            single = Aggregator.schedule_hybrid(g, tile_rows=128, tile_cols=128, threshold=ctx["threshold"],
+                                                residual_block=8, with_transpose=False, pack=1, device=dev)
+        else:
+            single = Aggregator.schedule_hybrid(g, tile_rows=256, tile_cols=128,
+                                                threshold=max(ctx["threshold"] // 2, 4), residual_block=4,
+                                                tile_dtype=np.int8, bit_tiles=True, with_transpose=False, pack=1,
+                                                device=dev)
+        with torch.no_grad():
+            err = close_to(seen["out"].to(dev), single.run(h), f"scaling {path} d=1 vs the single-card schedule_hybrid")
+        calls = 1 + chained_calls(FIG_ITERS)
+        log(f"  scaling {path}: rank 0's B1 launches {r0['launches']} ({r0['launches_per_call']} a call, "
+            f"{calls} calls); {secs:.1f} s with the world's start")
+        if path == "ring":
+            check(r0["launches"] == 0, "the ring hybrid launched B1")
+        else:
+            check(r0["launches_per_call"] > 0 and r0["launches"] == r0["launches_per_call"] * calls,
+                  "the all-gather rank did not launch B1 on every call")
+        out[path] = dict(max_err=err, launches=r0["launches"], launches_per_call=r0["launches_per_call"],
+                         seconds=secs)
+        del single, h
+        torch.cuda.empty_cache()
+    rows = figure_rows(results, ("scaling",), card)["scaling"]
+    check([(r["devices"], r.get("path", "ring"), r["representative"]) for r in rows]
+          == [(1, "ring", True), (1, "allgather", True)], "scaling: not one representative row a path")
+    return dict(runs=out, rows=rows)
+
+
+def figure_phases(card: str, dev) -> dict:
+    """Phases 55-57 (module doc), each into its own temporary results
+    directory; their seconds."""
+    out, secs = {}, {}
+    phases = (("quick", lambda r: quick_figures_phase(card, r)), ("real", lambda r: real_figures_phase(card, r)),
+              ("scaling", lambda r: scaling_phase(card, r, dev)))
+    for key, phase in phases:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="gnn_figures_") as results:
+            out[key] = phase(results)
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = dict(secs, total=sum(secs.values()))
+    log(f"  phases 55-57: {out['seconds']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -5064,6 +5429,8 @@ def main() -> int:
         dec = decompose_phase(g, gen, shapes, gat_kernels[0]["shapes"], dev)
         torch.cuda.empty_cache()
         par = parallel_phases(g, h0, gen)
+        torch.cuda.empty_cache()
+        figs = figure_phases(card, dev)
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
         torch.cuda.empty_cache()
@@ -5332,11 +5699,22 @@ def main() -> int:
                           step_ms=par["nccl_world"]["step_ms"]),
         )
         print(json.dumps({"parallel": par}, default=float), flush=True)
+        # phases 55-57: B1 and B2 under the figure harness
+        for k, kernel in ((0, "B1"), (1, "B2")):
+            kernels[k]["figures"] = dict(
+                path="the figure harness (gnn_computing_tpu_torch/benchmarks): every figure at --quick (phase 55), "
+                     "one real dataset a figure (phase 56)",
+                launches={f"{phase}:{run}": r["launches"].get(kernel, 0) for phase in ("quick", "real")
+                          for run, r in figs[phase]["runs"].items() if r["launches"].get(kernel, 0)},
+            )
+        kernels[0]["figures"]["scaling_allgather"] = figs["scaling"]["runs"]["allgather"]["launches"]
     print(json.dumps({"sage": sage}), flush=True)
     print(json.dumps({"edgemlp": edgemlp}), flush=True)
     print(json.dumps({"gather": gather}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
+    if train is not None:
+        print(json.dumps({"figures": figs}, default=float), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

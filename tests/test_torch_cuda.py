@@ -21,7 +21,7 @@ Functions on the CPU, over int8, bit-tile and float-tile aggregators;
 B1, B2, and B3 and B5 over the cell walk's hard plans (one run holding
 every tile with an all-ones tile row, C = 128, 1-bit R = 200, single-tile
 and empty runs, chunk edges inside runs), every call twice and bitwise
-equal; and
+equal; the figure harness's fig7 at --quick (its rows and launches); and
 wrappers that raise, rather than fall back, on a malformed plan.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -1602,3 +1602,28 @@ def test_dryrun_in_an_nccl_world_of_one(cuda_dev):
     assert abs(out["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
     for p, g in zip(params, out["grads"]):
         assert float(np.linalg.norm(g - p.grad.numpy()) / np.linalg.norm(p.grad.numpy())) <= 1e-4
+
+
+def test_fig7_main_on_card(cuda_dev, tmp_path):
+    """The figure harness's fig7 (gnn_computing_tpu_torch/benchmarks) at
+    --quick on the card: its three rows name the card, hold finite times >
+    0, and its timed forwards ran B1 3 times and B2 3 times a call (the
+    chained harness: 9 iters calls each), no other kernel."""
+    import json
+    import math
+
+    from gnn_computing_tpu_torch.benchmarks import fig7_models
+
+    before = _all_launches()
+    b1, b2 = cuda_bcsr.launches, cuda_gat.launches
+    iters = 2
+    fig7_models.main(["--quick", "--iters", str(iters), "--results-dir", str(tmp_path)])
+    torch.cuda.synchronize()
+    rows = [json.loads(line) for line in (tmp_path / "fig7.jsonl").read_text().splitlines()]
+    assert [r["model"] for r in rows] == ["GCN", "GAT", "SAGE-LSTM"]
+    for r in rows:
+        assert r["dataset"] == "rmat_quick" and r["device"].startswith(torch.cuda.get_device_name(0))
+        assert math.isfinite(r["seconds"]) and r["seconds"] > 0 and r["edges_per_s"] > 0
+    calls = 9 * iters
+    assert (cuda_bcsr.launches - b1, cuda_gat.launches - b2) == (3 * calls, 3 * calls)
+    assert sum(_all_launches()) - sum(before) == 6 * calls

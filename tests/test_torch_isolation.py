@@ -15,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any import of jax now raises
+for _name in ("jax", "bench", "benchmarks"):
+    sys.modules[_name] = None  # any import of it now raises
 import gnn_computing_tpu_torch
 for info in pkgutil.walk_packages(gnn_computing_tpu_torch.__path__, "gnn_computing_tpu_torch."):
     importlib.import_module(info.name)
@@ -25,7 +26,8 @@ import torch_parallel_ranks  # noqa: F401  (what the spawned test ranks import)
 bad = sorted(
     m for m, mod in sys.modules.items()
     if mod is not None
-    and (m in ("jax", "gnn_computing_tpu") or m.startswith(("jax.", "gnn_computing_tpu.")))
+    and (m in ("jax", "gnn_computing_tpu", "bench", "benchmarks")
+         or m.startswith(("jax.", "gnn_computing_tpu.", "benchmarks.")))
 )
 print(len([m for m in sys.modules if m.startswith("gnn_computing_tpu_torch")]))
 print(bad)
@@ -64,6 +66,16 @@ WALKED = (
     "gnn_computing_tpu_torch.parallel.feature_parallel",
     "gnn_computing_tpu_torch.parallel.launch",
     "gnn_computing_tpu_torch.multichip",
+    "gnn_computing_tpu_torch.benchmarks",
+    "gnn_computing_tpu_torch.benchmarks.common",
+    "gnn_computing_tpu_torch.benchmarks.fig7_models",
+    "gnn_computing_tpu_torch.benchmarks.fig8_balance",
+    "gnn_computing_tpu_torch.benchmarks.fig9_locality",
+    "gnn_computing_tpu_torch.benchmarks.fig10_fusion",
+    "gnn_computing_tpu_torch.benchmarks.fig11_sage",
+    "gnn_computing_tpu_torch.benchmarks.scaling",
+    "gnn_computing_tpu_torch.benchmarks.capture_to_fig7",
+    "gnn_computing_tpu_torch.benchmarks.plot",
 )
 
 
@@ -78,6 +90,32 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == "[]", bad
     for name in WALKED:
         assert repr(name) in loaded, name
+
+
+def test_no_import_statement_names_jax_or_the_jax_side():
+    """No import statement of the port or chip_smoke.py, at module level or
+    inside a function (which the probe's walk does not run), names jax, the
+    JAX package, bench.py or the JAX harness ``benchmarks``."""
+    import ast
+
+    banned = {"jax", "gnn_computing_tpu", "bench", "benchmarks"}
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "gnn_computing_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert any(f.endswith(os.path.join("benchmarks", "fig7_models.py")) for f in files)
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {r}" for r in roots if r in banned]
+    assert bad == []
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
