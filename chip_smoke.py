@@ -440,6 +440,23 @@ Phases (any failure exits non-zero; nothing is caught):
      single-card schedule_hybrid forward of the same graph, B1 launched on
      every call of the all-gather rank and never in the ring's; one
      representative row a path.
+ 58. the port's entry points: gnn_computing_tpu_torch.entry.entry() on
+     the card (RMAT 4,096 v / 65,536 e, int8 [512, 128] t24 split into a
+     1-bit and an int8 part, pack 8), ENTRY_FORWARDS forwards with B1 6
+     times a forward (3 of them 1-bit) and no other kernel, each layer
+     against the float64 oracle of its modes and the chain as phase 3, its
+     time; then python -m gnn_computing_tpu_torch.bench --quick --iters 4
+     as subprocesses, all five at once (each a host-only build child, then
+     a fresh timed child, into a temporary cache of its own) for gcn, gat,
+     sddmm, gcn --train and gat --train: each exits 0, its first stdout
+     line is bench.py's metric with a finite value > 0, and its capture
+     row's launches (counted by the timed child around its timed run) are
+     the timed calls times one call's (B1 3 a part a forward, 6 a training step over the parts and
+     their transposes; B2 3 a part; B3 3 a part and B4 3 a transposed part
+     a GAT step; B6 one a part an SDDMM call), no other kernel.  Between
+     the two, B1 over bench.py --scale products's geometry (int8 [1024,
+     128] t384 split into 1-bit and int8 parts, pack 1 and 4) on phase 1's
+     graph against its plain version at f = 128, 64, 32, as phase 2.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the "reorder"
@@ -453,7 +470,9 @@ Phases (any failure exits non-zero; nothing is caught):
      and B2's "figures" launches of phases 55-57), a "figures" JSON line
      (phases 55-57: each figure's rows, the launches of each run, the
      graphs' build seconds, the phases' seconds), the card line, then
-     {"ok": true, ...}.
+     {"ok": true, ...}.  Phase 58's "bench" JSON line comes before the
+     "sage" line; B1's kernel entry carries its "entry" launches, and B1's,
+     B2's, B3's, B4's and B6's a "bench" entry (launches by run).
 
 With --scale reddit, phases 8-11, 16-20 and 22-39 are replaced by one GCN
 bit-tile training phase at reddit scale (bench.py --train's headline
@@ -464,7 +483,7 @@ on the card, not the training path), REDDIT_STEPS steps with B1 at 12
 launches a step (6 1-bit) and a finite loss, and the step's time; and
 phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
 = 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
-and peak memory; phases 44-46 by phase 47; phases 48-57 run at the quick
+and peak memory; phases 44-46 by phase 47; phases 48-58 run at the quick
 scale only.
 
 Launch counts: every count is set to 0 just before a path is driven and
@@ -477,7 +496,9 @@ and SDDMM calls, phase 34's ablation path, phase 35's forwards and steps
 and phase 36's probe runs; phases 41-42's gather paths and phases 44-45's
 and 47's SAGE-LSTM and edge-MLP runs, which must leave every count at 0;
 phase 48's forwards, each of phase 49's subcommands and each of phase
-50's decompose calls, each figure run of phases 55-56); launches made to compare a kernel with its
+50's decompose calls, each figure run of phases 55-56, phase 58's entry
+forwards, and each bench run's timed calls, counted by the bench's timed
+child itself); launches made to compare a kernel with its
 plain version are not counted.  Each wrapper also counts its 1-bit launches apart
 (``bits_launches``) and its float-tile launches (``float_launches``; B3/B4
 ``dad_float_launches`` / ``dh_das_float_launches``); B1 its w_epilogue
@@ -500,6 +521,8 @@ import dataclasses
 import io
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -509,6 +532,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gnn_computing_tpu_torch import entry as port_entry
 from gnn_computing_tpu_torch import multichip
 from gnn_computing_tpu_torch.aggregator import Aggregator
 from gnn_computing_tpu_torch.benchmarks import common as fig_common
@@ -5256,6 +5280,142 @@ def figure_phases(card: str, dev) -> dict:
     return out
 
 
+ENTRY_FORWARDS = 5  # phase 58: entry()'s forwards on the card
+BENCH_ITERS = 4  # phase 58: the bench runs' --iters
+# phase 58: (run, flags, metric at --quick (bench.py's names), launches of
+# one timed call per tile part: forward parts "p", transposed parts "t")
+BENCH_RUNS = (
+    ("gcn", [], "gcn3_quick_scale_edges_per_s_per_chip", {"B1": {"p": 3}}),
+    ("gat", ["--model", "gat"], "gat3_quick_scale_edges_per_s_per_chip", {"B2": {"p": 3}}),
+    ("sddmm", ["--model", "sddmm"], "sddmm_quick_scale_edges_per_s_per_chip", {"B6": {"p": 1}}),
+    ("gcn_train", ["--train"], "gcn3_train_quick_scale_step_agg_passes_edges_per_s_per_chip",
+     {"B1": {"p": 3, "t": 3}}),
+    ("gat_train", ["--train", "--model", "gat"], "gat3_train_quick_scale_step_agg_passes_edges_per_s_per_chip",
+     {"B2": {"p": 3}, "B3": {"p": 3}, "B4": {"t": 3}}),
+)
+
+
+def entry_phase(dev) -> dict:
+    """Phase 58a: entry()'s forward on the card, ENTRY_FORWARDS times: B1
+    twice a layer (the 1-bit and the int8 part), no other kernel; each
+    layer against the float64 oracle of its (exact) modes and the chain
+    against the pure oracle, as phase 3; its time."""
+    log(f"phase 58: entry() on the card ({ENTRY_FORWARDS} forwards), then python -m gnn_computing_tpu_torch.bench "
+        f"--quick --iters {BENCH_ITERS} as subprocesses: {', '.join(r for r, *_ in BENCH_RUNS)}")
+    fn, (agg, params, h) = port_entry.entry(dev)
+    parts = len(agg.tile_parts())
+    check(parts == 2 and agg.tile_bits is not None and agg.tile.pack == agg.tile_bits.pack == 8,
+          "entry(): not a 1-bit and an int8 part padded to 8")
+    with torch.no_grad():
+        reset_counts()
+        for _ in range(ENTRY_FORWARDS):
+            out = fn(agg, params, h)
+        torch.cuda.synchronize()
+        launches, bits = cuda_bcsr.launches, cuda_bcsr.bits_launches
+        check(only("B1"), "entry()'s forward launched another kernel")
+        check(launches == 3 * parts * ENTRY_FORWARDS and bits == 3 * ENTRY_FORWARDS,
+              f"entry(): B1 launched {launches} times ({bits} 1-bit) in {ENTRY_FORWARDS} forwards")
+        check(out.shape == (port_entry.GRAPH[0], port_entry.DIMS[-1]) and bool(torch.isfinite(out).all()),
+              "entry() output")
+        g = rmat_graph(*port_entry.GRAPH, seed=123, with_val=False)
+        gcn_gates(agg, params, [LayerOpts()] * len(params), h, out, hybrid_edges(g, agg), "entry: ")
+        ms = cuda_time_ms(lambda: fn(agg, params, h))
+    log(f"  entry forward: {ms:.3f} ms; B1 {launches} launches ({bits} 1-bit) in {ENTRY_FORWARDS} forwards")
+    return dict(launches=launches, bits_launches=bits, launches_per_forward=3 * parts, forward_ms=ms,
+                tiles=[p.num_tiles for p in agg.tile_parts()])
+
+
+def bench_runs_phase() -> dict:
+    """Phase 58b: python -m gnn_computing_tpu_torch.bench --quick for each
+    of BENCH_RUNS, all at once (each process takes seconds to start, and
+    each run starts three: the orchestrator, its build child, its timed
+    child), each into a temporary cache directory and capture log of its
+    own: exit 0, the first stdout line bench.py's metric with a finite
+    value > 0, and the capture row's kernel launches (counted by the timed
+    child just before and after its timed run) exactly the timed calls
+    times each call's launches, every kernel of the path launched.  Their
+    times are taken with the other runs on the card and host, so they are
+    no measurement."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="gnn_bench_") as tmp:
+        t0 = time.perf_counter()
+        procs, secs = {}, {}
+        try:
+            for run, flags, _, _ in BENCH_RUNS:
+                with open(f"{tmp}/{run}.out", "w") as fo, open(f"{tmp}/{run}.err", "w") as fe:
+                    procs[run] = subprocess.Popen(
+                        [sys.executable, "-m", "gnn_computing_tpu_torch.bench", "--quick", "--iters",
+                         str(BENCH_ITERS), "--cache-dir", f"{tmp}/{run}", "--capture", f"{tmp}/{run}.jsonl", *flags],
+                        stdout=fo, stderr=fe, start_new_session=True,
+                    )
+            for run, p in procs.items():
+                p.wait(timeout=600)
+                secs[run] = time.perf_counter() - t0
+        finally:
+            for p in procs.values():  # a run cut short: its children too
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        for run, _, metric, per_part in BENCH_RUNS:
+            with open(f"{tmp}/{run}.out") as fo, open(f"{tmp}/{run}.err") as fe:
+                stdout, stderr = fo.read(), fe.read()
+            rc = procs[run].returncode
+            if rc:
+                log(stderr[-4000:])
+            check(rc == 0, f"bench {run}: exit {rc}")
+            first = json.loads(stdout.splitlines()[0])
+            check(list(first) == ["metric", "value", "unit", "vs_baseline"] and first["metric"] == metric,
+                  f"bench {run}: first line {first}")
+            check(math.isfinite(first["value"]) and first["value"] > 0, f"bench {run}: value {first['value']}")
+            with open(f"{tmp}/{run}.jsonl") as fh:
+                row = json.loads(fh.read().splitlines()[-1])
+            parts = {"p": row.get("tile_parts", 0), "t": row.get("tile_parts_t", 0)}
+            want = {k: row["calls"] * sum(n * parts[part] for part, n in v.items()) for k, v in per_part.items()}
+            check(row["launches"] == want and all(want.values()),
+                  f"bench {run}: launches {row['launches']}, the timed calls account for {want}")
+            check(row["device"].startswith(torch.cuda.get_device_name(0)), f"bench {run}: device {row['device']}")
+            log(f"  bench {run}: {first['metric']} = {first['value']:.4g} edges/s; launches {row['launches']} over "
+                f"{row['calls']} calls; done {secs[run]:.1f} s after the start")
+            out[run] = dict(line=first, ms_under_load=row["time_s"] * 1e3, launches=row["launches"],
+                            calls=row["calls"], tile_parts=parts["p"], tile_parts_t=parts["t"],
+                            seconds=secs[run])
+    return out
+
+
+# bench.py --scale products's plan geometry (bench.py:1331-1350): int8
+# [1024, 128] tiles at t384 split into 1-bit and int8 parts, pack 4
+PRODUCTS_SCHEDULE = dict(tile_rows=1024, tile_cols=128, threshold=384)
+
+
+def products_geometry_phase(g, gen) -> float:
+    """Phase 58c: B1 over bench.py's products geometry (R = 1,024) on phase
+    1's graph, each part at pack 1 and 4, against its plain version at
+    f = 128, 64, 32 (kernel_vs_plain)."""
+    tile, _ = densify(g, dtype=np.int8, **PRODUCTS_SCHEDULE)
+    parts = [p for p in split_bit_tiles(tile) if p is not None and p.num_tiles]
+    log(f"  B1 at R = 1,024 ([1024, 128] t384): parts {[(p.num_tiles, p.bits) for p in parts]}")
+    check(len(parts) == 2, "the products geometry lacks a 1-bit or an int8 part on phase 1's graph")
+    err = 0.0
+    for p in parts:
+        for pack in (1, 4):
+            tp = p.pad_runs(pack).to(gen.device)
+            for f in BENCH_DIMS[1:]:
+                err = max(err, kernel_vs_plain(tp, f, "split", gen, f"R=1024 {'1-bit' if p.bits else 'int8'} pack{pack}"))
+    return err
+
+
+def entry_bench_phase(dev, g, gen) -> dict:
+    """Phase 58 (module doc) and its seconds."""
+    t0 = time.perf_counter()
+    out = dict(entry=entry_phase(dev))
+    out["products_geometry_max_err"] = products_geometry_phase(g, gen)
+    torch.cuda.empty_cache()
+    out["bench"] = bench_runs_phase()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 58: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -5431,6 +5591,8 @@ def main() -> int:
         par = parallel_phases(g, h0, gen)
         torch.cuda.empty_cache()
         figs = figure_phases(card, dev)
+        torch.cuda.empty_cache()
+        eb = entry_bench_phase(dev, g, gen)
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
         torch.cuda.empty_cache()
@@ -5708,6 +5870,17 @@ def main() -> int:
                           for run, r in figs[phase]["runs"].items() if r["launches"].get(kernel, 0)},
             )
         kernels[0]["figures"]["scaling_allgather"] = figs["scaling"]["runs"]["allgather"]["launches"]
+        # phase 58: entry() and the port's bench
+        kernels[0]["entry"] = dict(path="gnn_computing_tpu_torch.entry.entry(): the flagship GCN forward, int8 "
+                                        "[512, 128] t24 split into 1-bit and int8 parts, pack 8", **eb["entry"])
+        bench_path = f"python -m gnn_computing_tpu_torch.bench --quick --iters {BENCH_ITERS}"
+        for kname, kernel in (("bcsr_spmm", "B1"), ("gat_bcsr", "B2"), ("gat_bwd_dad", "B3"),
+                              ("gat_bwd_dh_das", "B4"), ("sddmm_bcsr", "B6")):
+            entry_k = next(e for e in kernels if e["name"] == kname)
+            entry_k["bench"] = dict(path=bench_path, launches={
+                run: r["launches"][kernel] for run, r in eb["bench"].items() if kernel in r["launches"]})
+        kernels[0]["bench"]["products_geometry_max_abs_err"] = eb["products_geometry_max_err"]
+        print(json.dumps({"bench": eb}, default=float), flush=True)
     print(json.dumps({"sage": sage}), flush=True)
     print(json.dumps({"edgemlp": edgemlp}), flush=True)
     print(json.dumps({"gather": gather}), flush=True)
