@@ -633,7 +633,7 @@ from gnn_computing_tpu_torch.schedule import make_plan
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.tiles import densify, densify_gcn_norm, split_bit_tiles
 from gnn_computing_tpu_torch.utils import cli
-from gnn_computing_tpu_torch.utils.profiling import decompose, plan_cost, tile_cost
+from gnn_computing_tpu_torch.utils.profiling import decompose, launch_counts, plan_cost, tile_cost
 from gnn_computing_tpu_torch.utils.timing import cuda_time_ms, device_ms
 
 SCALES = {"quick": (1 << 16, 1 << 22), "reddit": (232_965, 114_615_891)}
@@ -778,12 +778,7 @@ def reset_counts():
 def counts() -> dict:
     """Every kernel's launches (B2's 'twodot' and 'merged' kernel, P1 and P2
     apart; B2's 'default' launches are among B2's)."""
-    return dict(
-        B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
-        B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches, B6=cuda_sddmm.launches,
-        B2_twodot=cuda_gat.twodot_launches, B2_merged=cuda_gat.merged_launches,
-        P1=cuda_residual.task_sums_launches, P2=cuda_residual.fused_launches,
-    )
+    return launch_counts()
 
 
 def bit_counts() -> dict:

@@ -47,6 +47,7 @@ from gnn_computing_tpu_torch.schedule import Schedule, make_plan
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify, split_bit_tiles, tile_format
+from gnn_computing_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -124,39 +125,54 @@ class Aggregator:
         the transposed residual with the same block, and its edge map.
         ``bit_tiles`` splits int8 count tiles by content (split_bit_tiles)
         before padding each part, and each part is transposed on its own;
-        it raises ValueError over float tiles, as the JAX package asserts."""
+        it raises ValueError over float tiles, as the JAX package asserts.
+
+        Spans (recorded under utils.profiling.recording): ``gnn.plan.densify``,
+        ``gnn.plan.split_bits``, ``gnn.plan.residual`` (each residual plan),
+        ``gnn.plan.transpose`` (each tile part's and the residual's),
+        ``gnn.plan.pad`` (the padding of every part) and
+        ``gnn.plan.to_device``."""
         dev = resolve_device(device)
         if bit_tiles and tile_format(tile_dtype) != "int8":
             raise ValueError("bit_tiles needs integer count tiles (tile_dtype=np.int8)")
-        tile, res = densify(
-            g, val=val, tile_rows=tile_rows, tile_cols=tile_cols,
-            threshold=threshold, dtype=tile_dtype, **densify_kw,
-        )
+        with span("gnn.plan.densify"):
+            tile, res = densify(
+                g, val=val, tile_rows=tile_rows, tile_cols=tile_cols,
+                threshold=threshold, dtype=tile_dtype, **densify_kw,
+            )
         tile_b = None
         if bit_tiles:
-            tile_b, tile = split_bit_tiles(tile)
-        plan = neighbor_grouping_plan(res, block_size=residual_block)
+            with span("gnn.plan.split_bits"):
+                tile_b, tile = split_bit_tiles(tile)
+        with span("gnn.plan.residual"):
+            plan = neighbor_grouping_plan(res, block_size=residual_block)
         tile_t = tile_bt = plan_t = edge_map = None
         if with_transpose:
-            tile_t = None if tile is None else tile.transpose().pad_runs(pack)
-            tile_bt = None if tile_b is None else tile_b.transpose().pad_runs(pack)
-            gt, edge_map = res.transpose_with_map()
-            plan_t = neighbor_grouping_plan(gt, block_size=residual_block)
+            with span("gnn.plan.transpose"):
+                tile_t = None if tile is None else tile.transpose()
+                tile_bt = None if tile_b is None else tile_b.transpose()
+                gt, edge_map = res.transpose_with_map()
+            with span("gnn.plan.residual"):
+                plan_t = neighbor_grouping_plan(gt, block_size=residual_block)
             edge_map = edge_map.astype(np.int32)
+        with span("gnn.plan.pad"):
+            tile, tile_b, tile_t, tile_bt = (None if p is None else p.pad_runs(pack)
+                                             for p in (tile, tile_b, tile_t, tile_bt))
         agg = cls(
             plan=plan,
             num_nodes=g.num_nodes,
             n_src=g.n_src,
             num_edges=g.num_edges,
-            tile=None if tile is None else tile.pad_runs(pack),
+            tile=tile,
             tile_t=tile_t,
             plan_t=plan_t,
             edge_map_t=edge_map,
-            tile_bits=None if tile_b is None else tile_b.pad_runs(pack),
+            tile_bits=tile_b,
             tile_bits_t=tile_bt,
             in_degree=g.degrees,
         )
-        return agg.to(dev)
+        with span("gnn.plan.to_device"):
+            return agg.to(dev)
 
     def to(self, device) -> "Aggregator":
         dev = resolve_device(device)

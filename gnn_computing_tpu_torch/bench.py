@@ -78,7 +78,6 @@ from gnn_computing_tpu_torch.models import BENCH_DIMS, init_gat_params, init_gcn
 from gnn_computing_tpu_torch.models.gat import gat_forward
 from gnn_computing_tpu_torch.models.gcn import fast_layer_opts, gcn_forward_bench
 from gnn_computing_tpu_torch.models.training import make_train_step
-from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_rowmax, cuda_sddmm
 from gnn_computing_tpu_torch.ops.bcsr_sddmm import hybrid_sddmm
 from gnn_computing_tpu_torch.ops.edge_mlp import edge_mlp_chunked
 from gnn_computing_tpu_torch.ops.lstm import init_lstm_params, lstm_aggregate
@@ -87,6 +86,7 @@ from gnn_computing_tpu_torch.schedule import make_plan
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan, densify, run_offsets, split_bit_tiles
+from gnn_computing_tpu_torch.utils.profiling import launch_counts
 from gnn_computing_tpu_torch.utils.timing import benchmark_chained
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -504,8 +504,8 @@ def add_transpose(agg, pack: int, cache_tag=None):
 def kernel_launches() -> dict:
     """Every tile kernel's launch count (B1-B6), as the ops' wrappers keep
     them."""
-    return dict(B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
-                B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches, B6=cuda_sddmm.launches)
+    c = launch_counts()
+    return {k: c[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6")}
 
 
 def timed_run(em: Emitter, fn, *inputs, iters: int, **extra):

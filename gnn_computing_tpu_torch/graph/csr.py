@@ -12,6 +12,8 @@ from typing import Optional
 
 import numpy as np
 
+from gnn_computing_tpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass
 class CSRGraph:
@@ -118,25 +120,27 @@ class CSRGraph:
 
     def reorder(self, rows: np.ndarray) -> "CSRGraph":
         """Permute the graph so new row ``i`` is old row ``rows[i]``; sources
-        are renumbered through the inverse permutation.  Square graphs only."""
+        are renumbered through the inverse permutation.  Square graphs only.
+        Recorded as the span ``gnn.plan.reorder``."""
         n = self.num_nodes
         if self.n_src != n:
             raise ValueError("reorder requires a square graph")
         rows = np.asarray(rows, dtype=np.int64)
         if rows.shape != (n,):
             raise ValueError(f"permutation must have shape ({n},)")
-        reverse = np.empty(n, dtype=np.int32)
-        reverse[rows] = np.arange(n, dtype=np.int32)
+        with span("gnn.plan.reorder"):
+            reverse = np.empty(n, dtype=np.int32)
+            reverse[rows] = np.arange(n, dtype=np.int32)
 
-        new_deg = self.degrees.astype(np.int64)[rows]
-        new_indptr = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(new_deg, out=new_indptr[1:])
-        old_starts = self.indptr[rows].astype(np.int64)
-        row_of_edge = np.repeat(np.arange(n, dtype=np.int64), new_deg)
-        offs = np.arange(self.num_edges, dtype=np.int64) - new_indptr[row_of_edge]
-        old_pos = old_starts[row_of_edge] + offs
-        return CSRGraph(
-            indptr=new_indptr.astype(np.int32),
-            indices=reverse[self.indices[old_pos]],
-            val=self.val[old_pos] if self.val is not None else None,
-        )
+            new_deg = self.degrees.astype(np.int64)[rows]
+            new_indptr = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(new_deg, out=new_indptr[1:])
+            old_starts = self.indptr[rows].astype(np.int64)
+            row_of_edge = np.repeat(np.arange(n, dtype=np.int64), new_deg)
+            offs = np.arange(self.num_edges, dtype=np.int64) - new_indptr[row_of_edge]
+            old_pos = old_starts[row_of_edge] + offs
+            return CSRGraph(
+                indptr=new_indptr.astype(np.int32),
+                indices=reverse[self.indices[old_pos]],
+                val=self.val[old_pos] if self.val is not None else None,
+            )

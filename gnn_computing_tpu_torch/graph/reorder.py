@@ -32,6 +32,7 @@ import numpy as np
 
 from gnn_computing_tpu_torch import native
 from gnn_computing_tpu_torch.graph.csr import CSRGraph
+from gnn_computing_tpu_torch.utils.profiling import span
 
 
 def _total_degree(g: CSRGraph) -> np.ndarray:
@@ -42,14 +43,16 @@ def _total_degree(g: CSRGraph) -> np.ndarray:
 
 def degree_sort(g: CSRGraph, by: str = "total") -> np.ndarray:
     """Permutation (new -> old) sorting vertices by descending degree,
-    stable: ``by`` "in", "out" or (anything else) "total" = in + out."""
-    if by == "in":
-        d = g.degrees.astype(np.int64)
-    elif by == "out":
-        d = np.bincount(g.indices, minlength=g.n_src).astype(np.int64)
-    else:
-        d = _total_degree(g)
-    return np.argsort(-d, kind="stable").astype(np.int64)
+    stable: ``by`` "in", "out" or (anything else) "total" = in + out.
+    Recorded as the span ``gnn.plan.reorder``."""
+    with span("gnn.plan.reorder"):
+        if by == "in":
+            d = g.degrees.astype(np.int64)
+        elif by == "out":
+            d = np.bincount(g.indices, minlength=g.n_src).astype(np.int64)
+        else:
+            d = _total_degree(g)
+        return np.argsort(-d, kind="stable").astype(np.int64)
 
 
 def deal_shards(perm: np.ndarray, num_shards: int) -> np.ndarray:

@@ -20,6 +20,7 @@ from torch import nn
 
 from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate
+from gnn_computing_tpu_torch.utils.profiling import span
 
 BENCH_DIMS = (512, 128, 64, 32)
 
@@ -72,16 +73,17 @@ def gat_forward(
     """The benchmark forward.  fast=True takes the residual gather modes of
     the JAX package's main path, exact to 21 bits: the att src half through
     the [n, 2] f16_split2 table, h through f16_split2 where the layer's
-    width is <= 64."""
-    for p in params:
-        kw = {}
-        if fast:
-            kw = dict(
-                att_gather_dtype="f16_split2",
-                h_gather_dtype="f16_split2" if p.w.shape[-1] <= 64 else None,
-            )
-        h = gat_layer(agg, h, p, relu_slope=relu_slope, stabilize=stabilize, dot_mode=dot_mode, **kw)
-    return h
+    width is <= 64.  Recorded as the span ``gnn.forward``."""
+    with span("gnn.forward"):
+        for p in params:
+            kw = {}
+            if fast:
+                kw = dict(
+                    att_gather_dtype="f16_split2",
+                    h_gather_dtype="f16_split2" if p.w.shape[-1] <= 64 else None,
+                )
+            h = gat_layer(agg, h, p, relu_slope=relu_slope, stabilize=stabilize, dot_mode=dot_mode, **kw)
+        return h
 
 
 class GAT(nn.Module):

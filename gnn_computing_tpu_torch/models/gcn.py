@@ -21,6 +21,7 @@ from torch import nn
 
 from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.ops.spmm import spmm
+from gnn_computing_tpu_torch.utils.profiling import span
 
 BENCH_DIMS = (512, 128, 64, 32)
 
@@ -79,10 +80,11 @@ def gcn_layer(
 
 def gcn_forward(agg, params: Sequence[torch.Tensor], h: torch.Tensor, strategy: str = "auto") -> torch.Tensor:
     """Multi-layer GCN forward, ReLU between layers and the last layer
-    linear (logits)."""
-    for i, w in enumerate(params):
-        h = gcn_layer(agg, h, w, activation=torch.relu if i < len(params) - 1 else None, strategy=strategy)
-    return h
+    linear (logits).  Recorded as the span ``gnn.forward``."""
+    with span("gnn.forward"):
+        for i, w in enumerate(params):
+            h = gcn_layer(agg, h, w, activation=torch.relu if i < len(params) - 1 else None, strategy=strategy)
+        return h
 
 
 def gcn_forward_bench(
@@ -90,14 +92,16 @@ def gcn_forward_bench(
     layer_opts: Optional[Sequence[LayerOpts]] = None, *, strategy: str = "auto", residual_gather_dtype=None,
 ) -> torch.Tensor:
     """The benchmark forward: ReLU after every layer.  ``agg`` may be one
-    aggregator or plan, or one per layer."""
+    aggregator or plan, or one per layer.  Recorded as the span
+    ``gnn.forward``."""
     aggs = list(agg) if isinstance(agg, (list, tuple)) else [agg] * len(params)
-    for i, w in enumerate(params):
-        h = gcn_layer(
-            aggs[i], h, w, None if layer_opts is None else layer_opts[i], strategy=strategy,
-            residual_gather_dtype=residual_gather_dtype,
-        )
-    return h
+    with span("gnn.forward"):
+        for i, w in enumerate(params):
+            h = gcn_layer(
+                aggs[i], h, w, None if layer_opts is None else layer_opts[i], strategy=strategy,
+                residual_gather_dtype=residual_gather_dtype,
+            )
+        return h
 
 
 class GCN(nn.Module):

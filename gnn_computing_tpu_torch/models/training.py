@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from gnn_computing_tpu_torch.device import resolve_device
+from gnn_computing_tpu_torch.utils.profiling import span
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -37,7 +38,10 @@ def make_train_step(forward: Callable, optimizer: torch.optim.Optimizer, loss: s
     cross-entropy, backward, ``optimizer.step()``.  ``labels`` (int [n]) and
     ``mask`` (optional bool [n] of labeled nodes) may be numpy arrays; they
     go to ``device``, which must be where the optimizer's parameters
-    live.  Returns the loss before the update, detached."""
+    live.  Returns the loss before the update, detached.  Spans (recorded
+    under utils.profiling.recording): ``gnn.step`` around the step, and in
+    it ``gnn.loss``, ``gnn.backward`` and ``gnn.optimizer`` (the forward
+    records its own ``gnn.forward``)."""
     if loss != "softmax_xent":
         raise ValueError(f"loss must be 'softmax_xent', got {loss!r}")
     dev = resolve_device(device)
@@ -47,13 +51,19 @@ def make_train_step(forward: Callable, optimizer: torch.optim.Optimizer, loss: s
                 raise ValueError(f"parameter on {p.device}, train step on {dev}")
 
     def step(inputs, labels, mask=None):
-        labels = torch.as_tensor(labels, device=dev).long()
-        mask = None if mask is None else torch.as_tensor(mask, device=dev).bool()
-        optimizer.zero_grad(set_to_none=True)
-        lval = softmax_xent(forward(*inputs), labels, mask)
-        lval.backward()
-        optimizer.step()
-        return lval.detach()
+        with span("gnn.step"):
+            labels = torch.as_tensor(labels, device=dev).long()
+            mask = None if mask is None else torch.as_tensor(mask, device=dev).bool()
+            optimizer.zero_grad(set_to_none=True)
+            logits = forward(*inputs)
+            with span("gnn.loss"):
+                lval = softmax_xent(logits, labels, mask)
+            del logits  # freed before the backward, as the loss keeps what it needs
+            with span("gnn.backward"):
+                lval.backward()
+            with span("gnn.optimizer"):
+                optimizer.step()
+            return lval.detach()
 
     return step
 

@@ -43,6 +43,7 @@ from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_rowmax
 from gnn_computing_tpu_torch.ops.spmm import bf16_residue_chunks, spmm_plain
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
+from gnn_computing_tpu_torch.utils.profiling import count, span
 
 H_MODES = ("auto", "native", "split3", "split", "bf16")
 
@@ -145,17 +146,28 @@ def bcsr_rowmax(tp: TilePlan, col_vals: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"no tile row max for device {v.device}")
 
 
+def count_residual(plan: AggregationPlan):
+    """The counters ``residual.edges`` and ``residual.slots`` of one pass over
+    a residual plan (host ints: no device read)."""
+    count("residual.edges", plan.num_edges)
+    count("residual.slots", plan.num_tasks_padded * plan.block_size)
+
+
 class HybridSpmm(torch.autograd.Function):
     """out = (A_tiles + A_residual) @ h; dh = (A_tiles^T + A_residual^T) @ ct
     over the transposed plans, in the exact modes whatever the forward's
-    (cotangents are signed and cancel)."""
+    (cotangents are signed and cancel).  Spans ``gnn.agg.tiles`` and
+    ``gnn.agg.residual`` (forward), ``gnn.agg_t.*`` (backward)."""
 
     @staticmethod
     def forward(ctx, h, tp, plan, tp_t, plan_t, residual_gather_dtype, tile_h_mode):
         ctx.plans_t = (tp_t, plan_t, plan is not None)
-        out = bcsr_spmm(tp, h, h_mode=tile_h_mode)
+        with span("gnn.agg.tiles"):
+            out = bcsr_spmm(tp, h, h_mode=tile_h_mode)
         if plan is not None:
-            out = out + spmm_plain(plan, h, gather_dtype=residual_gather_dtype)
+            with span("gnn.agg.residual"):
+                count_residual(plan)
+                out = out + spmm_plain(plan, h, gather_dtype=residual_gather_dtype)
         return out
 
     @staticmethod
@@ -166,9 +178,12 @@ class HybridSpmm(torch.autograd.Function):
                 "hybrid_spmm backward needs the transposed plans: build the "
                 "aggregator with schedule_hybrid(..., with_transpose=True)"
             )
-        dh = bcsr_spmm(tp_t, ct)
+        with span("gnn.agg_t.tiles"):
+            dh = bcsr_spmm(tp_t, ct)
         if has_residual:
-            dh = dh + spmm_plain(plan_t, ct)
+            with span("gnn.agg_t.residual"):
+                count_residual(plan_t)
+                dh = dh + spmm_plain(plan_t, ct)
         return dh, None, None, None, None, None, None
 
 

@@ -120,7 +120,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gnn_computing_tpu_torch.ops import cuda_gat, cuda_gat_bwd
-from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax
+from gnn_computing_tpu_torch.ops.bcsr import bcsr_rowmax, count_residual
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate_parts, leaky_relu, slot_mask
 from gnn_computing_tpu_torch.ops.spmm import (
     bf16_residue_chunks,
@@ -131,6 +131,7 @@ from gnn_computing_tpu_torch.ops.spmm import (
 )
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
+from gnn_computing_tpu_torch.utils.profiling import span
 
 DOT_MODES = ("exact", "split2", "default")
 GAT_MODES = ("maxdot", "twodot", "merged")
@@ -437,10 +438,13 @@ def gat_bcsr_tiles(
             num, den = num + n2, den + d2
         return num, den
     num, den, need = gat_bcsr_factored(tp, h, att, relu_slope, mode, hv_chunks, row_shift)
-    if not bool(need.any()):
+    with span("gnn.sync", site="gat.factored_need"):
+        any_need = bool(need.any())
+    if not any_need:
         return num, den
     rescued["calls"] += 1
-    rescued["rows"] += int(need.sum())
+    with span("gnn.sync", site="gat.factored_rows"):
+        rescued["rows"] += int(need.sum())
     exact_num, exact_den = gat_bcsr(tp, h, att, relu_slope, row_shift)
     return torch.where(need[:, None], exact_num, num), torch.where(need, exact_den, den)
 
@@ -599,29 +603,38 @@ def _bound_rescue(tp, plan, att, relu_slope, shift, den, has_edges) -> Optional[
     need = den.abs() < BOUND_DEN_MIN
     if has_edges is not None:
         need = need & has_edges
-    if not bool(need.any()):
+    with span("gnn.sync", site="gat.bound_need"):
+        any_need = bool(need.any())
+    if not any_need:
         return None
-    mx = _row_max(tp, plan, att)
-    need = need & torch.isfinite(mx)
-    if has_edges is None and not bool(need.any()):
-        return None
-    exact = leaky_relu(att[:, 0].float() + mx, relu_slope)
-    return torch.where(need, exact, shift)
+    with span("gnn.gat.rescue"):
+        mx = _row_max(tp, plan, att)
+        need = need & torch.isfinite(mx)
+        if has_edges is None:
+            with span("gnn.sync", site="gat.bound_need_rowmax"):
+                any_need = bool(need.any())
+            if not any_need:
+                return None
+        exact = leaky_relu(att[:, 0].float() + mx, relu_slope)
+        return torch.where(need, exact, shift)
 
 
 def _tile_and_residual_sums(tp, plan, h, att, relu_slope, att_gather_dtype, h_gather_dtype, shift, dot_mode):
     """(num, den, flat residual slot scores or None) of every part under
-    ``shift``."""
-    num, den = gat_bcsr(tp, h, att, relu_slope, row_shift=shift, dot_mode=dot_mode)
+    ``shift``: spans ``gnn.gat.tiles`` and ``gnn.gat.residual``."""
+    with span("gnn.gat.tiles"):
+        num, den = gat_bcsr(tp, h, att, relu_slope, row_shift=shift, dot_mode=dot_mode)
     score = None
     if plan is not None and plan.num_edges:
-        nr, dr, score = gat_aggregate_parts(
-            plan, h, att, relu_slope=relu_slope,
-            att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype, row_shift=shift,
-        )
-        num = num + nr
-        den = den + dr
-        score = score.reshape(-1)
+        with span("gnn.gat.residual"):
+            count_residual(plan)
+            nr, dr, score = gat_aggregate_parts(
+                plan, h, att, relu_slope=relu_slope,
+                att_gather_dtype=att_gather_dtype, h_gather_dtype=h_gather_dtype, row_shift=shift,
+            )
+            num = num + nr
+            den = den + dr
+            score = score.reshape(-1)
     return num, den, score
 
 
@@ -655,7 +668,10 @@ class HybridGat(torch.autograd.Function):
     """The GAT aggregation over tiles + residual with the hand-written
     backward of the module doc.  The forward resolves the shift (the
     'bound' shift with its rescued rows) and saves it with out, den and the
-    residual's slot scores."""
+    residual's slot scores.  Spans: ``gnn.gat.tiles``, ``gnn.gat.residual``
+    and, where rows are rescued, ``gnn.gat.rescue`` (forward);
+    ``gnn.gat_t.tiles`` (B3 and B4) and ``gnn.gat_t.residual`` (backward);
+    ``gnn.sync`` around each device-to-host read."""
 
     @staticmethod
     def forward(ctx, h, att, tp, plan, tp_t, plan_t, edge_map_t, relu_slope, att_gather_dtype, h_gather_dtype,
@@ -667,7 +683,8 @@ class HybridGat(torch.autograd.Function):
             rescued = _bound_rescue(tp, plan, att, relu_slope, shift, den, has_edges)
             if rescued is not None:
                 shift = rescued
-                num, den, score = _tile_and_residual_sums(*sums, shift, dot_mode)
+                with span("gnn.gat.rescue"):
+                    num, den, score = _tile_and_residual_sums(*sums, shift, dot_mode)
         safe = torch.where(den == 0.0, 1.0, den)
         out = (num / safe[:, None]).to(h.dtype)
         ctx.save_for_backward(h, att, out, safe, shift, score)
@@ -693,17 +710,20 @@ class HybridGat(torch.autograd.Function):
         dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
         d_ad = torch.zeros((att.shape[0],), dtype=torch.float32, device=h.device)
         d_as = torch.zeros((att.shape[0],), dtype=torch.float32, device=h.device)
-        for p in _parts(tp):
-            d_ad = d_ad + gat_bwd_dad(p, h, gbar, c, dm, asrc, slope)
-        for p in _parts(tp_t):
-            dht, dast = gat_bwd_dh_das(p, h, gbar, c, dm, asrc, slope)
-            dh = dh + dht
-            d_as = d_as + dast
+        with span("gnn.gat_t.tiles"):
+            for p in _parts(tp):
+                d_ad = d_ad + gat_bwd_dad(p, h, gbar, c, dm, asrc, slope)
+            for p in _parts(tp_t):
+                dht, dast = gat_bwd_dh_das(p, h, gbar, c, dm, asrc, slope)
+                dh = dh + dht
+                d_as = d_as + dast
         if has_residual:
-            dh_r, dad_r, das_r = _residual_bwd_flat(plan, plan_t, edge_map_t, h, gbar, c, score, shift, slope)
-            dh = dh + dh_r
-            d_ad = d_ad + dad_r
-            d_as = d_as + das_r
+            with span("gnn.gat_t.residual"):
+                count_residual(plan)
+                dh_r, dad_r, das_r = _residual_bwd_flat(plan, plan_t, edge_map_t, h, gbar, c, score, shift, slope)
+                dh = dh + dh_r
+                d_ad = d_ad + dad_r
+                d_as = d_as + das_r
         datt = torch.stack([d_ad, d_as], dim=1).to(att.dtype)
         return (dh.to(h.dtype), datt) + (None,) * 11
 

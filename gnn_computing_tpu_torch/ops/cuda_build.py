@@ -24,6 +24,8 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
+from gnn_computing_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -101,10 +103,13 @@ def build(name: str) -> Path:
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built if needed), with
     ``argtypes`` set from ``signatures`` (function -> argument types) and
-    every function returning a cudaError_t as int."""
+    every function returning a cudaError_t as int.  A first load is
+    recorded as the span ``gnn.build`` (attrs ``kernel``, and ``cached``:
+    the build was found in place)."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        with span("gnn.build", kernel=name, cached=library_path(name).exists()):
+            lib = ctypes.CDLL(str(build(name)))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
+from gnn_computing_tpu_torch.utils.profiling import span
 
 F16_MIN_NORMAL = 2.0**-14
 F16_MAX = 65504.0
@@ -222,11 +223,13 @@ def edge_values_from_slots_flat(plan: AggregationPlan, slot_val: torch.Tensor) -
     edge_perm[scheduled position] (the inverse permutation)."""
     pos, cnt, slot = _slot_pos_flat(plan)
     valid = slot < cnt
-    idx = pos[valid]
+    with span("gnn.sync", site="spmm.slot_pos"):  # a boolean mask's size is read on the host
+        idx = pos[valid]
     if plan.edge_perm is not None:
         idx = plan.edge_perm[idx]
     out = torch.zeros((plan.num_edges,), dtype=slot_val.dtype, device=slot_val.device)
-    out[idx] = slot_val.reshape(-1)[valid]
+    with span("gnn.sync", site="spmm.slot_val"):
+        out[idx] = slot_val.reshape(-1)[valid]
     return out
 
 

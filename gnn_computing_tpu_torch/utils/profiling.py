@@ -1,27 +1,185 @@
-"""Profiling: a trace context, analytic plan and tile costs, and a measured
-per-phase decomposition of a hybrid aggregation pass.
+"""Profiling: the port's spans and counters, a trace context, analytic plan
+and tile costs, a measured per-phase decomposition of a hybrid aggregation
+pass, and the kernels' launch counts.
 
-Port of ``gnn_computing_tpu/utils/profiling.py``.  ``trace`` records a
-``torch.profiler`` trace (the CPU and, on a card, its CUDA activity) and
-writes it as a Chrome trace into ``logdir``.  ``plan_cost`` and
-``tile_cost`` return the JAX package's dicts for the same plan.
-``decompose`` times the same phases with the chained harness
-(utils.timing.benchmark_chained): on the card ``dense`` launches B1 (GCN)
-or B2 (GAT) over the aggregator's tile parts.
+Port of ``gnn_computing_tpu/utils/profiling.py``.  ``span`` and ``count``
+mark the program's layers where the work happens (the step's phases, the
+tile part against the residual, the GAT's host reads, the plan build,
+kernel builds); they record only inside ``recording()`` and cost one flag
+check otherwise.  ``trace`` records a ``torch.profiler`` trace (the CPU
+and, on a card, its CUDA activity) and writes it as a Chrome trace into
+``logdir``; spans recorded under it stand there as user annotations on the
+kernels' clock.  ``plan_cost`` and ``tile_cost`` return the JAX package's
+dicts for the same plan.  ``decompose`` times the same phases with the
+chained harness (utils.timing.benchmark_chained): on the card ``dense``
+launches B1 (GCN) or B2 (GAT) over the aggregator's tile parts.
+``launch_counts`` gathers the ops' launch counters into one table.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import tempfile
+import threading
 import time
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
-from gnn_computing_tpu_torch.schedule.tiles import TilePlan
+if TYPE_CHECKING:  # the plan modules import graph/, whose spans import this module
+    from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
+    from gnn_computing_tpu_torch.schedule.tiles import TilePlan
+
+
+# ------------------------------------------------------ spans and counters
+@dataclasses.dataclass
+class Span:
+    """One recorded span: ``parent`` and the list indices are positions in
+    its recording's ``spans``; times are ``time.perf_counter_ns``."""
+
+    name: str
+    start_ns: int
+    end_ns: Optional[int]  # None while it is open
+    parent: Optional[int]
+    step: int
+    attrs: dict
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+class Recording:
+    """What one ``recording()`` kept: its spans in the order they opened
+    and its counters.
+
+    A span's parent is the span open below it on its thread.  A span opened
+    on a thread with none open (autograd's device thread, running a
+    backward the main thread waits on) joins the open step: its parent is
+    the innermost span open on the thread that opened that step, and it
+    takes the step's id.  A span opened while no step is open starts the
+    next step."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.counters: dict = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._step = 0
+        self._step_stack: list = []  # the open stack of the thread that opened the current step
+
+    def _open(self, name: str, attrs: dict) -> int:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        with self._lock:
+            if stack:
+                parent = stack[-1]
+                step = self.spans[parent].step
+            elif self._step_stack:
+                parent = self._step_stack[-1]
+                step = self._step
+            else:
+                parent = None
+                self._step += 1
+                step = self._step
+                self._step_stack = stack
+            idx = len(self.spans)
+            self.spans.append(Span(name, time.perf_counter_ns(), None, parent, step, attrs))
+        stack.append(idx)
+        return idx
+
+    def _close(self, idx: int):
+        self.spans[idx].end_ns = time.perf_counter_ns()
+        self._local.stack.pop()
+
+
+class _Span:
+    __slots__ = ("rec", "name", "attrs", "idx", "annotation")
+
+    def __init__(self, rec: Recording, name: str, attrs: dict):
+        self.rec, self.name, self.attrs = rec, name, attrs
+
+    def __enter__(self):
+        self.annotation = None
+        if torch.autograd._profiler_enabled():  # the span on the profiler's (and the kernels') timeline
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.idx = self.rec._open(self.name, self.attrs)
+
+    def __exit__(self, *exc):
+        self.rec._close(self.idx)
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_recording: Optional[Recording] = None  # None: tracing is off
+_last: Optional[Recording] = None
+
+
+def span(name: str, **attrs):
+    """``with span("gnn.agg.residual"): ...`` records the block as a span
+    (name, start and end, parent, step id, ``attrs``) while a
+    ``recording()`` is open, and then, under an active ``torch.profiler``
+    profile, also as a ``record_function`` of the same name.  Otherwise it
+    returns a shared no-op context: one flag check, no clock read."""
+    if _recording is None:
+        return _NO_SPAN
+    return _Span(_recording, name, attrs)
+
+
+def count(name: str, n: int):
+    """Add ``n`` to the counter ``name`` while a ``recording()`` is open."""
+    rec = _recording
+    if rec is not None:
+        with rec._lock:
+            rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Turn spans and counters on for the block; yields the Recording.
+    Nothing is written to disk."""
+    global _recording, _last
+    if _recording is not None:
+        raise RuntimeError("a recording is already open")
+    rec = Recording()
+    _recording = rec
+    try:
+        yield rec
+    finally:
+        _recording = None
+        _last = rec
+
+
+def _current() -> Optional[Recording]:
+    return _recording if _recording is not None else _last
+
+
+def spans() -> list:
+    """The spans of the open recording, or else of the last one closed."""
+    rec = _current()
+    return [] if rec is None else list(rec.spans)
+
+
+def counters() -> dict:
+    """The counters of the open recording, or else of the last one closed."""
+    rec = _current()
+    return {} if rec is None else dict(rec.counters)
 
 
 @contextlib.contextmanager
@@ -30,7 +188,8 @@ def trace(logdir: Optional[str] = None):
     block (CPU activity, and CUDA activity where a card is present) and
     writes it into ``logdir`` (default: ``gnn_torch_trace`` under the
     temporary directory) as ``<ms since epoch>.pt.trace.json``, viewable in
-    chrome://tracing or Perfetto.  Yields ``logdir``."""
+    chrome://tracing or Perfetto.  Under ``recording()`` the program's spans
+    are in it as user annotations.  Yields ``logdir``."""
     if logdir is None:
         logdir = os.path.join(tempfile.gettempdir(), "gnn_torch_trace")
     os.makedirs(logdir, exist_ok=True)
@@ -150,3 +309,17 @@ def decompose(
         "tile": [tile_cost(t, f) for t in tps] or None,
     }
     return out
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches so far, as the ops' wrappers count them: B1-B6,
+    B2's 'twodot' and 'merged' kernel apart (B2's 'default' launches are
+    among B2's), and the probe kernels P1 and P2."""
+    from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_residual, cuda_rowmax, cuda_sddmm
+
+    return dict(
+        B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
+        B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches, B6=cuda_sddmm.launches,
+        B2_twodot=cuda_gat.twodot_launches, B2_merged=cuda_gat.merged_launches,
+        P1=cuda_residual.task_sums_launches, P2=cuda_residual.fused_launches,
+    )
