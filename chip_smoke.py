@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught):
      nvcc per source, all at once (B1 bcsr_spmm, B2 gat_bcsr and
      gat_bcsr_factored, B5 rowmax_bcsr, B3 gat_bwd_dad, B4 gat_bwd_dh_das,
      B6 sddmm_bcsr, each with an int8, a 1-bit, a float32 and a bfloat16
-     entry point; P1 task_sums; P2 fused_hybrid).
+     entry point; R1 residual_spmm, the hybrid op's residual; P1
+     task_sums; P2 fused_hybrid).
   2. kernel phase: the B1 kernel against its plain PyTorch version on the
      card, at the main path's shapes (f = 128, 64, 32; 'split' and float32
      operands; pack 1 and 16), plus a ragged n with runs made only of filler
@@ -457,6 +458,20 @@ Phases (any failure exits non-zero; nothing is caught):
      the two, B1 over bench.py --scale products's geometry (int8 [1024,
      128] t384 split into 1-bit and int8 parts, pack 1 and 4) on phase 1's
      graph against its plain version at f = 128, 64, 32, as phase 2.
+ 59. the hybrid op's residual kernel R1 (csrc/residual_spmm.cu, through
+     ops.spmm.residual_spmm_) at the benchmark cells' residual plans: the
+     RMAT graphs of ogbn-products' and reddit's sizes (structure seed 123,
+     degree sorted), densified as the cells (int8 [1024, 128] t384; [256,
+     256] t24), 4-slot neighbor grouping, and reddit's transposed residual
+     (the training step's backward), at f = 128, 64, 32: one launch a
+     call, against the float64 result within the worst-case bound of a
+     float32 sum of each row's terms in any order (the plain version held
+     to the same, its distance printed beside), its ms
+     (CUDA events) and device ms (profiler), its bytes bound (each edge's
+     source row, the plan's 12 bytes a slot and a task, out read and
+     written) and the distinct-rows bound, the plain version's ms and
+     torch.sparse.mm of the residual CSR (library_ms); a "residual" JSON
+     line and a kernels entry "residual_spmm".
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the "reorder"
@@ -483,7 +498,7 @@ on the card, not the training path), REDDIT_STEPS steps with B1 at 12
 launches a step (6 1-bit) and a finite loss, and the step's time; and
 phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
 = 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
-and peak memory; phases 44-46 by phase 47; phases 48-58 run at the quick
+and peak memory; phases 44-46 by phase 47; phases 48-59 run at the quick
 scale only.
 
 Launch counts: every count is set to 0 just before a path is driven and
@@ -505,7 +520,12 @@ plain version are not counted.  Each wrapper also counts its 1-bit launches apar
 launches (``epilogue_launches``), B2 its 'default' ones
 (``default_launches``); the factored kernel counts ``twodot_launches`` and
 ``merged_launches``, the probe's kernels ``task_sums_launches`` and
-``fused_launches``.  The
+``fused_launches``.  R1, the hybrid op's residual (``cuda_residual.launches``),
+launches once a hybrid GCN aggregation whose residual rows are float32 and
+whose residual plan has a task (``residual_layers``: once a forward under
+fast_layer_opts, 3 in the exact modes, 6 a training step) and once a GAT
+training step's layer (the residual's dh over the transposed plan); the
+paths that run it are held to those counts beside their tile kernels.  The
 training phases run at the quick scale only (their float64 oracles hold
 the whole edge list in memory).
 
@@ -607,6 +627,8 @@ from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, _att_slots_flat, gat_
 from gnn_computing_tpu_torch.ops.lstm import init_lstm_params, lstm_aggregate
 from gnn_computing_tpu_torch.ops.spmm import (
     edge_values_from_slots_flat,
+    kernel_takes,
+    residual_spmm_,
     sddmm_slots,
     spmm,
     spmm_plain,
@@ -772,7 +794,7 @@ def reset_counts():
     cuda_gat.float_launches = cuda_rowmax.float_launches = cuda_sddmm.float_launches = 0
     cuda_gat_bwd.dad_float_launches = cuda_gat_bwd.dh_das_float_launches = 0
     cuda_gat.default_launches = cuda_gat.twodot_launches = cuda_gat.merged_launches = 0
-    cuda_residual.task_sums_launches = cuda_residual.fused_launches = 0
+    cuda_residual.launches = cuda_residual.task_sums_launches = cuda_residual.fused_launches = 0
 
 
 def counts() -> dict:
@@ -805,6 +827,23 @@ def only(name: str) -> bool:
 def only_of(names) -> bool:
     """No kernel outside ``names`` launched since the counts were reset."""
     return all(v == 0 for k, v in counts().items() if k not in names)
+
+
+def residual_layers(agg, opts=None, layers: int = len(BENCH_DIMS) - 1) -> int:
+    """R1's launches in one GCN forward over ``agg``: one a layer whose
+    residual rows are float32 (per-layer ``opts``; None: the exact modes,
+    float32 rows on every layer), none where the residual plan has no
+    task (ops.spmm.residual_spmm_)."""
+    if agg.plan is None or agg.plan.num_tasks_padded == 0:
+        return 0
+    modes = [None] * layers if opts is None else [o.residual_gather_dtype for o in opts]
+    return sum(kernel_takes(torch.device("cuda"), m) for m in modes)
+
+
+def only_with_r1(name: str, r1: int) -> bool:
+    """No kernel but ``name`` and the hybrid op's residual kernel R1
+    launched since the counts were reset, and R1 exactly ``r1`` times."""
+    return cuda_residual.launches == r1 and only_of((name, "R1"))
 
 
 def ragged_graph():
@@ -1600,7 +1639,8 @@ def train_phases(args, g, h0, gen) -> dict:
     log(f"phase 9: GCN training, {TRAIN_STEPS} steps of make_train_step (exact modes, Adam 1e-3)")
     gcn = gcn_training(agg, g, h0, "")
     check(gcn["counts"]["B1"] == 6 * TRAIN_STEPS, "GCN training: B1 did not launch 6 times per step")
-    check(all(v == 0 for k, v in gcn["counts"].items() if k != "B1"), "GCN training launched a GAT kernel")
+    check(all(v == 0 for k, v in gcn["counts"].items() if k not in ("B1", "R1")), "GCN training launched a GAT kernel")
+    check(gcn["counts"]["R1"] == 2 * TRAIN_STEPS * residual_layers(agg), "GCN training: R1 not 6 launches a step")
 
     # ---- phase 10: GAT training
     log(f"phase 10: GAT training, {TRAIN_STEPS} steps (fast=False, stabilize='bound', dot_mode='split2')")
@@ -1608,6 +1648,8 @@ def train_phases(args, g, h0, gen) -> dict:
     for k in ("B2", "B3", "B4"):
         check(gat["counts"][k] == 3 * TRAIN_STEPS, f"GAT training: {k} did not launch 3 times per step")
     check(gat["counts"]["B1"] == 0 and gat["counts"]["B5"] == 0, "GAT training launched B1 or B5")
+    check(gat["counts"]["R1"] == 3 * TRAIN_STEPS * min(residual_layers(agg), 1),
+          "GAT training: R1 (the residual's dh over the transposed plan) not 3 launches a step")
 
     # ---- phase 11: timing
     log("phase 11: training timing (CUDA events, median of 10 after 3 warm-up)")
@@ -1948,7 +1990,8 @@ def bits_gcn_phase(g, h0, tile_host, res_host, res_plan, gcn_out, forwards, gen)
         launches = cuda_bcsr.launches
         log(f"  B1 launches in {forwards} forwards: {launches} (3 layers x 2 parts)")
         check(launches == 6 * forwards, "B1 did not launch 6 times per forward")
-        check(only("B1"), "the 1-bit GCN forward launched another kernel")
+        check(only_with_r1("B1", forwards * residual_layers(agg, opts)),
+              "the 1-bit GCN forward launched another kernel, or R1 not once a float32-row layer")
         check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "1-bit forward output")
         tp = tile_host.to(dev)  # the unsplit plan: its cells are the two parts' cells
         edges = gcn_edges(g, res_host, tp)
@@ -2159,7 +2202,8 @@ def bits_train_phases(args, g, h0, gen, train: dict, gat_out: dict, forwards: in
     gcn = gcn_training(agg, g, h0, "1-bit ")
     check(gcn["counts"]["B1"] == 12 * TRAIN_STEPS and gcn["bit_counts"]["B1"] == 6 * TRAIN_STEPS,
           "GCN bit-tile training: B1 did not launch 12 times per step, 6 of them 1-bit")
-    check(all(v == 0 for k, v in gcn["counts"].items() if k != "B1"), "GCN bit-tile training launched a GAT kernel")
+    check(all(v == 0 for k, v in gcn["counts"].items() if k not in ("B1", "R1")),
+          "GCN bit-tile training launched a GAT kernel")
     for i, (got, want) in enumerate(zip(gcn["grads0"], train["gcn_grads0"])):
         r = rel_l2(got, want.double())
         log(f"  first step's w{i + 1} gradient vs phase 9's (int8 tiles): relative L2 {r:.3e}")
@@ -2277,8 +2321,9 @@ def bits_train_reddit_phase(g, h0) -> dict:
     losses = [float(v) for v in losses]
     log(f"  losses {losses}; launches in {REDDIT_STEPS} steps: B1 {c['B1']} ({cb['B1']} 1-bit)")
     check(all(np.isfinite(losses)), "reddit bit-tile GCN training loss not finite")
-    check(c["B1"] == 12 * REDDIT_STEPS and cb["B1"] == 6 * REDDIT_STEPS and only("B1"),
-          "reddit bit-tile GCN training: B1 not 12 launches a step (6 1-bit), or another kernel launched")
+    check(c["B1"] == 12 * REDDIT_STEPS and cb["B1"] == 6 * REDDIT_STEPS
+          and only_with_r1("B1", 2 * REDDIT_STEPS * residual_layers(agg)),
+          "reddit bit-tile GCN training: B1 not 12 launches a step (6 1-bit), R1 not 6, or another kernel launched")
     step_ms = cuda_time_ms(lambda: step((h0,), labels))
     with torch.no_grad():
         forward_ms = cuda_time_ms(lambda: gcn(agg, h0))
@@ -2406,7 +2451,8 @@ def float_phases(g, h0, gen, gcn_out, forwards) -> dict:
         torch.cuda.synchronize()
         fwd_counts = (cuda_bcsr.launches, cuda_bcsr.float_launches)
         log(f"  B1 launches in {forwards} forwards: {fwd_counts[0]}, float32 tiles: {fwd_counts[1]}")
-        check(only("B1") and fwd_counts == (3 * forwards, 3 * forwards), "the weighted forward: B1 not 3 float launches a forward")
+        check(only_with_r1("B1", forwards * residual_layers(agg, opts)) and fwd_counts == (3 * forwards, 3 * forwards),
+              "the weighted forward: B1 not 3 float launches a forward, or R1 not once a float32-row layer")
         check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "weighted forward output")
         edges = gcn_edges(g, res_host, tp, val)
         xs = gcn_gates(agg, model.weights, opts, h0, out, edges, "weighted ")
@@ -2415,7 +2461,8 @@ def float_phases(g, h0, gen, gcn_out, forwards) -> dict:
     # ---- phase 24: path 1, weighted GCN training over float32 tiles and their transpose
     log(f"phase 24: weighted GCN training over float32 tiles, {TRAIN_STEPS} steps (exact modes, Adam 1e-3)")
     gcn = gcn_training(agg, g, h0, "weighted ", val=val)
-    check(gcn["counts"]["B1"] == 6 * TRAIN_STEPS and only("B1"), "weighted GCN training: B1 not 6 launches a step")
+    check(gcn["counts"]["B1"] == 6 * TRAIN_STEPS and only_with_r1("B1", 2 * TRAIN_STEPS * residual_layers(agg)),
+          "weighted GCN training: B1 not 6 launches a step, or R1 not 6")
     check(cuda_bcsr.float_launches == 6 * TRAIN_STEPS, "weighted GCN training: B1 not over float tiles")
     train_float = cuda_bcsr.float_launches
 
@@ -2430,7 +2477,8 @@ def float_phases(g, h0, gen, gcn_out, forwards) -> dict:
             out2 = model(agg2, h0, opts)
         torch.cuda.synchronize()
         bf16_counts = (cuda_bcsr.launches, cuda_bcsr.float_launches)
-        check(only("B1") and bf16_counts == (3 * forwards, 3 * forwards), "the bf16 forward: B1 not 3 float launches")
+        check(only_with_r1("B1", forwards * residual_layers(agg2, opts)) and bf16_counts == (3 * forwards, 3 * forwards),
+              "the bf16 forward: B1 not 3 float launches, or R1 not once a float32-row layer")
         # bfloat16 holds counts up to 256 exactly; int8 tiles cap a cell at
         # 127 and spill the rest to the residual, bfloat16 tiles keep every
         # edge and round an odd count above 256 (as the JAX package's do)
@@ -4452,7 +4500,8 @@ def reorder_gcn(g, h0, forwards: int, what: str) -> dict:
             out = model(agg, h0, opts)
         torch.cuda.synchronize()
         row["launches"] = cuda_bcsr.launches
-        check(only("B1") and row["launches"] == 3 * forwards, f"{what}: B1 did not launch 3 times a forward alone")
+        check(only_with_r1("B1", forwards * residual_layers(agg, opts)) and row["launches"] == 3 * forwards,
+              f"{what}: B1 did not launch 3 times a forward, with R1 once a float32-row layer, alone")
         check(out.shape == (g.num_nodes, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), f"{what}: forward output")
         edges = gcn_edges(g, res_host, agg.tile)
         gcn_gates(agg, model.weights, opts, h0, out, edges, f"{what}: ", pure="beyond_modes")
@@ -4577,7 +4626,8 @@ def cli_phase() -> dict:
           "cli tune: its table does not list every candidate")
     check(all(row["seconds"] > 0 for row in r["table"]), "cli tune: a candidate without a time")
     log(f"  tune: B1 {c['B1']} launches ({cuda_bcsr.float_launches} over bfloat16 tiles); best {r['best']}")
-    check(c["B1"] > 0 and cuda_bcsr.float_launches == c["B1"] and only("B1"), "cli tune did not launch B1 alone")
+    check(c["B1"] > 0 and cuda_bcsr.float_launches == c["B1"] and only_of(("B1", "R1")),
+          "cli tune did not launch B1 (and the hybrid residual's R1) alone")
     out["tune"] = dict(r, launches=c["B1"])
     reset_counts()
     r = cli_json(["train", *syn, "--epochs", str(CLI_EPOCHS)])
@@ -4615,7 +4665,9 @@ def decompose_phase(g, gen, b1_rows, b2_rows, dev) -> dict:
             phases = ("dense", "residual", "residual_floor", "transform") + (("total",) if model == "gcn" else ())
             check(all(p in d and math.isfinite(d[p]["ms"]) and d[p]["ms"] > 0 for p in phases),
                   f"decompose {model} f={f}: a phase is missing or not finite")
-            check(launches > 0 and only(key), f"decompose {model} f={f}: dense did not launch {key} alone")
+            # the GCN's "total" phase is agg.run: the hybrid residual's R1 beside B1
+            others = ("R1",) if model == "gcn" else ()
+            check(launches > 0 and only_of((key, *others)), f"decompose {model} f={f}: dense did not launch {key} alone")
             check(d["analytic"] == {"plan": plan_cost(agg.plan, f), "tile": [tile_cost(t, f) for t in agg.tile_parts()]},
                   f"decompose {model} f={f}: analytic differs from plan_cost / tile_cost")
             ratio = d["dense"]["ms"] / row["ms"]
@@ -4919,7 +4971,8 @@ def ring_feature_phase(gen, dev) -> dict:
         got = feature_sharded_gcn_forward_bodies(agg, ws, h, PAR_D)
         torch.cuda.synchronize()
         launches = cuda_bcsr.launches
-        check(only("B1") and launches == PAR_D * len(ws), "feature parallel: B1 not once a rank and layer")
+        check(only_with_r1("B1", PAR_D * residual_layers(agg, layers=len(ws))) and launches == PAR_D * len(ws),
+              "feature parallel: B1 and R1 not once a rank and layer")
         ref = h
         for i, w in enumerate(ws):
             ref = agg.run(ref) @ w
@@ -4980,12 +5033,20 @@ def launches_of(what: str, inputs, ctx) -> dict:
     GCN forward and B2 3 times a fast GAT forward (stabilize=False: no B5),
     one a layer over each tile part; B1 once a part a hybrid pass (fig8's
     hybrid row, fig9's hybrid_spmm over its one tile plan, fig10b_pallas:
-    the fused call through the w_epilogue); nothing on the gather path or
-    the LSTM."""
-    parts = len(ctx["agg"].tile_parts()) if "agg" in ctx else 0
+    the fused call through the w_epilogue); R1 once a hybrid aggregation
+    whose residual rows are float32 and whose residual plan has a task
+    (fig7's GCN: its float32-row layers; fig10b_pallas's fused call adds
+    its residual with the ATen loop); nothing on the gather path or the
+    LSTM."""
+    agg = ctx.get("agg")
+    parts = len(agg.tile_parts()) if agg is not None else 0
+    r1 = 0 if agg is None else residual_layers(agg, layers=1)
+    rp = inputs[2] if what == "fig9.hybrid" else None
     want = {
-        "fig7.GCN": {"B1": 3 * parts}, "fig7.GAT": {"B2": 3 * parts}, "fig8.hybrid": {"B1": parts},
-        "fig9.hybrid": {"B1": 1}, "fig10b_pallas.split": {"B1": parts},
+        "fig7.GCN": {"B1": 3 * parts, "R1": 0 if agg is None else residual_layers(agg, ctx.get("opts"))},
+        "fig7.GAT": {"B2": 3 * parts}, "fig8.hybrid": {"B1": parts, "R1": r1},
+        "fig9.hybrid": {"B1": 1, "R1": int(rp is not None and rp.num_tasks_padded > 0)},
+        "fig10b_pallas.split": {"B1": parts, "R1": r1},
         "fig10b_pallas.fused": {"B1": parts, "B1_epilogue": parts},
     }.get(what, {})
     return {k: v for k, v in want.items() if v}
@@ -5078,8 +5139,8 @@ class FigureCheck:
         check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
         self.add(one)
         self.per_call[what] = one
-        if what == "fig8.hybrid":
-            self.add(one, 2 * chained_calls(self.iters, DECOMPOSE_REPS))
+        if what == "fig8.hybrid":  # decompose's dense and total phases: R1 in the total alone
+            self.add({k: v * (1 if k == "R1" else 2) for k, v in one.items()}, chained_calls(self.iters, DECOMPOSE_REPS))
         if self.oracles:
             mid = fig_counts()
             with torch.no_grad():
@@ -5127,7 +5188,9 @@ def run_figure(name: str, hook: FigureCheck, drive) -> dict:
     check(got == want, f"{name}: launches {got}, the timed calls account for {want}")
     kernels = FIGURES[name][2]
     check(all(got.get(k, 0) > 0 for k in kernels), f"{name}: a kernel of the path did not launch")
-    check(set(got) <= set(kernels), f"{name}: a kernel outside {kernels} launched")
+    # R1 launches wherever a hybrid pass has float32 residual rows and a
+    # residual task, which launches_of counts exactly (checked above)
+    check(set(got) <= {*kernels, "R1"}, f"{name}: a kernel outside {kernels} and R1 launched")
     return got
 
 
@@ -5307,7 +5370,8 @@ def entry_phase(dev) -> dict:
             out = fn(agg, params, h)
         torch.cuda.synchronize()
         launches, bits = cuda_bcsr.launches, cuda_bcsr.bits_launches
-        check(only("B1"), "entry()'s forward launched another kernel")
+        check(only_with_r1("B1", ENTRY_FORWARDS * residual_layers(agg, layers=len(params))),
+              "entry()'s forward launched another kernel, or R1 not once a layer")
         check(launches == 3 * parts * ENTRY_FORWARDS and bits == 3 * ENTRY_FORWARDS,
               f"entry(): B1 launched {launches} times ({bits} 1-bit) in {ENTRY_FORWARDS} forwards")
         check(out.shape == (port_entry.GRAPH[0], port_entry.DIMS[-1]) and bool(torch.isfinite(out).all()),
@@ -5411,6 +5475,112 @@ def entry_bench_phase(dev, g, gen) -> dict:
     return out
 
 
+# phase 59: the hybrid op's residual kernel R1 at the benchmark cells' plans:
+# (label, graph (n, m), densify's geometry, whether the step also runs the
+# transposed residual), as portbench/traffic/*.json give them
+RESIDUAL_PLANS = (
+    ("products", (2_449_029, 123_718_280), PRODUCTS_SCHEDULE, False),
+    ("reddit-train", SCALES["reddit"], TRAIN_SCHEDULE, True),
+)
+
+
+def summation_check(got, plan, h, out, what: str) -> float:
+    """``got`` (out + A_plan @ h in float32, any order of the sum) against
+    the float64 result, element by element within the worst-case bound of
+    a float32 sum of N + 1 terms in any order, gamma(N + 1) times the sum
+    of the terms' magnitudes (N the row's residual edges; a product's FMA
+    rounds with its sum).  A cell's hub rows sum tens of thousands of
+    terms, many of one source row (the RMAT draws repeat an edge), where
+    two float32 orders differ by more than KERNEL_TOL * max|sum|.  Returns
+    max|got - float64|."""
+    u = 2.0**-24
+    n = torch.zeros(plan.num_nodes, dtype=torch.float64, device=h.device)
+    n.index_add_(0, plan.dst, plan.count.double())
+    gamma = (n + 1) * u / (1 - (n + 1) * u)
+    ref = out.double() + spmm_plain(plan, h.double())
+    mag = out.double().abs() + spmm_plain(plan, h.double().abs(), val=plan.val.abs())
+    err = (got.double() - ref).abs()
+    ok = bool((err <= gamma[:, None] * mag).all())
+    worst = err.max().item()
+    log(f"  {what}: max|d| vs float64 {worst:.3e} (max|float64| {ref.abs().max().item():.3e}); "
+        f"within gamma(N + 1) * sum|terms| everywhere: {ok}")
+    check(ok and bool(torch.isfinite(got).all()), f"{what}: off the float64 result beyond a float32 sum's bound")
+    return worst
+
+
+def residual_row(plan, h, out, csr, what: str) -> dict:
+    """R1 over ``plan`` at h's width: one launch a call, against float64
+    within a float32 sum's bound (summation_check, the plain version's
+    distance printed beside it); its ms (CUDA events), device ms
+    (profiler), bounds, the plain version's ms and torch.sparse.mm of the
+    residual CSR (``library_ms``, a yardstick the port never calls)."""
+    f = h.shape[1]
+    before = cuda_residual.launches
+    got = residual_spmm_(out.clone(), plan, h)
+    check(cuda_residual.launches == before + 1, f"{what}: R1 did not launch once a call")
+    torch.cuda.synchronize()
+    err = summation_check(got, plan, h, out, f"{what} f={f} R1")
+    del got
+    summation_check(out + spmm_plain(plan, h), plan, h, out, f"{what} f={f} spmm_plain")
+    torch.cuda.empty_cache()
+    acc = out.clone()
+    ms = cuda_time_ms(lambda: residual_spmm_(acc, plan, h))
+    dev_ms = device_ms(lambda: residual_spmm_(acc, plan, h), expect=("residual_spmm_kernel",))
+    plain_ms = cuda_time_ms(lambda: out + spmm_plain(plan, h))
+    library_ms = cuda_time_ms(lambda: out + torch.sparse.mm(csr, h))
+    slots, tasks, edges = plan.num_tasks_padded * plan.block_size, plan.num_tasks_padded, plan.num_edges
+    distinct = int(torch.unique(plan.src[plan.slot_mask().reshape(-1)]).numel())
+    index_bytes = 12 * slots + 12 * tasks  # src int64 + val float32 a slot, count int32 + dst int64 a task
+    out_bytes = 2 * 4 * plan.num_nodes * f  # out read and written once
+    bound_ms = (4 * edges * f + index_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    distinct_ms = (4 * distinct * f + index_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    row = dict(f=f, ms=ms, device_ms=None if dev_ms is None else dev_ms["residual_spmm_kernel"],
+               bound_ms=bound_ms, distinct_bound_ms=distinct_ms, bound_by="bytes", plain_ms=plain_ms,
+               library_ms=library_ms, max_abs_err=err, edges=edges, slots=slots, tasks=tasks, distinct_rows=distinct)
+    log(f"  {what} f={f}: R1 {ms:.3f} ms/launch (device {row['device_ms']}) | bound {bound_ms:.3f} (edges' rows; "
+        f"distinct rows {distinct_ms:.3f}) | plain {plain_ms:.3f} | torch.sparse.mm {library_ms:.3f}")
+    return row
+
+
+def residual_phase(dev) -> dict:
+    """Phase 59: R1 at the benchmark cells' residual plans (RMAT at
+    ogbn-products' and reddit's sizes, structure seed 123, degree sorted,
+    densified as the cells' traffic; 4-slot neighbor grouping), the
+    transposed plan where the cell trains, at f = 128, 64, 32: residual_row
+    for each.  The graphs are drawn and the plans built here (host seconds,
+    printed)."""
+    log("phase 59: the residual kernel R1 at the benchmark cells' plans (products; reddit-train and its transpose)")
+    gen = torch.Generator(device=dev).manual_seed(59)
+    out = {}
+    for label, (n, m), schedule, transposed in RESIDUAL_PLANS:
+        t0 = time.perf_counter()
+        g = rmat_graph(n, m, seed=123, with_val=False, device=dev)
+        g = g.reorder(degree_sort(g))
+        _, res = densify(g, dtype=np.int8, **schedule)
+        del g
+        graphs = [(label, res)] + ([(f"{label} transposed", res.transpose_with_map()[0])] if transposed else [])
+        plans = [(name, gr, neighbor_grouping_plan(gr, block_size=RESIDUAL_BLOCK).to(dev)) for name, gr in graphs]
+        log(f"  {label}: residual plans built in {time.perf_counter() - t0:.1f} s: "
+            + "; ".join(f"{name} edges={p.num_edges} slots={p.num_tasks_padded * p.block_size} rows={p.num_nodes}"
+                        for name, _, p in plans))
+        for name, gr, plan in plans:
+            check(plan.sorted_by_dst, f"{name}: the residual plan is not sorted by destination")
+            csr = torch.sparse_csr_tensor(
+                torch.from_numpy(gr.indptr.astype(np.int64)), torch.from_numpy(gr.indices.astype(np.int64)),
+                torch.ones(gr.num_edges), size=(gr.num_nodes, gr.n_src)).to(dev)
+            rows = []
+            for f in BENCH_DIMS[1:]:
+                h = torch.randn((gr.n_src, f), generator=gen, device=dev)
+                o = torch.randn((gr.num_nodes, f), generator=gen, device=dev)
+                rows.append(residual_row(plan, h, o, csr, name))
+                del h, o
+            out[name] = rows
+            del csr, plan
+            torch.cuda.empty_cache()
+    print(json.dumps({"residual": out}), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -5493,7 +5663,8 @@ def main() -> int:
             out = model(agg, h0, opts)
         torch.cuda.synchronize()
         launches = cuda_bcsr.launches
-        check(only("B1"), "the GCN forward launched another kernel")
+        check(only_with_r1("B1", forwards * residual_layers(agg, opts)),
+              "the GCN forward launched another kernel, or R1 not once a float32-row layer")
         log(f"  B1 launches in {forwards} forwards: {launches}")
         check(launches == 3 * forwards, "B1 did not launch 3 times per forward")
         check(out.shape == (n, BENCH_DIMS[-1]) and bool(torch.isfinite(out).all()), "forward output")
@@ -5588,6 +5759,8 @@ def main() -> int:
         figs = figure_phases(card, dev)
         torch.cuda.empty_cache()
         eb = entry_bench_phase(dev, g, gen)
+        torch.cuda.empty_cache()
+        r1 = residual_phase(dev)
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
         torch.cuda.empty_cache()
@@ -5875,6 +6048,16 @@ def main() -> int:
             entry_k["bench"] = dict(path=bench_path, launches={
                 run: r["launches"][kernel] for run, r in eb["bench"].items() if kernel in r["launches"]})
         kernels[0]["bench"]["products_geometry_max_abs_err"] = eb["products_geometry_max_err"]
+        # phase 59: the residual kernel at the cells' plans
+        r1_rows = [r for rows in r1.values() for r in rows]
+        kernels.append(dict(
+            name="residual_spmm", route="cuda", source="gnn_computing_tpu_torch/csrc/residual_spmm.cu",
+            replaces="none: ops/spmm.py spmm_plain's ATen chunk loop (the JAX package leaves it to XLA)",
+            launches=len(r1_rows), launches_per_call=1, max_abs_err=max(r["max_abs_err"] for r in r1_rows),
+            path="the hybrid op's residual (ops.spmm.residual_spmm_) at the benchmark cells' residual plans, "
+                 "f=128, 64, 32", plans=r1,
+            build_s=libs["residual_spmm"][1], scale="products and reddit",
+        ))
         print(json.dumps({"bench": eb}, default=float), flush=True)
     print(json.dumps({"sage": sage}), flush=True)
     print(json.dumps({"edgemlp": edgemlp}), flush=True)

@@ -13,8 +13,9 @@
 // each read as one coalesced row segment (512 bytes a warp at f = 128);
 // the sums are FFMAs in registers and each task's row is written once.  No
 // shared memory, no atomics (the destination sum of the tasks is the
-// caller's: P1 stays off the main path, where the residual is
-// ops/spmm.py's gather and index_add_, as the JAX package leaves it to XLA).
+// caller's: P1 stays off the main path, where the hybrid op's residual is
+// R1, csrc/residual_spmm.cu, which also sums each destination's tasks in
+// registers and adds them into the tile output once).
 //
 // Bound on the H100 SXM (3.35 TB/s; the FLOPs, 2*slots*f, are far below
 // 67 TFLOP/s): each distinct source row that the slots gather read once,

@@ -28,7 +28,9 @@ tensor, ``bcsr_rowmax_plain`` on a CPU tensor; both read every format.
 ``hybrid_spmm`` is a ``torch.autograd.Function`` (the JAX op's custom VJP):
 its backward aggregates the cotangent over the transposed plans, B1 over
 the transposed tiles (of the forward's format) plus the transposed
-residual.  The kernel wrappers
+residual.  Each residual is added into the tile output in place
+(ops.spmm.residual_spmm_: the residual kernel R1 on a card, the ATen chunk
+loop on the CPU and in the gather modes that round rows).  The kernel wrappers
 refuse tensors that require grad with grad enabled, so no kernel output
 ever stands in a graph without its Function's backward.
 """
@@ -40,7 +42,7 @@ from typing import Optional
 import torch
 
 from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_rowmax
-from gnn_computing_tpu_torch.ops.spmm import bf16_residue_chunks, spmm_plain
+from gnn_computing_tpu_torch.ops.spmm import bf16_residue_chunks, residual_spmm_
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
 from gnn_computing_tpu_torch.utils.profiling import count, span
@@ -167,7 +169,7 @@ class HybridSpmm(torch.autograd.Function):
         if plan is not None:
             with span("gnn.agg.residual"):
                 count_residual(plan)
-                out = out + spmm_plain(plan, h, gather_dtype=residual_gather_dtype)
+                out = residual_spmm_(out, plan, h, gather_dtype=residual_gather_dtype)
         return out
 
     @staticmethod
@@ -183,7 +185,7 @@ class HybridSpmm(torch.autograd.Function):
         if has_residual:
             with span("gnn.agg_t.residual"):
                 count_residual(plan_t)
-                dh = dh + spmm_plain(plan_t, ct)
+                dh = residual_spmm_(dh, plan_t, ct)
         return dh, None, None, None, None, None, None
 
 

@@ -125,9 +125,9 @@ from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate_parts, 
 from gnn_computing_tpu_torch.ops.spmm import (
     bf16_residue_chunks,
     edge_values_from_slots_flat,
+    residual_spmm_,
     sddmm_slots,
     slots_from_edge_values_flat,
-    spmm_plain,
 )
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.schedule.tiles import TilePlan
@@ -656,7 +656,8 @@ def _residual_bwd_flat(plan, plan_t, edge_map_t, h, gbar, c, score_flat, shift, 
     d_as = torch.zeros((plan.n_src,), dtype=torch.float32, device=h.device)
     d_as.index_add_(0, plan.src_flat(), dz)
     s_t = slots_from_edge_values_flat(plan_t, edge_values_from_slots_flat(plan, s_flat)[edge_map_t])
-    dh = spmm_plain(plan_t, gbar, val=s_t)
+    dh = residual_spmm_(torch.zeros((plan_t.num_nodes, gbar.shape[1]), dtype=gbar.dtype, device=gbar.device),
+                        plan_t, gbar, val=s_t)
     return dh, d_ad, d_as
 
 

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 KERNELS = (
     "bcsr_spmm", "gat_bcsr", "rowmax_bcsr", "gat_bwd_dad", "gat_bwd_dh_das", "sddmm_bcsr",
-    "gat_bcsr_factored", "task_sums", "fused_hybrid",
+    "gat_bcsr_factored", "task_sums", "fused_hybrid", "residual_spmm",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}

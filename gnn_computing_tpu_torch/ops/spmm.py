@@ -6,9 +6,18 @@ h, weight them, sum each task's B slots, then add each task sum into its
 destination row.  The JAX package leaves this to XLA ("deliberately NO
 Pallas gather-path kernel"); the port leaves it to PyTorch's own gather
 and scatter kernels.  It serves every gather schedule (schedule.make_plan)
-and the residual of the hybrid op.  On CUDA ``index_add_`` accumulates with
-atomics, so results match other implementations within a tolerance, never
-bit for bit.
+and, on the CPU and in the gather modes that round rows, the residual of
+the hybrid op.  On CUDA ``index_add_`` accumulates with atomics, so results
+match other implementations within a tolerance, never bit for bit.
+
+``residual_spmm_`` adds the hybrid op's residual, A_plan @ h, into the
+output it is given.  On a CUDA tensor whose rows are gathered as float32
+(``gather_dtype`` None or torch.float32) it launches the residual kernel
+(ops.cuda_residual, R1: each destination's slots gathered, weighted and
+summed in registers, added once); on a CPU tensor, and in the modes that
+round the rows ('f16_split2', 'bf16_split2', a cast to a narrower dtype),
+it adds ``spmm_plain``'s result, the ATen chunk loop.  The mode is an input
+of the call, so every caller adapts to it alike.
 
 Slot values are flat ([num_tasks_p * B]) in a device plan; the helpers
 take JAX's 2-D [num_tasks_p, B] layout too.  A locality plan permutes the
@@ -27,6 +36,8 @@ from typing import Optional
 
 import torch
 
+from gnn_computing_tpu_torch.ops import cuda_residual
+from gnn_computing_tpu_torch.ops.cuda_build import check_no_grad
 from gnn_computing_tpu_torch.schedule.plan import AggregationPlan
 from gnn_computing_tpu_torch.utils.profiling import span
 
@@ -166,6 +177,36 @@ def spmm_plain(
     for t0, t1 in _chunks(plan, chunk_slots):
         task = _task_sums(table, scale, src[t0 * b : t1 * b], v[t0 * b : t1 * b], b, f, gather_dtype, h.dtype)
         out.index_add_(0, plan.dst[t0:t1], task)
+    return out
+
+
+def kernel_takes(device: torch.device, gather_dtype) -> bool:
+    """Whether ``residual_spmm_`` launches the residual kernel for rows on
+    ``device`` gathered in ``gather_dtype``: float32 rows on a card."""
+    return device.type == "cuda" and (gather_dtype is None or gather_dtype == torch.float32)
+
+
+def residual_spmm_(
+    out: torch.Tensor, plan: AggregationPlan, h: torch.Tensor, val=None, gather_dtype=None
+) -> torch.Tensor:
+    """out += A_plan @ h in place, weighted by ``val`` (slot values, flat or
+    [num_tasks_p, B], 0 in pad slots) or the plan's own; returns ``out``
+    ([num_nodes, f], h's dtype).  Not differentiable: it refuses tensors
+    that require grad with grad enabled (the hybrid Functions call it from
+    their forward and backward).  See the module doc for the two paths; a
+    CUDA tensor that the kernel does not take (not float32) raises."""
+    check_no_grad(out, h, *(() if val is None else (val,)))
+    if h.dim() != 2 or not h.dtype.is_floating_point:
+        raise ValueError(f"h must be a floating [n_src, f] tensor, got {h.dtype} {tuple(h.shape)}")
+    want = (plan.num_nodes, h.shape[1])
+    if tuple(out.shape) != want or out.dtype != h.dtype or out.device != h.device:
+        raise ValueError(
+            f"out must be {h.dtype} {want} on {h.device}, got {out.dtype} {tuple(out.shape)} on {out.device}"
+        )
+    if kernel_takes(h.device, gather_dtype):
+        v = None if val is None else _resolve_val(plan, val).contiguous()
+        return cuda_residual.residual_spmm_cuda(out, plan, h.contiguous(), v)
+    out += spmm_plain(plan, h, gather_dtype=gather_dtype, val=val)
     return out
 
 

@@ -314,12 +314,13 @@ def decompose(
 def launch_counts() -> dict:
     """Every kernel's launches so far, as the ops' wrappers count them: B1-B6,
     B2's 'twodot' and 'merged' kernel apart (B2's 'default' launches are
-    among B2's), and the probe kernels P1 and P2."""
+    among B2's), the hybrid op's residual kernel R1, and the probe kernels
+    P1 and P2."""
     from gnn_computing_tpu_torch.ops import cuda_bcsr, cuda_gat, cuda_gat_bwd, cuda_residual, cuda_rowmax, cuda_sddmm
 
     return dict(
         B1=cuda_bcsr.launches, B2=cuda_gat.launches, B3=cuda_gat_bwd.dad_launches,
         B4=cuda_gat_bwd.dh_das_launches, B5=cuda_rowmax.launches, B6=cuda_sddmm.launches,
         B2_twodot=cuda_gat.twodot_launches, B2_merged=cuda_gat.merged_launches,
-        P1=cuda_residual.task_sums_launches, P2=cuda_residual.fused_launches,
+        R1=cuda_residual.launches, P1=cuda_residual.task_sums_launches, P2=cuda_residual.fused_launches,
     )

@@ -23,6 +23,7 @@ TABLES = [
     (cuda_gat.FACTORED_NAME, cuda_gat.FACTORED_SIGNATURES),
     (cuda_gat_bwd.DAD, cuda_gat_bwd.DAD_SIGNATURES),
     (cuda_gat_bwd.DH_DAS, cuda_gat_bwd.DH_DAS_SIGNATURES),
+    (cuda_residual.RESIDUAL, cuda_residual.RESIDUAL_SIGNATURES),
     (cuda_residual.TASK_SUMS, cuda_residual.TASK_SUMS_SIGNATURES),
     (cuda_residual.FUSED, cuda_residual.FUSED_SIGNATURES),
     (cuda_rowmax.NAME, cuda_rowmax.SIGNATURES),

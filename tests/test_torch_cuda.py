@@ -40,7 +40,11 @@ kernel's __expf score and the plain version's torch.exp may round to
 neighbouring bfloat16 values); 'twodot' and 'merged' take their per-node
 operands from the same torch code, so only the float32 sum order differs.
 P1 and P2: 1e-5 * max|plain|; P2 walks B1's work list, so its dense_out is
-bitwise B1's output times scale_dst and its task sums bitwise P1's."""
+bitwise B1's output times scale_dst and its task sums bitwise P1's.  The
+hybrid op's residual kernel (R1): max|kernel - oracle| <= 1e-5 *
+max|oracle| against a float64 edge-list oracle and the same against
+spmm_plain added to the output (its own float32 sum order, and atomics
+whose order varies from run to run: never bitwise)."""
 
 import dataclasses
 import functools
@@ -74,8 +78,10 @@ from gnn_computing_tpu_torch.ops.lstm import LSTMParams, lstm_aggregate
 from gnn_computing_tpu_torch.ops.reference import edge_mlp_dense
 from gnn_computing_tpu_torch.ops.validate import relative_error_count
 from gnn_computing_tpu_torch.ops.sddmm import sddmm
-from gnn_computing_tpu_torch.ops.spmm import spmm_plain, weighted_task_sums
+from gnn_computing_tpu_torch.ops.bcsr import hybrid_spmm
+from gnn_computing_tpu_torch.ops.spmm import residual_spmm_, slots_from_edge_values_flat, spmm_plain, weighted_task_sums
 from gnn_computing_tpu_torch.probes.overlap_dma_residual import dma_task_sums, fused_hybrid, fused_hybrid_plain
+from gnn_computing_tpu_torch.schedule.locality import locality_plan
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.ops.cuda_build import check_plan
 from gnn_computing_tpu_torch.ops.validate import assert_valid
@@ -1095,6 +1101,131 @@ def test_residual_wrappers_refuse(cuda_dev):
                                         torch.zeros(g.n_src, 4, device=cuda_dev))
 
 
+# ------------------------------------------------- the residual kernel (R1)
+def _hub_graph():
+    """2,003 rows: row 7 a hub of 3,000 in-edges (its residual spans many
+    warps' spans at any block), 500 rows with none, the rest RMAT-like."""
+    rng = np.random.default_rng(11)
+    n = 2003
+    d = np.concatenate([np.full(3000, 7), rng.integers(0, n, 20000)])
+    d = d[(d < 1000) | (d >= 1500) | (d == 7)]
+    s = rng.integers(0, n, d.shape[0])
+    return CSRGraph.from_edges(d, s, n)
+
+
+def _residual_plans(kind: str):
+    """(host plan, graph) of one residual plan kind: neighbor grouping at
+    blocks 1, 3, 4, 8, 33 and 200 (spans of one task past 128 slots), a
+    plan padded with 57 pad tasks, and a locality plan (not sorted by
+    destination)."""
+    g = _hub_graph()
+    if kind.startswith("ng"):
+        return neighbor_grouping_plan(g, block_size=int(kind[2:])), g
+    if kind == "padded":
+        plan = neighbor_grouping_plan(g, block_size=4, pad_multiple=64)
+        assert plan.num_tasks_padded - plan.num_tasks >= 8
+        return plan, g
+    plan = locality_plan(g, num_partitions=3, block_size=4)
+    assert not plan.sorted_by_dst
+    return plan, g
+
+
+def _edge_oracle(g, h, out0, edge_val):
+    """float64 out0 + A @ h over the edge list (index_add_)."""
+    want = out0.double().cpu()
+    contrib = h.double().cpu()[torch.from_numpy(g.indices.astype(np.int64))] * edge_val.double().cpu()[:, None]
+    return want.index_add_(0, torch.from_numpy(g.dst_per_edge.astype(np.int64)), contrib)
+
+
+@pytest.mark.parametrize("kind", ["ng1", "ng3", "ng4", "ng8", "ng33", "ng200", "padded", "locality"])
+@pytest.mark.parametrize("f", [128, 64, 32, 33])
+@pytest.mark.parametrize("values", [False, True])
+def test_residual_spmm_kernel_matches_oracle(cuda_dev, kind, f, values):
+    """R1 adds A_plan @ h into out: against a float64 edge-list oracle and
+    spmm_plain, with the plan's values or ``val`` given; one launch a call;
+    an unaligned h (a view one float in) takes the scalar path."""
+    host, g = _residual_plans(kind)
+    plan = host.to(cuda_dev)
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    h = torch.randn((g.n_src, f), generator=gen, device=cuda_dev)
+    out0 = torch.randn((g.num_nodes, f), generator=gen, device=cuda_dev)
+    if values:
+        edge_val = torch.rand((g.num_edges,), generator=gen, device=cuda_dev) * 3.0 - 1.0
+        val = slots_from_edge_values_flat(plan, edge_val)
+    else:
+        edge_val, val = torch.ones((g.num_edges,), device=cuda_dev), None
+    before = cuda_residual.launches
+    got = residual_spmm_(out0.clone(), plan, h, val=val)
+    assert cuda_residual.launches == before + 1
+    plain = out0 + spmm_plain(plan, h, val=val)
+    torch.cuda.synchronize()
+    want = _edge_oracle(g, h, out0, edge_val)
+    _close(got.double().cpu(), want, f"R1 {kind} f={f} against float64")
+    _close(got, plain, f"R1 {kind} f={f} against spmm_plain")
+    hv = torch.randn((g.n_src * f + 1,), generator=gen, device=cuda_dev)[1:].view(g.n_src, f)
+    _close(residual_spmm_(out0.clone(), plan, hv, val=val).double().cpu(), _edge_oracle(g, hv, out0, edge_val),
+           f"R1 {kind} f={f} unaligned")
+
+
+def test_residual_spmm_rows_without_residual_keep_out(cuda_dev):
+    """Rows with no residual edge keep out's value bitwise (pad tasks, count
+    0, add nothing)."""
+    host, g = _residual_plans("padded")
+    plan = host.to(cuda_dev)
+    out0 = torch.randn((g.num_nodes, 64), device=cuda_dev)
+    got = residual_spmm_(out0.clone(), plan, torch.randn((g.n_src, 64), device=cuda_dev))
+    torch.cuda.synchronize()
+    empty = torch.from_numpy(np.diff(g.indptr) == 0).to(cuda_dev)
+    assert int(empty.sum()) >= 500
+    assert torch.equal(got[empty], out0[empty])
+
+
+def test_hybrid_spmm_residual_kernel_forward_and_grad(cuda_dev):
+    """hybrid_spmm on the card: the residual through R1 once in the forward
+    (over the plan) and once in the backward (over the transposed plan),
+    forward and h's gradient against float64 autograd through the edge
+    list; B1 twice."""
+    g = rmat_graph(1237, 60000, seed=3, with_val=False)
+    g = g.reorder(degree_sort(g))
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, tile_rows=64, tile_cols=64, threshold=3, residual_block=4,
+                                     pack=1, with_transpose=True, device=cuda_dev)
+    assert agg.plan.num_edges > 0 and agg.plan_t.sorted_by_dst
+    gen = torch.Generator(device=cuda_dev).manual_seed(4)
+    h = torch.randn((g.num_nodes, 64), generator=gen, device=cuda_dev).requires_grad_(True)
+    w = torch.randn((g.num_nodes, 64), generator=gen, device=cuda_dev)
+    before = (cuda_residual.launches, cuda_bcsr.launches)
+    out = agg.run(h)
+    assert (cuda_residual.launches - before[0], cuda_bcsr.launches - before[1]) == (1, 1)
+    (out * w).sum().backward()
+    assert (cuda_residual.launches - before[0], cuda_bcsr.launches - before[1]) == (2, 2)
+    torch.cuda.synchronize()
+    hd = h.detach().cpu().double().requires_grad_(True)
+    d, s = torch.from_numpy(g.dst_per_edge.astype(np.int64)), torch.from_numpy(g.indices.astype(np.int64))
+    ref = torch.zeros((g.num_nodes, 64), dtype=torch.float64).index_add(0, d, hd[s])
+    (ref * w.cpu().double()).sum().backward()
+    _close(out.detach().cpu().double(), ref.detach(), "hybrid_spmm forward")
+    _close(h.grad.cpu().double(), hd.grad, "hybrid_spmm dh")
+
+
+def test_residual_spmm_refuses(cuda_dev):
+    """R1 raises on float64 h, an out of the wrong shape, out sharing h's
+    memory, a CPU plan, and a tensor that requires grad with grad on."""
+    host, g = _residual_plans("ng4")
+    plan = host.to(cuda_dev)
+    h = torch.randn((g.n_src, 8), device=cuda_dev)
+    out = torch.zeros((g.num_nodes, 8), device=cuda_dev)
+    with pytest.raises(ValueError):
+        residual_spmm_(out.double(), plan, h.double())
+    with pytest.raises(ValueError):
+        residual_spmm_(out[:-1], plan, h)
+    with pytest.raises(ValueError, match="share memory"):
+        cuda_residual.residual_spmm_cuda(h, plan, h)
+    with pytest.raises(ValueError):
+        residual_spmm_(out, host.to("cpu"), h)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        residual_spmm_(out, plan, h.clone().requires_grad_(True))
+
+
 # ------------------------------------------------------------ the cell walk
 def _walk_host_plan(kind: str, fmt: str):
     """Host plans that stress B1's and B2's work list: 'skewed', one run
@@ -1413,7 +1544,7 @@ def _lstm_f64(params, x, nbr, gx_all=None):
 def _all_launches():
     return (cuda_bcsr.launches, cuda_gat.launches, cuda_rowmax.launches, cuda_sddmm.launches,
             cuda_gat_bwd.dad_launches, cuda_gat_bwd.dh_das_launches, cuda_residual.task_sums_launches,
-            cuda_residual.fused_launches)
+            cuda_residual.fused_launches, cuda_residual.launches)
 
 
 @pytest.mark.parametrize("strategy,gdt", [
@@ -1608,14 +1739,18 @@ def test_fig7_main_on_card(cuda_dev, tmp_path):
     """The figure harness's fig7 (gnn_computing_tpu_torch/benchmarks) at
     --quick on the card: its three rows name the card, hold finite times >
     0, and its timed forwards ran B1 3 times and B2 3 times a call (the
-    chained harness: 9 iters calls each), no other kernel."""
+    chained harness: 9 iters calls each), and R1 once a GCN call for each
+    layer whose residual rows are float32 (fast_layer_opts: the others
+    keep the ATen loop), no other kernel."""
     import json
     import math
 
     from gnn_computing_tpu_torch.benchmarks import fig7_models
+    from gnn_computing_tpu_torch.models.gcn import BENCH_DIMS, fast_layer_opts
+    from gnn_computing_tpu_torch.ops.spmm import kernel_takes
 
     before = _all_launches()
-    b1, b2 = cuda_bcsr.launches, cuda_gat.launches
+    b1, b2, r0 = cuda_bcsr.launches, cuda_gat.launches, cuda_residual.launches
     iters = 2
     fig7_models.main(["--quick", "--iters", str(iters), "--results-dir", str(tmp_path)])
     torch.cuda.synchronize()
@@ -1625,5 +1760,8 @@ def test_fig7_main_on_card(cuda_dev, tmp_path):
         assert r["dataset"] == "rmat_quick" and r["device"].startswith(torch.cuda.get_device_name(0))
         assert math.isfinite(r["seconds"]) and r["seconds"] > 0 and r["edges_per_s"] > 0
     calls = 9 * iters
-    assert (cuda_bcsr.launches - b1, cuda_gat.launches - b2) == (3 * calls, 3 * calls)
-    assert sum(_all_launches()) - sum(before) == 6 * calls
+    r1 = sum(kernel_takes(cuda_dev, o.residual_gather_dtype) for o in fast_layer_opts(BENCH_DIMS))
+    assert r1 == 1
+    assert (cuda_bcsr.launches - b1, cuda_gat.launches - b2, cuda_residual.launches - r0) == (
+        3 * calls, 3 * calls, r1 * calls)
+    assert sum(_all_launches()) - sum(before) == (6 + r1) * calls

@@ -242,7 +242,8 @@ COUNTERS = [
     ("B1", cuda_bcsr, "launches"), ("B2", cuda_gat, "launches"), ("B3", cuda_gat_bwd, "dad_launches"),
     ("B4", cuda_gat_bwd, "dh_das_launches"), ("B5", cuda_rowmax, "launches"), ("B6", cuda_sddmm, "launches"),
     ("B2_twodot", cuda_gat, "twodot_launches"), ("B2_merged", cuda_gat, "merged_launches"),
-    ("P1", cuda_residual, "task_sums_launches"), ("P2", cuda_residual, "fused_launches"),
+    ("R1", cuda_residual, "launches"), ("P1", cuda_residual, "task_sums_launches"),
+    ("P2", cuda_residual, "fused_launches"),
 ]
 
 
