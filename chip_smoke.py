@@ -472,6 +472,24 @@ Phases (any failure exits non-zero; nothing is caught):
      written) and the distinct-rows bound, the plain version's ms and
      torch.sparse.mm of the residual CSR (library_ms); a "residual" JSON
      line and a kernels entry "residual_spmm".
+ 60. the published multi-head GAT (models.gat.gat_heads_forward through the
+     benchmark's model module, its gat-ppi configuration and Glorot draw: 512
+     -> 4 x 256 concat -> 4 x 256 concat with an identity skip -> 6 x 121
+     mean, ELU) on the training cells' plan at the quick scale (int8 [256,
+     256] t24 split into 1-bit and int8 parts, pack 16, residual 4,
+     transposes): B2, B3 and B4 against their plain versions at f = 256 (two
+     f-slices) and f = 121 (the scalar path) over each part, as phases 5 and
+     8; one head's aggregation (hybrid_gat, stabilize 'bound', 'exact') at
+     each width, its output against the float64 edge-list oracle under the
+     gate and its (dh, datt) against float64 autograd (phase 10's kink rule),
+     with B2 once a part, B3 once a part and B4 once a transposed part; then
+     the model: one training step recorded (14 gnn.gat.head spans, counters
+     gat.heads 14 and gat.head_copy_bytes), the first step's loss within 1e-6
+     and each projection's and attention vector's gradient within
+     HEADS_W_REL_L2 and HEADS_A_REL_L2 (relative L2) of the benchmark's
+     float64 reference (portbench/reference/gat_heads.py), TRAIN_STEPS steps
+     with B2, B3 and B4 once a head a part and a finite loss, and the step's
+     time; a "heads" JSON line.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the "reorder"
@@ -498,7 +516,7 @@ on the card, not the training path), REDDIT_STEPS steps with B1 at 12
 launches a step (6 1-bit) and a finite loss, and the step's time; and
 phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
 = 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
-and peak memory; phases 44-46 by phase 47; phases 48-59 run at the quick
+and peak memory; phases 44-46 by phase 47; phases 48-60 run at the quick
 scale only.
 
 Launch counts: every count is set to 0 just before a path is driven and
@@ -654,7 +672,7 @@ from gnn_computing_tpu_torch.ops.validate import DEFAULT_ATOL, DEFAULT_RTOL, rel
 from gnn_computing_tpu_torch.schedule import make_plan
 from gnn_computing_tpu_torch.schedule.neighbor_grouping import neighbor_grouping_plan
 from gnn_computing_tpu_torch.schedule.tiles import densify, densify_gcn_norm, split_bit_tiles
-from gnn_computing_tpu_torch.utils import cli
+from gnn_computing_tpu_torch.utils import cli, profiling
 from gnn_computing_tpu_torch.utils.profiling import decompose, launch_counts, plan_cost, tile_cost
 from gnn_computing_tpu_torch.utils.timing import cuda_time_ms, device_ms
 
@@ -5581,6 +5599,125 @@ def residual_phase(dev) -> dict:
     return out
 
 
+# the published GAT's first-step gradients against the float64 reference,
+# relative L2 of each leaf, gated by kind.  A projection W's gradient
+# (GEMMs of float32 sums) read <= 1.9e-6 on the card over two draws, so
+# 2e-5 passes no TF32-grade error.  An attention vector's gradient sums
+# terms that cancel but for the edges on the kink's other side (sum_j
+# alpha_ij (<g_i, z_j> - c_i) = 0 over a row whose edges all lie on one
+# side): layer 2's read 1.9e-5 and 1.76e-4 on the card over two draws and
+# 7.9e-5 on the CPU at n = 4,096, so a few times that; the kernels' own
+# gates above hold the aggregation at 1e-5.
+HEADS_W_REL_L2 = 2e-5
+HEADS_A_REL_L2 = 5e-4
+
+
+def heads_phase(dev) -> dict:
+    """Phase 60: the published multi-head GAT's kernels, one head and the
+    model on the training cells' plan at the quick scale (module doc)."""
+    from portbench import spec
+    from portbench.models import gat_heads as bench_heads
+    from portbench.reference import common as ref_common
+    from portbench.reference import gat_heads as ref_heads
+
+    log("phase 60: the published multi-head GAT (gat-ppi) at the quick scale: B2-B4 at f = 256 and 121, one head, "
+        "the model")
+    gen = torch.Generator(device=dev).manual_seed(60)
+    n, m = SCALES["quick"]
+    t0 = time.perf_counter()
+    g = rmat_graph(n, m, seed=123, with_val=False)
+    g = g.reorder(degree_sort(g))
+    agg = Aggregator.schedule_hybrid(g, tile_dtype=np.int8, residual_block=RESIDUAL_BLOCK, pack=16,
+                                     with_transpose=True, bit_tiles=True, device=dev, **TRAIN_SCHEDULE)
+    pairs = ((agg.tile_bits, agg.tile_bits_t), (agg.tile, agg.tile_t))
+    check(all(p is not None and q is not None for p, q in pairs), "the plan did not split into 1-bit and int8 parts")
+    parts = len(agg.tile_parts())
+    log(f"  plan built in {time.perf_counter() - t0:.1f} s: {parts} parts, residual edges {agg.plan.num_edges}")
+    out = {"kernel_max_err": {}, "head": {}}
+    for f in (256, 121):
+        err = 0.0
+        for p, p_t in pairs:
+            label = f"heads {part_name(p)} part"
+            err = max(err, gat_kernel_vs_plain(p, f, gen, label), bwd_kernels_vs_plain(p, p_t, f, gen, label))
+        out["kernel_max_err"][f] = err
+
+    g_dst, g_src = edge_lists(g, dev)
+    for f in (256, 121):
+        feat = torch.randn((n, f), generator=gen, device=dev) * 0.1  # a layer's z at the cell's scale
+        att = torch.randn((n, 2), generator=gen, device=dev) * 0.5
+        kink = port_kink_sides(att, agg.tile_parts(), g_dst, g_src)
+        feat.requires_grad_(True)
+        att.requires_grad_(True)
+        ct = cotangent((n, f), dev)
+        reset_counts()
+        y = agg.run_gat(feat, att, stabilize="bound", dot_mode="exact")
+        (y * ct.float()).sum().backward()
+        torch.cuda.synchronize()
+        c = counts()
+        log(f"  one head f={f}: launches {c}")
+        check(c["B2"] == parts and c["B3"] == parts and c["B4"] == parts and c["B5"] == 0,
+              f"one head f={f}: B2, B3, B4 not once a part")
+        f64 = feat.detach().double().requires_grad_(True)
+        a64 = att.detach().double().requires_grad_(True)
+        want = gat_edge_oracle_ad(f64, a64, g_dst, g_src, kink)
+        compare(y.detach(), want.detach().float(), f"one head f={f} out vs f64", gate=True)
+        (want * ct).sum().backward()
+        grad_gate(feat.grad, f64.grad, f"one head f={f} dh vs f64 autograd")
+        grad_gate(att.grad, a64.grad, f"one head f={f} datt vs f64 autograd")
+        out["head"][f] = dict(launches=c)
+        del feat, att, f64, a64, want, y, ct, kink
+        torch.cuda.empty_cache()
+
+    cfg = spec.cell("gat-ppi.reddit-train").config
+    dims, heads_of = cfg["dims"], cfg["gat"]["heads"]
+    leaves = bench_heads.weights(cfg, 60, dev)  # the benchmark's Glorot draw
+    w0 = [w.clone() for w in leaves]
+    leaves = [w.requires_grad_(True) for w in leaves]
+    h0 = torch.randn((n, dims[0]), generator=gen, device=dev) * 0.1
+    labels = torch.randint(0, dims[-1], (n,), generator=gen, device=dev)
+    fwd = bench_heads.program(cfg, agg, leaves)
+    step = make_train_step(fwd, torch.optim.Adam(leaves, lr=cfg["train"]["lr"]), device=dev)
+    reset_counts()
+    with profiling.recording() as rec:
+        loss = float(step((h0,), labels))
+    torch.cuda.synchronize()
+    c = counts()
+    grads = [p.grad.detach().clone() for p in leaves]
+    heads = sum(heads_of)
+    head_spans = sum(1 for s in rec.spans if s.name == "gnn.gat.head")
+    copy = sum(n * k * f * 4 for f, k in zip(dims[1:], heads_of))
+    log(f"  one step: launches {c}, gnn.gat.head spans {head_spans}, counters {rec.counters}")
+    check(head_spans == heads and rec.counters.get("gat.heads") == heads
+          and rec.counters.get("gat.head_copy_bytes") == copy, "the step's head spans or counters")
+    check(c["B2"] == heads * parts and c["B3"] == heads * parts and c["B4"] == heads * parts,
+          "B2, B3, B4 not once a head a part in a step")
+    t0 = time.perf_counter()
+    edges = ref_common.Edges(src=g_src, dst=g_dst, num_nodes=n)
+    loss64, grads64 = ref_heads.forward_backward(cfg, edges, h0, labels, w0)
+    ref_s = time.perf_counter() - t0
+    rels = [rel_l2(a, b) for a, b in zip(grads, grads64)]
+    log(f"  loss {loss:.9f}, float64 reference {float(loss64):.9f} ({ref_s:.1f} s); gradients' relative L2 {rels}")
+    check(abs(loss - float(loss64)) <= 1e-6 * abs(float(loss64)), "the first step's loss off the float64 reference")
+    check(max(rels[0::2]) <= HEADS_W_REL_L2, "a projection's gradient off the float64 reference")
+    check(max(rels[1::2]) <= HEADS_A_REL_L2, "an attention vector's gradient off the float64 reference")
+    del edges, grads64, g_dst, g_src
+    torch.cuda.empty_cache()
+    reset_counts()
+    losses = [step((h0,), labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    c = counts()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), "the published GAT's training loss not finite")
+    check(c["B2"] == c["B3"] == c["B4"] == TRAIN_STEPS * heads * parts, "B2, B3, B4 not once a head a part a step")
+    step_ms = cuda_time_ms(lambda: step((h0,), labels))
+    log(f"  {TRAIN_STEPS} steps: losses {losses}, launches {c}; step {step_ms:.3f} ms, "
+        f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    out.update(step_launches=c, losses=losses, step_ms=step_ms, rel_l2=rels, reference_s=ref_s,
+               first_loss=loss, first_loss_f64=float(loss64))
+    print(json.dumps({"heads": out}, default=float), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -5761,6 +5898,8 @@ def main() -> int:
         eb = entry_bench_phase(dev, g, gen)
         torch.cuda.empty_cache()
         r1 = residual_phase(dev)
+        torch.cuda.empty_cache()
+        heads_phase(dev)
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
         torch.cuda.empty_cache()

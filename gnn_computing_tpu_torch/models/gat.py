@@ -8,6 +8,15 @@ or, over a bare AggregationPlan, ``ops.gat.gat_aggregate``.  There is no
 nonlinearity between layers beyond the softmax-weighted aggregation, as in
 the reference's our.py.  The benchmark model is the 3-layer
 512 -> 128 -> 64 -> 32 stack.
+
+The published multi-head GAT (Velickovic et al., ICLR 2018, section 3.3)
+is ``gat_heads_forward``: each layer projects once to [n, heads * f_out]
+(``GATHeadsLayerParams``), each head attends over its own slice with its
+own attention halves through ``Aggregator.run_gat``, hidden layers
+concatenate the heads, add their input where the layer has a skip and
+apply ELU, and the output layer averages its heads.  ``gat_layer``'s
+[heads, f_out, 2] attention weight is the JAX package's form instead: every
+head attends over one shared feat2.
 """
 
 from __future__ import annotations
@@ -16,11 +25,12 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gnn_computing_tpu_torch.device import resolve_device
 from gnn_computing_tpu_torch.ops.gat import DEFAULT_SLOPE, gat_aggregate
-from gnn_computing_tpu_torch.utils.profiling import span
+from gnn_computing_tpu_torch.utils.profiling import count, span
 
 BENCH_DIMS = (512, 128, 64, 32)
 
@@ -83,6 +93,74 @@ def gat_forward(
                     h_gather_dtype="f16_split2" if p.w.shape[-1] <= 64 else None,
                 )
             h = gat_layer(agg, h, p, relu_slope=relu_slope, stabilize=stabilize, dot_mode=dot_mode, **kw)
+        return h
+
+
+class GATHeadsLayerParams(NamedTuple):
+    w: torch.Tensor  # [f_in, heads * f_out]: every head's projection side by side
+    a: torch.Tensor  # [heads, f_out, 2]: each head's (dst half, src half)
+
+
+def gat_heads_layer(
+    agg,
+    h: torch.Tensor,
+    p: GATHeadsLayerParams,
+    output: bool,
+    skip: bool = False,
+    layer: int = 0,
+    relu_slope: float = DEFAULT_SLOPE,
+    stabilize=False,
+) -> torch.Tensor:
+    """One published multi-head GAT layer over a hybrid or gather
+    Aggregator: z = h @ W in one GEMM, then head k aggregates its slice
+    z[:, k f_out:(k + 1) f_out] with att_k = z_k @ a_k.  A hidden layer
+    (``output`` False) concatenates the heads ([n, heads * f_out]), adds
+    ``h`` where ``skip`` (an identity skip: the widths must agree) and
+    applies ELU; the output layer averages the heads ([n, f_out]).
+
+    The kernels read a head's rows contiguously, so the heads' slices are
+    copied once into [heads, n, f_out] (counter ``gat.head_copy_bytes``).
+    Spans: ``gnn.gat.head`` (``layer``, ``head``, ``f``) around each head's
+    aggregation, ``gnn.gat.merge`` around the merge, skip and ELU; counter
+    ``gat.heads``.  The heads run the exact score and float32 residual
+    rows: no gather mode of ``gat_forward``'s ``fast``."""
+    heads, f = p.a.shape[0], p.a.shape[1]
+    n = h.shape[0]
+    z = h @ p.w
+    zh = z.view(n, heads, f).transpose(0, 1).contiguous()
+    count("gat.heads", heads)
+    count("gat.head_copy_bytes", zh.numel() * zh.element_size())
+    att = torch.bmm(zh, p.a)  # [heads, n, 2]
+    outs = []
+    for k, (zk, ak) in enumerate(zip(zh.unbind(0), att.unbind(0))):
+        with span("gnn.gat.head", layer=layer, head=k, f=f):
+            outs.append(agg.run_gat(zk, ak, relu_slope=relu_slope, stabilize=stabilize))
+    with span("gnn.gat.merge"):
+        if output:
+            return torch.stack(outs).mean(dim=0)
+        out = torch.cat(outs, dim=1)
+        if skip:
+            out = out + h
+        return F.elu(out)
+
+
+def gat_heads_forward(
+    agg,
+    params: Sequence[GATHeadsLayerParams],
+    h: torch.Tensor,
+    skip: Sequence[bool],
+    relu_slope: float = DEFAULT_SLOPE,
+    stabilize=False,
+) -> torch.Tensor:
+    """The published multi-head GAT: ``gat_heads_layer`` per layer, every
+    layer but the last hidden, ``skip[i]`` the identity skip of layer i.
+    Recorded as the span ``gnn.forward``."""
+    if len(skip) != len(params):
+        raise ValueError(f"one skip flag a layer: {len(skip)} for {len(params)} layers")
+    with span("gnn.forward"):
+        for i, p in enumerate(params):
+            h = gat_heads_layer(agg, h, p, output=i == len(params) - 1, skip=skip[i], layer=i,
+                                relu_slope=relu_slope, stabilize=stabilize)
         return h
 
 
