@@ -490,6 +490,21 @@ Phases (any failure exits non-zero; nothing is caught):
      float64 reference (portbench/reference/gat_heads.py), TRAIN_STEPS steps
      with B2, B3 and B4 once a head a part and a finite loss, and the step's
      time; a "heads" JSON line.
+ 61. B1's staged walk (csrc/cell_walk.cuh: stage_kernel) at the quick
+     scale, on the int8 parts of the benchmark's reddit plans (RMAT seed
+     123, degree sorted; the training plan [256, 256] t24 and its
+     transpose, the forward plan [512, 256] t48; split into 1-bit and int8
+     parts before pad_runs(16)): at f = 128, 64, 32, 121 (the scalar path)
+     and 256 (two f-slices), B1 and, at f <= 128, its w_epilogue with the
+     plans' staged chunks (cell_walk.STAGE_K) staged (the launch's rule,
+     cell_walk.stages, set to stage) bitwise equal to the same chunks
+     walked by gathers (set not to), and the plan's own launch (the rule:
+     here too few staged blocks to fill the card, so the gather walk)
+     bitwise the same, one launch a call, and within KERNEL_TOL of the plain
+     version; the ms of the three (CUDA events) at f = 128, 64, 32; under a
+     recording, walk.staged_cells and walk.cells a staged launch as the work
+     list counts them, and 0 staged cells over the 1-bit parts; a "staged"
+     JSON line.
  21. (printed last) a "float_gat" JSON line, a "modes" JSON line (phases
      34-36: the ablation's times, the rescues, the 'default' off-gate
      share, losses and gradient errors, the probe's runs), the "reorder"
@@ -516,7 +531,7 @@ on the card, not the training path), REDDIT_STEPS steps with B1 at 12
 launches a step (6 1-bit) and a finite loss, and the step's time; and
 phases 40-43 by the gather GCN forward over the reddit graph's NG plan (B
 = 32, spmm_plain in chunks of CHUNK_SLOTS slots), phase 3's gates, its time
-and peak memory; phases 44-46 by phase 47; phases 48-60 run at the quick
+and peak memory; phases 44-46 by phase 47; phases 48-61 run at the quick
 scale only.
 
 Launch counts: every count is set to 0 just before a path is driven and
@@ -3505,6 +3520,10 @@ def probe_phase(g, gen) -> dict:
         p1 = lambda: cuda_residual.task_sums_cuda(plan, h)  # noqa: E731
         p2 = lambda: cuda_residual.fused_hybrid_cuda(tp, plan, x, h)  # noqa: E731
         b1 = lambda: cuda_bcsr.bcsr_spmm_cuda(tp, x)  # noqa: E731
+        # B1 walks the plan's staged chunks with stage_kernel where it stages them, any others with walk_kernel
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        staging = cell_walk.stageable(tp) and cell_walk.stages(cell_walk.walk_for(tp), PROBE_F, sms)
+        b1_kernel = ("stage_kernel",) if staging else ("walk_kernel",)
         t = dict(
             P1=two_clocks(p1, expect=("task_sums_kernel",)),
             P1_plain=two_clocks(lambda: weighted_task_sums(plan, h, plan.val)),
@@ -3513,8 +3532,8 @@ def probe_phase(g, gen) -> dict:
             ),
             residual_spmm_plain=two_clocks(lambda: spmm_plain(plan, h)),
             P2_plain=two_clocks(lambda: probe.fused_hybrid_plain(tp, plan, h)),
-            B1=two_clocks(b1, expect=("walk_kernel",)),
-            B1_then_P1=two_clocks(lambda: (b1(), p1()), expect=("walk_kernel", "task_sums_kernel")),
+            B1=two_clocks(b1, expect=b1_kernel),
+            B1_then_P1=two_clocks(lambda: (b1(), p1()), expect=b1_kernel + ("task_sums_kernel",)),
             B1_then_spmm_plain=two_clocks(lambda: (b1(), spmm_plain(plan, h))),
         )
         t["P2"] = two_clocks(p2, expect=("fused_hybrid_kernel",))
@@ -5718,6 +5737,73 @@ def heads_phase(dev) -> dict:
     return out
 
 
+def staged_phase(dev) -> dict:
+    """Phase 61: B1's staged walk against its gather walk on the same chunk
+    cuts, at the quick scale (module doc)."""
+    log("phase 61: B1's staged walk at the quick scale: bitwise its gather walk, both timed")
+    n, m = SCALES["quick"]
+    t0 = time.perf_counter()
+    g = rmat_graph(n, m, seed=123, with_val=False)
+    g = g.reorder(degree_sort(g))
+    bits_t, train = split_bit_tiles(densify(g, dtype=np.int8, **TRAIN_SCHEDULE)[0])
+    bits_f, fwd = split_bit_tiles(densify(g, dtype=np.int8, **SCHEDULE)[0])
+    plans = {"training int8 [256, 256] t24": train.pad_runs(16).to(dev),
+             "its transpose": train.transpose().pad_runs(16).to(dev),
+             "forward int8 [512, 256] t48": fwd.pad_runs(16).to(dev)}
+    bits = {"training 1-bit": bits_t.pad_runs(16).to(dev), "forward 1-bit": bits_f.pad_runs(16).to(dev)}
+    log(f"  plans built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rule = {"staged": lambda real: lambda *a: True, "gather": lambda real: lambda *a: False,
+            "own": lambda real: real}
+    rows = []
+    with torch.no_grad():
+        for label, tp in plans.items():
+            w = cell_walk.walk_for(tp)
+            check(w.num_staged > 0, f"{label}: no chunk staged")
+            row = dict(plan=label, chunks=w.num_chunks, staged_chunks=w.num_staged, staged_tiles=w.num_stage_tiles,
+                       staged_cells=w.staged_cells, cells=w.total_cells, ms={}, own_stages={})
+            for f in (128, 64, 32, 121, 256):
+                h = torch.randn((tp.n_src, f), generator=gen, device=dev)
+                wt = torch.randn((f, BENCH_DIMS[3]), generator=gen, device=dev) * 0.1
+                outs, ms = {}, {}
+                for path, wrap in rule.items():
+                    with patched(cell_walk, "stages", wrap):
+                        before = cuda_bcsr.launches
+                        outs[path] = [cuda_bcsr.bcsr_spmm_cuda(tp, h)]
+                        check(cuda_bcsr.launches == before + 1, f"{label} f={f} {path}: B1 not launched once")
+                        if f <= 128:
+                            outs[path] += list(bcsr_spmm_nn(tp, h, wt))
+                        if f in BENCH_DIMS[1:]:
+                            ms[path] = cuda_time_ms(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, h))
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) and torch.equal(a, c)
+                          for a, b, c in zip(outs["staged"], outs["gather"], outs["own"])),
+                      f"{label} f={f}: the staged walk differs from the gather walk")
+                want = bcsr_spmm_plain(tp, h)
+                compare(outs["staged"][0], want, f"{label} f={f} staged B1", gate=False)
+                row["own_stages"][f] = cell_walk.stages(w, f, sms)
+                if ms:
+                    row["ms"][f] = ms
+                    log(f"  {label} f={f}: staged {ms['staged']:.3f} ms, gather {ms['gather']:.3f} ms, "
+                        f"own launch {ms['own']:.3f} ms ({'staged' if row['own_stages'][f] else 'gather'})")
+            with profiling.recording() as rec, patched(cell_walk, "stages", rule["staged"]):
+                cuda_bcsr.bcsr_spmm_cuda(tp, torch.randn((tp.n_src, 32), generator=gen, device=dev))
+            read = (rec.counters.get("walk.staged_cells"), rec.counters.get("walk.cells"))
+            check(read == (w.staged_cells, w.total_cells), f"{label}: the walk counters do not read the work list")
+            rows.append(row)
+            log(f"  {label}: {w.num_staged} of {w.num_chunks} chunks staged, {w.staged_cells} of {w.total_cells} "
+                f"cells; bitwise equal at f = 128, 64, 32, 121, 256")
+        for label, tp in bits.items():
+            with profiling.recording() as rec:
+                cuda_bcsr.bcsr_spmm_cuda(tp, torch.randn((tp.n_src, 32), generator=gen, device=dev))
+            check(rec.counters.get("walk.staged_cells") == 0 and rec.counters.get("walk.cells", 0) > 0,
+                  f"{label}: a 1-bit part staged cells")
+    torch.cuda.synchronize()
+    print(json.dumps({"staged": rows}), flush=True)
+    return {"plans": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", choices=sorted(SCALES), default="quick")
@@ -5900,6 +5986,8 @@ def main() -> int:
         r1 = residual_phase(dev)
         torch.cuda.empty_cache()
         heads_phase(dev)
+        torch.cuda.empty_cache()
+        staged_phase(dev)
     else:
         reddit_train = bits_train_reddit_phase(g, h0)
         torch.cuda.empty_cache()

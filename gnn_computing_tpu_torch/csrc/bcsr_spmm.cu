@@ -19,13 +19,18 @@
 // products) and an f32 tile its 'native' HIGHEST dot.
 //
 // Design: the cell walk (csrc/cell_walk.cuh, shared with B2), with its
-// SumCells as the cell policy: a nonzero cell's weight is its value, no
-// den, no post-scale.  Only the nonzero cells are touched (a warp
+// StagedSumCells as the cell policy: a nonzero cell's weight is its value,
+// no den, no post-scale.  Only the nonzero cells are touched (a warp
 // compacts each tile row's cells and gathers one H row slice per cell), and
 // a run's tiles are cut into chunks bounded in nonzero cells (the plan's
 // work list, ops/cell_walk.py), so the hub run is spread over many blocks;
 // each tile's partial joins its chunk's sum, and a run's chunk partials
-// are added in chunk order by the walk's finish pass.  No atomics.
+// are added in chunk order by the walk's finish pass.  No atomics.  Over
+// int8 tiles the list's dense chunks take the staged walk (cell_walk.cuh):
+// each live tile's H column block is loaded into shared memory once, for
+// all the rows of a 256-row block, in place of one gather a cell, and its
+// cells come from the plan's list in place of each launch's decode; the
+// sums and their order are the same, so the output is bitwise the same.
 //
 // w_epilogue (bcsr_spmm_nn_*): with W [f, f_out] the launch also writes
 // trans = agg @ W, the reference's fused aggregate+GEMM (pallas_bcsr.py:
@@ -56,7 +61,7 @@
 namespace {
 
 using cell_walk::Args;
-using cell_walk::SumCells;
+using cell_walk::StagedSumCells;
 using cell_walk::Work;
 
 constexpr int kThreads = 256;  // 16 x 16 threads
@@ -80,7 +85,7 @@ epilogue_kernel(const Args p, const Work wk, const float* __restrict__ w, const 
   const int f = p.f;
   const int kb = wk.run_chunk[run];
   const int nk = wk.run_chunk[run + 1] - kb;
-  const int64_t stride = cell_walk::slot_floats<SumCells>(p.R, f);
+  const int64_t stride = cell_walk::slot_floats<StagedSumCells>(p.R, f);
   const float* s0 = nk > 1 ? p.scratch + wk.chunk_slot[kb] * stride : nullptr;
 #pragma unroll
   for (int m = 0; m < kTM; ++m) {
@@ -162,26 +167,29 @@ Args make_args(const void* a, const void* tile_col, const void* h, void* out, vo
 
 template <class Fmt>
 int launch(const void* a, const void* tile_col, const void* work, const void* h, void* out, void* scratch,
-           int num_chunks, int num_multi, int num_row_tiles, int R, int C, int n, int n_src, int f, int device,
-           void* stream) {
+           int num_chunks, int num_multi, int num_staged, int num_stage_tiles, int num_row_tiles, int R, int C, int n,
+           int n_src, int f, int device, void* stream) {
   if (f == 0) return 0;
-  return cell_walk::launch<Fmt, SumCells>(make_args(a, tile_col, h, out, scratch, R, C, n, n_src, f),
-                                          static_cast<const int32_t*>(work), num_chunks, num_multi,
-                                          num_row_tiles, device, stream);
+  return cell_walk::launch<Fmt, StagedSumCells>(make_args(a, tile_col, h, out, scratch, R, C, n, n_src, f),
+                                                static_cast<const int32_t*>(work), num_chunks, num_multi,
+                                                num_row_tiles, device, stream, num_staged, num_stage_tiles);
 }
 
 template <class Fmt>
 int launch_nn(const void* a, const void* tile_col, const void* work, const void* h, const void* w,
               const void* scale_dst, void* out, void* trans, void* scratch, int num_chunks, int num_multi,
-              int num_row_tiles, int R, int C, int n, int n_src, int f, int f_out, int device, void* stream) {
+              int num_staged, int num_stage_tiles, int num_row_tiles, int R, int C, int n, int n_src, int f,
+              int f_out, int device, void* stream) {
   if (f > kMaxEpiF) return static_cast<int>(cudaErrorInvalidValue);
   if (num_row_tiles == 0 || n == 0 || f == 0 || f_out == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Args p = make_args(a, tile_col, h, out, scratch, R, C, n, n_src, f);
-  const Work wk(static_cast<const int32_t*>(work), num_chunks, num_multi, num_row_tiles);
+  const int32_t* list = static_cast<const int32_t*>(work);
+  const Work wk(list, num_chunks, num_multi, num_row_tiles);
+  const cell_walk::Stage st(list, num_chunks, num_multi, num_row_tiles, num_staged, num_stage_tiles, R);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = cell_walk::launch_walk<Fmt, SumCells>(p, wk, s);
+  const int err = cell_walk::launch_walk_staged<Fmt, StagedSumCells>(p, wk, st, s);
   if (err != 0) return err;
   const int slabs = (R + kBR - 1) / kBR;
   const dim3 grid(num_row_tiles * slabs), block(kThreads);
@@ -199,25 +207,28 @@ int launch_nn(const void* a, const void* tile_col, const void* work, const void*
 
 }  // namespace
 
-// work: the plan's work list (ops/cell_walk.py), num_chunks / num_multi its
-// sizes; scratch: its chunk partials (null when no run has two chunks)
+// work: the plan's work list (ops/cell_walk.py), num_chunks / num_multi /
+// num_staged / num_stage_tiles its sizes (K, M, S, L); scratch: its chunk
+// partials (null when no run has two chunks)
 #define BCSR_SPMM_ENTRY(tag, Fmt, check)                                                                     \
   extern "C" int bcsr_spmm_##tag##_f32(const void* a, const void* tile_col, const void* work, const void* h, \
                                        void* out, void* scratch, int num_chunks, int num_multi,            \
-                                       int num_row_tiles, int R, int C, int n, int n_src, int f, int device, \
-                                       void* stream) {                                                     \
+                                       int num_staged, int num_stage_tiles, int num_row_tiles, int R, int C, \
+                                       int n, int n_src, int f, int device, void* stream) {                \
     if (check) return static_cast<int>(cudaErrorInvalidValue);                                             \
-    return launch<Fmt>(a, tile_col, work, h, out, scratch, num_chunks, num_multi, num_row_tiles, R, C, n,    \
-                       n_src, f, device, stream);                                                          \
+    return launch<Fmt>(a, tile_col, work, h, out, scratch, num_chunks, num_multi, num_staged,              \
+                       num_stage_tiles, num_row_tiles, R, C, n, n_src, f, device, stream);                 \
   }                                                                                                        \
   extern "C" int bcsr_spmm_nn_##tag##_f32(const void* a, const void* tile_col, const void* work,           \
                                           const void* h, const void* w, const void* scale_dst, void* out,   \
                                           void* trans, void* scratch, int num_chunks, int num_multi,       \
-                                          int num_row_tiles, int R, int C, int n, int n_src, int f,        \
-                                          int f_out, int device, void* stream) {                           \
+                                          int num_staged, int num_stage_tiles, int num_row_tiles, int R,   \
+                                          int C, int n, int n_src, int f, int f_out, int device,           \
+                                          void* stream) {                                                  \
     if (check) return static_cast<int>(cudaErrorInvalidValue);                                             \
     return launch_nn<Fmt>(a, tile_col, work, h, w, scale_dst, out, trans, scratch, num_chunks, num_multi,   \
-                          num_row_tiles, R, C, n, n_src, f, f_out, device, stream);                        \
+                          num_staged, num_stage_tiles, num_row_tiles, R, C, n, n_src, f, f_out, device,    \
+                          stream);                                                                         \
   }
 
 // 1-bit tiles need R % 8 == 0

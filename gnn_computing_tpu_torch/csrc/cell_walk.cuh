@@ -62,8 +62,35 @@
 // vote, and where it holds cells a ballot scan and a dependent L2 gather
 // before the next.  Left on the table: a warp walks one row, ~2 cells a
 // tile on average; an index of each tile's nonzero rows, built once per
-// plan, would skip the empty rows without reading them; H rows are
-// gathered once per cell, not shared between the rows of a block.
+// plan, would skip the empty rows without reading them.
+//
+// The staged walk (B1 only: a policy with kStage, over int8 tiles).  In a
+// dense tile the gathers repeat: a [256, 256] tile of 4,096 cells gathers
+// 4,096 H row slices of its 256 distinct source rows; and every tile row is
+// decoded, an empty one too, at each launch.  So the work list marks the
+// chunks whose live tiles hold at least STAGE_K * C cells each on average,
+// and lists their live tiles' nonzero cells once per plan, row by row in
+// column order (ops/cell_walk.py: stage_cells), and B1 walks them with
+// stage_kernel: a block of kStageWarps<KPL> warps owns 256 rows of one
+// staged chunk, kStageRowsPerWarp<KPL> a warp, and walks the chunk's live
+// tiles (its all-zero fillers skipped).  It copies each tile's C source
+// rows of H (the block's f-slice) into a shared-memory ring of kUnits units
+// with cp.async, kUnitFloats floats a unit, so the next units load while
+// this tile's cells are summed; each warp reads its rows' cells from the
+// list (a row without one costs two loads) and adds each cell's weight
+// times its H row slice from the ring with the same fmaf, in the same
+// column order, into the tile's partial, the partial then added to the
+// row's sum.  Same chunks, same order: the output is bitwise the gather
+// walk's.  The other chunks run walk_block from a second grid over the
+// list of them (walk_list_kernel): a grid has one block size and one
+// shared-memory size, and the ring's 192 KB would leave the gather blocks
+// one block an SM.  For the same reason a launch stages the chunks only
+// where their blocks fill the card several times over (ops/cell_walk.py:
+// stages); in a wave or two the last one leaves SMs idle.  What bounds
+// the staged walk: shared-memory reads, f * 4 bytes a cell (128 B a cycle
+// an SM), and the ring's copies, C * f * 4 bytes a tile and row group: at
+// the reddit forward plan's int8 part, f = 128, about a third of its time
+// on the H100 (PERF.md, B1).
 
 #pragma once
 
@@ -93,6 +120,8 @@ constexpr int kFinishThreads = 256;
 //   float stage_h(x)            a gathered H value as the mode rounds it
 //   post(rows, i, us)           row i's post-scales us[b]
 //   kSplit, kShared             optional switches (above), default false
+//   kStage                      optional, default false: the launch walks the
+//                               plan's staged chunks with stage_kernel (B1)
 
 template <class C, class = void>
 struct split_of : std::false_type {};
@@ -102,6 +131,10 @@ template <class C, class = void>
 struct shared_of : std::false_type {};
 template <class C>
 struct shared_of<C, std::void_t<decltype(C::kShared)>> : std::bool_constant<C::kShared> {};
+template <class C, class = void>
+struct stage_of : std::false_type {};
+template <class C>
+struct stage_of<C, std::void_t<decltype(C::kStage)>> : std::bool_constant<C::kStage> {};
 
 // B1's policy (csrc/bcsr_spmm.cu; P2's, csrc/fused_hybrid.cu, with a
 // post-scale): a cell's weight is its value (a count, or a float tile's
@@ -118,6 +151,11 @@ struct SumCells {
   static __device__ __forceinline__ float stage_w(float w) { return w; }
   static __device__ __forceinline__ float stage_h(float x) { return x; }
   static __device__ __forceinline__ void post(const float* rows, int64_t i, float* us) { us[0] = 1.f; }
+};
+
+// B1's own: SumCells with the staged walk (P2 keeps SumCells' gather walk)
+struct StagedSumCells : SumCells {
+  static constexpr bool kStage = true;
 };
 
 // The launch's operands.
@@ -154,6 +192,28 @@ struct Work {
   Work(const int32_t* w, int K, int M, int nrt)
       : chunk_run(w), chunk_tile(w + K), chunk_slot(w + 2 * K + 1), run_chunk(w + 3 * K + 1),
         multi_run(w + 3 * K + nrt + 2), num_chunks(K), num_multi(M) {}
+};
+
+// B1's part of the work list, after Work's arrays:
+//   stage_chunk[S] | stage_start[S + 1] | stage_tile[L] | gather_chunk[K - S] |
+//   stage_row[L * R + 1] | stage_cells[N]
+// staged chunk s walks the live tiles stage_tile[stage_start[s] ..
+// stage_start[s + 1]] of chunk stage_chunk[s]; gather_chunk lists the
+// other chunks.  Row i of the l-th staged tile holds the cells
+// stage_cells[stage_row[l * R + i] .. stage_row[l * R + i + 1]], in
+// ascending column order, each its column | its weight's float32 bits above
+// the lower 16 (ops/cell_walk.py: stage_cells).
+struct Stage {
+  const int32_t* chunk;
+  const int32_t* start;
+  const int32_t* tile;
+  const int32_t* gather;
+  const int32_t* row;
+  const int32_t* cells;
+  int num, num_gather;
+  Stage(const int32_t* w, int K, int M, int nrt, int S, int L, int R)
+      : chunk(w + 3 * K + nrt + 2 + M), start(chunk + S), tile(start + S + 1), gather(tile + L),
+        row(gather + K - S), cells(row + static_cast<int64_t>(L) * R + 1), num(S), num_gather(K - S) {}
 };
 
 // Floats of one scratch slot: num [NB][R][f], then den [NB][R], rounded up
@@ -521,6 +581,261 @@ __global__ void __launch_bounds__(kFinishThreads) finish_kernel(const Args p, co
     p.den[grow] = o;
 }
 
+// ------------------------------------------------------------ the staged walk
+// a staged block: kStageWarps warps of kStageRowsPerWarp rows each, 256 rows
+// (registers: KPL features of every row a lane, 64 at KPL = 4)
+template <int KPL>
+constexpr int kStageWarps = KPL == 4 ? 16 : 32;
+template <int KPL>
+constexpr int kStageRowsPerWarp = KPL == 4 ? 16 : 8;
+template <int KPL>
+constexpr int kStageRows = kStageWarps<KPL> * kStageRowsPerWarp<KPL>;
+constexpr int kUnitFloats = 8192;                     // a ring unit: 32 KB of H rows
+constexpr int kUnits = 6;                             // the ring's units
+constexpr int kStageSmem = kUnits * kUnitFloats * 4;  // the ring: 192 KB
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// until at most n of this thread's copy groups are pending
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  static_assert(kUnits <= 8, "one case per pending count below kUnits");
+  switch (n) {
+    case 7: cp_async_wait<7>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
+  }
+}
+
+// x[m] = q[m], q a shared-memory address aligned to KPL floats
+template <int KPL>
+__device__ __forceinline__ void lds(const float* q, float (&x)[KPL]) {
+  if constexpr (KPL == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(q);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (KPL == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(q);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = *q;
+  }
+}
+
+// One block of the staged walk: staged chunk blockIdx.x / groups, its
+// kStageRows rows from (blockIdx.x % groups) * kStageRows, f-slice
+// blockIdx.y.  Warp w owns rows w + q * kStageWarps, q < kStageRowsPerWarp.
+//
+// The ring's units, in order: unit u holds rows (u % nsplit) * CS .. + CS
+// of live tile u / nsplit's H column block (CS rows of the slice's FS
+// floats fill a unit), in ring slot u % kUnits, so a tile's C rows lie at
+// consecutive ring rows, modulo the ring.  Each thread commits one copy
+// group a unit, kUnits ahead of the tile being summed (an empty group past
+// the last unit), so before tile i every thread waits until at most kUnits
+// - nsplit groups are pending.
+//
+// A warp takes its rows one at a time, from the plan's cell list (Stage):
+// 32 cells at a time, one a lane, each turned into its ring offset beside
+// its weight's upper 16 bits; then each cell in turn, broadcast from its
+// lane, adds its weight times its row slice of H from the ring (KPL
+// features a lane) into the row's tile partial, one fmaf a feature, in
+// list order.  The first 32 cells of the warp's rows in the next tile, and
+// the row bounds of the tile after it, load while this tile is summed.
+template <int KPL, class Cells>
+__global__ void __launch_bounds__(32 * kStageWarps<KPL>, 1) stage_kernel(const Args p, const Work wk, const Stage st,
+                                                                        int groups) {
+  static_assert(Cells::NB == 1 && !Cells::kDen, "the staged walk sums one branch and no den");
+  static_assert(kUnits * kUnitFloats <= 65536, "a ring offset fits 16 bits");
+  constexpr int FS = 32 * KPL;          // features of an f-slice
+  constexpr int CS = kUnitFloats / FS;  // H rows a unit
+  constexpr int RING = kUnits * CS;     // H rows the ring holds
+  constexpr int NW = kStageWarps<KPL>, RW = kStageRowsPerWarp<KPL>, NT = 32 * NW;
+  static_assert(RW <= 32, "a lane holds one row's bounds");
+  extern __shared__ __align__(16) float stage_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* ring_lane = stage_smem + lane * KPL;
+  const int s = blockIdx.x / groups;
+  const int r0 = (blockIdx.x % groups) * kStageRows<KPL> + warp;  // row q of the warp: r0 + q * NW
+  const int k = st.chunk[s];
+  const int run = wk.chunk_run[k];
+  const int tb = st.start[s], nt = st.start[s + 1] - tb;
+  const int C = p.C;
+  const int nsplit = (C + CS - 1) / CS;
+  const int units = nt * nsplit;
+  const int f0 = blockIdx.y * FS;
+  const int fw = min(FS, p.f - f0);  // features of this slice
+  const bool vec = p.f % 4 == 0 && reinterpret_cast<uintptr_t>(p.h0) % 16 == 0;
+  const int64_t grow0 = static_cast<int64_t>(run) * p.R;
+
+  const auto copy_unit = [&](int u) {
+    if (u < units) {
+      const int c0 = u % nsplit * CS;
+      const int64_t src0 = static_cast<int64_t>(p.tile_col[st.tile[tb + u / nsplit]]) * C + c0;
+      // columns at or past n_src hold no edge: their rows are never read
+      const int64_t left = p.n_src - src0;
+      const int rows = left < min(CS, C - c0) ? static_cast<int>(left) : min(CS, C - c0);
+      float* dst = stage_smem + u % kUnits * kUnitFloats;
+      const float* src = p.h0 + src0 * p.f + f0;
+      if (vec && fw == FS) {  // whole rows of the slice: FS / 4 16-byte copies a row
+        constexpr int Q4 = FS / 4;
+        for (int e = threadIdx.x; e < rows * Q4; e += NT) {
+          const int r = e / Q4, q = e % Q4;
+          cp_async16(dst + r * FS + 4 * q, src + static_cast<int64_t>(r) * p.f + 4 * q);
+        }
+      } else if (vec) {
+        const int q4 = fw / 4;
+        for (int e = threadIdx.x; e < rows * q4; e += NT) {
+          const int r = e / q4, q = e - r * q4;
+          cp_async16(dst + r * FS + 4 * q, src + static_cast<int64_t>(r) * p.f + 4 * q);
+        }
+      } else {
+        for (int e = threadIdx.x; e < rows * fw; e += NT) {
+          const int r = e / fw, q = e - r * fw;
+          cp_async4(dst + r * FS + q, src + static_cast<int64_t>(r) * p.f + q);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // the warp's rows of the l-th staged tile: lane q < RW gets row q's list
+  // bounds [beg, end)
+  const auto load_bounds = [&](int l, int& beg, int& end) {
+    const int r = r0 + lane * NW;
+    beg = end = 0;
+    if (lane < RW && r < p.R) {
+      const int64_t at = static_cast<int64_t>(l) * p.R + r;
+      beg = st.row[at];
+      end = st.row[at + 1];
+    }
+  };
+  // v[q]: row q's cell at beg + lane (0 past end), for those bounds
+  const auto load_cells = [&](int beg, int end, int (&v)[RW]) {
+#pragma unroll
+    for (int q = 0; q < RW; ++q) {
+      const int b = __shfl_sync(tile_cells::kFull, beg, q), e = __shfl_sync(tile_cells::kFull, end, q);
+      v[q] = b + lane < e ? st.cells[b + lane] : 0;
+    }
+  };
+  // cell e's ring offset (16 bits) beside its weight's upper 16 bits
+  const auto packed = [&](int v, int base) {
+    int row = base + (v & 0xffff);
+    row -= row >= RING ? RING : 0;
+    return row * FS | (v & static_cast<int>(0xffff0000u));
+  };
+
+  for (int u = 0; u < kUnits; ++u) copy_unit(u);
+  // the next tile's bounds and first cells, and the bounds of the one after
+  int nbeg = 0, nend = 0, nv[RW], bb = 0, be = 0;
+  if (nt > 0) {
+    load_bounds(tb, nbeg, nend);
+    load_cells(nbeg, nend, nv);
+  }
+  if (nt > 1) load_bounds(tb + 1, bb, be);
+  float acc[RW][KPL];
+#pragma unroll
+  for (int q = 0; q < RW; ++q)
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) acc[q][m] = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    const int beg = nbeg, end = nend;
+    int v0[RW];
+#pragma unroll
+    for (int q = 0; q < RW; ++q) v0[q] = nv[q];
+    if (i + 1 < nt) {
+      load_cells(bb, be, nv);
+      nbeg = bb;
+      nend = be;
+      if (i + 2 < nt) load_bounds(tb + i + 2, bb, be);
+    }
+    const int base = i * nsplit % kUnits * CS;  // the ring row of the tile's column 0
+    cp_async_wait_upto(kUnits - nsplit);
+    __syncthreads();  // every thread's copies of tile i landed
+#pragma unroll
+    for (int q = 0; q < RW; ++q) {
+      const int b = __shfl_sync(tile_cells::kFull, beg, q), e = __shfl_sync(tile_cells::kFull, end, q);
+      if (b == e) continue;  // a tile row without a cell
+      float part[KPL];
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) part[m] = 0.f;
+      for (int c0 = b; c0 < e; c0 += 32) {
+        const int pk = packed(c0 == b ? v0[q] : c0 + lane < e ? st.cells[c0 + lane] : 0, base);
+        const int n = min(32, e - c0);
+        int j = 0;
+        for (; j + 4 <= n; j += 4) {  // four cells' loads in flight, summed in column order
+          float x[4][KPL];
+          int w[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            w[g] = __shfl_sync(tile_cells::kFull, pk, j + g);
+            lds<KPL>(ring_lane + (w[g] & 0xffff), x[g]);
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int m = 0; m < KPL; ++m)
+              part[m] = fmaf(Cells::stage_w(__int_as_float(w[g] & static_cast<int>(0xffff0000u))),
+                             Cells::stage_h(x[g][m]), part[m]);
+        }
+        for (; j < n; ++j) {
+          float x[KPL];
+          const int w = __shfl_sync(tile_cells::kFull, pk, j);
+          lds<KPL>(ring_lane + (w & 0xffff), x);
+#pragma unroll
+          for (int m = 0; m < KPL; ++m)
+            part[m] = fmaf(Cells::stage_w(__int_as_float(w & static_cast<int>(0xffff0000u))), Cells::stage_h(x[m]),
+                           part[m]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) acc[q][m] += part[m];
+    }
+    __syncthreads();  // tile i's ring slots read by every warp
+    for (int j = 0; j < nsplit; ++j) copy_unit(kUnits + i * nsplit + j);
+  }
+  cp_async_wait<0>();
+
+  const int slot = wk.chunk_slot[k];
+  const int k0 = f0 + lane * KPL;
+#pragma unroll
+  for (int q = 0; q < RW; ++q) {
+    const int r = r0 + q * NW;
+    const int64_t grow = grow0 + r;
+    if (r >= p.R || grow >= p.n) continue;
+    if (slot < 0) {  // the run's only chunk: the finished row
+      float us[1], o[KPL];
+      Cells::post(p.rows, grow, us);
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) o[m] = us[0] * acc[q][m];
+      store<KPL>(p.num + grow * p.f, k0, p.f, o);
+    } else {
+      store<KPL>(p.scratch + slot * slot_floats<Cells>(p.R, p.f) + static_cast<int64_t>(r) * p.f, k0, p.f, acc[q]);
+    }
+  }
+}
+
+// walk_block over the chunks a list names (the gather chunks beside a
+// staged walk)
+template <int KPL, class Fmt, class Cells>
+__global__ void __launch_bounds__(kThreads) walk_list_kernel(const Args p, const Work wk, const int32_t* chunks,
+                                                             int slabs) {
+  const unsigned k = chunks[blockIdx.x / slabs];
+  walk_block<KPL, Fmt, Cells>(p, wk, slabs, k * slabs + blockIdx.x % slabs, blockIdx.y);
+}
+
 // Features a lane takes at width p.f: 1, 2 or 4, a warp covering up to 32,
 // 64 or 128 (a wider f takes 128-wide f-slices, f_slices); sets p.vec_h to
 // match.
@@ -568,10 +883,52 @@ int launch_finish(const Args& p, const Work& wk, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The walk, then the finish pass.  Returns a cudaError_t.
+template <int KPL, class Cells>
+int launch_stage(const Args& p, const Work& wk, const Stage& st, int slices, cudaStream_t s) {
+  const int groups = (p.R + kStageRows<KPL> - 1) / kStageRows<KPL>;
+  const dim3 grid(st.num * groups, slices);
+  const cudaError_t set =
+      cudaFuncSetAttribute(stage_kernel<KPL, Cells>, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageSmem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  stage_kernel<KPL, Cells><<<grid, dim3(32 * kStageWarps<KPL>), kStageSmem, s>>>(p, wk, st, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk with a kStage policy (no finish pass): the list's staged chunks
+// (the caller passes S > 0 only for an int8 plan, ops/cell_walk.py) by
+// stage_kernel, then the others by walk_list_kernel; with S = 0 every
+// chunk as launch_walk.  Returns a cudaError_t.
+template <class Fmt, class Cells>
+int launch_walk_staged(Args p, const Work& wk, const Stage& st, cudaStream_t s) {
+  if (st.num == 0) return launch_walk<Fmt, Cells>(p, wk, s);
+  if constexpr (!std::is_same<Fmt, CountTiles>::value) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the staged walk reads int8 counts
+  } else {
+    if (p.C > kChunk) return static_cast<int>(cudaErrorInvalidValue);  // the ring holds a tile and a unit
+    const int kpl = lane_features(p);
+    const int slices = f_slices(p.f, kpl);
+    int err = kpl == 1   ? launch_stage<1, Cells>(p, wk, st, slices, s)
+              : kpl == 2 ? launch_stage<2, Cells>(p, wk, st, slices, s)
+                         : launch_stage<4, Cells>(p, wk, st, slices, s);
+    if (err != 0 || st.num_gather == 0) return err;
+    const int slabs = num_slabs<Fmt>(p.R);
+    const dim3 rest(st.num_gather * slabs, slices), block(kThreads);
+    if (kpl == 1)
+      walk_list_kernel<1, Fmt, Cells><<<rest, block, 0, s>>>(p, wk, st.gather, slabs);
+    else if (kpl == 2)
+      walk_list_kernel<2, Fmt, Cells><<<rest, block, 0, s>>>(p, wk, st.gather, slabs);
+    else
+      walk_list_kernel<4, Fmt, Cells><<<rest, block, 0, s>>>(p, wk, st.gather, slabs);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// The walk, then the finish pass; num_staged / num_stage_tiles: the sizes
+// of the list's Stage part, read by a kStage policy only.  Returns a
+// cudaError_t.
 template <class Fmt, class Cells>
 int launch(const Args& p, const int32_t* work, int num_chunks, int num_multi, int num_row_tiles, int device,
-           void* stream) {
+           void* stream, int num_staged = 0, int num_stage_tiles = 0) {
   if (num_row_tiles == 0 || p.n == 0) return 0;
   // this library carries its own (static) CUDA runtime: select the caller's
   // card in it before launching on the caller's stream
@@ -579,7 +936,13 @@ int launch(const Args& p, const int32_t* work, int num_chunks, int num_multi, in
   if (set != cudaSuccess) return static_cast<int>(set);
   const Work wk(work, num_chunks, num_multi, num_row_tiles);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_walk<Fmt, Cells>(p, wk, s);
+  int err;
+  if constexpr (stage_of<Cells>::value) {
+    err = launch_walk_staged<Fmt, Cells>(
+        p, wk, Stage(work, num_chunks, num_multi, num_row_tiles, num_staged, num_stage_tiles, p.R), s);
+  } else {
+    err = launch_walk<Fmt, Cells>(p, wk, s);
+  }
   return err != 0 ? err : launch_finish<Cells>(p, wk, s);
 }
 

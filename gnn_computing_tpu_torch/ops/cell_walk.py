@@ -23,7 +23,24 @@ not outlive the tiles it was cut from.  ``share_walk`` hands a plan's list
 to a plan with the same tiles in the same runs whose nonzero cells are a
 subset of its own (``ops.bcsr_sddmm.tileplan_with_values``: the count plan
 weighted by per-cell values), which the list serves as it is: its chunks
-depend on the tiles and runs, and its cell bound only grows tighter.
+depend on the tiles and runs, and its cell bound only grows tighter (B1
+stages no float plan, so the staged part goes unread).
+
+B1 (``csrc/bcsr_spmm.cu``) walks some chunks another way: a chunk of an
+int8 plan (``C <= STAGE_MAX_C``; never a 1-bit or float plan) whose live
+tiles (those with a nonzero cell; ``pad_runs``'s all-zero fillers are not)
+hold at least ``stage_k * C`` nonzero cells each on average is *staged*:
+its blocks load each live tile's C rows of H into shared memory once, for
+all the tile's rows, where the other chunks gather one H row a nonzero
+cell, and read the tile's nonzero cells from a list made here once
+(``stage_cells``) where the others decode every tile row at each launch
+(``csrc/cell_walk.cuh``: stage_kernel).  Staging marks chunks and cuts
+none: the chunks, their tiles and their slots are the same whatever
+``stage_k``, and so are B1's sums, bitwise.  The list holds the staged
+chunks, the live tiles of each, the other chunks and the staged tiles'
+cells, for B1's two kinds of block; B2-B5 and P2 walk every chunk as
+before.  A launch stages the list's chunks only where their blocks fill
+the card (``stages``); else it walks every chunk by gathers.
 
 The chunks of a run of more than one chunk write their partial sums to a
 scratch slot each (``walk_args`` allocates ``num_slots`` slots of
@@ -50,15 +67,38 @@ MIN_BOUND = 1 << 16
 TARGET_CHUNKS = 4096
 # tiles whose nonzero cells are counted at once (a bool [chunk, R, C] mask)
 _NNZ_CHUNK = 1024
+# staged tiles whose cells are listed at once
+_LIST_CHUNK = 256
+# a chunk is staged where its live tiles hold at least STAGE_K * C nonzero
+# cells each on average: STAGE_K cells for every H row its blocks load (on
+# the H100 at the reddit plans, 0.25 to 1 alike, 4 slower: PERF.md, B1)
+STAGE_K = 0.5
+# the widest tile the staged walk takes (its H column block and a unit more
+# fit the block's shared-memory ring)
+STAGE_MAX_C = 256
+# rows of a staged block (csrc/cell_walk.cuh: kStageRows)
+STAGE_ROWS = 256
+# a launch stages the list's chunks where their blocks (one an SM: the
+# block's ring is 192 KB) fill the card at least STAGE_WAVES times; in
+# fewer waves the last one leaves SMs idle that the gather walk's small
+# blocks keep busy (on the H100 the staged walk lost at up to 4.8 waves and
+# won at every width from 6.1 on: PERF.md, B1)
+STAGE_WAVES = 6
 
 
 @dataclasses.dataclass(frozen=True)
 class CellWalk:
     """One plan's work list.
 
-    work:   int32 [3K + 1 + nrt + 1 + M] on the plan's device, the kernel's
-            array chunk_run[K] | chunk_tile[K + 1] | chunk_slot[K] |
-            run_chunk[nrt + 1] | multi_run[M] (csrc/cell_walk.cuh: Work).
+    work:   int32 on the plan's device, the kernels' array chunk_run[K] |
+            chunk_tile[K + 1] | chunk_slot[K] | run_chunk[nrt + 1] |
+            multi_run[M] (csrc/cell_walk.cuh: Work), then B1's
+            stage_chunk[S] | stage_start[S + 1] | stage_tile[L] |
+            gather_chunk[K - S] | stage_row[L * R + 1] | stage_cells[N]
+            (Stage): the staged chunks, the offsets of each one's live tiles
+            in stage_tile, the other chunks, and the staged tiles' cell
+            lists (stage_cells).
+    staged_cells: the nonzero cells of the staged chunks.
     """
 
     work: torch.Tensor
@@ -69,14 +109,20 @@ class CellWalk:
     bound: int
     max_chunk_cells: int
     total_cells: int
+    num_staged: int
+    num_stage_tiles: int
+    staged_cells: int
+    tile_rows: int
+    num_listed: int
 
     def parts(self) -> Dict[str, np.ndarray]:
         """The work list's arrays, on the host."""
-        k, m, nrt = self.num_chunks, self.num_multi, self.num_row_tiles
+        k, m, nrt, s, l = self.num_chunks, self.num_multi, self.num_row_tiles, self.num_staged, self.num_stage_tiles
         w = self.work.cpu().numpy()
-        ends = np.cumsum([k, k + 1, k, nrt + 1, m])
-        names = ("chunk_run", "chunk_tile", "chunk_slot", "run_chunk", "multi_run")
-        return {name: w[e - n : e] for name, n, e in zip(names, (k, k + 1, k, nrt + 1, m), ends)}
+        sizes = (k, k + 1, k, nrt + 1, m, s, s + 1, l, k - s, l * self.tile_rows + 1, self.num_listed)
+        names = ("chunk_run", "chunk_tile", "chunk_slot", "run_chunk", "multi_run", "stage_chunk", "stage_start",
+                 "stage_tile", "gather_chunk", "stage_row", "stage_cells")
+        return {name: w[e - n : e] for name, n, e in zip(names, sizes, np.cumsum(sizes))}
 
     def scratch_bytes(self, tile_rows: int, f: int, nb: int = 1, den: bool = False) -> int:
         return 4 * self.num_slots * slot_floats(tile_rows, f, nb, den)
@@ -103,10 +149,41 @@ def tile_nnz(tp) -> torch.Tensor:
     return out
 
 
-def build_walk(tp, bound: Optional[int] = None) -> CellWalk:
+def stageable(tp) -> bool:
+    """Whether B1 may stage the plan's chunks: int8 count tiles at most
+    STAGE_MAX_C wide (module doc)."""
+    return tp.format == "int8" and tp.tile_cols <= STAGE_MAX_C
+
+
+def stage_cells(tp, stage_tile: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(stage_row int64 [L * R + 1], stage_cells int32 [N]): the nonzero
+    cells of the plan's tiles ``stage_tile`` (L of them), tile by tile, a
+    tile row's in ascending column order, each its column | its value's
+    float32 bits above the lower 16 (an int8 count's float leaves those
+    zero); row i of the l-th tile's cells are stage_cells[stage_row[l * R +
+    i] .. stage_row[l * R + i + 1]].  Columns at or past n_src hold no edge
+    and are left out, as the walk leaves them."""
+    dev = tp.a.device
+    c = tp.tile_cols
+    counts, cells = [], []
+    for s in range(0, stage_tile.numel(), _LIST_CHUNK):
+        sel = stage_tile[s : s + _LIST_CHUNK]
+        blk = tp.a[sel]
+        col = tp.tile_col[sel].to(torch.int64)[:, None, None] * c + torch.arange(c, device=dev)
+        nz = (blk != 0) & (col < tp.n_src)
+        counts.append(nz.sum(dim=2, dtype=torch.int64).flatten())
+        t_, r_, c_ = torch.nonzero(nz, as_tuple=True)
+        cells.append(c_.to(torch.int32) | (blk[t_, r_, c_].float().view(torch.int32) & -65536))
+    row = torch.zeros(stage_tile.numel() * tp.tile_rows + 1, dtype=torch.int64, device=dev)
+    if counts:
+        torch.cumsum(torch.cat(counts), 0, out=row[1:])
+    return row, torch.cat(cells) if cells else torch.zeros(0, dtype=torch.int32, device=dev)
+
+
+def build_walk(tp, bound: Optional[int] = None, stage_k: Optional[float] = None) -> CellWalk:
     """The work list of a plan whose tensors lie on one device (module doc);
     ``bound`` defaults to MIN_BOUND, or more for a plan of more than
-    MIN_BOUND * TARGET_CHUNKS nonzero cells."""
+    MIN_BOUND * TARGET_CHUNKS nonzero cells; ``stage_k`` to STAGE_K."""
     dev = tp.a.device
     nrt, t = tp.num_row_tiles, tp.num_tiles
     nnz = tile_nnz(tp)
@@ -143,7 +220,21 @@ def build_walk(tp, bound: Optional[int] = None) -> CellWalk:
     rank = torch.arange(k, dtype=torch.int64, device=dev) - run_chunk[chunk_run]
     chunk_slot = torch.where(multi[chunk_run], slot_base[chunk_run] + rank, -1)
     multi_run = torch.nonzero(multi).flatten()
-    work = torch.cat([chunk_run, chunk_tile, chunk_slot, run_chunk, multi_run]).to(torch.int32)
+    live = nnz > 0
+    live_prefix = torch.zeros(t + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(live, 0, out=live_prefix[1:])
+    chunk_live = live_prefix[chunk_tile[1:]] - live_prefix[chunk_tile[:-1]]
+    k_stage = STAGE_K if stage_k is None else stage_k
+    staged = (chunk_live > 0) & (cells >= k_stage * tp.tile_cols * chunk_live) & stageable(tp)
+    stage_chunk = torch.nonzero(staged).flatten()
+    stage_start = torch.zeros(stage_chunk.numel() + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(chunk_live[stage_chunk], 0, out=stage_start[1:])
+    tile_chunk = torch.searchsorted(chunk_tile[:-1], tiles, right=True) - 1
+    stage_tile = tiles[live & staged[tile_chunk]]
+    stage_row, listed = stage_cells(tp, stage_tile)
+    work = torch.cat([chunk_run, chunk_tile, chunk_slot, run_chunk, multi_run, stage_chunk, stage_start, stage_tile,
+                      torch.nonzero(~staged).flatten(), stage_row]).to(torch.int32)
+    work = torch.cat([work, listed])
     return CellWalk(
         work=work.contiguous(),
         num_chunks=k,
@@ -153,6 +244,11 @@ def build_walk(tp, bound: Optional[int] = None) -> CellWalk:
         bound=bound,
         max_chunk_cells=int(cells.max()) if k else 0,
         total_cells=total,
+        num_staged=stage_chunk.numel(),
+        num_stage_tiles=stage_tile.numel(),
+        staged_cells=int(cells[stage_chunk].sum()),
+        tile_rows=tp.tile_rows,
+        num_listed=listed.numel(),
     )
 
 
@@ -183,9 +279,13 @@ def share_walk(src, dst) -> None:
     """Cache ``src``'s work list (built if it has none) under ``dst``'s tile
     tensor, for a ``dst`` with ``src``'s tiles in ``src``'s order and runs
     whose nonzero cells are a subset of ``src``'s (module doc).  Does
-    nothing where the two plans' tiles lie on different devices."""
+    nothing where the two plans' tiles lie on different devices.  ``dst``
+    must not be stageable: B1 would read its staged cells' values from the
+    list, which holds ``src``'s."""
     if dst.a.device != src.a.device:
         return
+    if stageable(dst):
+        raise ValueError("share_walk: B1 would read src's cell values for dst's staged cells")
     if (dst.num_tiles, dst.num_row_tiles, dst.tile_rows, dst.tile_cols) != (
         src.num_tiles, src.num_row_tiles, src.tile_rows, src.tile_cols
     ):
@@ -194,6 +294,14 @@ def share_walk(src, dst) -> None:
     a, ident = dst.a, id(dst.a)
     _cache[ident] = (weakref.ref(a, lambda _, i=ident: _cache.pop(i, None)), weakref.ref(dst.run_start), _key(dst),
                      walk)
+
+
+def stages(walk: CellWalk, f: int, sms: int) -> bool:
+    """Whether B1 at width f stages the list's staged chunks on a card of
+    ``sms`` SMs: their blocks (STAGE_ROWS rows, a 128-wide f-slice each)
+    fill it at least STAGE_WAVES times."""
+    blocks = walk.num_staged * -(-walk.tile_rows // STAGE_ROWS) * -(-f // 128)
+    return blocks > 0 and blocks >= STAGE_WAVES * sms
 
 
 def walk_args(tp, f: int, dev, nb: int = 1, den: bool = False) -> tuple:

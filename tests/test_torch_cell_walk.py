@@ -8,8 +8,17 @@ a skewed plan (one run holding every tile, a tile row of all ones): every
 tile lies in exactly one chunk, in order, inside its run; every chunk keeps
 its cell bound unless it is a single tile; an empty run has one chunk of no
 tiles; the scratch slots and the finish pass's run list agree with the
-chunks.  The cache gives a plan whose tiles changed (astype, pad_runs,
+chunks; B1's staged chunks are those the rule marks (int8 plans only,
+live tiles of at least STAGE_K * C cells on average), each with its live
+tiles, and the other chunks its gather list.  The cache gives a plan whose tiles changed (astype, pad_runs,
 split_bit_tiles, transpose, an edit in place) a new list.
+
+Staging (B1's staged walk): the chunks a plan's stage_k marks, on a plan
+with a dense hub run beside sparse int8 tiles and a 1-bit part; stage_k
+forcing every chunk of live tiles or none; the chunk cuts, and so
+chunked_sums, the same under any stage_k; a launch staging them only where
+their blocks fill the card (cell_walk.stages); share_walk refusing an int8
+plan.
 
 The summation order: per-tile partials, each chunk's partials added in
 tile order, a run's chunk sums in chunk order (ops.cell_walk.chunked_sums),
@@ -110,8 +119,8 @@ PLANS = {
 }
 
 
-def _check_walk(tp, walk):
-    """The work list's invariants (module doc)."""
+def _check_walk(tp, walk, stage_k=None):
+    """The work list's invariants (module doc), the list built with stage_k."""
     p = walk.parts()
     k, nrt, t = walk.num_chunks, tp.num_row_tiles, tp.num_tiles
     rs = tp.run_start.numpy().astype(np.int64)
@@ -142,7 +151,39 @@ def _check_walk(tp, walk):
     assert np.array_equal(slot < 0, ~multi[run])
     used = slot[slot >= 0]
     assert np.array_equal(np.sort(used), np.arange(walk.num_slots)) and np.all(np.diff(used) == 1)
+    _check_stage(tp, walk, cells, nnz, stage_k)
     return cells
+
+
+def _check_stage(tp, walk, cells, nnz, stage_k=None):
+    """B1's staged chunks: those whose live tiles average at least stage_k *
+    C cells, on a plan B1 may stage; each with its live tiles in order; the
+    other chunks in the gather list."""
+    p = walk.parts()
+    k = cell_walk.STAGE_K if stage_k is None else stage_k
+    tile = p["chunk_tile"].astype(np.int64)
+    live = np.array([(nnz[a:b] > 0).sum() for a, b in zip(tile[:-1], tile[1:])], np.int64)
+    want = (live > 0) & (cells >= k * tp.tile_cols * np.maximum(live, 1)) & cell_walk.stageable(tp)
+    assert np.array_equal(p["stage_chunk"], np.flatnonzero(want))
+    assert np.array_equal(p["gather_chunk"], np.flatnonzero(~want))
+    assert np.array_equal(p["stage_start"], np.concatenate([[0], np.cumsum(live[want])]))
+    lives = [np.arange(a, b)[nnz[a:b] > 0] for a, b in zip(tile[:-1][want], tile[1:][want])]
+    assert np.array_equal(p["stage_tile"], np.concatenate([np.zeros(0, np.int64)] + lives))
+    assert walk.staged_cells == cells[want].sum()
+    # the staged tiles' cell lists: each row's cells in column order, column |
+    # the value's float32 bits above the lower 16
+    row, listed = p["stage_row"].astype(np.int64), p["stage_cells"]
+    assert len(row) == len(p["stage_tile"]) * tp.tile_rows + 1 and row[0] == 0 and row[-1] == len(listed)
+    if len(p["stage_tile"]):
+        sel = tp.a.numpy()[p["stage_tile"]]
+        col = tp.tile_col.numpy()[p["stage_tile"]].astype(np.int64)[:, None, None] * tp.tile_cols
+        nz = (sel != 0) & (col + np.arange(tp.tile_cols) < tp.n_src)
+        assert np.array_equal(np.diff(row), nz.sum(axis=2).ravel())
+        t_, r_, c_ = np.nonzero(nz)
+        bits = sel[t_, r_, c_].astype(np.float32).view(np.int32)
+        assert np.all(bits & 0xFFFF == 0)  # an int8 count's float: nothing below the upper 16 bits
+        assert np.array_equal(listed, c_.astype(np.int32) | bits)
+    assert cell_walk.stageable(tp) == (tp.format == "int8" and tp.tile_cols <= 256)
 
 
 @pytest.mark.parametrize("bound", BOUNDS)
@@ -205,13 +246,22 @@ def _close(got, want, what):
     assert err <= TOL * scale, f"{what}: max|d| = {err:.3e}, max|ref| = {scale:.3e}"
 
 
-@pytest.mark.parametrize("bound", [64, 256])
-@pytest.mark.parametrize("fmt", ["i8", "b1", "f32", "bf16"])
-def test_b1_order_matches_plain_and_jax(fmt, bound):
+# (fmt, bound, stage_k): the plan's own staging (STAGE_K), then every chunk
+# with a live tile staged (k = 0) or none (k = inf)
+B1_ORDER = [pytest.param(fmt, bound, None, id=f"{fmt}-{bound}") for fmt in ("i8", "b1", "f32", "bf16")
+            for bound in (64, 256)]
+B1_ORDER += [pytest.param(fmt, 64, k, id=f"{fmt}-64-k{k}") for fmt in ("i8", "f32") for k in (0, float("inf"))]
+
+
+@pytest.mark.parametrize("fmt,bound,stage_k", B1_ORDER)
+def test_b1_order_matches_plain_and_jax(fmt, bound, stage_k):
+    """B1's summation order over the list's chunks, whichever chunks are
+    staged: staging cuts nothing, so the order is the same."""
     tj, tp = _host_plans(fmt)
     tj, tp = tj.pad_runs(4), tp.pad_runs(4).to("cpu")
-    walk = cell_walk.build_walk(tp, bound)
+    walk = cell_walk.build_walk(tp, bound, stage_k=stage_k)
     assert walk.num_multi > 0
+    assert (walk.num_staged > 0) == (fmt == "i8" and stage_k != float("inf"))
     h = np.random.default_rng(4).standard_normal((tp.n_src, 24)).astype(np.float32)
     ht = torch.from_numpy(h)
     parts = torch.bmm(tp.counts().float(), _h_tiles(tp, ht)[tp.tile_col.long()])
@@ -283,3 +333,75 @@ def test_twodot_order_matches_plain(fmt):
     ref_num, ref_den = gat_bcsr_twodot_plain(tp, h, att)
     _close(num, ref_num, f"twodot num {fmt}")
     _close(den, ref_den, f"twodot den {fmt}")
+
+
+def _dense_hub_plans():
+    """(int8 plan, 1-bit part, int8 part) over a graph with a dense block:
+    the first 64 rows to about half of all columns, beside the test
+    graph's edges, so each tile of the hub run holds ~2,000 cells."""
+    d, s, n = _edges()
+    dd, ss = np.nonzero(np.random.default_rng(2).random((64, n)) < 0.5)
+    g = CSRGraph.from_edges(np.concatenate([d, dd]), np.concatenate([s, ss]), n)
+    tp = densify(g, dtype=np.int8, **KW)[0]
+    bits, rest = split_bit_tiles(tp)
+    return tp, bits, rest
+
+
+@pytest.mark.parametrize("stage_k", [0, 0.5, 1, 4, 64, float("inf")])
+@pytest.mark.parametrize("part", ["int8", "1-bit part", "int8 part", "int8 pad16", "int8 transposed"])
+def test_staged_chunks(part, stage_k):
+    """The chunks stage_k marks: none of a 1-bit part; with k = 0 every
+    chunk with a live tile, with k = inf none; at STAGE_K every chunk of the
+    dense hub run; under any k the same chunk cuts."""
+    tp, bits, rest = _dense_hub_plans()
+    tp = {"int8": tp, "1-bit part": bits, "int8 part": rest, "int8 pad16": tp.pad_runs(16),
+          "int8 transposed": tp.transpose()}[part].to("cpu")
+    walk = cell_walk.build_walk(tp, 4096, stage_k=stage_k)
+    base = cell_walk.build_walk(tp, 4096, stage_k=float("inf"))
+    nnz = cell_walk.tile_nnz(tp).numpy()
+    cells = _check_walk(tp, base, float("inf"))
+    _check_stage(tp, walk, cells, nnz, stage_k)
+    p, q = walk.parts(), base.parts()
+    for name in ("chunk_run", "chunk_tile", "chunk_slot", "run_chunk", "multi_run"):
+        assert np.array_equal(p[name], q[name]), name
+    assert base.num_staged == 0 and base.staged_cells == 0
+    if part == "1-bit part":
+        assert walk.num_staged == 0
+        return
+    live = np.array([(nnz[a:b] > 0).any() for a, b in zip(p["chunk_tile"][:-1], p["chunk_tile"][1:])])
+    if stage_k == 0:
+        assert np.array_equal(p["stage_chunk"], np.flatnonzero(live))
+    if stage_k == cell_walk.STAGE_K and part != "int8 transposed":
+        hub = p["run_chunk"][0], p["run_chunk"][1]
+        assert hub[1] - hub[0] > 1 and set(range(*hub)) <= set(p["stage_chunk"].tolist())
+        assert 0 < walk.staged_cells <= walk.total_cells
+
+
+# (staged chunks, tile rows, f, SMs, staged?): blocks = chunks * ceil(R /
+# STAGE_ROWS) * ceil(f / 128) against STAGE_WAVES * SMs
+STAGES = [
+    (0, 256, 128, 1, False),
+    (cell_walk.STAGE_WAVES * 132, 256, 128, 132, True),
+    (cell_walk.STAGE_WAVES * 132 - 1, 256, 32, 132, False),
+    (cell_walk.STAGE_WAVES * 66, 512, 64, 132, True),
+    (cell_walk.STAGE_WAVES * 66 - 1, 512, 64, 132, False),
+    (cell_walk.STAGE_WAVES * 66, 256, 256, 132, True),
+    (cell_walk.STAGE_WAVES * 33, 1024, 121, 132, True),
+]
+
+
+@pytest.mark.parametrize("chunks,rows,f,sms,staged", STAGES)
+def test_stages_where_the_blocks_fill_the_card(chunks, rows, f, sms, staged):
+    """A launch stages a list's staged chunks only where their blocks fill
+    the card STAGE_WAVES times."""
+    walk = cell_walk.build_walk(_dense_hub_plans()[2].to("cpu"), 4096)
+    walk = dataclasses.replace(walk, num_staged=chunks, tile_rows=rows)
+    assert cell_walk.stages(walk, f, sms) is staged
+
+
+def test_share_walk_refuses_a_stageable_plan():
+    """share_walk refuses to hand a list to an int8 plan, whose staged
+    cells B1 would read from the list's values."""
+    tp = _dense_hub_plans()[2].to("cpu")
+    with pytest.raises(ValueError, match="staged cells"):
+        cell_walk.share_walk(tp, dataclasses.replace(tp, a=tp.a.clone()))

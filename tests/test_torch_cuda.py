@@ -21,7 +21,9 @@ Functions on the CPU, over int8, bit-tile and float-tile aggregators;
 B1, B2, and B3 and B5 over the cell walk's hard plans (one run holding
 every tile with an all-ones tile row, C = 128, 1-bit R = 200, single-tile
 and empty runs, chunk edges inside runs), every call twice and bitwise
-equal; the figure harness's fig7 at --quick (its rows and launches); and
+equal; B1's staged walk bitwise equal to its gather walk on the same chunk
+cuts (a dense hub run, the quick-scale reddit plans' int8 parts) and its
+counters; the figure harness's fig7 at --quick (its rows and launches); and
 wrappers that raise, rather than fall back, on a malformed plan.  Needs a CUDA card and nvcc; skips
 elsewhere.  Run on the card (where jax, which tests/conftest.py imports,
 may be absent) with:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -1457,6 +1459,122 @@ def test_fused_hybrid_on_cell_walk(cuda_dev, walk_bound, fmt, f, factored):
     torch.cuda.synchronize()
     _close(dense, want_dense, f"P2 dense {fmt} f={f} {walk_bound}")
     _close(ts, want_ts, f"P2 task sums {fmt} f={f}")
+
+
+# ------------------------------------------------------------ B1's staged walk
+def _dense_hub_graph(tr: int):
+    """A degree-sorted RMAT graph with a planted dense block: its first tr
+    rows to about a third of the first 1,536 columns."""
+    g = rmat_graph(3000, 120000, seed=5, with_val=False)
+    g = g.reorder(degree_sort(g))
+    d, s = np.nonzero(np.random.default_rng(1).random((tr, 1536)) < 0.35)
+    return CSRGraph.from_edges(np.concatenate([g.dst_per_edge, d]), np.concatenate([g.indices, s]), g.num_nodes)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_hub_host_plan(tr: int):
+    """int8 [tr, 256] tiles of _dense_hub_graph: a hub run of dense tiles
+    cut into several chunks beside sparse runs, pad_runs(16) fillers."""
+    return densify(_dense_hub_graph(tr), dtype=np.int8, tile_rows=tr, tile_cols=256, threshold=3)[0].pad_runs(16)
+
+
+@functools.lru_cache(maxsize=None)
+def _quick_int8_parts():
+    """The int8 parts of the benchmark's reddit plans at the quick scale
+    (RMAT 65,536 v / 4,194,304 e, seed 123, degree sorted): the training
+    plan [256, 256] t24 and its transpose, the forward plan [512, 256]
+    t48, each split into 1-bit and int8 parts before pad_runs(16)."""
+    g = rmat_graph(1 << 16, 1 << 22, seed=123, with_val=False)
+    g = g.reorder(degree_sort(g))
+    train = split_bit_tiles(densify(g, dtype=np.int8, tile_rows=256, tile_cols=256, threshold=24)[0])[1]
+    fwd = split_bit_tiles(densify(g, dtype=np.int8, tile_rows=512, tile_cols=256, threshold=48)[0])[1]
+    return {"quick training": train.pad_runs(16), "quick training, transposed": train.transpose().pad_runs(16),
+            "quick forward": fwd.pad_runs(16)}
+
+
+STAGED_PLANS = {
+    "dense hub [256, 256]": lambda: _dense_hub_host_plan(256),
+    "dense hub [512, 256]": lambda: _dense_hub_host_plan(512),
+    **{k: (lambda k=k: _quick_int8_parts()[k]) for k in ("quick training", "quick training, transposed",
+                                                          "quick forward")},
+}
+
+
+def _b1_oracle64(tp, h):
+    """A @ h in float64 over the plan's tiles, [num_nodes, f]."""
+    r, c, f = tp.tile_rows, tp.tile_cols, h.shape[1]
+    hp = torch.zeros((tp.num_col_tiles * c, f), dtype=torch.float64, device=h.device)
+    hp[: tp.n_src] = h.double()
+    hp = hp.reshape(tp.num_col_tiles, c, f)
+    out = torch.zeros((tp.num_row_tiles, r, f), dtype=torch.float64, device=h.device)
+    for t0 in range(0, tp.num_tiles, 256):
+        sl = slice(t0, t0 + 256)
+        out.index_add_(0, tp.tile_row[sl].long(), torch.bmm(tp.counts(t0, t0 + 256).double(),
+                                                             hp[tp.tile_col[sl].long()]))
+    return out.reshape(-1, f)[: tp.num_nodes]
+
+
+@pytest.mark.parametrize("kind", sorted(STAGED_PLANS))
+def test_b1_staged_walk_equals_gather_walk(cuda_dev, monkeypatch, kind):
+    """B1 and its w_epilogue with the plan's staged chunks staged (the
+    launch's rule, cell_walk.stages, set to stage) bitwise equal to the
+    same chunks walked by gathers (set not to), at f = 32, 64, 121 (the
+    scalar path), 128 and 256 (two f-slices); every call twice, bitwise
+    equal; one B1 launch a call either way; both within 1e-5 * max|oracle|
+    of the float64 product; the plan's own launch bitwise the same."""
+    from gnn_computing_tpu_torch.ops import cell_walk
+    from gnn_computing_tpu_torch.ops.fused_nn import bcsr_spmm_nn
+
+    tp = STAGED_PLANS[kind]().to(cuda_dev)
+    walk = cell_walk.walk_for(tp)
+    assert walk.num_staged > 0
+    if kind.startswith("dense"):
+        assert walk.num_multi > 0  # the hub run is cut into chunks
+    rule = cell_walk.stages
+    gen = torch.Generator(device=cuda_dev).manual_seed(5)
+    for f in (32, 64, 121, 128, 256):
+        h = torch.randn((tp.n_src, f), generator=gen, device=cuda_dev)
+        w = torch.randn((f, 24), generator=gen, device=cuda_dev) * 0.1
+        own = cuda_bcsr.bcsr_spmm_cuda(tp, h)
+        outs = {}
+        for path in ("staged", "gather"):
+            monkeypatch.setattr(cell_walk, "stages", lambda *a, staged=path == "staged": staged)
+            before = (cuda_bcsr.launches, cuda_bcsr.epilogue_launches)
+            outs[path] = [_twice(lambda: cuda_bcsr.bcsr_spmm_cuda(tp, h))]
+            if f <= 128:
+                outs[path] += list(_twice(lambda: bcsr_spmm_nn(tp, h, w)))
+            assert cuda_bcsr.launches == before[0] + 2 + 2 * (f <= 128)
+            assert cuda_bcsr.epilogue_launches == before[1] + 2 * (f <= 128)
+        monkeypatch.setattr(cell_walk, "stages", rule)
+        for got, want in zip(outs["staged"], outs["gather"]):
+            assert torch.equal(got, want), f"{kind} f={f}: the staged walk differs from the gather walk"
+        assert torch.equal(own, outs["gather"][0])
+        _close(outs["staged"][0], _b1_oracle64(tp, h).float(), f"B1 staged {kind} f={f}")
+    torch.cuda.synchronize()
+
+
+def test_b1_counts_staged_cells(cuda_dev, monkeypatch):
+    """walk.cells and walk.staged_cells a B1 launch, from the cached list:
+    the dense plan's int8 part stages cells where the launch stages them
+    (cell_walk.stages set to stage), none where it does not; its 1-bit part
+    none."""
+    from gnn_computing_tpu_torch.ops import cell_walk
+    from gnn_computing_tpu_torch.utils.profiling import recording
+
+    bits, rest = split_bit_tiles(densify(_dense_hub_graph(256), dtype=np.int8, tile_rows=256, tile_cols=256,
+                                         threshold=3)[0])
+    for part, staged in ((rest, True), (bits, False)):
+        tp = part.to(cuda_dev)
+        walk = cell_walk.walk_for(tp)
+        h = torch.randn((tp.n_src, 64), device=cuda_dev)
+        with recording() as rec:
+            for stage in (True, False):
+                monkeypatch.setattr(cell_walk, "stages", lambda *a, stage=stage: stage)
+                cuda_bcsr.bcsr_spmm_cuda(tp, h)
+        assert rec.counters["walk.cells"] == 2 * walk.total_cells > 0
+        assert rec.counters["walk.staged_cells"] == walk.staged_cells
+        assert (walk.staged_cells > 0) == staged
+    torch.cuda.synchronize()
 
 
 def _gather_graph(sched):
